@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 # -*- coding: utf-8 -*-
 """GPU smoke run of the PyTorch/CUDA port: builds the kernels, holds each
-against its plain version, and transcribes a batch at full model width.
+against its plain version, transcribes a batch and takes encoder fine-tune
+steps at full model width.
 
     python3 chip_smoke.py
 
@@ -10,7 +11,8 @@ only the port (`fddm_asr_tpu_torch`), torch, numpy and the standard library.
 Phases, each fatal on failure:
 
   1. the card's name and power limit (nvidia-smi); build the gated-attention
-     kernel from `fddm_asr_tpu_torch/csrc/` with nvcc, timed;
+     kernels from `fddm_asr_tpu_torch/csrc/` with nvcc (one process per
+     source, in parallel), timed;
   2. kernel vs plain version at B=8, H=16, dh=64 on both sides of the TPU
      kernels' 4096-frame split (L=1024, 4224), float32 and bfloat16, with
      ragged key masks and one all-masked row; the kernel's time beside the
@@ -26,7 +28,32 @@ Phases, each fatal on failure:
      seq_len=64) with the kernel's launch count checked at 24 per encode;
      the encoder's output with the kernel held against the same encoder
      with the plain attention; one more transcribe under torch.profiler
-     for the device time by kernel and the device's idle share.
+     for the device time by kernel and the device's idle share;
+  5. the training kernels (B3 forward + logsumexp, B4 dq/dgate, B5
+     dk/dv/dbias) against their plain versions and against autograd of the
+     plain forward: first at the shape phase 7 gives them (B=32, H=16,
+     dh=64, L=1024 with 999 valid keys in every row, bfloat16), then at
+     B=8, L=1024, 384, 203, float32 and bfloat16, ragged key masks and one
+     all-masked row; at L=1024 each kernel's time beside the plain
+     version's, a library yardstick (one `scaled_dot_product_attention`
+     call, and autograd of it for the backward pair; the port calls
+     neither) and the bound; the kernels line takes the B=32 numbers;
+  6. a small float32 encoder fine-tune step (64-wide WavLM heads, so
+     attention takes the kernels) on the card and on the CPU from the same
+     weights and the same injected t, x_t and time mask: loss, pre-clip
+     gradient norm, every gradient, the updated parameters and the
+     kernels' launch counts;
+  7. full-width encoder fine-tune (configs/fddm_zhTW_finetune.yaml over
+     fddm_zhTW_base.yaml: WavLM-large trained with remat, SpecAugment time
+     masks and a frozen conv front-end, d768x6 decoder, K=8000, T=200,
+     bf16, AdamW in two groups, EMA, L_fd every 4 steps), random weights,
+     32 x 20 s of synthetic audio with random 128-token targets: two
+     warm-up steps (with and without L_fd), then one L_fd period of 4
+     timed steps with the kernels' launches checked per step (B3 47, B4
+     24, B5 24 with 23 of 24 layers recomputed), peak memory, one more
+     step under torch.profiler (each port kernel's time per launch there
+     beside phase 5's); the loss finite, encoder and decoder
+     weights moved, the conv front-end's not.
 
 Prints the kernels' JSON line, then the card line, then as the last line
 {"ok": true, "device": {...}}.
@@ -48,6 +75,15 @@ HBM_BYTES_PER_S = 3.35e12                                 # H100 SXM
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense bf16 / f32 (no TF32)
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}          # unit-scale inputs
 ENCODER_REL_L2_TOL = 5e-2  # bf16 P rounding differs (kernel: before the 1/l, plain: after), 24 layers
+# backward kernels, as a fraction of the reference's max-abs: against the
+# plain backward (same rounding points) and against autograd of the plain
+# forward (which keeps dS in f32 but rounds dO.V^T to bf16)
+BWD_REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+AUTOGRAD_REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+LSE_TOL = 1e-3             # the row logsumexp, f32 in both
+SMALL_STEP_REL_TOL = 1e-4  # f32 fine-tune step, card vs CPU, of the largest gradient
+FINETUNE_B, FINETUNE_SECONDS, FINETUNE_TOKENS = 32, 20.0, 128
+TIMED_STEPS = 4            # one L_fd period
 REPEATS = 5                # timed transcribes after the counted one; their median is reported
 SMALL_ENCODER_TOL = 1e-3   # float32, two layers; card and CPU sum in different orders
 
@@ -86,7 +122,11 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def attention_inputs(B, L, H, dtype, gen, ragged=True):
+def attention_inputs(B, L, H, dtype, gen, ragged=True, valid=None):
+    """Unit-scale q/k/v/bias, gates in [1, 2) and a key mask: ragged (row b
+    keeps L - 97 b keys, the last row none) or, with `valid`, the first
+    `valid` keys of every row, as a batch of equal-length utterances padded
+    to L."""
     dev = torch.device("cuda")
 
     def randn(*shape):
@@ -96,7 +136,9 @@ def attention_inputs(B, L, H, dtype, gen, ragged=True):
     bias = randn(H, L, L)
     gate = torch.rand(B, H, L, device=dev, generator=gen) + 1.0
     mask = torch.ones(B, L, dtype=torch.bool, device=dev)
-    if ragged:
+    if valid is not None:
+        mask[:, valid:] = False
+    elif ragged:
         for b in range(B - 1):
             mask[b, L - 97 * b:] = False
         mask[B - 1] = False  # an all-masked row
@@ -241,25 +283,58 @@ def small_pipeline_matches_cpu(FA, tokenizer_dir: str) -> dict:
 
 
 def device_time_breakdown(run, wall_s: float) -> dict:
-    """One more transcribe under torch.profiler: device time by kernel, the
-    kernels' sum against the host wall time of the unprofiled run."""
+    """One more run under torch.profiler: device time by event name, and the
+    device's busy time against the host wall time of the unprofiled run
+    (`idle_share`) and of the profiled run itself (`idle_share_profiled`),
+    both unclamped.  Busy time is the union of the device events' intervals,
+    so time that two events share (a duplicate, an annotation spanning
+    kernels, a second stream) counts once; `overlap_ms` is the plain sum of
+    event times less the union, `nested_ms` the events that lie wholly
+    inside an earlier one, by name, and `containers` the names that hold
+    them."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
         run()
-    per_kernel = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            per_kernel[e.name] = per_kernel.get(e.name, 0.0) + e.device_time_total / 1e3
-    busy_ms = sum(per_kernel.values())
-    if busy_ms <= 0.0:
-        fail("the profiler saw no device time in a transcribe")
-    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]
-    return {"device_busy_ms": busy_ms, "wall_ms": wall_s * 1e3,
-            "idle_share": max(0.0, 1.0 - busy_ms / (wall_s * 1e3)),
+        torch.cuda.synchronize()
+        profiled_ms = (time.time() - t0) * 1e3
+    spans = sorted((e.time_range.start, -e.time_range.end, e.name) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    if not spans:
+        fail("the profiler saw no device event")
+    per_kernel, nested, containers = {}, {}, {}
+    busy_us = sum_us = 0.0
+    holder = None  # the event reaching furthest so far: (end, name)
+    cover_start = cover_end = None
+    for start, neg_end, name in spans:
+        end = -neg_end
+        sum_us += end - start
+        per_kernel[name] = per_kernel.get(name, 0.0) + (end - start) / 1e3
+        if holder is not None and end <= holder[0]:  # inside an earlier event
+            nested[name] = nested.get(name, 0.0) + (end - start) / 1e3
+            containers[holder[1]] = containers.get(holder[1], 0) + 1
+        else:
+            holder = (end, name)
+        if cover_end is None or start > cover_end:
+            if cover_end is not None:
+                busy_us += cover_end - cover_start
+            cover_start, cover_end = start, end
+        else:
+            cover_end = max(cover_end, end)
+    busy_us += cover_end - cover_start
+    busy_ms = busy_us / 1e3
+    ranked = sorted(per_kernel.items(), key=lambda kv: -kv[1])
+    return {"device_busy_ms": busy_ms, "event_sum_ms": sum_us / 1e3,
+            "overlap_ms": (sum_us - busy_us) / 1e3,
+            "nested_ms": dict(sorted(nested.items(), key=lambda kv: -kv[1])[:8]),
+            "containers": dict(sorted(containers.items(), key=lambda kv: -kv[1])[:8]),
+            "wall_ms": wall_s * 1e3, "idle_share": 1.0 - busy_ms / (wall_s * 1e3),
+            "profiled_wall_ms": profiled_ms, "idle_share_profiled": 1.0 - busy_ms / profiled_ms,
             "kernels": len(per_kernel),
-            "top": [{"name": n[:90], "ms": ms, "share": ms / busy_ms} for n, ms in top]}
+            "top": [{"name": n[:90], "ms": ms, "share": ms / busy_ms} for n, ms in ranked[:12]],
+            "all": [{"name": n, "ms": ms} for n, ms in ranked]}
 
 
 def transcribe_full_width(FA, tokenizer_dir: str, card: str) -> dict:
@@ -325,6 +400,7 @@ def transcribe_full_width(FA, tokenizer_dir: str, card: str) -> dict:
 
     step_s = statistics.median(step_samples)
     breakdown = device_time_breakdown(run, step_s)
+    del breakdown["all"]
     print(json.dumps({"transcribe_device_time": breakdown}), flush=True)
 
     result = {
@@ -341,6 +417,357 @@ def transcribe_full_width(FA, tokenizer_dir: str, card: str) -> dict:
     return result
 
 
+# ------------------------------------------------------------ training path
+TRAIN_KERNELS = ("fwd_lse", "bwd_dq", "bwd_dkv")
+
+
+def _training_wrappers(FA):
+    return {"fwd_lse": FA.wavlm_gated_attention_fwd_lse_cuda,
+            "bwd_dq": FA.wavlm_gated_attention_bwd_dq_cuda,
+            "bwd_dkv": FA.wavlm_gated_attention_bwd_dkv_cuda}
+
+
+def _rel_err(got, want) -> tuple:
+    """(max abs err, reference max-abs), in float32."""
+    want = want.float()
+    return (got.float() - want).abs().max().item(), max(want.abs().max().item(), 1e-30)
+
+
+def training_bounds(q, bias, gate, mask, H) -> dict:
+    """The least time of each training kernel at these inputs: bytes (each
+    input read once, each output written once) over HBM, or the products
+    the data needs (per (query, kept key) pair and head: B3 4*64 for q.k
+    and p.v, B4 6*64 for q.k, dO.v and dS.k, B5 8*64 for q.k, dO.v, P^T.dO
+    and dS^T.q; a row whose keys are all masked needs no product but B5's
+    column sum of dO) at the dense peak of q's type; the larger of the two."""
+    B, L, HD = q.shape
+    es = q.element_size()
+    act = B * L * HD * es                       # one of q, k, v, dO, out, dq, dk, dv
+    small = gate.numel() * 4                    # gate, lse, delta, dgate: [B, H, L] f32
+    common = bias.numel() * es + mask.numel()
+    kept = mask.sum(dim=1).tolist()
+    pairs = sum(L * n for n in kept)
+    masked_rows = sum(1 for n in kept if n == 0)
+    work = {"fwd_lse": (4 * act + common + 2 * small, 4 * 64 * H * pairs),
+            "bwd_dq": (5 * act + common + 4 * small, 6 * 64 * H * pairs),
+            "bwd_dkv": (6 * act + common + 3 * small + H * L * L * 4,
+                        8 * 64 * H * pairs + masked_rows * L * HD)}
+    out = {}
+    for key, (nbytes, ops) in work.items():
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / PEAK_FLOPS[q.dtype] * 1e3
+        out[key] = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+    return out
+
+
+def training_kernels_vs_plain(FA, L: int, dtype, gen, timed: bool, B: int = 8,
+                              valid=None) -> dict:
+    """B3, B4, B5 against their plain versions and against autograd of the
+    plain forward, with ragged key masks or `valid` keys in every row;
+    `timed`: each kernel's time beside the plain version's, a library
+    yardstick's and the bound."""
+    H = 16
+    q, k, v, bias, gate, mask = attention_inputs(B, L, H, dtype, gen, valid=valid)
+    dout = torch.randn(B, L, H * 64, device="cuda", generator=gen).to(dtype)
+    wrap = _training_wrappers(FA)
+    out, lse = wrap["fwd_lse"](q, k, v, bias, gate, mask, H)
+    delta = (dout.float() * out.float()).view(B, L, H, 64).sum(-1).transpose(1, 2).contiguous()
+    dq, dgate = wrap["bwd_dq"](q, k, v, bias, gate, mask, lse, delta, dout, H)
+    dk, dv, dbias = wrap["bwd_dkv"](q, k, v, bias, gate, mask, lse, delta, dout, H)
+    torch.cuda.synchronize()
+    got = {"dq": dq, "dk": dk, "dv": dv, "dbias": dbias, "dgate": dgate}
+    ref_out, ref_lse = FA.wavlm_gated_attention_fwd_lse_plain(q, k, v, bias, gate, mask, H)
+    plain = dict(zip(("dq", "dk", "dv", "dbias", "dgate"), FA.wavlm_gated_attention_bwd_plain(
+        q, k, v, bias, gate, mask, out, lse, dout, H)))
+    leaves = [x.clone().requires_grad_() for x in (q, k, v, bias, gate)]
+    auto = dict(zip(("dq", "dk", "dv", "dbias", "dgate"), torch.autograd.grad(
+        FA.wavlm_gated_attention_plain(*leaves, mask, num_heads=H), leaves, dout)))
+    del leaves
+
+    row = {"B": B, "L": L, "valid": valid, "dtype": str(dtype).replace("torch.", ""),
+           "tol_out": TOL[dtype], "tol_lse": LSE_TOL, "tol_bwd_rel": BWD_REL_TOL[dtype],
+           "tol_autograd_rel": AUTOGRAD_REL_TOL[dtype], "errors": {}}
+    failures = []
+    out_err, _ = _rel_err(out, ref_out)
+    lse_err, _ = _rel_err(lse, ref_lse)
+    row["errors"]["out"], row["errors"]["lse"] = out_err, lse_err
+    if not out_err <= TOL[dtype] or not lse_err <= LSE_TOL:
+        failures.append(f"fwd_lse out {out_err} lse {lse_err}")
+    for name, g in got.items():
+        if not torch.isfinite(g).all():
+            failures.append(f"{name} not finite")
+            continue
+        e_plain, s_plain = _rel_err(g, plain[name])
+        e_auto, s_auto = _rel_err(g, auto[name])
+        row["errors"][name] = {"vs_plain": e_plain, "plain_max_abs": s_plain,
+                               "vs_autograd": e_auto, "autograd_max_abs": s_auto}
+        if not e_plain <= BWD_REL_TOL[dtype] * s_plain:
+            failures.append(f"{name} vs plain {e_plain} > {BWD_REL_TOL[dtype]} x {s_plain}")
+        if not e_auto <= AUTOGRAD_REL_TOL[dtype] * s_auto:
+            failures.append(f"{name} vs autograd {e_auto} > {AUTOGRAD_REL_TOL[dtype]} x {s_auto}")
+    row["fwd_lse"] = {"max_abs_err": out_err}
+    row["bwd_dq"] = {"max_abs_err": max(row["errors"][n]["vs_plain"] for n in ("dq", "dgate"))}
+    row["bwd_dkv"] = {"max_abs_err": max(row["errors"][n]["vs_plain"]
+                                         for n in ("dk", "dv", "dbias"))}
+    del plain, auto, ref_out, ref_lse
+
+    if timed:
+        reps = 10
+        args = (q, k, v, bias, gate, mask)
+        bwd_args = (*args, lse, delta, dout, H)
+        row["fwd_lse"]["ms"] = time_ms(lambda: wrap["fwd_lse"](*args, H), reps)
+        row["bwd_dq"]["ms"] = time_ms(lambda: wrap["bwd_dq"](*bwd_args), reps)
+        row["bwd_dkv"]["ms"] = time_ms(lambda: wrap["bwd_dkv"](*bwd_args), reps)
+        row["fwd_lse"]["plain_ms"] = time_ms(
+            lambda: FA.wavlm_gated_attention_fwd_lse_plain(*args, H), 3, 1)
+        bwd_plain_ms = time_ms(lambda: FA.wavlm_gated_attention_bwd_plain(
+            *args, out, lse, dout, H), 3, 1)
+        row["bwd_dq"]["plain_ms"] = row["bwd_dkv"]["plain_ms"] = bwd_plain_ms
+        # yardsticks: one SDPA call with the gated float mask, and autograd
+        # of it with respect to q, k, v and the mask (where a backend can)
+        float_mask = (gate[..., None] * bias[None].float()).masked_fill(
+            ~mask[:, None, None, :], torch.finfo(torch.float32).min).to(dtype)
+        heads = [x.view(B, L, H, 64).transpose(1, 2) for x in (q, k, v)]
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        row["fwd_lse"]["library_ms"] = time_ms(lambda: sdpa(*heads, attn_mask=float_mask), 3, 1)
+        lib_leaves = [x.detach().clone().requires_grad_() for x in (*heads, float_mask)]
+        try:
+            lib_out = sdpa(*lib_leaves[:3], attn_mask=lib_leaves[3])
+            lib_dout = dout.view(B, L, H, 64).transpose(1, 2)
+            bwd_lib_ms = time_ms(lambda: torch.autograd.grad(
+                lib_out, lib_leaves, lib_dout, retain_graph=True), 3, 1)
+        except RuntimeError as e:  # no backend differentiates the mask
+            print(json.dumps({"library_backward": f"none: {str(e)[:200]}"}), flush=True)
+            bwd_lib_ms = None
+        row["bwd_dq"]["library_ms"] = row["bwd_dkv"]["library_ms"] = bwd_lib_ms
+        del float_mask, heads, lib_leaves
+        for key, (bound, by) in training_bounds(q, bias, gate, mask, H).items():
+            row[key]["bound_ms"], row[key]["bound_by"] = bound, by
+    print(json.dumps({"training_kernels_vs_plain": row}), flush=True)
+    if failures:
+        fail(f"training kernels disagree at B={B} L={L} {dtype}: {failures}")
+    torch.cuda.empty_cache()
+    return row
+
+
+def finetune_config(tokenizer_path: str, small: bool = False):
+    """configs/fddm_zhTW_finetune.yaml over fddm_zhTW_base.yaml, in code
+    (the card's machine has no YAML reader); `small` is phase 6's float32
+    version with 64-wide WavLM heads, no dropout and a tiny vocabulary."""
+    from fddm_asr_tpu_torch.config import Config
+
+    cfg = flagship_config(tokenizer_path).to_dict()
+    cfg["data"]["max_len"] = FINETUNE_TOKENS
+    cfg["model"]["dropout"] = 0.1
+    cfg["model"]["projector"] = {"d_proj": 256}
+    cfg["model"]["encoder"].update({
+        "freeze": False, "mask_time_prob": 0.065, "mask_time_length": 10,
+        "wavlm_config": {"scan_layers": True, "remat_layers": True,
+                         "freeze_feature_extractor": True, "fused_attention": True,
+                         "hidden_dropout": 0.0, "attention_dropout": 0.0,
+                         "activation_dropout": 0.0, "feat_proj_dropout": 0.0}})
+    cfg["optim"] = {"batch_size": FINETUNE_B, "lr": 2e-4, "weight_decay": 0.01,
+                    "grad_accum_steps": 1, "warmup_steps": 500, "dtype": "bfloat16",
+                    "encoder_lr": 1e-5, "ema_decay": 0.999, "lr_schedule": "cosine",
+                    "decay_steps": 20000}
+    cfg["lfd"] = {"lambda_offdiag": 5e-3, "n_step_fd": 4, "tau": 1.0}
+    if small:
+        cfg["seed"] = 0
+        cfg["data"].update({"vocab_size": 64, "max_len": 16})
+        cfg["model"].update({"d_model": 96, "nhead": 4, "num_layers": 2, "dim_ff": 192,
+                             "dtype": "float32", "dropout": 0.0, "projector": {"d_proj": 32}})
+        cfg["model"]["encoder"].update({"wavlm_name": "tiny", "mask_time_prob": 0.2,
+                                        "mask_time_length": 3})
+        cfg["model"]["encoder"]["wavlm_config"].update(
+            {"hidden_size": 128, "num_attention_heads": 2, "intermediate_size": 256})
+        cfg["optim"].update({"lr": 1e-3, "encoder_lr": 3e-4, "warmup_steps": 0,
+                             "dtype": "float32"})
+    return Config(cfg)
+
+
+def _launch_counts(FA) -> dict:
+    return {"fwd": FA.wavlm_gated_attention_cuda.launches,
+            **{k: f.launches for k, f in _training_wrappers(FA).items()}}
+
+
+def _reset_launches(FA) -> None:
+    FA.wavlm_gated_attention_cuda.launches = 0
+    for f in _training_wrappers(FA).values():
+        f.launches = 0
+
+
+def small_finetune_step_matches_cpu(FA, tokenizer_dir: str) -> dict:
+    """One float32 fine-tune step with L_fd on the card and on the CPU from
+    the same weights and draws: the card runs B3/B4/B5, the CPU the plain
+    versions the CPU tests hold against the JAX package."""
+    from fddm_asr_tpu_torch import train_lib as TL
+    from fddm_asr_tpu_torch.pipeline import FDDMPipeline
+    from fddm_asr_tpu_torch.tokenizer import load_tokenizer
+
+    cfg = finetune_config(synthetic_tokenizer(tokenizer_dir, 64), small=True)
+    tok = load_tokenizer(cfg.data.tokenizer_path)
+    B, seq = 3, 16
+    wav = synthetic_audio(B, 1.0, seed=3)
+    rng = np.random.default_rng(4)
+    x0 = rng.integers(4, 64, (B, seq))
+    x0[1, 10:] = 3  # pad tail
+    sides = {}
+    for dev in ("cpu", "cuda"):
+        pipe = FDDMPipeline.from_config(cfg, tokenizer=tok, device=dev)
+        if dev == "cuda":
+            pipe.decoder.load_state_dict(sides["cpu"][0].decoder.state_dict())
+            pipe.encoder.load_state_dict(sides["cpu"][0].encoder.state_dict())
+            heads = TL.make_projection_heads(cfg, dev, torch.float32)
+            for h, ref in zip(heads, sides["cpu"][1].trained_modules()[1:4]):
+                h.load_state_dict(ref.state_dict())
+            state = TL.init_train_state(pipe, cfg, heads=heads)
+        else:
+            state = TL.init_train_state(pipe, cfg, generator=torch.Generator().manual_seed(5))
+        sides[dev] = (pipe, state, TL.make_train_step(pipe, cfg, train_encoder=True))
+    S = sides["cpu"][0].encoder.config.feat_extract_output_length(wav.shape[1])
+    draws = {"t": rng.integers(1, 201, (B,)), "xt": rng.integers(0, 64, (B, seq)),
+             "time_mask": rng.random((B, S)) < 0.2}
+
+    grads = {}
+    for dev, (pipe, state, step) in sides.items():
+        loss, _ = step.forward(state, wav, x0, True, **draws)
+        grads[dev] = [None if g is None else g.detach().cpu() for g in torch.autograd.grad(
+            loss, state.optimizer.params, allow_unused=True)]
+    _reset_launches(FA)
+    metrics = {dev: step(state, wav, x0, True, **draws) for dev, (_, state, step) in sides.items()}
+    torch.cuda.synchronize()
+    launches = _launch_counts(FA)
+    n_layers = sides["cuda"][0].encoder.config.num_hidden_layers
+    want_launches = {"fwd": 0, "fwd_lse": 2 * n_layers - 1, "bwd_dq": n_layers,
+                     "bwd_dkv": n_layers}
+
+    scale = max(g.abs().max().item() for g in grads["cpu"] if g is not None)
+    grad_err = max((a - b).abs().max().item() for a, b in zip(grads["cuda"], grads["cpu"])
+                   if a is not None)
+    # Adam's first update is +-lr wherever the gradient's sign is resolved
+    # (|g| above twice the gradient tolerance); an element at the noise
+    # level may take the other sign on the other side: up to 2 lr
+    param_err = resolved_err = 0.0
+    for a, b, g in zip(sides["cuda"][1].optimizer.params, sides["cpu"][1].optimizer.params,
+                       grads["cpu"]):
+        diff = (a.detach().cpu() - b.detach()).abs()
+        param_err = max(param_err, diff.max().item())
+        if g is not None:
+            resolved = g.abs() > 2 * SMALL_STEP_REL_TOL * scale
+            resolved_err = max(resolved_err, diff[resolved].max().item() if resolved.any() else 0.0)
+    metric_err = {k: abs(float(metrics["cuda"][k]) - float(metrics["cpu"][k]))
+                  / max(abs(float(metrics["cpu"][k])), 1e-30) for k in metrics["cpu"]}
+    result = {"launches": launches, "expected_launches": want_launches,
+              "grad_max_abs_err": grad_err, "grad_scale": scale,
+              "grad_tol": SMALL_STEP_REL_TOL * scale, "metric_rel_err": metric_err,
+              "param_max_abs_err": param_err, "resolved_param_max_abs_err": resolved_err,
+              "loss": float(metrics["cuda"]["total_loss"])}
+    print(json.dumps({"small_finetune_card_vs_cpu": result}), flush=True)
+    if launches != want_launches:
+        fail(f"small fine-tune step launches {launches}, expected {want_launches}")
+    if not grad_err <= SMALL_STEP_REL_TOL * scale:
+        fail(f"small fine-tune gradients, card vs CPU: {grad_err} > {SMALL_STEP_REL_TOL} x {scale}")
+    if not all(e <= 1e-4 for e in metric_err.values()):
+        fail(f"small fine-tune metrics, card vs CPU: {metric_err}")
+    if not param_err <= 2.1 * float(cfg.optim.lr) or not resolved_err <= 1e-5:
+        fail(f"small fine-tune updated parameters, card vs CPU: {param_err}, "
+             f"{resolved_err} where the gradient is resolved")
+    return result
+
+
+def finetune_full_width(FA, tokenizer_dir: str, card: str, isolated: dict) -> dict:
+    """`isolated`: phase 5's row at this step's attention shape; each
+    kernel's time per launch in the profiled step is printed beside its
+    CUDA-event time there."""
+    from fddm_asr_tpu_torch import train_lib as TL
+    from fddm_asr_tpu_torch.pipeline import FDDMPipeline
+    from fddm_asr_tpu_torch.tokenizer import load_tokenizer
+
+    B, seconds, Lt = FINETUNE_B, FINETUNE_SECONDS, FINETUNE_TOKENS
+    cfg = finetune_config(synthetic_tokenizer(tokenizer_dir, 8000))
+    t0 = time.time()
+    pipe = FDDMPipeline.from_config(cfg, tokenizer=load_tokenizer(cfg.data.tokenizer_path))
+    state = TL.init_train_state(pipe, cfg, generator=torch.Generator(device="cuda").manual_seed(7))
+    step = TL.make_train_step(pipe, cfg, train_encoder=True)
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    enc_cfg = pipe.encoder.config
+    n_layers = enc_cfg.num_hidden_layers
+    wav = synthetic_audio(B, seconds, seed=5)
+    rng = np.random.default_rng(6)
+    x0 = rng.integers(4, 8000, (B, Lt))
+    for b, n in enumerate(rng.integers(Lt // 4, Lt + 1, B)):
+        x0[b, n:] = pipe.pad_id
+    gen = torch.Generator(device="cuda").manual_seed(8)
+
+    backbone = pipe.encoder.backbone
+    watched = {"encoder.layers.12.attention.q_proj.weight":
+                   backbone.encoder.layers[12].attention.q_proj.weight,
+               "encoder.layers.0.attention.rel_attn_embed.weight":
+                   backbone.encoder.layers[0].attention.rel_attn_embed.weight,
+               "masked_spec_embed": backbone.masked_spec_embed,
+               "decoder.blocks.0.ff.0.weight": pipe.decoder.blocks[0].ff[0].weight,
+               "s_proj": state.s_proj.proj.net[0].weight}
+    before = {n: p.detach().clone() for n, p in watched.items()}
+    frontend = [p.detach().clone() for p in backbone.feature_extractor.parameters()]
+
+    def run(apply_lfd=None):
+        m = step(state, wav, x0, apply_lfd, generator=gen)
+        torch.cuda.synchronize()
+        return m
+
+    t0 = time.time()
+    warm = [run(True), run(False)]  # lazy init, both step variants
+    warm_s = time.time() - t0
+    torch.cuda.reset_peak_memory_stats()
+    step_s, per_step, metrics = [], [], []
+    for _ in range(TIMED_STEPS):  # steps 3..6: L_fd on step 4 only
+        _reset_launches(FA)
+        t0 = time.time()
+        metrics.append(run())
+        step_s.append(time.time() - t0)
+        per_step.append(_launch_counts(FA))
+    peak_mem_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = {"fwd": 0, "fwd_lse": 2 * n_layers - 1, "bwd_dq": n_layers, "bwd_dkv": n_layers}
+    if any(c != want for c in per_step):
+        fail(f"kernel launches per fine-tune step {per_step}, expected {want}")
+    lfd_steps = [i for i, m in enumerate(metrics) if "loss_fd" in m]
+    if lfd_steps != [1]:
+        fail(f"L_fd ran on timed steps {lfd_steps}, expected [1] (every 4th step)")
+    losses = [float(m["total_loss"]) for m in warm + metrics]
+    if not all(np.isfinite(losses)):
+        fail(f"fine-tune loss not finite: {losses}")
+    moved = {n: (p.detach() - before[n]).abs().max().item() for n, p in watched.items()}
+    if not all(d > 0 for d in moved.values()):
+        fail(f"fine-tune left parameters unchanged: {moved}")
+    if not all(torch.equal(a, p)
+               for a, p in zip(frontend, backbone.feature_extractor.parameters())):
+        fail("the frozen conv front-end changed")
+
+    breakdown = device_time_breakdown(run, statistics.median(step_s))
+    names = {"fwd_lse": "gated_attention_bf16_kernel", "bwd_dq": "bwd_dq_bf16_kernel",
+             "bwd_dkv": "bwd_dkv_bf16_kernel"}
+    breakdown["port_kernels_ms"] = {k: sum(t["ms"] for t in breakdown["all"] if n in t["name"])
+                                    for k, n in names.items()}
+    breakdown["port_kernel_ms_per_launch"] = {
+        k: {"profiled": ms / per_step[0][k], "isolated": isolated[k]["ms"]}
+        for k, ms in breakdown["port_kernels_ms"].items()}
+    del breakdown["all"]
+    print(json.dumps({"finetune_device_time": breakdown}), flush=True)
+    result = {
+        "card": card, "batch": B, "audio_s_per_example": seconds,
+        "frames": enc_cfg.feat_extract_output_length(wav.shape[1]), "tokens": Lt,
+        "step_s": statistics.median(step_s), "step_s_samples": step_s,
+        "examples_per_s": B / statistics.median(step_s), "warmup_s": warm_s,
+        "build_s": build_s, "peak_mem_gb": peak_mem_gb,
+        "kernel_launches_per_step": per_step[0], "lfd_on_timed_step": lfd_steps,
+        "metrics": [{k: float(v) for k, v in m.items()} for m in warm + metrics],
+        "param_max_change": moved, "frontend_unchanged": True,
+    }
+    print(json.dumps({"finetune": result}), flush=True)
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -349,13 +776,12 @@ def main() -> int:
     from fddm_asr_tpu_torch.ops import flash_attention as FA
 
     card = card_line()
-    name = torch.cuda.get_device_name(0)
     print(f"card: {card}", flush=True)
 
     t0 = time.time()
-    lib = FA.build_library(verbose=True)
-    print(json.dumps({"build": {"library": os.path.relpath(lib), "seconds": time.time() - t0}}),
-          flush=True)
+    libs = FA.build_libraries(verbose=True)
+    print(json.dumps({"build": {"libraries": [os.path.relpath(p) for p in libs.values()],
+                                "seconds": time.time() - t0}}), flush=True)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -370,7 +796,23 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         result = transcribe_full_width(FA, tmp, card)
 
-    main_row = rows[(1024, torch.bfloat16)]  # the main path's shape and type
+    # the shape phase 7's fine-tune gives the training kernels: B=32
+    # utterances of 20 s, 999 frames each, padded to a multiple of 128
+    from fddm_asr_tpu_torch.models.wavlm import WavLMConfig
+
+    frames = WavLMConfig.large().feat_extract_output_length(int(16000 * FINETUNE_SECONDS))
+    step_L = -(-frames // 128) * 128
+    step_row = training_kernels_vs_plain(FA, step_L, torch.bfloat16, gen, timed=True,
+                                         B=FINETUNE_B, valid=frames)
+    for L in (1024, 384, 203):
+        for dtype in (torch.float32, torch.bfloat16):
+            training_kernels_vs_plain(FA, L, dtype, gen, timed=L == 1024)
+    with tempfile.TemporaryDirectory() as tmp:
+        small_finetune_step_matches_cpu(FA, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        finetune = finetune_full_width(FA, tmp, card, isolated=step_row)
+
+    main_row = rows[(1024, torch.bfloat16)]  # the transcribe's shape and type
     kernels = [{
         "name": "wavlm_gated_attention",
         "route": "cuda",
@@ -382,10 +824,30 @@ def main() -> int:
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
+        "shape": "B=8 L=1024 H=16 bf16, ragged key masks",
     }]
+    for key, kernel, source, replaces in (
+            ("fwd_lse", "wavlm_gated_attention_fwd_lse", "gated_attention.cu",
+             "fddm_asr_tpu/ops/flash_attention.py:412 (_kernel_packed_fwd_lse)"),
+            ("bwd_dq", "wavlm_gated_attention_bwd_dq", "gated_attention_bwd.cu",
+             "fddm_asr_tpu/ops/flash_attention.py:441 (_kernel_packed_bwd_dq)"),
+            ("bwd_dkv", "wavlm_gated_attention_bwd_dkv", "gated_attention_bwd.cu",
+             "fddm_asr_tpu/ops/flash_attention.py:476 (_kernel_packed_bwd_dkv)")):
+        row = step_row[key]
+        kernels.append({
+            "name": kernel, "route": "cuda",
+            "source": f"fddm_asr_tpu_torch/csrc/{source}", "replaces": replaces,
+            "launches": finetune["kernel_launches_per_step"][key],
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+            "shape": f"B={FINETUNE_B} L={step_L} H=16 bf16, {frames} valid keys per row",
+            **({"plain_and_library_cover": "B4+B5"} if key != "fwd_lse" else {}),
+        })
     print(json.dumps({"kernels": kernels}))
     print(card)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0
 

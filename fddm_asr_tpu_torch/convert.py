@@ -180,6 +180,23 @@ def decoder_state_dict_from_jax_params(params: Mapping[str, Any],
     return sd
 
 
+# --------------------------------------------------------- projection heads
+def projector_state_dict_from_jax_params(params: Mapping[str, Any]) -> StateDict:
+    """JAX `SpeechProjector` / `TextProjector` params ({proj: {net_0[, net_2]}})
+    -> the port's state_dict (`proj.net.0.weight`, ...)."""
+    sd: StateDict = {}
+    for name, layer in _unwrap(params)["proj"].items():
+        _dense(layer, f"proj.net.{int(name.rsplit('_', 1)[1])}", sd)
+    return sd
+
+
+def text_embedding_state_dict_from_jax_params(params: Mapping[str, Any]) -> StateDict:
+    """JAX `TextEmbedding` params ({proj: {kernel}}) -> `proj.weight`."""
+    sd: StateDict = {}
+    _dense(_unwrap(params)["proj"], "proj", sd)
+    return sd
+
+
 def load_reference_checkpoint(path: str) -> Dict[str, Any]:
     """A reference `.pt` in any of the three formats the reference inference
     accepts: a training dict with a `decoder` key, `{state_dict: ...}`, or a

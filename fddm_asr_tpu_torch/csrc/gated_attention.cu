@@ -3,11 +3,18 @@
 //   out[b, q, h*64:(h+1)*64] = softmax_k(q.k / sqrt(64) + gate[b,h,q] * bias[h,q,k],
 //                                        masked keys -> f32-min) . v
 //
-// Replaces the two TPU kernels of fddm_asr_tpu/ops/flash_attention.py:
-//   * `_kernel_packed`       (resident-K, dispatched for L <= 4096), and
-//   * `_kernel_packed_flash` (k-blocked running softmax, L > 4096).
-// One online-softmax (k-looped) design covers every L, so it computes both
-// functions.  It loops over exactly the L real keys; at a row whose keys are
+// Replaces three TPU kernels of fddm_asr_tpu/ops/flash_attention.py:
+//   * `_kernel_packed`          (resident-K, dispatched for L <= 4096),
+//   * `_kernel_packed_flash`    (k-blocked running softmax, L > 4096), and
+//   * `_kernel_packed_fwd_lse`  (the training forward: the same output plus
+//                                the row logsumexp the backward needs).
+// One online-softmax (k-looped) design covers every L, so it computes the
+// first two functions; given an `lse` pointer it also writes
+// lse[b, h, q] = m + log(l) (f32) from the running max and sum it already
+// holds at the end of the key loop, which is the third.  At a row whose
+// keys are all masked m is f32-min and m + log(l) rounds to f32-min too
+// (the backward, gated_attention_bwd.cu, relies on that).  It loops over
+// exactly the L real keys; at a row whose keys are
 // all masked it therefore averages v over the L real keys, as the XLA
 // reference `wavlm_gated_attention_xla` does (the TPU kernels average over
 // their 128-padded key count instead).
@@ -39,22 +46,11 @@
 //     register micro-tile of scalar FMAs.
 // Their measured times stand in PERF.md.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <cfloat>
-#include <cstdint>
+#include "gated_attention.cuh"
 
 namespace {
 
-constexpr int DH = 64;   // head dim (the only one WavLM uses)
-constexpr int BQ = 64;   // queries per block
-constexpr int BK = 64;   // keys per k-step
-constexpr float NEG = -FLT_MAX;  // the masked-key score (f32-min)
-
-// ----------------------------------------------------------------- float32
-
-constexpr int F32_THREADS = 256;  // 16 row groups x 16 column groups
-constexpr int PAD = 68;           // smem row stride (floats): 16-byte aligned, fewer bank conflicts
+using namespace fddm;
 
 // Shared memory (floats): Qt [DH][PAD], Kt [DH][PAD], V [BK][DH],
 // BP [BQ][PAD] (bias tile, then reused for P^T [BK][PAD]), keep [BK].
@@ -66,7 +62,7 @@ gated_attention_f32_kernel(const float* __restrict__ q, const float* __restrict_
                            const float* __restrict__ v, const float* __restrict__ bias,
                            const float* __restrict__ gate,
                            const uint8_t* __restrict__ mask, float* __restrict__ out,
-                           int L, int H, float scale) {
+                           float* __restrict__ lse, int L, int H, float scale) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   float* Qt = smem;                // [DH][PAD]   Qt[d][r]
@@ -228,75 +224,19 @@ gated_attention_f32_kernel(const float* __restrict__ q, const float* __restrict_
     float* o = out + ((size_t)b * L + qi) * HD + h * DH + 4 * cg;
     #pragma unroll
     for (int j = 0; j < 4; ++j) o[j] = acc[i][j] * inv;
+    if (lse != nullptr && cg == 0)  // the 16 threads of a row group hold the same m, l
+      lse[((size_t)b * H + h) * L + qi] = m[i] + logf(fmaxf(l[i], 1e-30f));
   }
 }
 
 // ---------------------------------------------------------------- bfloat16
-
-typedef __nv_bfloat16 bf16;
-
-constexpr int MMA_WARPS = 4;                 // 16 query rows each
-constexpr int MMA_THREADS = 32 * MMA_WARPS;
-constexpr int KSTR = DH + 8;                 // smem row stride (bf16): 144 bytes, so the
-                                             // 32-bit fragment reads of 8 rows x 4 threads
-                                             // and ldmatrix's 8 row reads are conflict-free
-static_assert(BK == DH, "K, V and bias tiles share one smem row stride");
-
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& r0, uint32_t& r1, const bf16* p) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r0), "=r"(r1)
-               : "r"(addr));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Two adjacent bf16 (4-byte aligned) as one register; 0 when the row is past L.
-__device__ __forceinline__ uint32_t load_pair(const bf16* p, bool valid) {
-  return valid ? *reinterpret_cast<const uint32_t*>(p) : 0u;
-}
-
-// A [64 x 64] tile of a row-major bf16 matrix (row stride ld) into smem
-// (row stride KSTR); zero outside rows_valid x cols_valid.  16-byte loads
-// where `vec` says rows are 16-byte aligned, elementwise otherwise.
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* __restrict__ src, size_t ld,
-                                          int rows_valid, int cols_valid, bool vec) {
-  for (int i = threadIdx.x; i < 64 * 8; i += MMA_THREADS) {
-    const int r = i >> 3, c = (i & 7) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < rows_valid) {
-      const bf16* p = src + (size_t)r * ld + c;
-      if (vec && c + 8 <= cols_valid) {
-        val = *reinterpret_cast<const uint4*>(p);
-      } else {
-        __align__(16) bf16 e[8];
-        #pragma unroll
-        for (int j = 0; j < 8; ++j) e[j] = c + j < cols_valid ? p[j] : __float2bfloat16(0.f);
-        val = *reinterpret_cast<const uint4*>(e);
-      }
-    }
-    *reinterpret_cast<uint4*>(dst + r * KSTR + c) = val;
-  }
-}
 
 __global__ void __launch_bounds__(MMA_THREADS)
 gated_attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                             const bf16* __restrict__ v, const bf16* __restrict__ bias,
                             const float* __restrict__ gate,
                             const uint8_t* __restrict__ mask, bf16* __restrict__ out,
-                            int L, int H, float scale) {
+                            float* __restrict__ lse, int L, int H, float scale) {
   __shared__ __align__(16) bf16 Ks[BK * KSTR];   // [key][d]
   __shared__ __align__(16) bf16 Vs[BK * KSTR];   // [key][d]
   __shared__ __align__(16) bf16 Bs[BQ * KSTR];   // [query][key]
@@ -313,18 +253,8 @@ gated_attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__
 
   // Q as mma A fragments, 4 slices of 16 head dims, kept in registers
   uint32_t qa[4][4];
-  {
-    const bf16* q_r0 = q + ((size_t)b * L + r0) * HD + h * DH;
-    const bf16* q_r1 = q + ((size_t)b * L + r1) * HD + h * DH;
-    #pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
-      const int c = ks * 16 + 2 * t;
-      qa[ks][0] = load_pair(q_r0 + c, r0 < L);
-      qa[ks][1] = load_pair(q_r1 + c, r1 < L);
-      qa[ks][2] = load_pair(q_r0 + c + 8, r0 < L);
-      qa[ks][3] = load_pair(q_r1 + c + 8, r1 < L);
-    }
-  }
+  load_a_fragments(qa, q + ((size_t)b * L + r0) * HD + h * DH,
+                   q + ((size_t)b * L + r1) * HD + h * DH, r0 < L, r1 < L, t);
   const float gate0 = r0 < L ? gate[((size_t)b * H + h) * L + r0] : 0.f;
   const float gate1 = r1 < L ? gate[((size_t)b * H + h) * L + r1] : 0.f;
 
@@ -440,6 +370,11 @@ gated_attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__
 
   const float inv0 = 1.f / fmaxf(l[0], 1e-30f);
   const float inv1 = 1.f / fmaxf(l[1], 1e-30f);
+  if (lse != nullptr && t == 0) {  // the 4 threads of a row group hold the same m, l
+    float* lse_bh = lse + ((size_t)b * H + h) * L;
+    if (r0 < L) lse_bh[r0] = m[0] + logf(fmaxf(l[0], 1e-30f));
+    if (r1 < L) lse_bh[r1] = m[1] + logf(fmaxf(l[1], 1e-30f));
+  }
   #pragma unroll
   for (int n = 0; n < 8; ++n) {
     const int c = h * DH + n * 8 + 2 * t;
@@ -456,12 +391,14 @@ gated_attention_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  mask may be null (all keys kept).
-// Pointers must be 16-byte aligned.  Returns cudaGetLastError() after the
-// launch (0 = launched).
+// dtype: 0 = float32, 1 = bfloat16.  mask may be null (all keys kept); lse
+// ([B, H, L] f32) may be null (the inference path).  Pointers must be
+// 16-byte aligned.  Returns cudaGetLastError() after the launch (0 =
+// launched).
 int fddm_gated_attention(const void* q, const void* k, const void* v,
                          const void* bias, const void* gate, const void* mask,
-                         void* out, int B, int L, int H, int dtype, void* stream) {
+                         void* out, void* lse, int B, int L, int H, int dtype,
+                         void* stream) {
   if (B <= 0 || L <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
   if ((L + BQ - 1) / BQ > 65535 || H > 65535) return (int)cudaErrorInvalidConfiguration;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -476,12 +413,13 @@ int fddm_gated_attention(const void* q, const void* k, const void* v,
     gated_attention_f32_kernel<<<grid, F32_THREADS, F32_SMEM_BYTES, s>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<const float*>(bias),
-        static_cast<const float*>(gate), m, static_cast<float*>(out), L, H, scale);
+        static_cast<const float*>(gate), m, static_cast<float*>(out),
+        static_cast<float*>(lse), L, H, scale);
   } else if (dtype == 1) {
     gated_attention_bf16_kernel<<<grid, MMA_THREADS, 0, s>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
         static_cast<const bf16*>(bias), static_cast<const float*>(gate), m,
-        static_cast<bf16*>(out), L, H, scale);
+        static_cast<bf16*>(out), static_cast<float*>(lse), L, H, scale);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -17,7 +17,12 @@ checkpoint loads with `strict=True`.  Reference quirks kept on purpose:
   * a row whose tokens are all pad attends to every position (not NaN).
 
 Parameters stay float32; matmuls run in `dtype`, the head in float32.
-LayerNorm eps is 1e-6, the JAX package's.
+LayerNorm eps is 1e-6, the JAX package's.  Dropout (rate `dropout`, the
+config's model.dropout) acts in `train()` mode only, at the JAX decoder's
+places: the attention weights, each sublayer's output before its residual
+add, and the FFN's hidden activation.  The module records no autograd
+graph only where its caller says so (the pipeline samples under
+`torch.inference_mode`).
 """
 from __future__ import annotations
 
@@ -121,9 +126,10 @@ class MultiheadAttention(nn.Module):
     """torch.nn.MultiheadAttention's parameters (packed in_proj) with the
     port's attention: `mask` True=KEEP, masked keys score f32-min."""
 
-    def __init__(self, d_model: int, nhead: int):
+    def __init__(self, d_model: int, nhead: int, dropout: float = 0.0):
         super().__init__()
         self.nhead = nhead
+        self.dropout = dropout
         self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model))
         self.out_proj = nn.Linear(d_model, d_model)
@@ -137,20 +143,24 @@ class MultiheadAttention(nn.Module):
         q = F.linear(query.to(dtype), w[:d], b[:d]).reshape(B, Lq, self.nhead, -1)
         k = F.linear(key.to(dtype), w[d:2 * d], b[d:2 * d]).reshape(B, Lk, self.nhead, -1)
         v = F.linear(value.to(dtype), w[2 * d:], b[2 * d:]).reshape(B, Lk, self.nhead, -1)
-        out = dot_product_attention(q, k, v, key_mask=key_mask).reshape(B, Lq, d)
+        out = dot_product_attention(q, k, v, key_mask=key_mask,
+                                    dropout_p=self.dropout if self.training else 0.0)
+        out = out.reshape(B, Lq, d)
         return _linear(self.out_proj, out, dtype)
 
 
 class DecoderBlock(nn.Module):
     """Post-LN block: self-attn -> cross-attn -> FiLM -> FFN."""
 
-    def __init__(self, d_model: int, nhead: int, dim_ff: int, use_film: bool):
+    def __init__(self, d_model: int, nhead: int, dim_ff: int, use_film: bool,
+                 dropout: float = 0.0):
         super().__init__()
-        self.self_attn = MultiheadAttention(d_model, nhead)
-        self.cross_attn = MultiheadAttention(d_model, nhead)
+        self.dropout = dropout
+        self.self_attn = MultiheadAttention(d_model, nhead, dropout)
+        self.cross_attn = MultiheadAttention(d_model, nhead, dropout)
         if use_film:
             self.film_layer = FiLMLayer(d_model)
-        self.ff = nn.Sequential(nn.Linear(d_model, dim_ff), nn.GELU(), nn.Dropout(0.0),
+        self.ff = nn.Sequential(nn.Linear(d_model, dim_ff), nn.GELU(), nn.Dropout(dropout),
                                 nn.Linear(dim_ff, d_model))
         self.norm1 = nn.LayerNorm(d_model, eps=_LN_EPS)
         self.norm2 = nn.LayerNorm(d_model, eps=_LN_EPS)
@@ -161,23 +171,29 @@ class DecoderBlock(nn.Module):
             q_in = k_in = apply_rotary_pos_emb(x, rope_cos, rope_sin).to(x.dtype)
         else:
             q_in = k_in = x
-        x = _layer_norm(self.norm1, x + self.self_attn(q_in, k_in, x, x_mask, dtype), dtype)
-        x = _layer_norm(self.norm2, x + self.cross_attn(x, cond, cond, c_mask, dtype), dtype)
+        def drop(h):
+            return F.dropout(h, self.dropout, self.training)
+
+        x = _layer_norm(self.norm1, x + drop(self.self_attn(q_in, k_in, x, x_mask, dtype)),
+                        dtype)
+        x = _layer_norm(self.norm2, x + drop(self.cross_attn(x, cond, cond, c_mask, dtype)),
+                        dtype)
         if hasattr(self, "film_layer"):
             x = self.film_layer(x, masked_mean_pool(cond, c_mask), dtype)
-        h = F.gelu(_linear(self.ff[0], x, dtype))
+        h = drop(F.gelu(_linear(self.ff[0], x, dtype)))
         h = _linear(self.ff[3], h, dtype)
-        return _layer_norm(self.norm3, x + h, dtype)
+        return _layer_norm(self.norm3, x + drop(h), dtype)
 
 
 class DenoisingTransformerDecoder(nn.Module):
     """f_theta(x_t, t, c) -> logits over x_0 (float32).
 
     Defaults match the reference constructor: d_model 768, 12 heads, 6
-    layers, ff 2048, rope positions, FiLM on."""
+    layers, ff 2048, dropout 0.1, rope positions, FiLM on."""
 
     def __init__(self, vocab_size: int, d_model: int = 768, nhead: int = 12,
-                 num_layers: int = 6, dim_ff: int = 2048, max_len: int = 2048,
+                 num_layers: int = 6, dim_ff: int = 2048, dropout: float = 0.1,
+                 max_len: int = 2048,
                  pad_id: int = 0, pos_emb_type: str = "rope", use_film: bool = True,
                  rope_base: float = 10000.0, dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -196,13 +212,12 @@ class DenoisingTransformerDecoder(nn.Module):
         self.time_emb = SinusoidalTimeEmbedding(d_model)
         self.time_proj = nn.Linear(d_model, d_model)
         self.blocks = nn.ModuleList(
-            DecoderBlock(d_model, nhead, dim_ff, use_film)
+            DecoderBlock(d_model, nhead, dim_ff, use_film, dropout)
             for _ in range(num_layers))
         self.head = nn.Linear(d_model, vocab_size)
         with torch.no_grad():
             self.tok_emb.weight[pad_id].zero_()
 
-    @torch.no_grad()
     def forward(self, xt: torch.Tensor, t: torch.Tensor, cond: torch.Tensor,
                 x_mask: Optional[torch.Tensor] = None,
                 c_mask: Optional[torch.Tensor] = None) -> torch.Tensor:

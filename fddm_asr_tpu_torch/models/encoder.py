@@ -1,7 +1,10 @@
 # -*- coding: utf-8 -*-
-"""AcousticEncoder: frozen WavLM backbone + projection to d_model.
+"""AcousticEncoder: WavLM backbone (frozen or fine-tuned) + projection to d_model.
 
 Counterpart of `fddm_asr_tpu/models/encoder.py`:
+  * `freeze` (model.encoder.freeze, default True) stops the gradient: a
+    frozen encoder runs under no_grad, a fine-tuned one records autograd
+    and takes the SpecAugment masks through to the backbone;
   * a `proj` Linear applied only when hidden_size != d_model;
   * `feat_mask` from ceil(samples / 320) clamped to the frame count (the
     reference's estimate; WavLM's own key mask uses the exact conv formula);
@@ -10,6 +13,8 @@ Counterpart of `fddm_asr_tpu/models/encoder.py`:
 from __future__ import annotations
 
 from typing import Optional, Tuple
+
+import contextlib
 
 import torch
 from torch import nn
@@ -28,25 +33,33 @@ class AcousticEncoder(nn.Module):
     """Waveform [B, T] -> (feats [B, S, d_model], feat_mask [B, S] | None, pooled | None)."""
 
     def __init__(self, config: WavLMConfig, d_model: int = 768, proj: str = "linear",
-                 pooling: str = "none", dtype: torch.dtype = torch.float32):
+                 pooling: str = "none", freeze: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.config = config
         self.dtype = dtype
         self.pooling = pooling
+        self.freeze = freeze
         self.backbone = WavLMModel(config, dtype)
         if proj == "linear" and config.hidden_size != d_model:
             self.proj = nn.Linear(config.hidden_size, d_model)
 
-    @torch.no_grad()
-    def forward(self, waveforms: torch.Tensor, lengths: Optional[torch.Tensor] = None
+    def forward(self, waveforms: torch.Tensor, lengths: Optional[torch.Tensor] = None,
+                mask_time_indices: Optional[torch.Tensor] = None,
+                mask_feature_indices: Optional[torch.Tensor] = None,
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]:
         B, T = waveforms.shape
         attention_mask = None
         if lengths is not None:
             attention_mask = torch.arange(T, device=waveforms.device)[None, :] < lengths[:, None]
-        feats = self.backbone(waveforms, attention_mask=attention_mask)
-        if hasattr(self, "proj"):
-            feats = _linear(self.proj, feats, self.dtype)
+        # frozen: nothing upstream of the condition trains, so the whole
+        # encoder (the projection too) runs without recording autograd
+        with torch.no_grad() if self.freeze else contextlib.nullcontext():
+            feats = self.backbone(waveforms, attention_mask=attention_mask,
+                                  mask_time_indices=mask_time_indices,
+                                  mask_feature_indices=mask_feature_indices)
+            if hasattr(self, "proj"):
+                feats = _linear(self.proj, feats, self.dtype)
 
         S = feats.shape[1]
         feat_mask = None

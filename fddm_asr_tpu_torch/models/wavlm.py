@@ -1,5 +1,5 @@
 # -*- coding: utf-8 -*-
-"""WavLM in PyTorch — the frozen acoustic backbone c = c_psi(s), eval mode.
+"""WavLM in PyTorch — the acoustic backbone c = c_psi(s), frozen or fine-tuned.
 
 Counterpart of `fddm_asr_tpu/models/wavlm.py`.  Parameter names are those of
 HuggingFace `transformers.WavLMModel`'s state_dict (with the positional
@@ -16,12 +16,28 @@ own pre-projection hidden states.
 Compute dtype: parameters stay float32; each module casts its weights and
 input to `dtype` at call time (the JAX package's flax `dtype=` semantics).
 The gate stays float32 and the position bias takes `dtype`, the operand
-types of the gated-attention kernel (`ops/flash_attention.py`), through
-which every layer's attention goes: the CUDA kernel on a GPU, its plain
-version on the CPU.
+types of the gated-attention kernels (`ops/flash_attention.py`), through
+which every layer's attention goes: the CUDA kernels on a GPU, their plain
+version on the CPU.  Where autograd records (training), attention takes the
+trainable route (forward with logsumexp, kernel backward); under no_grad or
+inference_mode, the inference kernel.
+
+Training mode (`train()`), as the JAX package's `deterministic=False`:
+  * dropout at HF's places: feat_proj_dropout after the feature projection,
+    hidden_dropout after the positional conv and after each attention and
+    FFN output, activation_dropout inside the FFN.  Attention-weight
+    dropout (attention_dropout > 0) is not ported: the kernels compute
+    exact-softmax gradients only, and it raises;
+  * SpecAugment: `mask_time_indices` [B, S] replaces frames by the learned
+    `masked_spec_embed`, `mask_feature_indices` [B, H] zeroes hidden dims
+    (`sample_time_mask` draws either);
+  * `freeze_feature_extractor` runs the conv front-end under no_grad;
+  * `remat_layers` recomputes layers 1..N-1 in the backward
+    (torch.utils.checkpoint); layer 0, which owns `rel_attn_embed`, is kept.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Optional, Sequence, Tuple
@@ -31,7 +47,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from fddm_asr_tpu_torch.ops.flash_attention import wavlm_gated_attention_heads_packed
+from torch.utils.checkpoint import checkpoint
+
+from fddm_asr_tpu_torch.ops.flash_attention import (
+    wavlm_gated_attention_heads_packed,
+    wavlm_gated_attention_heads_packed_trainable,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,6 +74,16 @@ class WavLMConfig:
     num_conv_pos_embeddings: int = 128
     num_conv_pos_embedding_groups: int = 16
     layer_norm_eps: float = 1e-5
+    feat_proj_dropout: float = 0.0
+    hidden_dropout: float = 0.1
+    attention_dropout: float = 0.1  # training with it > 0 raises (not ported)
+    activation_dropout: float = 0.1
+    # recompute layers 1..N-1 in the backward ("full"; "dots", which keeps
+    # the projections' outputs, is not ported and raises)
+    remat_layers: bool = False
+    remat_policy: str = "full"
+    # fine-tuning: the conv front-end stays frozen (HF freeze_feature_encoder)
+    freeze_feature_extractor: bool = False
     # tanh approximation of GELU everywhere (front-end, pos-conv, FFN);
     # off = exact erf, as HF WavLM
     gelu_approx_tanh: bool = False
@@ -165,8 +196,9 @@ class FeatureProjection(nn.Module):
         self.layer_norm = nn.LayerNorm(cfg.conv_dim[-1], eps=cfg.layer_norm_eps)
         self.projection = nn.Linear(cfg.conv_dim[-1], cfg.hidden_size)
 
-    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        return _linear(self.projection, _layer_norm(self.layer_norm, x, dtype), dtype)
+    def forward(self, x: torch.Tensor, dtype: torch.dtype, dropout: float = 0.0) -> torch.Tensor:
+        x = _linear(self.projection, _layer_norm(self.layer_norm, x, dtype), dtype)
+        return F.dropout(x, dropout, self.training)
 
 
 class PositionalConvEmbedding(nn.Module):
@@ -261,21 +293,33 @@ class GatedRelPosAttention(nn.Module):
         q = _linear(self.q_proj, x, dtype)
         k = _linear(self.k_proj, x, dtype)
         v = _linear(self.v_proj, x, dtype)
-        out = wavlm_gated_attention_heads_packed(q, k, v, position_bias, gate,
-                                                 key_mask, num_heads=H)
+        if self.training and cfg.attention_dropout > 0.0:
+            raise NotImplementedError(
+                "attention dropout is not ported (the gated-attention kernels compute "
+                "exact-softmax gradients); set attention_dropout: 0.0 and regularise "
+                "with SpecAugment, as configs/fddm_zhTW_finetune.yaml does")
+        if torch.is_grad_enabled():
+            out = wavlm_gated_attention_heads_packed_trainable(
+                q, k, v, position_bias, gate, key_mask, num_heads=H)
+        else:
+            out = wavlm_gated_attention_heads_packed(q, k, v, position_bias, gate,
+                                                     key_mask, num_heads=H)
         return _linear(self.out_proj, out, dtype), position_bias
 
 
 class FeedForward(nn.Module):
     def __init__(self, cfg: WavLMConfig):
         super().__init__()
+        self.cfg = cfg
         self.intermediate_dense = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
         self.output_dense = nn.Linear(cfg.intermediate_size, cfg.hidden_size)
-        self.gelu_tanh = cfg.gelu_approx_tanh
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        h = _gelu(_linear(self.intermediate_dense, x, dtype), self.gelu_tanh)
-        return _linear(self.output_dense, h, dtype)
+        cfg = self.cfg
+        h = _gelu(_linear(self.intermediate_dense, x, dtype), cfg.gelu_approx_tanh)
+        h = F.dropout(h, cfg.activation_dropout, self.training)
+        h = _linear(self.output_dense, h, dtype)
+        return F.dropout(h, cfg.hidden_dropout, self.training)
 
 
 class EncoderLayer(nn.Module):
@@ -284,6 +328,7 @@ class EncoderLayer(nn.Module):
     def __init__(self, cfg: WavLMConfig, has_relative_position_bias: bool):
         super().__init__()
         self.stable = cfg.do_stable_layer_norm
+        self.hidden_dropout = cfg.hidden_dropout
         self.attention = GatedRelPosAttention(cfg, has_relative_position_bias)
         self.layer_norm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
         self.feed_forward = FeedForward(cfg)
@@ -293,11 +338,12 @@ class EncoderLayer(nn.Module):
         if self.stable:
             h, position_bias = self.attention(
                 _layer_norm(self.layer_norm, x, dtype), key_mask, position_bias, dtype)
-            x = x + h
+            x = x + F.dropout(h, self.hidden_dropout, self.training)
             x = x + self.feed_forward(_layer_norm(self.final_layer_norm, x, dtype), dtype)
             return x, position_bias
         h, position_bias = self.attention(x, key_mask, position_bias, dtype)
-        x = _layer_norm(self.layer_norm, x + h, dtype)
+        x = _layer_norm(self.layer_norm, x + F.dropout(h, self.hidden_dropout, self.training),
+                        dtype)
         x = x + self.feed_forward(x, dtype)
         return _layer_norm(self.final_layer_norm, x, dtype), position_bias
 
@@ -329,19 +375,49 @@ class Encoder(nn.Module):
         x = x + self.pos_conv_embed(x, dtype)
         if not cfg.do_stable_layer_norm:
             x = _layer_norm(self.layer_norm, x, dtype)
+        x = F.dropout(x, cfg.hidden_dropout, self.training)
+        remat = cfg.remat_layers and self.training and torch.is_grad_enabled()
+        if remat and cfg.remat_policy != "full":
+            raise NotImplementedError(
+                f"remat_policy {cfg.remat_policy!r} is not ported (only 'full')")
         position_bias = None
-        for layer in self.layers:
-            x, position_bias = layer(x, key_mask, position_bias, dtype)
+        for i, layer in enumerate(self.layers):
+            if remat and i > 0:  # layer 0 owns rel_attn_embed and is kept
+                x, position_bias = checkpoint(layer, x, key_mask, position_bias, dtype,
+                                              use_reentrant=False)
+            else:
+                x, position_bias = layer(x, key_mask, position_bias, dtype)
         if cfg.do_stable_layer_norm:
             x = _layer_norm(self.layer_norm, x, dtype)
         return x[:, :S0] if pad else x
 
 
+def sample_time_mask(batch: int, seq_len: int, mask_prob: float, mask_length: int,
+                     generator: Optional[torch.Generator] = None,
+                     device=None) -> torch.Tensor:
+    """SpecAugment span masks [B, seq_len] bool (True = masked).
+
+    round(mask_prob * seq_len / mask_length) spans per row (at least one),
+    each of `mask_length` positions from a uniform start in
+    [0, seq_len - mask_length]; spans may overlap.  The JAX package's
+    static-shape equivalent of HF's `_compute_mask_indices`; the draws come
+    from `generator` (they cannot match jax.random's)."""
+    n_spans = max(1, round(mask_prob * seq_len / mask_length))
+    starts = torch.randint(0, max(1, seq_len - mask_length + 1), (batch, n_spans),
+                           generator=generator, device=device)
+    idx = (starts[..., None] + torch.arange(mask_length, device=device)).reshape(batch, -1)
+    # spans run past the end only when seq_len < mask_length; those positions
+    # land in the margin and are cut off, as JAX's scatter drops them
+    mask = torch.zeros(batch, seq_len + mask_length, dtype=torch.bool, device=device)
+    return mask.scatter_(1, idx, True)[:, :seq_len].contiguous()
+
+
 class WavLMModel(nn.Module):
     """Waveform [B, T] (+ optional sample-level mask) -> hidden states [B, S, H].
 
-    HF WavLMModel.forward in eval mode.  `masked_spec_embed` is kept (it is
-    in HF state_dicts) but only SpecAugment training reads it."""
+    HF WavLMModel.forward; in `train()` mode with dropout and the SpecAugment
+    masks (`mask_time_indices` frames take `masked_spec_embed`,
+    `mask_feature_indices` hidden dims are zeroed)."""
 
     def __init__(self, cfg: WavLMConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -353,13 +429,21 @@ class WavLMModel(nn.Module):
         self.encoder = Encoder(cfg)
 
     def forward(self, input_values: torch.Tensor,
-                attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        feats = self.feature_extractor(input_values, self.dtype)
+                attention_mask: Optional[torch.Tensor] = None,
+                mask_time_indices: Optional[torch.Tensor] = None,
+                mask_feature_indices: Optional[torch.Tensor] = None) -> torch.Tensor:
+        cfg = self.cfg
+        with torch.no_grad() if cfg.freeze_feature_extractor else contextlib.nullcontext():
+            feats = self.feature_extractor(input_values, self.dtype)
         S = feats.shape[1]
         feat_mask = None
         if attention_mask is not None:
             lengths = attention_mask.long().sum(-1)
             out_lengths = self.cfg.feat_extract_output_length(lengths)
             feat_mask = torch.arange(S, device=feats.device)[None, :] < out_lengths[:, None]
-        x = self.feature_projection(feats, self.dtype)
+        x = self.feature_projection(feats, self.dtype, cfg.feat_proj_dropout)
+        if mask_time_indices is not None:
+            x = torch.where(mask_time_indices[..., None], self.masked_spec_embed.to(x.dtype), x)
+        if mask_feature_indices is not None:
+            x = x.masked_fill(mask_feature_indices[:, None, :], 0.0)
         return self.encoder(x, feat_mask, self.dtype)

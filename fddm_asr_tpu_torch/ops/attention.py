@@ -7,6 +7,9 @@ a valid key, while a row with no valid key becomes a uniform average instead
 of NaN (audio shorter than 400 samples has zero conv frames, and a NaN there
 would spread through the batch by LayerNorm).
 
+Attention-weight dropout (rate `dropout_p`, after the softmax, as torch's
+MultiheadAttention places it) runs only when the caller passes a rate above 0.
+
 Shapes: q [B, Lq, H, dh]; k, v [B, Lk, H, dh] -> out [B, Lq, H, dh].
 """
 from __future__ import annotations
@@ -23,6 +26,7 @@ def dot_product_attention(
     k: torch.Tensor,
     v: torch.Tensor,
     key_mask: Optional[torch.Tensor] = None,  # [B, Lk] True=keep
+    dropout_p: float = 0.0,
 ) -> torch.Tensor:
     dh = q.shape[-1]
     # [B, H, Lq, Lk] scores in f32 for a stable softmax
@@ -30,5 +34,8 @@ def dot_product_attention(
     scores = scores * (1.0 / dh ** 0.5)
     if key_mask is not None:
         scores = scores.masked_fill(~key_mask[:, None, None, :], _NEG_INF)
-    weights = torch.softmax(scores, dim=-1).to(v.dtype)
+    weights = torch.softmax(scores, dim=-1)
+    if dropout_p > 0.0:
+        weights = torch.nn.functional.dropout(weights, dropout_p)
+    weights = weights.to(v.dtype)
     return torch.matmul(weights, v.transpose(1, 2)).transpose(1, 2)

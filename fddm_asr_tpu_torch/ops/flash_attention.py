@@ -1,25 +1,38 @@
 # -*- coding: utf-8 -*-
-"""WavLM gated relative-position-bias attention: Hopper kernel + plain version.
+"""WavLM gated relative-position-bias attention: Hopper kernels + plain versions.
 
     scores = q k^T / sqrt(dh) + gate[b, h, q] * pos_bias[h, q, k]   (f32)
     scores[masked keys] = f32-min
     out    = softmax(scores).to(v.dtype) @ v
 
 Counterpart of `fddm_asr_tpu/ops/flash_attention.py`.  The TPU package runs
-two Pallas kernels here, `_kernel_packed` (L <= 4096) and
-`_kernel_packed_flash` (L > 4096); the port has one hand-written CUDA kernel
-for Hopper (`csrc/gated_attention.cu`) whose online softmax covers every L.
+five Pallas kernels here; the port has hand-written CUDA kernels for Hopper:
+
+  * `csrc/gated_attention.cu`, one online-softmax forward for every L.  It
+    replaces `_kernel_packed` (L <= 4096) and `_kernel_packed_flash`
+    (L > 4096), and, writing the row logsumexp as well, the training
+    forward `_kernel_packed_fwd_lse`;
+  * `csrc/gated_attention_bwd.cu`, the backward: kernel A (dq, dgate) for
+    `_kernel_packed_bwd_dq` and kernel B (dk, dv, dbias) for
+    `_kernel_packed_bwd_dkv`.
 
 Operands use the head-packed layout the projections produce: q/k/v/out
 [B, L, H*dh], pos_bias [H, L, L] in q's dtype, gate [B, H, L] float32,
-key_mask [B, L] bool (True = keep).
+key_mask [B, L] bool (True = keep), lse and delta [B, H, L] float32.
 
 Routing is by the device of the tensors and nothing else: a CPU tensor takes
-`wavlm_gated_attention_plain`; a CUDA tensor launches the kernel or raises.
-The kernel is compiled with nvcc on first use, from the source in this
-package, into `fddm_asr_tpu_torch/_build/` (a plain-C shared library loaded
-with ctypes).  bfloat16 runs on the tensor cores (mma.sync), float32 in
-exact f32 FMAs.
+the plain version; a CUDA tensor launches the kernel or raises.  The kernels
+are compiled with nvcc on first use, from the sources in this package, into
+`fddm_asr_tpu_torch/_build/` (plain-C shared libraries loaded with ctypes,
+one per source, built in parallel).  bfloat16 runs on the tensor cores
+(mma.sync), float32 in exact f32 FMAs.
+
+Training goes through `wavlm_gated_attention_heads_packed_trainable`: on the
+CPU the plain version, which autograd differentiates; on CUDA the autograd
+Function `GatedAttentionTrain`, whose forward saves the row logsumexp and
+whose backward runs the two backward kernels.  Its gradients are those of
+the plain forward exactly, including at rows whose keys are all masked
+(where the forward averages v over the L real keys).
 """
 from __future__ import annotations
 
@@ -29,20 +42,55 @@ import os
 import shutil
 import subprocess
 import tempfile
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 _NEG_INF = torch.finfo(torch.float32).min
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG_DIR, "csrc", "gated_attention.cu")
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+SOURCES = {"gated_attention": "gated_attention.cu",
+           "gated_attention_bwd": "gated_attention_bwd.cu"}
+HEADERS = ("gated_attention.cuh",)
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-HEAD_DIM = 64  # the kernel's only head dim (WavLM's)
+HEAD_DIM = 64  # the kernels' only head dim (WavLM's)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-_lib = None  # the loaded ctypes library, built on first CUDA call
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {  # C function -> (library, argtypes)
+    "fddm_gated_attention": ("gated_attention", [_P] * 8 + [_I] * 4 + [_P]),
+    "fddm_gated_attention_bwd_dq": ("gated_attention_bwd", [_P] * 11 + [_I] * 4 + [_P]),
+    "fddm_gated_attention_bwd_dkv": ("gated_attention_bwd", [_P] * 12 + [_I] * 4 + [_P]),
+}
+_libs: Dict[str, ctypes.CDLL] = {}  # loaded on first CUDA call
+
+
+# ------------------------------------------------------------ plain versions
+def _heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
+    B, L, HD = x.shape
+    return x.reshape(B, L, num_heads, HD // num_heads).transpose(1, 2)  # [B, H, L, dh]
+
+
+def _packed(x: torch.Tensor) -> torch.Tensor:
+    B, H, L, dh = x.shape
+    return x.transpose(1, 2).reshape(B, L, H * dh)
+
+
+def _gated_scores(q, k, pos_bias, gate, key_mask, num_heads) -> torch.Tensor:
+    """[B, H, L, L] f32: the f32 product scaled, plus the gated bias; masked
+    keys f32-min.  Every version (and kernel) computes S this way.  The
+    in-place steps keep one [B, H, L, L] buffer; autograd saves none of
+    their inputs that they overwrite."""
+    dh = q.shape[-1] // num_heads
+    scores = torch.matmul(_heads(q, num_heads).float(),
+                          _heads(k, num_heads).float().transpose(-1, -2))
+    scores.mul_(1.0 / dh ** 0.5)
+    scores.addcmul_(gate[..., None].float(), pos_bias[None].float())
+    if key_mask is not None:
+        scores.masked_fill_(~key_mask[:, None, None, :], _NEG_INF)
+    return scores
 
 
 def wavlm_gated_attention_plain(
@@ -56,66 +104,135 @@ def wavlm_gated_attention_plain(
 ) -> torch.Tensor:
     """Plain PyTorch version (the XLA reference's math, head-packed layout).
 
-    The CPU path, the tests' reference and `chip_smoke.py`'s yardstick.  It
-    materialises the [B, H, L, L] f32 scores; the kernel never does."""
-    B, L, HD = q.shape
-    dh = HD // num_heads
-
-    def heads(x):
-        return x.reshape(B, L, num_heads, dh).transpose(1, 2)  # [B, H, L, dh]
-
-    scores = torch.matmul(heads(q).float(), heads(k).float().transpose(-1, -2))
-    scores.mul_(1.0 / dh ** 0.5)
-    scores.addcmul_(gate[..., None].float(), pos_bias[None].float())
-    if key_mask is not None:
-        scores.masked_fill_(~key_mask[:, None, None, :], _NEG_INF)
+    The CPU path (inference and training: autograd differentiates it), the
+    tests' reference and `chip_smoke.py`'s yardstick.  It materialises the
+    [B, H, L, L] f32 scores; the kernels never do."""
+    scores = _gated_scores(q, k, pos_bias, gate, key_mask, num_heads)
     weights = torch.softmax(scores, dim=-1).to(v.dtype)
     del scores
-    out = torch.matmul(weights, heads(v))  # [B, H, L, dh]
-    return out.transpose(1, 2).reshape(B, L, HD)
+    return _packed(torch.matmul(weights, _heads(v, num_heads)))
 
 
-def build_library(verbose: bool = False) -> str:
-    """Compile csrc/gated_attention.cu for sm_90a; returns the .so path.
+def wavlm_gated_attention_fwd_lse_plain(q, k, v, pos_bias, gate, key_mask=None,
+                                        num_heads: int = 16
+                                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out, lse): the plain forward and the row logsumexp [B, H, L] f32 of
+    its scores (f32-min at a row whose keys are all masked)."""
+    scores = _gated_scores(q, k, pos_bias, gate, key_mask, num_heads)
+    lse = torch.logsumexp(scores, dim=-1)
+    weights = torch.softmax(scores, dim=-1).to(v.dtype)
+    del scores
+    return _packed(torch.matmul(weights, _heads(v, num_heads))), lse
 
-    The file name carries a hash of the source and flags, so an edited
-    source is rebuilt and an unchanged one is reused."""
-    with open(SOURCE, "rb") as f:
-        src = f.read()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    path = os.path.join(BUILD_DIR, f"libgated_attention_{digest}.so")
-    if os.path.exists(path):
-        return path
+
+def wavlm_gated_attention_bwd_plain(q, k, v, pos_bias, gate, key_mask, out, lse, dout,
+                                    num_heads: int = 16):
+    """(dq, dk, dv, dbias, dgate) of the plain forward, from the formulas the
+    kernels use (`fddm_asr_tpu/ops/flash_attention.py:391-401`):
+
+        P = exp(S - lse), dP = dO V^T, dS = P (dP - delta), delta = rowsum(dO O)
+        dq = scale dS K, dk = scale dS^T Q, dv = P^T dO,
+        dbias = sum_b dS gate, dgate = rowsum(dS bias)
+
+    with dS = 0 at masked keys (their score is a constant) and P = 1/L there
+    at a row whose keys are all masked (lse = f32-min).  dS and P are rounded
+    to q's dtype before the second products, as the kernels round them;
+    dbias is summed in f32 and returned in pos_bias's dtype."""
+    B, L, HD = q.shape
+    H = num_heads
+    scale = 1.0 / (HD // H) ** 0.5
+    s = _gated_scores(q, k, pos_bias, gate, key_mask, H)
+    p = torch.exp(s - lse[..., None])
+    del s
+    delta = (dout.float() * out.float()).reshape(B, L, H, -1).sum(-1).transpose(1, 2)
+    dp = torch.matmul(_heads(dout, H).float(), _heads(v, H).float().transpose(-1, -2))
+    ds = p * (dp - delta[..., None])
+    del dp
+    if key_mask is not None:
+        masked = ~key_mask[:, None, None, :]
+        ds = ds.masked_fill(masked, 0.0)
+        p = torch.where(masked, p / L, p)
+    low = q.dtype
+    ds_low = ds.to(low).float()
+    dq = torch.matmul(ds_low, _heads(k, H).float()) * scale
+    dk = torch.matmul(ds_low.transpose(-1, -2), _heads(q, H).float()) * scale
+    del ds_low
+    dv = torch.matmul(p.to(low).float().transpose(-1, -2), _heads(dout, H).float())
+    del p
+    dbias = (ds * gate[..., None].float()).sum(0)
+    dgate = (ds * pos_bias[None].float()).sum(-1)
+    return (_packed(dq).to(low), _packed(dk).to(low), _packed(dv).to(low),
+            dbias.to(pos_bias.dtype), dgate)
+
+
+# ------------------------------------------------------------------ kernels
+def _source_digest(name: str) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in (SOURCES[name], *HEADERS):
+        with open(os.path.join(CSRC_DIR, f), "rb") as fh:
+            h.update(fh.read())
+    return h.hexdigest()[:16]
+
+
+def _library_path(name: str) -> str:
+    return os.path.join(BUILD_DIR, f"lib{name}_{_source_digest(name)}.so")
+
+
+def _nvcc() -> str:
     nvcc = shutil.which("nvcc")
     if nvcc is None:
-        cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-        nvcc = os.path.join(cuda_home, "bin", "nvcc")
+        nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
     if not os.path.exists(nvcc):
         raise RuntimeError("nvcc not found (set CUDA_HOME): cannot build the "
-                           "gated-attention kernel")
+                           "gated-attention kernels")
+    return nvcc
+
+
+def build_libraries(verbose: bool = False) -> Dict[str, str]:
+    """Compile every source in csrc/ for sm_90a, one nvcc per source, all
+    started together; returns {name: .so path}.
+
+    A file name carries a hash of its source, the shared header and the
+    flags, so an edited source is rebuilt and an unchanged one is reused."""
+    paths = {name: _library_path(name) for name in SOURCES}
+    todo = {name: path for name, path in paths.items() if not os.path.exists(path)}
+    if not todo:
+        return paths
+    nvcc = _nvcc()
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, SOURCE],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    if verbose:
-        print(proc.stderr.strip())  # ptxas: registers, shared memory, spills
-    os.replace(tmp, path)
-    return path
+    procs = {}
+    for name in todo:
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        procs[name] = (tmp, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, SOURCES[name])],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    errors = []
+    for name, (tmp, proc) in procs.items():
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            errors.append(f"nvcc failed on {SOURCES[name]} ({proc.returncode}):\n{err}")
+            continue
+        if verbose:
+            print(err.strip())  # ptxas: registers, shared memory, spills
+        os.replace(tmp, todo[name])
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return paths
 
 
-def _library():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(build_library())
-        fn = lib.fddm_gated_attention
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+def _function(fn_name: str):
+    lib_name, argtypes = _SIGNATURES[fn_name]
+    if lib_name not in _libs:
+        path = build_libraries()[lib_name]
+        lib = ctypes.CDLL(path)
+        for name, (owner, types) in _SIGNATURES.items():
+            if owner == lib_name:
+                getattr(lib, name).argtypes = types
+                getattr(lib, name).restype = ctypes.c_int
+        _libs[lib_name] = lib
+    return getattr(_libs[lib_name], fn_name)
 
 
 def _check(name: str, x: torch.Tensor, shape, dtype, device) -> None:
@@ -127,62 +244,182 @@ def _check(name: str, x: torch.Tensor, shape, dtype, device) -> None:
         raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {tuple(shape)}")
     if not x.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+    if x.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned (the kernels load 16-byte rows)")
 
 
-def wavlm_gated_attention_cuda(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    pos_bias: torch.Tensor,
-    gate: torch.Tensor,
-    key_mask: Optional[torch.Tensor] = None,
-    num_heads: int = 16,
-) -> torch.Tensor:
-    """Launch the Hopper kernel on CUDA tensors (raises on anything else).
-
-    Adds one to `wavlm_gated_attention_cuda.launches` per launch."""
+def _check_operands(q, k, v, pos_bias, gate, key_mask, num_heads,
+                    lse=None, delta=None, dout=None):
+    """Check the kernels' operands (lse, delta [B, H, L] f32 and dout, q's
+    shape and type, where given).  Returns (B, L, H)."""
     if q.device.type != "cuda":
-        raise ValueError(f"the gated-attention kernel needs CUDA tensors, got {q.device}")
+        raise ValueError(f"the gated-attention kernels need CUDA tensors, got {q.device}")
     if q.dim() != 3:
         raise ValueError(f"q must be [B, L, H*dh], got shape {tuple(q.shape)}")
     B, L, HD = q.shape
     H = num_heads
     if H * HEAD_DIM != HD:
-        raise ValueError(f"the kernel needs head dim {HEAD_DIM}; got H*dh={HD} with "
-                         f"H={H}")
+        raise ValueError(f"the kernels need head dim {HEAD_DIM}; got H*dh={HD} with H={H}")
     if q.dtype not in _DTYPE_CODE:
-        raise ValueError(f"the kernel takes float32 or bfloat16, got {q.dtype}")
+        raise ValueError(f"the kernels take float32 or bfloat16, got {q.dtype}")
     dev = q.device
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        _check(name, x, (B, L, HD), q.dtype, dev)
+    for name, x in (("q", q), ("k", k), ("v", v), ("dout", dout)):
+        if x is not None:
+            _check(name, x, (B, L, HD), q.dtype, dev)
     _check("pos_bias", pos_bias, (H, L, L), q.dtype, dev)
-    _check("gate", gate, (B, H, L), torch.float32, dev)
+    for name, x in (("gate", gate), ("lse", lse), ("delta", delta)):
+        if x is not None:
+            _check(name, x, (B, H, L), torch.float32, dev)
     if key_mask is not None:
         _check("key_mask", key_mask, (B, L), torch.bool, dev)
-    for name, x in (("q", q), ("k", k), ("v", v), ("pos_bias", pos_bias)):
-        if x.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned (the kernel loads 16-byte rows)")
-    lib = _library()
-    out = torch.empty_like(q)
+    return B, L, H
+
+
+def _ptr(x: Optional[torch.Tensor]):
+    return None if x is None else x.data_ptr()
+
+
+def _launch(fn_name: str, dev: torch.device, *args) -> None:
+    fn = _function(fn_name)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.fddm_gated_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), pos_bias.data_ptr(),
-            gate.data_ptr(), None if key_mask is None else key_mask.data_ptr(),
-            out.data_ptr(), B, L, H, _DTYPE_CODE[q.dtype], stream)
+        rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"gated-attention kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"{fn_name} launch failed: CUDA error {rc}")
+
+
+def _forward_cuda(q, k, v, pos_bias, gate, key_mask, num_heads, with_lse: bool):
+    B, L, H = _check_operands(q, k, v, pos_bias, gate, key_mask, num_heads)
+    out = torch.empty_like(q)
+    lse = torch.empty(B, H, L, device=q.device, dtype=torch.float32) if with_lse else None
+    _launch("fddm_gated_attention", q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            pos_bias.data_ptr(), gate.data_ptr(), _ptr(key_mask), out.data_ptr(), _ptr(lse),
+            B, L, H, _DTYPE_CODE[q.dtype])
+    return out, lse
+
+
+def wavlm_gated_attention_cuda(q, k, v, pos_bias, gate, key_mask=None,
+                               num_heads: int = 16) -> torch.Tensor:
+    """B1/B2: launch the forward kernel on CUDA tensors (raises on anything
+    else).  Adds one to `wavlm_gated_attention_cuda.launches` per launch."""
+    out, _ = _forward_cuda(q, k, v, pos_bias, gate, key_mask, num_heads, with_lse=False)
     wavlm_gated_attention_cuda.launches += 1
     return out
 
 
-wavlm_gated_attention_cuda.launches = 0
+def wavlm_gated_attention_fwd_lse_cuda(q, k, v, pos_bias, gate, key_mask=None,
+                                       num_heads: int = 16):
+    """B3: the same forward kernel, also writing the row logsumexp; returns
+    (out, lse).  Adds one to `.launches` per launch."""
+    out, lse = _forward_cuda(q, k, v, pos_bias, gate, key_mask, num_heads, with_lse=True)
+    wavlm_gated_attention_fwd_lse_cuda.launches += 1
+    return out, lse
 
 
+def wavlm_gated_attention_bwd_dq_cuda(q, k, v, pos_bias, gate, key_mask, lse, delta, dout,
+                                      num_heads: int = 16):
+    """B4: (dq, dgate) from backward kernel A.  Adds one to `.launches`."""
+    B, L, H = _check_operands(q, k, v, pos_bias, gate, key_mask, num_heads,
+                              lse=lse, delta=delta, dout=dout)
+    dq = torch.empty_like(q)
+    dgate = torch.empty(B, H, L, device=q.device, dtype=torch.float32)
+    _launch("fddm_gated_attention_bwd_dq", q.device, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), pos_bias.data_ptr(), gate.data_ptr(), _ptr(key_mask),
+            lse.data_ptr(), delta.data_ptr(), dout.data_ptr(), dq.data_ptr(),
+            dgate.data_ptr(), B, L, H, _DTYPE_CODE[q.dtype])
+    wavlm_gated_attention_bwd_dq_cuda.launches += 1
+    return dq, dgate
+
+
+def wavlm_gated_attention_bwd_dkv_cuda(q, k, v, pos_bias, gate, key_mask, lse, delta, dout,
+                                       num_heads: int = 16):
+    """B5: (dk, dv, dbias) from backward kernel B; dbias [H, L, L] is summed
+    over the batch in f32 and returned in f32.  Adds one to `.launches`."""
+    B, L, H = _check_operands(q, k, v, pos_bias, gate, key_mask, num_heads,
+                              lse=lse, delta=delta, dout=dout)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    dbias = torch.empty(H, L, L, device=q.device, dtype=torch.float32)
+    _launch("fddm_gated_attention_bwd_dkv", q.device, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), pos_bias.data_ptr(), gate.data_ptr(), _ptr(key_mask),
+            lse.data_ptr(), delta.data_ptr(), dout.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            dbias.data_ptr(), B, L, H, _DTYPE_CODE[q.dtype])
+    wavlm_gated_attention_bwd_dkv_cuda.launches += 1
+    return dk, dv, dbias
+
+
+for _wrapper in (wavlm_gated_attention_cuda, wavlm_gated_attention_fwd_lse_cuda,
+                 wavlm_gated_attention_bwd_dq_cuda, wavlm_gated_attention_bwd_dkv_cuda):
+    _wrapper.launches = 0
+
+
+# --------------------------------------------------------------- dispatchers
 def wavlm_gated_attention_heads_packed(
     q, k, v, pos_bias, gate, key_mask=None, num_heads: int = 16,
 ) -> torch.Tensor:
-    """Dispatch on the tensors' device: CPU -> plain version, CUDA -> kernel."""
+    """Inference dispatch on the tensors' device: CPU -> plain version,
+    CUDA -> kernel (no autograd graph through the kernel)."""
     if q.device.type == "cpu":
         return wavlm_gated_attention_plain(q, k, v, pos_bias, gate, key_mask, num_heads)
     return wavlm_gated_attention_cuda(q, k, v, pos_bias, gate, key_mask, num_heads)
+
+
+def wavlm_gated_attention_fwd_lse(q, k, v, pos_bias, gate, key_mask=None,
+                                  num_heads: int = 16):
+    """(out, lse) on the tensors' device: CPU -> plain version, CUDA -> B3."""
+    if q.device.type == "cpu":
+        return wavlm_gated_attention_fwd_lse_plain(q, k, v, pos_bias, gate, key_mask,
+                                                   num_heads)
+    return wavlm_gated_attention_fwd_lse_cuda(q, k, v, pos_bias, gate, key_mask, num_heads)
+
+
+def wavlm_gated_attention_bwd(q, k, v, pos_bias, gate, key_mask, out, lse, dout,
+                              num_heads: int = 16):
+    """(dq, dk, dv, dbias, dgate) on the tensors' device: CPU -> plain
+    version; CUDA -> delta = rowsum(dO * O) in plain torch (the JAX package
+    computes it in XLA too), then B4 and B5."""
+    if q.device.type == "cpu":
+        return wavlm_gated_attention_bwd_plain(q, k, v, pos_bias, gate, key_mask, out, lse,
+                                               dout, num_heads)
+    B, L, HD = q.shape
+    delta = (dout.float() * out.float()).view(B, L, num_heads, -1).sum(-1)
+    delta = delta.transpose(1, 2).contiguous()
+    dq, dgate = wavlm_gated_attention_bwd_dq_cuda(q, k, v, pos_bias, gate, key_mask, lse,
+                                                  delta, dout, num_heads)
+    dk, dv, dbias = wavlm_gated_attention_bwd_dkv_cuda(q, k, v, pos_bias, gate, key_mask,
+                                                       lse, delta, dout, num_heads)
+    return dq, dk, dv, dbias.to(pos_bias.dtype), dgate
+
+
+class GatedAttentionTrain(torch.autograd.Function):
+    """Differentiable gated attention through the kernels: the forward
+    launches B3 and saves (q, k, v, pos_bias, gate, key_mask, out, lse); the
+    backward launches B4 and B5.  Counterpart of the JAX custom VJP
+    `_gated_attention_train`.  On CPU tensors both directions take the
+    kernels' plain versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, pos_bias, gate, key_mask, num_heads):
+        out, lse = wavlm_gated_attention_fwd_lse(q, k, v, pos_bias, gate, key_mask,
+                                                 num_heads)
+        ctx.save_for_backward(q, k, v, pos_bias, gate, key_mask, out, lse)
+        ctx.num_heads = num_heads
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, pos_bias, gate, key_mask, out, lse = ctx.saved_tensors
+        dq, dk, dv, dbias, dgate = wavlm_gated_attention_bwd(
+            q, k, v, pos_bias, gate, key_mask, out, lse, dout.contiguous(), ctx.num_heads)
+        return dq, dk, dv, dbias, dgate, None, None
+
+
+def wavlm_gated_attention_heads_packed_trainable(
+    q, k, v, pos_bias, gate, key_mask=None, num_heads: int = 16,
+) -> torch.Tensor:
+    """Training dispatch on the tensors' device: CPU -> the plain version,
+    which autograd differentiates; CUDA -> `GatedAttentionTrain` (kernels
+    in both directions) or raise.  Exact-softmax gradients only: attention
+    dropout is not applied here."""
+    if q.device.type == "cpu":
+        return wavlm_gated_attention_plain(q, k, v, pos_bias, gate, key_mask, num_heads)
+    return GatedAttentionTrain.apply(q, k, v, pos_bias, gate, key_mask, num_heads)

@@ -34,16 +34,14 @@ from fddm_asr_tpu_torch.convert import load_reference_checkpoint
 from fddm_asr_tpu_torch.eval import batch_confidence, ids_to_text
 from fddm_asr_tpu_torch.models.decoder import DenoisingTransformerDecoder, MultiheadAttention
 from fddm_asr_tpu_torch.models.encoder import AcousticEncoder
-from fddm_asr_tpu_torch.models.wavlm import GatedRelPosAttention, WavLMConfig
+from fddm_asr_tpu_torch.models.wavlm import GatedRelPosAttention, WavLMConfig, WavLMModel
 from fddm_asr_tpu_torch.sampler import SamplerConfig, make_sample_fn
 
 # WavLMConfig fields of the JAX package that choose how XLA lowers the same
-# numerics (or are training-only); a config naming them is still valid here.
-_JAX_ONLY_WAVLM_FIELDS = {
-    "scan_layers", "remat_layers", "remat_policy", "freeze_feature_extractor",
-    "fused_attention", "fused_frontend", "feat_proj_dropout", "hidden_dropout",
-    "attention_dropout", "activation_dropout",
-}
+# numerics and that the port ignores; a config naming them is still valid.
+# (`fused_attention`: the port's attention always takes its kernels on the
+# card, in both directions, and their plain versions on the CPU.)
+_JAX_ONLY_WAVLM_FIELDS = {"scan_layers", "fused_frontend", "fused_attention"}
 
 
 def build_wavlm_config(encoder_cfg: Config) -> WavLMConfig:
@@ -51,7 +49,10 @@ def build_wavlm_config(encoder_cfg: Config) -> WavLMConfig:
 
     `wavlm_name` containing "tiny" selects the test config, "base" wavlm-base,
     anything else wavlm-large with seq_pad_multiple=128 (the flagship); a
-    dict under `wavlm_config` overrides field by field."""
+    dict under `wavlm_config` overrides field by field.  A fine-tuned
+    encoder (freeze: false) defaults to remat_layers and a frozen conv
+    front-end, as in the JAX package; `remat_layers` and
+    `freeze_feature_extractor` in the encoder block itself override."""
     name = (encoder_cfg.get("wavlm_name") or "microsoft/wavlm-large").lower()
     if "tiny" in name:
         cfg = WavLMConfig.tiny_for_tests()
@@ -67,7 +68,14 @@ def build_wavlm_config(encoder_cfg: Config) -> WavLMConfig:
     unknown = set(overrides) - fields - _JAX_ONLY_WAVLM_FIELDS
     if unknown:
         raise ValueError(f"unknown encoder.wavlm_config fields: {sorted(unknown)}")
-    return dataclasses.replace(cfg, **{k: v for k, v in overrides.items() if k in fields})
+    cfg = dataclasses.replace(cfg, **{k: v for k, v in overrides.items() if k in fields})
+    fine_tune = not encoder_cfg.get("freeze", True)
+    for key in ("remat_layers", "freeze_feature_extractor"):
+        if key in encoder_cfg:
+            cfg = dataclasses.replace(cfg, **{key: bool(encoder_cfg[key])})
+        elif fine_tune and key not in overrides:
+            cfg = dataclasses.replace(cfg, **{key: True})
+    return cfg
 
 
 def _compute_dtype(name: Union[str, torch.dtype, None]) -> torch.dtype:
@@ -81,7 +89,9 @@ def random_init_(module: nn.Module, generator: torch.Generator) -> None:
     """Draw every parameter of `module` from `generator` (torch's own
     default distributions): Linear/Conv uniform(±1/sqrt(fan_in)), packed
     attention in-projections xavier-uniform with zero bias, embeddings
-    N(0, 1), norms 1/0, WavLM gate constants 1."""
+    N(0, 1), norms 1/0, WavLM gate constants 1; last, WavLM's
+    `masked_spec_embed` uniform(0, 1) (HF's and the JAX package's init;
+    drawn after everything else so the other weights of a seed stay put)."""
     for m in module.modules():
         if isinstance(m, (nn.Linear, nn.Conv1d)):
             bound = 1.0 / math.sqrt(m.weight[0].numel())
@@ -102,6 +112,9 @@ def random_init_(module: nn.Module, generator: torch.Generator) -> None:
             m.gru_rel_pos_const.fill_(1.0)
     if isinstance(module, DenoisingTransformerDecoder):
         module.tok_emb.weight[module.pad_id].zero_()
+    for m in module.modules():
+        if isinstance(m, WavLMModel):
+            m.masked_spec_embed.uniform_(0.0, 1.0, generator=generator)
 
 
 class FDDMPipeline:
@@ -154,11 +167,13 @@ class FDDMPipeline:
                 max_len=1024,  # the reference hardcodes 1024
                 pad_id=special["pad_id"],
                 pos_emb_type=model_cfg.get("pos_emb_type", "rope"),
-                use_film=model_cfg.get("use_film", True), dtype=dtype)
+                use_film=model_cfg.get("use_film", True),
+                dropout=model_cfg.get("dropout", 0.1), dtype=dtype)
             encoder = AcousticEncoder(
                 build_wavlm_config(enc_cfg), d_model=model_cfg.d_model,
                 proj=enc_cfg.get("proj", "linear"),
-                pooling=enc_cfg.get("pooling", "none"), dtype=dtype)
+                pooling=enc_cfg.get("pooling", "none"),
+                freeze=enc_cfg.get("freeze", True), dtype=dtype)
         random_init_(decoder, generator)
         random_init_(encoder, generator)
         if ckpt_path:
@@ -183,7 +198,8 @@ class FDDMPipeline:
             lengths = None  # reference parity: the encoder sees no lengths
         elif lengths is not None:
             lengths = self._tensor(lengths, torch.long)
-        feats, feat_mask, _ = self.encoder(wave, lengths)
+        with torch.inference_mode():
+            feats, feat_mask, _ = self.encoder(wave, lengths)
         return feats, feat_mask
 
     def sample(self, cond: torch.Tensor, seq_len: int, c_mask=None,
@@ -208,7 +224,8 @@ class FDDMPipeline:
             return self.decoder(xt, t, c, None, cm)
 
         fn = make_sample_fn(decoder_apply, self.sched, scfg)
-        return fn(cond, seq_len, c_mask=c_mask, x_init=x_init, generator=generator)
+        with torch.inference_mode():
+            return fn(cond, seq_len, c_mask=c_mask, x_init=x_init, generator=generator)
 
     def ids_to_text(self, ids) -> str:
         return ids_to_text(ids, self.tokenizer, self.pad_id,

@@ -59,8 +59,9 @@ def _logits_both(jdec, params, tdec, inputs, with_c_mask=True):
     ref = np.asarray(jax.jit(jdec.apply)(params, jnp.asarray(xt), jnp.asarray(t),
                                          jnp.asarray(cond), None,
                                          None if cm is None else jnp.asarray(cm)))
-    out = tdec(torch.from_numpy(xt), torch.from_numpy(t), torch.from_numpy(cond), None,
-               None if cm is None else torch.from_numpy(cm)).numpy()
+    with torch.no_grad():  # the decoder records autograd unless told not to
+        out = tdec(torch.from_numpy(xt), torch.from_numpy(t), torch.from_numpy(cond), None,
+                   None if cm is None else torch.from_numpy(cm)).numpy()
     return out, ref
 
 

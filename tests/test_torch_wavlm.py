@@ -70,7 +70,7 @@ def test_wavlm_matches_jax(rng, stable, with_mask, seq_pad_multiple, scan_layers
     params = _perturbed(jax.jit(jmodel.init)(jax.random.key(0), jnp.zeros((1, T))), rng)
     ref = np.asarray(jax.jit(jmodel.apply)(
         params, jnp.asarray(wav), None if mask is None else jnp.asarray(mask)))
-    model = WavLMModel(port_cfg)
+    model = WavLMModel(port_cfg).eval()  # the JAX side runs deterministic
     model.load_state_dict(wavlm_state_dict_from_jax_params(params), strict=True)
     with torch.no_grad():
         out = model(torch.from_numpy(wav),
@@ -84,11 +84,11 @@ def test_position_bias_follows_the_input_length(rng):
     in turn gives what a fresh model gives at each."""
     cfg, _ = _configs(True, 1, False)
     torch.manual_seed(0)
-    model = WavLMModel(cfg)
+    model = WavLMModel(cfg).eval()
     wav = torch.from_numpy(rng.standard_normal((1, T)).astype(np.float32))
     with torch.no_grad():
         for x in (wav, wav[:, :1600], wav):
-            fresh = WavLMModel(cfg)
+            fresh = WavLMModel(cfg).eval()
             fresh.load_state_dict(model.state_dict())
             torch.testing.assert_close(model(x), fresh(x), rtol=0, atol=0)
 
@@ -108,7 +108,7 @@ def test_wavlm_matches_transformers(rng, stable):
         mask_time_prob=0.0, mask_feature_prob=0.0, layerdrop=0.0)
     hf = HFModel(hf_cfg).eval()
     port_cfg, _ = _configs(stable, 1, False)
-    model = WavLMModel(port_cfg)
+    model = WavLMModel(port_cfg).eval()
     model.load_state_dict(wavlm_state_dict_from_hf(hf.state_dict()), strict=True)
     wav, mask = _wave_and_mask(rng, True)
     with torch.no_grad():
@@ -125,7 +125,7 @@ def test_acoustic_encoder_proj_and_masks_match_jax(rng):
     jenc = JaxAcousticEncoder(jax_cfg, d_model=24, pooling="mean")
     params = _perturbed(jax.jit(jenc.init)(jax.random.key(1), jnp.zeros((1, T))), rng)
     feats, fmask, pooled = jax.jit(jenc.apply)(params, jnp.asarray(wav), jnp.asarray(lengths))
-    enc = AcousticEncoder(port_cfg, d_model=24, pooling="mean")
+    enc = AcousticEncoder(port_cfg, d_model=24, pooling="mean").eval()
     enc.load_state_dict(acoustic_encoder_state_dict_from_jax_params(params), strict=True)
     out, mask, pool = enc(torch.from_numpy(wav), torch.from_numpy(lengths))
     assert out.shape == (B, 9, 24)
