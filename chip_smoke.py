@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 # -*- coding: utf-8 -*-
 """GPU smoke run of the PyTorch/CUDA port: builds the kernels, holds each
-against its plain version, transcribes a batch and takes encoder fine-tune
+against its plain version, transcribes a batch (in full precision, and with
+the int8 encoder and the fused conv front-end) and takes encoder fine-tune
 steps at full model width.
 
     python3 chip_smoke.py
@@ -10,9 +11,9 @@ Needs one CUDA GPU (Hopper: the kernel is built for sm_90a) and nvcc; imports
 only the port (`fddm_asr_tpu_torch`), torch, numpy and the standard library.
 Phases, each fatal on failure:
 
-  1. the card's name and power limit (nvidia-smi); build the gated-attention
-     kernels from `fddm_asr_tpu_torch/csrc/` with nvcc (one process per
-     source, in parallel), timed;
+  1. the card's name and power limit (nvidia-smi); build every kernel
+     from `fddm_asr_tpu_torch/csrc/` with nvcc (one process per source, in
+     parallel), timed;
   2. kernel vs plain version at B=8, H=16, dh=64 on both sides of the TPU
      kernels' 4096-frame split (L=1024, 4224), float32 and bfloat16, with
      ragged key masks and one all-masked row; the kernel's time beside the
@@ -53,13 +54,57 @@ Phases, each fatal on failure:
      24, B5 24 with 23 of 24 layers recomputed), peak memory, one more
      step under torch.profiler (each port kernel's time per launch there
      beside phase 5's); the loss finite, encoder and decoder
-     weights moved, the conv front-end's not.
+     weights moved, the conv front-end's not;
+  8. the fused int8 matmul (B7) against its plain version at M = 8192 rows
+     for WavLM-large's three dense shapes (1024x1024, 1024x4096,
+     4096x1024), bfloat16 and float32, with and without bias, and at a
+     ragged size (51 rows, dout 136): the integers are exact in both, so the
+     outputs must agree within one ulp of the output type; its time beside
+     the plain version's, the library path's (row quantization in torch +
+     `torch._int_mm` + epilogue, the port's own `int8` mode) and the bound;
+  9. the fused conv+LayerNorm+GELU (B8) against its plain version at B = 8,
+     512 channels, (k, s) = (3, 2) at T = 63999 and (2, 2) at T = 1999,
+     bfloat16 (3e-2 abs + one bf16 ulp of the value: outputs reach past 4,
+     where an ulp is 0.03125) and float32 (2e-4 abs + 1e-3 rel), erf and tanh,
+     and at inputs that give no and one output row; its time beside the
+     plain version's, `F.conv1d` + `F.layer_norm` + `F.gelu`'s and the bound;
+ 10. `wavlm_gated_attention` on [B, L, H, dh] operands (B6's entry point,
+     which no model path reaches, as in the JAX package): driven once
+     through the dispatcher with its count read, held against its plain
+     version at B = 8, L = 1024, H = 16 in both types, and timed;
+ 11. a small float32 pipeline under `quant_dense: int8_fused`,
+     `fused_frontend: true` and `model.quant_dense: int8` (128 conv
+     channels, 64-wide heads) on the card and on the CPU from the same
+     weights, with the launches of B1, B7 and B8 checked.  A value whose
+     scaled size falls within f32 rounding of a half rounds to another
+     integer on the card than on the CPU (sums run in another order), and
+     one such step is 1/127 of a row's largest value; so the pass rule,
+     fixed before the first run, is the encoder's output within 5e-2 max
+     abs (unit-scale output; a fault gives O(1)); the token ids are
+     compared and printed, with the CPU's top-two probability margin where
+     they differ, and do not decide;
+ 12. full-width transcription as in phase 4 under `encoder.wavlm_config:
+     {quant_dense: int8_fused, fused_frontend: true, gelu_approx_tanh:
+     true}` with the launches checked (B1 24, B7 144, B8 6), wall median,
+     RTFx, peak memory and one profiled run (`transcribe_int8_fused`), and
+     the same under `quant_dense: int8` (the library path,
+     `transcribe_int8`) and `quant_dense: none` (`transcribe_fused_frontend`:
+     the front-end and tanh GELU alone), and phase 4's own configuration
+     once more (`transcribe_repeat`: the wall times of this phase compare
+     with it, not with phase 4's, because the host's share grows over the
+     process); the encoder's output under int8_fused against that
+     full-precision encoder: rel-L2 below 0.05 and above 1e-6 (the flag
+     must change the output).
+
+Phases 4 and 7 run at full depth with as many timed runs as before: the
+whole takes well under half of its time limit, so nothing was cut.
 
 Prints the kernels' JSON line, then the card line, then as the last line
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import statistics
@@ -86,6 +131,14 @@ FINETUNE_B, FINETUNE_SECONDS, FINETUNE_TOKENS = 32, 20.0, 128
 TIMED_STEPS = 4            # one L_fd period
 REPEATS = 5                # timed transcribes after the counted one; their median is reported
 SMALL_ENCODER_TOL = 1e-3   # float32, two layers; card and CPU sum in different orders
+INT8_PEAK_OPS = 1979e12    # H100 SXM dense int8
+# (abs, rel); bfloat16: 3e-2 plus one bf16 ulp of the reference, whose values reach past 4
+CONV_TOL = {torch.float32: (2e-4, 1e-3), torch.bfloat16: (3e-2, 2.0 ** -7)}
+SMALL_QUANT_ENCODER_TOL = 5e-2  # phase 11: int8 steps flip at f32 rounding of a half
+QUANT_REL_L2 = (1e-6, 5e-2)     # int8 encoder vs full precision: must differ, and little
+WAVLM_DENSE_SHAPES = ((1024, 1024), (1024, 4096), (4096, 1024))  # (din, dout): 4 + 1 + 1 a layer
+FUSED_WAVLM_CONFIG = {"quant_dense": "int8_fused", "fused_frontend": True,
+                      "gelu_approx_tanh": True}
 
 
 def fail(msg: str) -> None:
@@ -207,11 +260,12 @@ def synthetic_tokenizer(directory: str, vocab_size: int) -> str:
     return path
 
 
-def flagship_config(tokenizer_path: str):
-    """configs/fddm_zhTW_base.yaml's model, data and diffusion blocks, in code."""
+def flagship_config(tokenizer_path: str, wavlm_config: dict = None):
+    """configs/fddm_zhTW_base.yaml's model, data and diffusion blocks, in
+    code; `wavlm_config` goes under encoder.wavlm_config."""
     from fddm_asr_tpu_torch.config import Config
 
-    return Config({
+    cfg = Config({
         "seed": 1337,
         "data": {"vocab_size": 8000, "pad_id": 0, "tokenizer_path": tokenizer_path},
         "model": {"d_model": 768, "nhead": 12, "num_layers": 6, "dim_ff": 2048,
@@ -219,7 +273,10 @@ def flagship_config(tokenizer_path: str):
                   "encoder": {"wavlm_name": "microsoft/wavlm-large", "freeze": True,
                               "proj": "linear", "pooling": "none"}},
         "diffusion": {"T": 200, "beta_max": 0.2},
-    })
+    }).to_dict()
+    if wavlm_config:
+        cfg["model"]["encoder"]["wavlm_config"] = dict(wavlm_config)
+    return Config(cfg)
 
 
 def synthetic_audio(B: int, seconds: float, seed: int) -> np.ndarray:
@@ -337,13 +394,31 @@ def device_time_breakdown(run, wall_s: float) -> dict:
             "all": [{"name": n, "ms": ms} for n, ms in ranked]}
 
 
-def transcribe_full_width(FA, tokenizer_dir: str, card: str) -> dict:
+def port_kernel_wrappers() -> dict:
+    """Every kernel wrapper of the port, by the name its launches are
+    reported under; each carries a `.launches` count."""
+    from fddm_asr_tpu_torch.ops import conv_frontend as CF
+    from fddm_asr_tpu_torch.ops import flash_attention as FA
+    from fddm_asr_tpu_torch.ops import quant as Q
+
+    return {"fwd": FA.wavlm_gated_attention_cuda, **_training_wrappers(FA),
+            "bhld": FA.wavlm_gated_attention_bhld_cuda,
+            "int8_matmul_fused": Q.int8_matmul_fused_cuda, "conv_ln_gelu": CF.conv_ln_gelu_cuda}
+
+
+def transcribe_full_width(FA, tokenizer_dir: str, card: str, name: str = "transcribe",
+                          wavlm_config: dict = None, expect: dict = None) -> dict:
+    """Phase 4, and under `wavlm_config` phase 12: 8 x 20 s through
+    `transcribe_with_ids` at full width; `expect` gives the launches of one
+    transcribe for the kernels it runs (every other kernel: none).  Returns
+    the result with the pipeline's encoder output under "feats" (not
+    printed)."""
     import fddm_asr_tpu_torch.models.wavlm as W
     from fddm_asr_tpu_torch.pipeline import FDDMPipeline
     from fddm_asr_tpu_torch.tokenizer import load_tokenizer
 
     B, seconds = 8, 20.0
-    cfg = flagship_config(synthetic_tokenizer(tokenizer_dir, 8000))
+    cfg = flagship_config(synthetic_tokenizer(tokenizer_dir, 8000), wavlm_config)
     t0 = time.time()
     pipe = FDDMPipeline.from_config(cfg, tokenizer=load_tokenizer(cfg.data.tokenizer_path))
     torch.cuda.synchronize()
@@ -359,14 +434,20 @@ def transcribe_full_width(FA, tokenizer_dir: str, card: str) -> dict:
         torch.cuda.synchronize()
         return rows
 
+    gc.collect()  # the earlier phases' pipelines: not collected during the timed runs
     run()  # warm-up: lazy CUDA/cuBLAS/cuDNN initialisation
     torch.cuda.reset_peak_memory_stats()  # the peak of the transcribe alone, not of phase 2
-    FA.wavlm_gated_attention_cuda.launches = 0
+    wrappers = port_kernel_wrappers()
+    for f in wrappers.values():
+        f.launches = 0
     rows = run()  # the main path's run: its kernel launches are counted
-    launches = FA.wavlm_gated_attention_cuda.launches
+    counts = {k: f.launches for k, f in wrappers.items()}
+    launches = counts["fwd"]
     peak_mem_gb = torch.cuda.max_memory_allocated() / 2 ** 30
-    if launches != n_layers:
-        fail(f"{launches} gated-attention kernel launches in one transcribe, expected {n_layers}")
+    want = {k: 0 for k in wrappers}
+    want.update(expect or {"fwd": n_layers})
+    if counts != want:
+        fail(f"kernel launches in one {name} {counts}, expected {want}")
     step_samples = seconds_of(run, REPEATS)
 
     # where the time goes: encode and sample apart
@@ -387,21 +468,28 @@ def transcribe_full_width(FA, tokenizer_dir: str, card: str) -> dict:
     if [r[1] for r in rows] != ids.cpu().tolist():
         fail("transcribe_with_ids and encode_waveform + sample disagree")
 
-    # the same encoder with the plain attention on the card
-    kernel_route = W.wavlm_gated_attention_heads_packed
-    W.wavlm_gated_attention_heads_packed = FA.wavlm_gated_attention_plain
-    try:
-        plain_feats, _ = pipe.encode_waveform(wav)
-    finally:
-        W.wavlm_gated_attention_heads_packed = kernel_route
-    rel_l2 = ((feats.float() - plain_feats.float()).norm() / plain_feats.float().norm()).item()
-    if not rel_l2 <= ENCODER_REL_L2_TOL:
-        fail(f"encoder with kernel vs plain attention: rel L2 {rel_l2} > {ENCODER_REL_L2_TOL}")
+    rel_l2 = None
+    if not wavlm_config:  # phase 4: the same encoder with the plain attention on the card
+        kernel_route = W.wavlm_gated_attention_heads_packed
+        W.wavlm_gated_attention_heads_packed = FA.wavlm_gated_attention_plain
+        try:
+            plain_feats, _ = pipe.encode_waveform(wav)
+        finally:
+            W.wavlm_gated_attention_heads_packed = kernel_route
+        rel_l2 = ((feats.float() - plain_feats.float()).norm()
+                  / plain_feats.float().norm()).item()
+        if not rel_l2 <= ENCODER_REL_L2_TOL:
+            fail(f"encoder with kernel vs plain attention: rel L2 {rel_l2} > {ENCODER_REL_L2_TOL}")
 
     step_s = statistics.median(step_samples)
     breakdown = device_time_breakdown(run, step_s)
+    port_names = {"fwd": "gated_attention_bf16_kernel",
+                  "int8_matmul_fused": "int8_matmul_fused_kernel",
+                  "conv_ln_gelu": "conv_ln_gelu_bf16_kernel"}
+    breakdown["port_kernels_ms"] = {k: sum(t["ms"] for t in breakdown["all"] if n in t["name"])
+                                    for k, n in port_names.items() if want[k]}
     del breakdown["all"]
-    print(json.dumps({"transcribe_device_time": breakdown}), flush=True)
+    print(json.dumps({f"{name}_device_time": breakdown}), flush=True)
 
     result = {
         "card": card, "transcripts": len(rows), "audio_s": B * seconds, "frames": S,
@@ -409,11 +497,14 @@ def transcribe_full_width(FA, tokenizer_dir: str, card: str) -> dict:
         "encode_s": statistics.median(encode_samples),
         "sample_s": statistics.median(sample_samples), "repeats": REPEATS,
         "pipeline_build_s": build_s, "kernel_launches": launches,
+        "launches": {k: n for k, n in counts.items() if n},
+        "wavlm_config": wavlm_config or {},
         "encoder_rel_l2_kernel_vs_plain": rel_l2, "encoder_rel_l2_tol": ENCODER_REL_L2_TOL,
         "example_text": rows[0][0][:16], "example_confidence": rows[0][2],
         "peak_mem_gb": peak_mem_gb,
     }
-    print(json.dumps({"transcribe": result}, ensure_ascii=False), flush=True)
+    print(json.dumps({name: result}, ensure_ascii=False), flush=True)
+    result["feats"] = feats
     return result
 
 
@@ -768,18 +859,258 @@ def finetune_full_width(FA, tokenizer_dir: str, card: str, isolated: dict) -> di
     return result
 
 
+# -------------------------------------------- int8 and fused front-end path
+def _bound(nbytes: float, ops: float, peak: float) -> tuple:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / peak * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def int8_matmul_vs_plain(Q, M: int, din: int, dout: int, dtype, with_bias: bool, gen,
+                         timed: bool) -> dict:
+    """B7 against its plain version on x [M, din] (values up to a few units,
+    so the row scales differ) and a weight of nn.Linear's init scale; output
+    type = input type, as WavLM calls it.  Both hold the same exact integers
+    and round the same f32 steps, so they agree within one ulp of the output
+    type (f32: of each value; in practice bit for bit)."""
+    dev = torch.device("cuda")
+    x = (torch.randn(M, din, device=dev, generator=gen)
+         * (0.5 + 2.0 * torch.rand(M, 1, device=dev, generator=gen))).to(dtype)
+    weight = (torch.rand(dout, din, device=dev, generator=gen) * 2 - 1) / din ** 0.5
+    bias = torch.randn(dout, device=dev, generator=gen) if with_bias else None
+    wq_sw = Q.quantized_weight({}, "w", weight)
+    out = Q.int8_matmul_fused_cuda(x, *wq_sw, bias, dtype)
+    torch.cuda.synchronize()
+    ref = Q.int8_matmul_fused_plain(x, weight, bias, dtype, wq_sw=wq_sw)
+    err = (out.float() - ref.float()).abs()
+    ulp = torch.finfo(dtype).eps * ref.float().abs().clamp(min=torch.finfo(dtype).tiny)
+    row = {"M": M, "din": din, "dout": dout, "dtype": str(dtype).replace("torch.", ""),
+           "bias": with_bias, "max_abs_err": err.max().item(),
+           "not_identical": int((err > 0).sum().item()),
+           "beyond_one_ulp": int((err > ulp).sum().item())}
+    del err, ulp
+    if timed:
+        es = x.element_size()
+        row["ms"] = time_ms(lambda: Q.int8_matmul_fused_cuda(x, *wq_sw, bias, dtype), 20)
+        row["plain_ms"] = time_ms(
+            lambda: Q.int8_matmul_fused_plain(x, weight, bias, dtype, wq_sw=wq_sw), 3, 1)
+        # yardstick: the port's own unfused `int8` mode on the same inputs
+        lib = Q.int8_matmul(x, weight, bias, dtype, wq_sw=wq_sw)
+        row["library_max_abs_diff"] = (lib.float() - out.float()).abs().max().item()
+        row["library_ms"] = time_ms(
+            lambda: Q.int8_matmul(x, weight, bias, dtype, wq_sw=wq_sw), 10)
+        row["bf16_matmul_ms"] = time_ms(lambda: torch.nn.functional.linear(
+            x.bfloat16(), weight.bfloat16()), 10) if dtype == torch.bfloat16 else None
+        nbytes = M * din * es + din * dout + dout * 4 * (2 if with_bias else 1) + M * dout * es
+        row["bound_ms"], row["bound_by"] = _bound(nbytes, 2.0 * M * din * dout, INT8_PEAK_OPS)
+        # the weight's quantization, done once per weight and kept (ops/quant.quantized_weight)
+        row["weight_quant_ms"] = time_ms(lambda: Q.quantized_weight({}, "w", weight), 5)
+    print(json.dumps({"int8_matmul_vs_plain": row}), flush=True)
+    if row["beyond_one_ulp"] or not torch.isfinite(out.float()).all():
+        fail(f"fused int8 matmul disagrees with its plain version: {row}")
+    return row
+
+
+def conv_vs_plain(CF, T: int, k: int, s: int, dtype, gelu_tanh: bool, gen, timed: bool) -> dict:
+    """B8 against its plain version at B = 8, Cin = Cout = 512."""
+    F = torch.nn.functional
+    dev = torch.device("cuda")
+    B, C = 8, 512
+    x = torch.randn(B, T, C, device=dev, generator=gen).to(dtype)
+    w = (torch.rand(k, C, C, device=dev, generator=gen) * 2 - 1) / (k * C) ** 0.5
+    b = torch.randn(C, device=dev, generator=gen) * 0.1
+    ln_scale = torch.rand(C, device=dev, generator=gen) + 0.5
+    ln_bias = torch.randn(C, device=dev, generator=gen) * 0.1
+    with torch.no_grad():
+        out = CF.conv_ln_gelu_cuda(x, w, b, ln_scale, ln_bias, s, gelu_tanh=gelu_tanh)
+        torch.cuda.synchronize()
+        ref = CF.conv_ln_gelu_plain(x, w, b, ln_scale, ln_bias, s, gelu_tanh=gelu_tanh)
+    T_out = (T - k) // s + 1 if T >= k else 0
+    atol, rtol = CONV_TOL[dtype]
+    row = {"T": T, "T_out": T_out, "k": k, "s": s, "dtype": str(dtype).replace("torch.", ""),
+           "gelu": "tanh" if gelu_tanh else "erf", "atol": atol, "rtol": rtol}
+    if tuple(out.shape) != (B, T_out, C) or out.shape != ref.shape:
+        fail(f"conv+LN+GELU output shape {tuple(out.shape)}, expected {(B, T_out, C)}")
+    if T_out:
+        err = (out.float() - ref.float()).abs()
+        row["max_abs_err"] = err.max().item()
+        row["beyond_tol"] = int((err > atol + rtol * ref.float().abs()).sum().item())
+        del err
+        if row["beyond_tol"] or not torch.isfinite(out.float()).all():
+            fail(f"conv+LN+GELU kernel disagrees with its plain version: {row}")
+    del ref
+    if timed:
+        reps = 10 if dtype == torch.bfloat16 else 3
+        with torch.no_grad():
+            row["ms"] = time_ms(lambda: CF.conv_ln_gelu_cuda(
+                x, w, b, ln_scale, ln_bias, s, gelu_tanh=gelu_tanh), reps)
+            row["plain_ms"] = time_ms(lambda: CF.conv_ln_gelu_plain(
+                x, w, b, ln_scale, ln_bias, s, gelu_tanh=gelu_tanh), 2, 1)
+            # yardstick: the unfused layer's three library calls, as models/wavlm.py runs them
+            wt, bt = w.permute(2, 1, 0).to(dtype).contiguous(), b.to(dtype)
+            ls, lb = ln_scale.to(dtype), ln_bias.to(dtype)
+
+            def library():
+                y = F.conv1d(x.transpose(1, 2), wt, bt, stride=s).transpose(1, 2)
+                return F.gelu(F.layer_norm(y, (C,), ls, lb, 1e-5),
+                              approximate="tanh" if gelu_tanh else "none")
+
+            row["library_max_abs_diff"] = (library().float() - out.float()).abs().max().item()
+            row["library_ms"] = time_ms(library, reps)
+        es = x.element_size()
+        nbytes = x.numel() * es + w.numel() * es + 3 * C * 4 + out.numel() * es
+        row["bound_ms"], row["bound_by"] = _bound(
+            nbytes, 2.0 * B * T_out * k * C * C, PEAK_FLOPS[dtype])
+    print(json.dumps({"conv_ln_gelu_vs_plain": row}), flush=True)
+    torch.cuda.empty_cache()
+    return row
+
+
+def bhld_attention_vs_plain(FA, dtype, gen) -> dict:
+    """B6's entry point, `wavlm_gated_attention` on [B, L, H, dh]: driven
+    once through the dispatcher (its launch counted), held against its
+    plain version, timed."""
+    B, L, H = 8, 1024, 16
+    q, k, v, bias, gate, mask = attention_inputs(B, L, H, dtype, gen)
+    q4, k4, v4 = (x.view(B, L, H, 64) for x in (q, k, v))
+    FA.wavlm_gated_attention_bhld_cuda.launches = 0
+    out = FA.wavlm_gated_attention(q4, k4, v4, bias, gate, mask)
+    torch.cuda.synchronize()
+    launches = FA.wavlm_gated_attention_bhld_cuda.launches
+    ref = FA.wavlm_gated_attention_bhld_plain(q4, k4, v4, bias, gate, mask)
+    err = (out.float() - ref.float()).abs()
+    row = {"L": L, "dtype": str(dtype).replace("torch.", ""), "launches": launches,
+           "max_abs_err": err.max().item(), "tol": TOL[dtype]}
+    if launches != 1 or tuple(out.shape) != (B, L, H, 64):
+        fail(f"wavlm_gated_attention: {launches} launches, output {tuple(out.shape)}")
+    del out, ref, err
+    row["ms"] = time_ms(lambda: FA.wavlm_gated_attention_bhld_cuda(q4, k4, v4, bias, gate, mask), 20)
+    row["plain_ms"] = time_ms(
+        lambda: FA.wavlm_gated_attention_bhld_plain(q4, k4, v4, bias, gate, mask), 4, 1)
+    float_mask = (gate[..., None] * bias[None].float()).masked_fill(
+        ~mask[:, None, None, :], torch.finfo(torch.float32).min).to(dtype)
+    heads = [x.transpose(1, 2) for x in (q4, k4, v4)]
+    row["library_ms"] = time_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(*heads, attn_mask=float_mask),
+        4, 1)
+    del float_mask
+    row["bound_ms"], row["bound_by"] = attention_bound_ms(q, bias, gate, mask, H)
+    print(json.dumps({"bhld_attention_vs_plain": row}), flush=True)
+    if not row["max_abs_err"] <= TOL[dtype]:
+        fail(f"wavlm_gated_attention disagrees with its plain version: {row}")
+    torch.cuda.empty_cache()
+    return row
+
+
+def small_quant_pipeline_matches_cpu(tokenizer_dir: str) -> dict:
+    """Phase 11: a small float32 pipeline with the int8 encoder (fused
+    kernel), the fused conv front-end and the int8 decoder on the card and
+    on the CPU (plain versions) from the same weights and x_T.  The
+    encoder's output decides (see the module docstring); ids are printed."""
+    from fddm_asr_tpu_torch.config import Config
+    from fddm_asr_tpu_torch.pipeline import FDDMPipeline
+    from fddm_asr_tpu_torch.tokenizer import load_tokenizer
+
+    K, B, seq_len = 64, 2, 16
+    cfg = Config({
+        "seed": 0,
+        "data": {"vocab_size": K, "pad_id": 3, "bos_id": 1, "eos_id": 2},
+        "model": {"d_model": 96, "nhead": 4, "num_layers": 2, "dim_ff": 192,
+                  "dtype": "float32", "quant_dense": "int8",
+                  "encoder": {"wavlm_name": "tiny", "proj": "linear", "wavlm_config": {
+                      "hidden_size": 128, "num_attention_heads": 2, "intermediate_size": 256,
+                      "conv_dim": [128] * 7, **FUSED_WAVLM_CONFIG}}},
+        "diffusion": {"T": 200, "beta_max": 0.2},
+    })
+    tok = load_tokenizer(synthetic_tokenizer(tokenizer_dir, K))
+    cpu = FDDMPipeline.from_config(cfg, tokenizer=tok, device="cpu")
+    gpu = FDDMPipeline.from_config(cfg, tokenizer=tok, device="cuda")
+    gpu.decoder.load_state_dict(cpu.decoder.state_dict())
+    gpu.encoder.load_state_dict(cpu.encoder.state_dict())
+    wav = synthetic_audio(B, 1.0, seed=1)
+    wav[1, 8000:] = 0.0
+    x_init = np.random.default_rng(2).integers(0, K, (B, seq_len))
+    sampling = dict(T_infer=20, r=5, greedy=True, x_init=x_init)
+    wrappers = port_kernel_wrappers()
+    for f in wrappers.values():
+        f.launches = 0
+    got = gpu.transcribe_with_ids(wav, seq_len=seq_len, **sampling)
+    torch.cuda.synchronize()
+    counts = {k: f.launches for k, f in wrappers.items() if f.launches}
+    n_layers = gpu.encoder.config.num_hidden_layers
+    want = {"fwd": n_layers, "int8_matmul_fused": 6 * n_layers, "conv_ln_gelu": 6}
+    c_gpu, _ = gpu.encode_waveform(wav)
+    c_cpu, _ = cpu.encode_waveform(wav)
+    feat_err = (c_gpu.cpu() - c_cpu).abs().max().item()
+    ids_cpu, p_cpu = cpu.sample(c_cpu, seq_len, **sampling)
+    got_ids = torch.tensor([r[1] for r in got])
+    differ = (got_ids != ids_cpu).nonzero().tolist()
+    top2 = p_cpu.topk(2, dim=-1).values
+    result = {"launches": counts, "expected_launches": want, "encoder_max_abs_err": feat_err,
+              "encoder_tol": SMALL_QUANT_ENCODER_TOL, "ids_equal": not differ,
+              "ids_card": got_ids.tolist(), "ids_cpu": ids_cpu.tolist(),
+              "cpu_margin_where_ids_differ": [
+                  {"at": [b, i], "margin": (top2[b, i, 0] - top2[b, i, 1]).item()}
+                  for b, i in differ]}
+    print(json.dumps({"small_quant_pipeline_card_vs_cpu": result}), flush=True)
+    if counts != want:
+        fail(f"small quantized pipeline launches {counts}, expected {want}")
+    if not feat_err <= SMALL_QUANT_ENCODER_TOL or not torch.isfinite(c_gpu).all():
+        fail(f"small quantized pipeline encoder, card vs CPU: max abs err {feat_err}")
+    return result
+
+
+def transcribe_quantized_full_width(FA, tokenizer_dir: str, card: str, base_feats) -> dict:
+    """Phase 12: the int8_fused + fused front-end configuration, the same
+    with the library's int8 product and with no int8 at all (`quant_dense:
+    none`: what the front-end and the tanh GELU do alone), and the int8
+    encoder's output against that full-precision one."""
+    fused = transcribe_full_width(
+        FA, tokenizer_dir, card, "transcribe_int8_fused", FUSED_WAVLM_CONFIG,
+        {"fwd": 24, "int8_matmul_fused": 144, "conv_ln_gelu": 6})
+    library = transcribe_full_width(
+        FA, tokenizer_dir, card, "transcribe_int8", {**FUSED_WAVLM_CONFIG, "quant_dense": "int8"},
+        {"fwd": 24, "conv_ln_gelu": 6})
+    front = transcribe_full_width(
+        FA, tokenizer_dir, card, "transcribe_fused_frontend",
+        {**FUSED_WAVLM_CONFIG, "quant_dense": "none"}, {"fwd": 24, "conv_ln_gelu": 6})
+    ref = front["feats"].float()
+    # phase 4's configuration once more, late in the process: the host's share of the wall
+    # time grows over the run, so walls compare only between neighbours
+    transcribe_full_width(FA, tokenizer_dir, card, "transcribe_repeat")
+
+    def rel_l2(a):
+        return ((a.float() - ref).norm() / ref.norm()).item()
+
+    result = {"int8_fused_vs_full_precision": rel_l2(fused["feats"]),
+              "int8_vs_full_precision": rel_l2(library["feats"]),
+              "int8_fused_vs_int8": ((fused["feats"].float() - library["feats"].float()).norm()
+                                     / library["feats"].float().norm()).item(),
+              "fused_frontend_tanh_vs_phase_4": rel_l2(base_feats),
+              "bounds": list(QUANT_REL_L2)}
+    print(json.dumps({"quantized_encoder_rel_l2": result}), flush=True)
+    lo, hi = QUANT_REL_L2
+    if not lo < result["int8_fused_vs_full_precision"] < hi:
+        fail(f"int8_fused encoder vs full precision: rel L2 {result} outside ({lo}, {hi})")
+    if not result["fused_frontend_tanh_vs_phase_4"] > lo:
+        fail("fused_frontend + gelu_approx_tanh left the encoder's output unchanged")
+    return fused
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from fddm_asr_tpu_torch.ops import _build
+    from fddm_asr_tpu_torch.ops import conv_frontend as CF
     from fddm_asr_tpu_torch.ops import flash_attention as FA
+    from fddm_asr_tpu_torch.ops import quant as Q
 
     card = card_line()
     print(f"card: {card}", flush=True)
 
     t0 = time.time()
-    libs = FA.build_libraries(verbose=True)
+    libs = _build.build_libraries(verbose=True)
     print(json.dumps({"build": {"libraries": [os.path.relpath(p) for p in libs.values()],
                                 "seconds": time.time() - t0}}), flush=True)
 
@@ -811,6 +1142,31 @@ def main() -> int:
         small_finetune_step_matches_cpu(FA, tmp)
     with tempfile.TemporaryDirectory() as tmp:
         finetune = finetune_full_width(FA, tmp, card, isolated=step_row)
+
+    # phases 8-12: the int8 encoder and the fused conv front-end
+    int8_rows = {}
+    for din, dout in WAVLM_DENSE_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            for with_bias in (True, False):
+                int8_rows[(din, dout, dtype, with_bias)] = int8_matmul_vs_plain(
+                    Q, 8192, din, dout, dtype, with_bias, gen, timed=with_bias)
+    for dtype in (torch.bfloat16, torch.float32):
+        int8_matmul_vs_plain(Q, 51, 64, 136, dtype, False, gen, timed=False)
+    conv_rows = {}
+    for T, k, s in ((63999, 3, 2), (1999, 2, 2)):
+        for dtype in (torch.bfloat16, torch.float32):
+            for gelu_tanh in (True, False):
+                conv_rows[(k, dtype, gelu_tanh)] = conv_vs_plain(
+                    CF, T, k, s, dtype, gelu_tanh, gen, timed=True)
+    for T in (2, 3):  # no output row, one output row
+        for dtype in (torch.bfloat16, torch.float32):
+            conv_vs_plain(CF, T, 3, 2, dtype, True, gen, timed=False)
+    bhld_rows = {dtype: bhld_attention_vs_plain(FA, dtype, gen)
+                 for dtype in (torch.float32, torch.bfloat16)}
+    with tempfile.TemporaryDirectory() as tmp:
+        small_quant_pipeline_matches_cpu(tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        quantized = transcribe_quantized_full_width(FA, tmp, card, result["feats"])
 
     main_row = rows[(1024, torch.bfloat16)]  # the transcribe's shape and type
     kernels = [{
@@ -844,6 +1200,45 @@ def main() -> int:
             "shape": f"B={FINETUNE_B} L={step_L} H=16 bf16, {frames} valid keys per row",
             **({"plain_and_library_cover": "B4+B5"} if key != "fwd_lse" else {}),
         })
+    bhld = bhld_rows[torch.bfloat16]
+    kernels.append({
+        "name": "wavlm_gated_attention_bhld", "route": "cuda",
+        "source": "fddm_asr_tpu_torch/csrc/gated_attention.cu",
+        "replaces": "fddm_asr_tpu/ops/flash_attention.py:80 (_kernel)",
+        "launches": bhld["launches"], "max_abs_err": bhld["max_abs_err"], "ms": bhld["ms"],
+        "plain_ms": bhld["plain_ms"], "bound_ms": bhld["bound_ms"],
+        "bound_by": bhld["bound_by"], "library_ms": bhld["library_ms"],
+        "shape": "B=8 L=1024 H=16 dh=64 bf16, ragged key masks",
+        "path": "the wavlm_gated_attention dispatcher, driven once: no model path reaches "
+                "this kernel's entry point, in the JAX package or here",
+    })
+    ffn = int8_rows[(1024, 4096, torch.bfloat16, True)]  # the largest of the path's shapes
+    kernels.append({
+        "name": "int8_matmul_fused", "route": "cuda",
+        "source": "fddm_asr_tpu_torch/csrc/int8_matmul_fused.cu",
+        "replaces": "fddm_asr_tpu/ops/quant.py:92 (_fused_kernel)",
+        "launches": quantized["launches"]["int8_matmul_fused"],
+        "max_abs_err": ffn["max_abs_err"], "ms": ffn["ms"], "plain_ms": ffn["plain_ms"],
+        "bound_ms": ffn["bound_ms"], "bound_by": ffn["bound_by"],
+        "library_ms": ffn["library_ms"],
+        "shape": "M=8192 din=1024 dout=4096 bf16 in and out, with bias",
+        "by_shape": [{"din": din, "dout": dout, "launches_per_layer": 4 if din == dout else 1,
+                      **{k: int8_rows[(din, dout, torch.bfloat16, True)][k] for k in (
+                          "ms", "plain_ms", "library_ms", "bf16_matmul_ms", "bound_ms",
+                          "bound_by", "max_abs_err")}}
+                     for din, dout in WAVLM_DENSE_SHAPES],
+    })
+    conv = conv_rows[(3, torch.bfloat16, True)]  # layers 1-4's geometry at layer 1's length
+    kernels.append({
+        "name": "conv_ln_gelu", "route": "cuda",
+        "source": "fddm_asr_tpu_torch/csrc/conv_ln_gelu.cu",
+        "replaces": "fddm_asr_tpu/ops/conv_frontend.py:108 (kernel, made by _make_kernel :98)",
+        "launches": quantized["launches"]["conv_ln_gelu"],
+        "max_abs_err": conv["max_abs_err"], "ms": conv["ms"], "plain_ms": conv["plain_ms"],
+        "bound_ms": conv["bound_ms"], "bound_by": conv["bound_by"],
+        "library_ms": conv["library_ms"],
+        "shape": "B=8 T=63999 Cin=Cout=512 k=3 s=2 bf16, tanh GELU",
+    })
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -8,6 +8,13 @@ parameter trees (nested dicts of numpy arrays) become the port's
 [out, in]); a flax Conv kernel is [k, in/groups, out] (torch Conv1d
 [out, in/groups, k]).  Scanned trees (`layers_scan` / `blocks_scan`) hold
 layers stacked on a leading axis and are unstacked here.
+
+The int8 and fused-front-end options (`quant_dense`, `fused_frontend`)
+change no parameter, in the JAX package or here: weights are quantized on
+the fly from the same `nn.Linear` / `Conv1d` tensors, so a quantized model
+takes the state_dict these functions make for the full-precision one, and
+no function here knows of the options (`tests/test_torch_wavlm.py` loads
+one into the other with `strict=True`).
 """
 from __future__ import annotations
 

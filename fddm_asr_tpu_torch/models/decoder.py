@@ -23,6 +23,15 @@ places: the attention weights, each sublayer's output before its residual
 add, and the FFN's hidden activation.  The module records no autograd
 graph only where its caller says so (the pipeline samples under
 `torch.inference_mode`).
+
+`quant_dense="int8"` (model.quant_dense; inference only, raises where
+autograd records) runs the denses the JAX decoder quantizes through dynamic
+int8 (`ops/quant.int8_matmul`): self- and cross-attention q/k/v/out, `ff.0`,
+`ff.3` and the float32 `head`.  Each of q, k and v is its own slice of the
+packed `in_proj_weight`, quantized per output channel on its own, as three
+separate denses would be.  The time MLP, `time_proj` and FiLM stay full
+precision; "int8_fused" raises, as in the JAX decoder.  Parameters and
+checkpoints are unchanged.
 """
 from __future__ import annotations
 
@@ -35,6 +44,7 @@ from torch import nn
 
 from fddm_asr_tpu_torch.models.wavlm import _layer_norm, _linear
 from fddm_asr_tpu_torch.ops.attention import dot_product_attention
+from fddm_asr_tpu_torch.ops.quant import quantized_linear
 
 _LN_EPS = 1e-6
 
@@ -126,10 +136,13 @@ class MultiheadAttention(nn.Module):
     """torch.nn.MultiheadAttention's parameters (packed in_proj) with the
     port's attention: `mask` True=KEEP, masked keys score f32-min."""
 
-    def __init__(self, d_model: int, nhead: int, dropout: float = 0.0):
+    def __init__(self, d_model: int, nhead: int, dropout: float = 0.0,
+                 quant_dense: str = "none"):
         super().__init__()
         self.nhead = nhead
         self.dropout = dropout
+        self.quant_dense = quant_dense
+        self._int8_cache = {}  # quantized slices of in_proj_weight, by projection
         self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model))
         self.out_proj = nn.Linear(d_model, d_model)
@@ -138,26 +151,36 @@ class MultiheadAttention(nn.Module):
     def forward(self, query, key, value, key_mask, dtype):
         B, Lq, d = query.shape
         Lk = key.shape[1]
-        w = self.in_proj_weight.to(dtype)
-        b = self.in_proj_bias.to(dtype)
-        q = F.linear(query.to(dtype), w[:d], b[:d]).reshape(B, Lq, self.nhead, -1)
-        k = F.linear(key.to(dtype), w[d:2 * d], b[d:2 * d]).reshape(B, Lk, self.nhead, -1)
-        v = F.linear(value.to(dtype), w[2 * d:], b[2 * d:]).reshape(B, Lk, self.nhead, -1)
+        if self.quant_dense != "none":
+            q, k, v = (quantized_linear(
+                self.quant_dense, self._int8_cache, name, x.to(dtype), self.in_proj_weight,
+                self.in_proj_bias, dtype, rows=slice(i * d, (i + 1) * d))
+                for i, (name, x) in enumerate((("q", query), ("k", key), ("v", value))))
+        else:
+            w = self.in_proj_weight.to(dtype)
+            b = self.in_proj_bias.to(dtype)
+            q = F.linear(query.to(dtype), w[:d], b[:d])
+            k = F.linear(key.to(dtype), w[d:2 * d], b[d:2 * d])
+            v = F.linear(value.to(dtype), w[2 * d:], b[2 * d:])
+        q = q.reshape(B, Lq, self.nhead, -1)
+        k = k.reshape(B, Lk, self.nhead, -1)
+        v = v.reshape(B, Lk, self.nhead, -1)
         out = dot_product_attention(q, k, v, key_mask=key_mask,
                                     dropout_p=self.dropout if self.training else 0.0)
         out = out.reshape(B, Lq, d)
-        return _linear(self.out_proj, out, dtype)
+        return _linear(self.out_proj, out, dtype, self.quant_dense)
 
 
 class DecoderBlock(nn.Module):
     """Post-LN block: self-attn -> cross-attn -> FiLM -> FFN."""
 
     def __init__(self, d_model: int, nhead: int, dim_ff: int, use_film: bool,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, quant_dense: str = "none"):
         super().__init__()
         self.dropout = dropout
-        self.self_attn = MultiheadAttention(d_model, nhead, dropout)
-        self.cross_attn = MultiheadAttention(d_model, nhead, dropout)
+        self.quant_dense = quant_dense
+        self.self_attn = MultiheadAttention(d_model, nhead, dropout, quant_dense)
+        self.cross_attn = MultiheadAttention(d_model, nhead, dropout, quant_dense)
         if use_film:
             self.film_layer = FiLMLayer(d_model)
         self.ff = nn.Sequential(nn.Linear(d_model, dim_ff), nn.GELU(), nn.Dropout(dropout),
@@ -180,8 +203,8 @@ class DecoderBlock(nn.Module):
                         dtype)
         if hasattr(self, "film_layer"):
             x = self.film_layer(x, masked_mean_pool(cond, c_mask), dtype)
-        h = drop(F.gelu(_linear(self.ff[0], x, dtype)))
-        h = _linear(self.ff[3], h, dtype)
+        h = drop(F.gelu(_linear(self.ff[0], x, dtype, self.quant_dense)))
+        h = _linear(self.ff[3], h, dtype, self.quant_dense)
         return _layer_norm(self.norm3, x + drop(h), dtype)
 
 
@@ -195,10 +218,14 @@ class DenoisingTransformerDecoder(nn.Module):
                  num_layers: int = 6, dim_ff: int = 2048, dropout: float = 0.1,
                  max_len: int = 2048,
                  pad_id: int = 0, pos_emb_type: str = "rope", use_film: bool = True,
-                 rope_base: float = 10000.0, dtype: torch.dtype = torch.float32):
+                 rope_base: float = 10000.0, dtype: torch.dtype = torch.float32,
+                 quant_dense: str = "none"):
         super().__init__()
         if pos_emb_type not in ("rope", "sinusoidal", "learned"):
             raise ValueError(f"unsupported pos_emb_type: {pos_emb_type}")
+        if quant_dense not in ("none", "int8"):
+            raise ValueError(f"decoder quant_dense={quant_dense!r}: expected 'none' or 'int8'")
+        self.quant_dense = quant_dense
         self.d_model = d_model
         self.max_len = max_len
         self.pad_id = pad_id
@@ -212,7 +239,7 @@ class DenoisingTransformerDecoder(nn.Module):
         self.time_emb = SinusoidalTimeEmbedding(d_model)
         self.time_proj = nn.Linear(d_model, d_model)
         self.blocks = nn.ModuleList(
-            DecoderBlock(d_model, nhead, dim_ff, use_film, dropout)
+            DecoderBlock(d_model, nhead, dim_ff, use_film, dropout, quant_dense)
             for _ in range(num_layers))
         self.head = nn.Linear(d_model, vocab_size)
         with torch.no_grad():
@@ -247,4 +274,4 @@ class DenoisingTransformerDecoder(nn.Module):
 
         for block in self.blocks:
             x = block(x, cond, x_mask, c_mask, rope_cos, rope_sin, dtype)
-        return _linear(self.head, x.float(), torch.float32)
+        return _linear(self.head, x.float(), torch.float32, self.quant_dense)

@@ -34,6 +34,17 @@ Training mode (`train()`), as the JAX package's `deterministic=False`:
   * `freeze_feature_extractor` runs the conv front-end under no_grad;
   * `remat_layers` recomputes layers 1..N-1 in the backward
     (torch.utils.checkpoint); layer 0, which owns `rel_attn_embed`, is kept.
+
+Inference options, as in the JAX package (both raise where autograd records):
+  * `quant_dense` "int8" | "int8_fused" runs the q/k/v/out projections and
+    the two FFN denses of every layer through dynamic int8 (`ops/quant.py`:
+    the library path, or the fused Hopper kernel); the gate's
+    `gru_rel_pos_linear`, the feature projection and the encoder's `proj`
+    stay full precision.  Parameters and checkpoints are unchanged;
+  * `fused_frontend` runs conv layers 1-6 of the "layer"-norm front-end
+    through the fused conv+LayerNorm+GELU kernel (`ops/conv_frontend.py`),
+    channels-last from layer 0's output on.  The waveform layer (Cin = 1)
+    stays on `F.conv1d` + LayerNorm + GELU, as on the TPU it stays on XLA.
 """
 from __future__ import annotations
 
@@ -49,10 +60,14 @@ from torch import nn
 
 from torch.utils.checkpoint import checkpoint
 
+from fddm_asr_tpu_torch.ops.conv_frontend import conv_ln_gelu
 from fddm_asr_tpu_torch.ops.flash_attention import (
     wavlm_gated_attention_heads_packed,
     wavlm_gated_attention_heads_packed_trainable,
 )
+from fddm_asr_tpu_torch.ops.quant import quantized_linear
+
+QUANT_MODES = ("none", "int8", "int8_fused")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,9 +102,20 @@ class WavLMConfig:
     # tanh approximation of GELU everywhere (front-end, pos-conv, FFN);
     # off = exact erf, as HF WavLM
     gelu_approx_tanh: bool = False
+    # conv layers 1-6 through the fused conv+LayerNorm+GELU kernel ("layer"
+    # norm only; inference, or training with freeze_feature_extractor)
+    fused_frontend: bool = False
+    # q/k/v/out projections and FFN denses through dynamic int8: "none" |
+    # "int8" (library product) | "int8_fused" (the fused kernel); inference
+    quant_dense: str = "none"
     # pad the frame axis to a multiple of this at encoder entry (zero frames
     # + key mask); real-frame numerics are unchanged
     seq_pad_multiple: int = 1
+
+    def __post_init__(self):
+        if self.quant_dense not in QUANT_MODES:
+            raise ValueError(f"quant_dense={self.quant_dense!r}: expected 'none', 'int8', or "
+                             "'int8_fused'")
 
     @classmethod
     def large(cls) -> "WavLMConfig":
@@ -125,7 +151,14 @@ def _gelu(x: torch.Tensor, tanh: bool) -> torch.Tensor:
     return F.gelu(x, approximate="tanh" if tanh else "none")
 
 
-def _linear(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+def _linear(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype,
+            quant: str = "none") -> torch.Tensor:
+    """`layer(x)` in `dtype`; with `quant` "int8" or "int8_fused" through
+    dynamic int8 (`ops/quant.py`), the quantized weight kept on the layer."""
+    if quant != "none":
+        cache = layer.__dict__.setdefault("_int8_cache", {})
+        return quantized_linear(quant, cache, "weight", x.to(dtype), layer.weight, layer.bias,
+                                dtype)
     bias = None if layer.bias is None else layer.bias.to(dtype)
     return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
 
@@ -145,21 +178,34 @@ class ConvLayer(nn.Module):
     """One temporal conv of the feature encoder with "layer"/"group"/"none" norm."""
 
     def __init__(self, in_dim: int, out_dim: int, kernel: int, stride: int,
-                 bias: bool, norm: str, eps: float, gelu_tanh: bool):
+                 bias: bool, norm: str, eps: float, gelu_tanh: bool, fused: bool = False):
         super().__init__()
         self.conv = nn.Conv1d(in_dim, out_dim, kernel, stride=stride, bias=bias)
         self.norm = norm
         self.gelu_tanh = gelu_tanh
+        # the fused kernel's layer: "layer" norm and not the waveform layer
+        self.fused = fused and norm == "layer" and in_dim != 1
         if norm == "layer":
             self.layer_norm = nn.LayerNorm(out_dim, eps=eps)
         elif norm == "group":
             # GroupNorm(C, C) == per-channel normalisation over time
             self.layer_norm = nn.GroupNorm(out_dim, out_dim, eps=1e-5)
 
-    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:  # [B, C, T]
+    def forward(self, x: torch.Tensor, dtype: torch.dtype,
+                channels_last: bool = False) -> torch.Tensor:
+        """[B, C, T] -> [B, C', T'], or with `channels_last` (the fused
+        front-end's layout) [B, T, C] -> [B, T', C']."""
+        if self.fused:
+            ln = self.layer_norm
+            return conv_ln_gelu(x.to(dtype), self.conv.weight.permute(2, 1, 0), self.conv.bias,
+                                ln.weight, ln.bias, self.conv.stride[0], ln.eps, self.gelu_tanh)
+        if channels_last:
+            x = x.transpose(1, 2)
         x = _conv(self.conv, x, dtype)
         if self.norm == "layer":
-            x = _layer_norm(self.layer_norm, x.transpose(1, 2), dtype).transpose(1, 2)
+            x = _layer_norm(self.layer_norm, x.transpose(1, 2), dtype)
+            if not channels_last:
+                x = x.transpose(1, 2)
         elif self.norm == "group":
             gn = self.layer_norm
             x = F.group_norm(x, gn.num_groups, gn.weight.to(dtype), gn.bias.to(dtype), gn.eps)
@@ -173,17 +219,25 @@ class FeatureEncoder(nn.Module):
         super().__init__()
         layers = []
         in_dim = 1
+        # the fused front-end runs channels-last throughout ("layer" norm only)
+        self.channels_last = cfg.fused_frontend and cfg.feat_extract_norm == "layer"
         for i, (dim, k, s) in enumerate(zip(cfg.conv_dim, cfg.conv_kernel, cfg.conv_stride)):
             if cfg.feat_extract_norm == "layer":
                 norm = "layer"
             else:
                 norm = "group" if i == 0 else "none"
             layers.append(ConvLayer(in_dim, dim, k, s, cfg.conv_bias, norm,
-                                    cfg.layer_norm_eps, cfg.gelu_approx_tanh))
+                                    cfg.layer_norm_eps, cfg.gelu_approx_tanh,
+                                    fused=cfg.fused_frontend))
             in_dim = dim
         self.conv_layers = nn.ModuleList(layers)
 
     def forward(self, wave: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        if self.channels_last:  # [B, T, 1]; layer 0 transposes once, after its conv
+            x = wave[:, :, None].to(dtype)
+            for layer in self.conv_layers:
+                x = layer(x, dtype, channels_last=True)
+            return x
         x = wave[:, None, :].to(dtype)  # [B, 1, T]
         for layer in self.conv_layers:
             x = layer(x, dtype)
@@ -290,9 +344,9 @@ class GatedRelPosAttention(nn.Module):
         gate = gates[..., 0] * (gates[..., 1] * const - 1.0) + 2.0  # f32 [B, L, H]
         gate = gate.float().transpose(1, 2).contiguous()             # [B, H, L]
 
-        q = _linear(self.q_proj, x, dtype)
-        k = _linear(self.k_proj, x, dtype)
-        v = _linear(self.v_proj, x, dtype)
+        q = _linear(self.q_proj, x, dtype, cfg.quant_dense)
+        k = _linear(self.k_proj, x, dtype, cfg.quant_dense)
+        v = _linear(self.v_proj, x, dtype, cfg.quant_dense)
         if self.training and cfg.attention_dropout > 0.0:
             raise NotImplementedError(
                 "attention dropout is not ported (the gated-attention kernels compute "
@@ -304,7 +358,7 @@ class GatedRelPosAttention(nn.Module):
         else:
             out = wavlm_gated_attention_heads_packed(q, k, v, position_bias, gate,
                                                      key_mask, num_heads=H)
-        return _linear(self.out_proj, out, dtype), position_bias
+        return _linear(self.out_proj, out, dtype, cfg.quant_dense), position_bias
 
 
 class FeedForward(nn.Module):
@@ -316,9 +370,10 @@ class FeedForward(nn.Module):
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         cfg = self.cfg
-        h = _gelu(_linear(self.intermediate_dense, x, dtype), cfg.gelu_approx_tanh)
+        h = _gelu(_linear(self.intermediate_dense, x, dtype, cfg.quant_dense),
+                  cfg.gelu_approx_tanh)
         h = F.dropout(h, cfg.activation_dropout, self.training)
-        h = _linear(self.output_dense, h, dtype)
+        h = _linear(self.output_dense, h, dtype, cfg.quant_dense)
         return F.dropout(h, cfg.hidden_dropout, self.training)
 
 

@@ -6,12 +6,13 @@
     out    = softmax(scores).to(v.dtype) @ v
 
 Counterpart of `fddm_asr_tpu/ops/flash_attention.py`.  The TPU package runs
-five Pallas kernels here; the port has hand-written CUDA kernels for Hopper:
+six Pallas kernels here; the port has hand-written CUDA kernels for Hopper:
 
   * `csrc/gated_attention.cu`, one online-softmax forward for every L.  It
     replaces `_kernel_packed` (L <= 4096) and `_kernel_packed_flash`
-    (L > 4096), and, writing the row logsumexp as well, the training
-    forward `_kernel_packed_fwd_lse`;
+    (L > 4096), writing the row logsumexp as well the training forward
+    `_kernel_packed_fwd_lse`, and through `wavlm_gated_attention` on
+    [B, L, H, dh] operands the per-head `_kernel`;
   * `csrc/gated_attention_bwd.cu`, the backward: kernel A (dq, dgate) for
     `_kernel_packed_bwd_dq` and kernel B (dk, dv, dbias) for
     `_kernel_packed_bwd_dkv`.
@@ -22,9 +23,7 @@ key_mask [B, L] bool (True = keep), lse and delta [B, H, L] float32.
 
 Routing is by the device of the tensors and nothing else: a CPU tensor takes
 the plain version; a CUDA tensor launches the kernel or raises.  The kernels
-are compiled with nvcc on first use, from the sources in this package, into
-`fddm_asr_tpu_torch/_build/` (plain-C shared libraries loaded with ctypes,
-one per source, built in parallel).  bfloat16 runs on the tensor cores
+are compiled with nvcc on first use (`ops/_build.py`).  bfloat16 runs on the tensor cores
 (mma.sync), float32 in exact f32 FMAs.
 
 Training goes through `wavlm_gated_attention_heads_packed_trainable`: on the
@@ -36,35 +35,24 @@ the plain forward exactly, including at rows whose keys are all masked
 """
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
-_NEG_INF = torch.finfo(torch.float32).min
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
-SOURCES = {"gated_attention": "gated_attention.cu",
-           "gated_attention_bwd": "gated_attention_bwd.cu"}
-HEADERS = ("gated_attention.cuh",)
-BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-HEAD_DIM = 64  # the kernels' only head dim (WavLM's)
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+from fddm_asr_tpu_torch.ops import _build
+from fddm_asr_tpu_torch.ops._build import DTYPE_CODE as _DTYPE_CODE
+from fddm_asr_tpu_torch.ops._build import check_tensor as _check
+from fddm_asr_tpu_torch.ops._build import launch as _launch
+from fddm_asr_tpu_torch.ops._build import ptr as _ptr
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {  # C function -> (library, argtypes)
-    "fddm_gated_attention": ("gated_attention", [_P] * 8 + [_I] * 4 + [_P]),
-    "fddm_gated_attention_bwd_dq": ("gated_attention_bwd", [_P] * 11 + [_I] * 4 + [_P]),
-    "fddm_gated_attention_bwd_dkv": ("gated_attention_bwd", [_P] * 12 + [_I] * 4 + [_P]),
-}
-_libs: Dict[str, ctypes.CDLL] = {}  # loaded on first CUDA call
+_NEG_INF = torch.finfo(torch.float32).min
+HEAD_DIM = 64  # the kernels' only head dim (WavLM's)
+
+_build.register("fddm_gated_attention", "gated_attention", [_build.P] * 8 + [_build.I] * 4)
+_build.register("fddm_gated_attention_bwd_dq", "gated_attention_bwd",
+                [_build.P] * 11 + [_build.I] * 4)
+_build.register("fddm_gated_attention_bwd_dkv", "gated_attention_bwd",
+                [_build.P] * 12 + [_build.I] * 4)
 
 
 # ------------------------------------------------------------ plain versions
@@ -166,88 +154,6 @@ def wavlm_gated_attention_bwd_plain(q, k, v, pos_bias, gate, key_mask, out, lse,
 
 
 # ------------------------------------------------------------------ kernels
-def _source_digest(name: str) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in (SOURCES[name], *HEADERS):
-        with open(os.path.join(CSRC_DIR, f), "rb") as fh:
-            h.update(fh.read())
-    return h.hexdigest()[:16]
-
-
-def _library_path(name: str) -> str:
-    return os.path.join(BUILD_DIR, f"lib{name}_{_source_digest(name)}.so")
-
-
-def _nvcc() -> str:
-    nvcc = shutil.which("nvcc")
-    if nvcc is None:
-        nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
-    if not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found (set CUDA_HOME): cannot build the "
-                           "gated-attention kernels")
-    return nvcc
-
-
-def build_libraries(verbose: bool = False) -> Dict[str, str]:
-    """Compile every source in csrc/ for sm_90a, one nvcc per source, all
-    started together; returns {name: .so path}.
-
-    A file name carries a hash of its source, the shared header and the
-    flags, so an edited source is rebuilt and an unchanged one is reused."""
-    paths = {name: _library_path(name) for name in SOURCES}
-    todo = {name: path for name, path in paths.items() if not os.path.exists(path)}
-    if not todo:
-        return paths
-    nvcc = _nvcc()
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    procs = {}
-    for name in todo:
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        procs[name] = (tmp, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, SOURCES[name])],
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-    errors = []
-    for name, (tmp, proc) in procs.items():
-        _, err = proc.communicate()
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            errors.append(f"nvcc failed on {SOURCES[name]} ({proc.returncode}):\n{err}")
-            continue
-        if verbose:
-            print(err.strip())  # ptxas: registers, shared memory, spills
-        os.replace(tmp, todo[name])
-    if errors:
-        raise RuntimeError("\n".join(errors))
-    return paths
-
-
-def _function(fn_name: str):
-    lib_name, argtypes = _SIGNATURES[fn_name]
-    if lib_name not in _libs:
-        path = build_libraries()[lib_name]
-        lib = ctypes.CDLL(path)
-        for name, (owner, types) in _SIGNATURES.items():
-            if owner == lib_name:
-                getattr(lib, name).argtypes = types
-                getattr(lib, name).restype = ctypes.c_int
-        _libs[lib_name] = lib
-    return getattr(_libs[lib_name], fn_name)
-
-
-def _check(name: str, x: torch.Tensor, shape, dtype, device) -> None:
-    if x.device != device:
-        raise ValueError(f"{name} is on {x.device}, q on {device}")
-    if x.dtype != dtype:
-        raise ValueError(f"{name} has dtype {x.dtype}, expected {dtype}")
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {tuple(shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-    if x.data_ptr() % 16:
-        raise ValueError(f"{name} must be 16-byte aligned (the kernels load 16-byte rows)")
-
-
 def _check_operands(q, k, v, pos_bias, gate, key_mask, num_heads,
                     lse=None, delta=None, dout=None):
     """Check the kernels' operands (lse, delta [B, H, L] f32 and dout, q's
@@ -273,18 +179,6 @@ def _check_operands(q, k, v, pos_bias, gate, key_mask, num_heads,
     if key_mask is not None:
         _check("key_mask", key_mask, (B, L), torch.bool, dev)
     return B, L, H
-
-
-def _ptr(x: Optional[torch.Tensor]):
-    return None if x is None else x.data_ptr()
-
-
-def _launch(fn_name: str, dev: torch.device, *args) -> None:
-    fn = _function(fn_name)
-    with torch.cuda.device(dev):
-        rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"{fn_name} launch failed: CUDA error {rc}")
 
 
 def _forward_cuda(q, k, v, pos_bias, gate, key_mask, num_heads, with_lse: bool):
@@ -347,8 +241,28 @@ def wavlm_gated_attention_bwd_dkv_cuda(q, k, v, pos_bias, gate, key_mask, lse, d
     return dk, dv, dbias
 
 
+def wavlm_gated_attention_bhld_cuda(q, k, v, pos_bias, gate, key_mask=None) -> torch.Tensor:
+    """B6: the forward kernel on q/k/v [B, L, H, dh].  A contiguous
+    [B, L, H, dh] tensor is the head-packed [B, L, H*dh] one, so this is a
+    view and no copy (the TPU kernel's transposes to [B, H, L, dh] and its
+    padding are Mosaic's needs, not the function's).  Adds one to its own
+    `.launches` per launch."""
+    if q.dim() != 4:
+        raise ValueError(f"q must be [B, L, H, dh], got shape {tuple(q.shape)}")
+    B, L, H, dh = q.shape
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if tuple(x.shape) != (B, L, H, dh) or not x.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous [B, L, H, dh] = {(B, L, H, dh)} "
+                             f"tensor, got shape {tuple(x.shape)}")
+    out, _ = _forward_cuda(q.view(B, L, H * dh), k.view(B, L, H * dh), v.view(B, L, H * dh),
+                           pos_bias, gate, key_mask, H, with_lse=False)
+    wavlm_gated_attention_bhld_cuda.launches += 1
+    return out.view(B, L, H, dh)
+
+
 for _wrapper in (wavlm_gated_attention_cuda, wavlm_gated_attention_fwd_lse_cuda,
-                 wavlm_gated_attention_bwd_dq_cuda, wavlm_gated_attention_bwd_dkv_cuda):
+                 wavlm_gated_attention_bwd_dq_cuda, wavlm_gated_attention_bwd_dkv_cuda,
+                 wavlm_gated_attention_bhld_cuda):
     _wrapper.launches = 0
 
 
@@ -361,6 +275,24 @@ def wavlm_gated_attention_heads_packed(
     if q.device.type == "cpu":
         return wavlm_gated_attention_plain(q, k, v, pos_bias, gate, key_mask, num_heads)
     return wavlm_gated_attention_cuda(q, k, v, pos_bias, gate, key_mask, num_heads)
+
+
+def wavlm_gated_attention_bhld_plain(q, k, v, pos_bias, gate, key_mask=None) -> torch.Tensor:
+    """Plain version on q/k/v [B, L, H, dh] (`wavlm_gated_attention_xla`'s
+    layout and math): the head-packed plain version through a reshape."""
+    B, L, H, dh = q.shape
+    out = wavlm_gated_attention_plain(q.reshape(B, L, H * dh), k.reshape(B, L, H * dh),
+                                      v.reshape(B, L, H * dh), pos_bias, gate, key_mask, H)
+    return out.view(B, L, H, dh)
+
+
+def wavlm_gated_attention(q, k, v, pos_bias, gate, key_mask=None) -> torch.Tensor:
+    """Dispatch for q/k/v [B, L, H, dh] on the tensors' device: CPU -> plain
+    version, CUDA -> the forward kernel (B6) or raise (dh other than 64
+    raises on the card).  No model path calls it, as in the JAX package."""
+    if q.device.type == "cpu":
+        return wavlm_gated_attention_bhld_plain(q, k, v, pos_bias, gate, key_mask)
+    return wavlm_gated_attention_bhld_cuda(q, k, v, pos_bias, gate, key_mask)
 
 
 def wavlm_gated_attention_fwd_lse(q, k, v, pos_bias, gate, key_mask=None,

@@ -41,7 +41,7 @@ from fddm_asr_tpu_torch.sampler import SamplerConfig, make_sample_fn
 # numerics and that the port ignores; a config naming them is still valid.
 # (`fused_attention`: the port's attention always takes its kernels on the
 # card, in both directions, and their plain versions on the CPU.)
-_JAX_ONLY_WAVLM_FIELDS = {"scan_layers", "fused_frontend", "fused_attention"}
+_JAX_ONLY_WAVLM_FIELDS = {"scan_layers", "fused_attention"}
 
 
 def build_wavlm_config(encoder_cfg: Config) -> WavLMConfig:
@@ -61,9 +61,6 @@ def build_wavlm_config(encoder_cfg: Config) -> WavLMConfig:
     else:
         cfg = dataclasses.replace(WavLMConfig.large(), seq_pad_multiple=128)
     overrides = dict(encoder_cfg.get("wavlm_config") or {})
-    if overrides.get("quant_dense", "none") != "none":
-        raise NotImplementedError("quant_dense (int8) is not ported yet")
-    overrides.pop("quant_dense", None)
     fields = {f.name for f in dataclasses.fields(WavLMConfig)}
     unknown = set(overrides) - fields - _JAX_ONLY_WAVLM_FIELDS
     if unknown:
@@ -168,7 +165,8 @@ class FDDMPipeline:
                 pad_id=special["pad_id"],
                 pos_emb_type=model_cfg.get("pos_emb_type", "rope"),
                 use_film=model_cfg.get("use_film", True),
-                dropout=model_cfg.get("dropout", 0.1), dtype=dtype)
+                dropout=model_cfg.get("dropout", 0.1), dtype=dtype,
+                quant_dense=model_cfg.get("quant_dense", "none"))
             encoder = AcousticEncoder(
                 build_wavlm_config(enc_cfg), d_model=model_cfg.d_model,
                 proj=enc_cfg.get("proj", "linear"),

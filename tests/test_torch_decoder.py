@@ -112,3 +112,29 @@ def test_pad_row_and_all_pad_row(rng):
     out, ref = _logits_both(jdec, params, tdec, (xt, t, cond, c_mask), with_c_mask=False)
     assert np.isfinite(out).all()
     np.testing.assert_allclose(out, ref, atol=ATOL, rtol=0)
+
+
+def test_int8_decoder_matches_jax_and_differs_from_full_precision(rng):
+    """`quant_dense="int8"` against the JAX decoder under the same flag at
+    the same weights.  Tolerance 2e-4, the file's own: the integers are
+    identical wherever the f32 inputs to a quantization agree to the last
+    bit of the rounding, and the products are exact.  The packed
+    in-projection is quantized slice by slice, as JAX's three denses are."""
+    jdec, params = _jax_decoder("rope", True, scan_blocks=False)
+    jq = JaxDecoder(vocab_size=V, d_model=D, nhead=H, num_layers=LAYERS, dim_ff=FF,
+                    max_len=64, pad_id=PAD, quant_dense="int8")
+    inputs = _inputs(rng)
+    full, _ = _logits_both(jdec, params, _port_decoder("rope", True, params), inputs)
+    tq = DenoisingTransformerDecoder(V, D, H, LAYERS, FF, max_len=64, pad_id=PAD,
+                                     quant_dense="int8")
+    tq.load_state_dict(decoder_state_dict_from_jax_params(params, "rope"), strict=True)
+    out, ref = _logits_both(jq, params, tq.eval(), inputs)
+    assert out.dtype == np.float32
+    np.testing.assert_allclose(out, ref, atol=ATOL, rtol=0)
+    rel = np.linalg.norm(out - full) / np.linalg.norm(full)
+    assert 1e-6 < rel < 0.05
+    xt, t, cond, _ = inputs
+    with pytest.raises(RuntimeError, match="inference only"):
+        tq(torch.from_numpy(xt), torch.from_numpy(t), torch.from_numpy(cond))
+    with pytest.raises(ValueError, match="quant_dense"):
+        DenoisingTransformerDecoder(V, D, H, LAYERS, FF, quant_dense="int8_fused")

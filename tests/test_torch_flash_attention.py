@@ -14,6 +14,7 @@ import torch
 
 from fddm_asr_tpu.ops.flash_attention import (
     wavlm_gated_attention_packed_flash,
+    wavlm_gated_attention_pallas,
     wavlm_gated_attention_xla,
 )
 from fddm_asr_tpu_torch.ops import flash_attention as FA
@@ -101,3 +102,47 @@ def test_cpu_tensors_take_the_plain_version_and_the_kernel_rejects_them(rng):
     assert FA.wavlm_gated_attention_cuda.launches == before
     with pytest.raises(ValueError, match="CUDA"):
         FA.wavlm_gated_attention_cuda(*args, num_heads=2)
+
+
+@pytest.mark.parametrize("mask_kind", ["none", "ragged", "all_masked_row"])
+def test_bhld_entry_point_matches_xla(rng, mask_kind):
+    """`wavlm_gated_attention` takes q/k/v [B, L, H, dh] as the JAX
+    dispatcher does (whose TPU side is the per-head Pallas kernel); float32,
+    atol 2e-5."""
+    B, L, H, dh = 2, 150, 3, 64
+    q, k, v, bias, gate, mask = _inputs(rng, B, L, H, dh, mask_kind)
+    ref = np.asarray(wavlm_gated_attention_xla(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(bias), jnp.asarray(gate),
+        None if mask is None else jnp.asarray(mask)))
+    t = torch.from_numpy
+    before = FA.wavlm_gated_attention_bhld_cuda.launches
+    out = FA.wavlm_gated_attention(t(q), t(k), t(v), t(bias), t(gate),
+                                   None if mask is None else t(mask))
+    assert FA.wavlm_gated_attention_bhld_cuda.launches == before
+    assert out.shape == (B, L, H, dh)
+    np.testing.assert_allclose(out.numpy(), ref, atol=2e-5, rtol=0)
+    # the same function as the head-packed entry point, on the same memory
+    packed = FA.wavlm_gated_attention_heads_packed(
+        *_torch_packed(q, k, v, bias, gate, mask), num_heads=H)
+    torch.testing.assert_close(out.reshape(B, L, H * dh), packed, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="CUDA"):
+        FA.wavlm_gated_attention_bhld_cuda(t(q), t(k), t(v), t(bias), t(gate), None)
+
+
+def test_bhld_entry_point_matches_the_per_head_pallas_kernel(rng, monkeypatch):
+    """Against the Pallas body itself (`_kernel`, one head per program over
+    a whole softmax row) in interpret mode, with a ragged mask."""
+    from jax.experimental import pallas as pl
+
+    B, L, H, dh = 1, 128, 2, 64
+    q, k, v, bias, gate, mask = _inputs(rng, B, L, H, dh, "ragged")
+    real_call = pl.pallas_call  # the wrapper has no interpret switch of its own
+    monkeypatch.setattr(pl, "pallas_call",
+                        lambda *a, **kw: real_call(*a, **{**kw, "interpret": True}))
+    ref = np.asarray(wavlm_gated_attention_pallas(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(bias),
+        jnp.asarray(gate), jnp.asarray(mask), block_q=128))
+    monkeypatch.undo()
+    t = torch.from_numpy
+    out = FA.wavlm_gated_attention(t(q), t(k), t(v), t(bias), t(gate), t(mask))
+    np.testing.assert_allclose(out.numpy(), ref, atol=2e-5, rtol=0)

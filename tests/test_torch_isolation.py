@@ -65,3 +65,33 @@ def test_fresh_interpreter_loads_no_jax():
     proc = subprocess.run([sys.executable, "-c", code, ROOT], capture_output=True, text=True,
                           cwd=ROOT, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_walk_covers_the_kernel_modules_and_their_sources():
+    """The walk above reaches every kernel wrapper module; every CUDA source
+    and header `ops/_build.py` names is in the package; and the build directory
+    the libraries go to is listed in .gitignore."""
+    from fddm_asr_tpu_torch.ops import _build
+
+    walked = {os.path.relpath(p, PORT) for p in _port_files()}
+    for module in ("ops/_build.py", "ops/flash_attention.py", "ops/quant.py",
+                   "ops/conv_frontend.py"):
+        assert module in walked
+    for name in (*_build.SOURCES.values(), *_build.HEADERS):
+        assert os.path.isfile(os.path.join(_build.CSRC_DIR, name)), name
+    on_disk = {n for n in os.listdir(_build.CSRC_DIR) if n.endswith((".cu", ".cuh"))}
+    assert on_disk == {*_build.SOURCES.values(), *_build.HEADERS}
+    with open(os.path.join(ROOT, ".gitignore"), encoding="utf-8") as f:
+        ignored = {line.strip() for line in f}
+    assert os.path.relpath(_build.BUILD_DIR, ROOT) + "/" in ignored
+
+
+def test_cuda_sources_include_no_framework_header():
+    """The kernels have a plain C interface (ctypes): no source includes a
+    PyTorch or Python header, so nvcc builds each in seconds."""
+    from fddm_asr_tpu_torch.ops import _build
+
+    for name in (*_build.SOURCES.values(), *_build.HEADERS):
+        with open(os.path.join(_build.CSRC_DIR, name), encoding="utf-8") as f:
+            includes = [line for line in f if line.lstrip().startswith("#include")]
+        assert not [i for i in includes if "torch" in i or "ATen" in i or "Python.h" in i], name

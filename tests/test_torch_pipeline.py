@@ -142,3 +142,75 @@ def test_inference_cli_on_cpu(pipelines, rng, tmp_path, capsys):
     expect = tp.transcribe_with_ids(pcm[None].astype(np.float32) / 32768.0, seq_len=SEQ_LEN,
                                     generator=gen, T_infer=20, r=5, greedy=True)
     assert res["ids"] == expect[0][1] and res["text"] == expect[0][0]
+
+
+QUANT_CFG = {
+    **CFG,
+    "model": {**CFG["model"], "quant_dense": "int8",
+              "encoder": {**CFG["model"]["encoder"], "wavlm_config": {
+                  "quant_dense": "int8_fused", "fused_frontend": True,
+                  "gelu_approx_tanh": True}}},
+}
+
+
+def test_quantized_fused_configuration_matches_jax(pipelines, rng):
+    """The slice as a whole: int8 encoder denses (fused kernel's path), the
+    fused conv front-end with tanh GELU and the int8 decoder, at the
+    full-precision pipelines' weights (the flags change no parameter), give
+    the JAX pipeline's token ids and texts under the same flags.  The JAX
+    pipeline runs jitted, where XLA rewrites f32 steps before a rounding,
+    so a value within that of a tie may round to the other integer: the
+    encoder outputs are held at rel-L2 2e-3, a tenth of the distance to
+    the full-precision encoder, which is asserted too."""
+    jp, tp, _, ckpt, vocab = pipelines
+    jcfg = JaxConfig(QUANT_CFG)
+    jq = JaxPipeline(jcfg, jp.decoder_params, jp.encoder_params, jp.sched, jp.tokenizer,
+                     jp.special_ids, build_wavlm_config(jcfg.model.encoder))
+    assert jq.wavlm_config.quant_dense == "int8_fused" and jq.wavlm_config.fused_frontend
+    tq = FDDMPipeline.from_config(Config(QUANT_CFG), ckpt_path=ckpt,
+                                  tokenizer=load_tokenizer(vocab), device="cpu")
+    tq.encoder.load_state_dict(tp.encoder.state_dict(), strict=True)
+    # the repaired fault: model.quant_dense reaches the decoder; the encoder's flags its config
+    assert tq.decoder.quant_dense == "int8" and tp.decoder.quant_dense == "none"
+    assert tq.encoder.config.quant_dense == "int8_fused" and tq.encoder.config.fused_frontend
+
+    wav = _wave(rng)
+    x_init = rng.integers(0, K, (B, SEQ_LEN))
+    c, c_mask = jq.encode_waveform(wav)
+    tc, _ = tq.encode_waveform(wav)
+    full, _ = tp.encode_waveform(wav)
+
+    def rel_l2(a, b):
+        return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+    assert rel_l2(tc.numpy(), np.asarray(c)) < 2e-3
+    assert 2e-3 < rel_l2(tc.numpy(), full.numpy()) < 0.05
+
+    scfg = JS.SamplerConfig(K=K, T_train=200, T_infer=20, r=5, greedy=True,
+                            posterior_mode="map")
+
+    def decoder_apply(params, xt, t, cond, cm):
+        return jq.decoder.apply(params, xt, t, cond, None, cm, deterministic=True)
+
+    j_ids, _ = JS.make_sample_fn(decoder_apply, jq.sched, scfg)(
+        jq.decoder_params, jax.random.key(0), c, SEQ_LEN, c_mask, jnp.asarray(x_init))
+    rows = tq.transcribe_with_ids(wav, seq_len=SEQ_LEN, x_init=x_init, T_infer=20, r=5,
+                                  greedy=True)
+    np.testing.assert_array_equal(np.asarray([r[1] for r in rows]), np.asarray(j_ids))
+    assert [r[0] for r in rows] == [jq.ids_to_text(row) for row in np.asarray(j_ids)]
+
+
+def test_config_flags_reach_the_modules():
+    """`encoder.wavlm_config.quant_dense` / `fused_frontend` are honoured, a
+    JAX-only lowering switch is still accepted, unknown values raise."""
+    from fddm_asr_tpu_torch.pipeline import build_wavlm_config as port_build
+
+    enc = Config({"wavlm_name": "tiny", "wavlm_config": {
+        "quant_dense": "int8", "fused_frontend": True, "scan_layers": True}})
+    cfg = port_build(enc)
+    assert cfg.quant_dense == "int8" and cfg.fused_frontend
+    with pytest.raises(ValueError, match="quant_dense"):
+        port_build(Config({"wavlm_name": "tiny", "wavlm_config": {"quant_dense": "fp8"}}))
+    bad = {**CFG, "model": {**CFG["model"], "quant_dense": "int8_fused"}}
+    with pytest.raises(ValueError, match="quant_dense"):
+        FDDMPipeline.from_config(Config(bad), tokenizer=object(), device="cpu")

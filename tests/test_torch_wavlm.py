@@ -132,3 +132,104 @@ def test_acoustic_encoder_proj_and_masks_match_jax(rng):
     np.testing.assert_allclose(out.numpy(), np.asarray(feats), atol=ATOL, rtol=0)
     np.testing.assert_array_equal(mask.numpy(), np.asarray(fmask))
     np.testing.assert_allclose(pool.numpy(), np.asarray(pooled), atol=ATOL, rtol=0)
+
+
+# ------------------------------------------- int8 denses, fused conv front-end
+def _rel_l2(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-12)
+
+
+@pytest.fixture(scope="module")
+def tiny_large_style():
+    """One parameter tree, shared by every flag: the flags change no
+    parameter, so the full-precision tree (through `convert.py`, unchanged)
+    is the quantized model's too."""
+    _, jax_cfg = _configs(True, 1, False)
+    rng = np.random.default_rng(0)
+    jmodel = JaxWavLMModel(jax_cfg)
+    params = _perturbed(jax.jit(jmodel.init)(jax.random.key(0), jnp.zeros((1, T))), rng)
+    wav, mask = _wave_and_mask(rng, True)
+    return params, wav, mask
+
+
+def _both(params, wav, mask, jit=True, **flags):
+    """(port output, JAX output) of the tiny large-style model under `flags`."""
+    port_cfg, jax_cfg = _configs(True, 1, False)
+    port_cfg = dataclasses.replace(port_cfg, **flags)
+    jmodel = JaxWavLMModel(dataclasses.replace(jax_cfg, **flags))
+    apply = jax.jit(jmodel.apply) if jit else jmodel.apply
+    ref = np.asarray(apply(params, jnp.asarray(wav), jnp.asarray(mask)))
+    model = WavLMModel(port_cfg).eval()
+    model.load_state_dict(wavlm_state_dict_from_jax_params(params), strict=True)
+    with torch.no_grad():
+        out = model(torch.from_numpy(wav), attention_mask=torch.from_numpy(mask)).numpy()
+    return out, ref
+
+
+def test_quantized_wavlm_matches_jax_under_the_same_flag(tiny_large_style):
+    """`quant_dense` "int8" and "int8_fused" against the JAX model under the
+    same flag (its fused path is the Pallas kernel in interpret mode on the
+    CPU), atol 2e-5 as `tests/test_quant.py` holds fused against unfused:
+    the integers are identical, the rest is f32 summation order.  The two
+    modes agree exactly, and differ from full precision by a little.  The
+    JAX side runs op by op, as its own tests run it: under jit XLA rewrites
+    the f32 steps before a rounding, and a value within that of a tie then
+    rounds to the other integer (one step of 1/127 of the row's range)."""
+    params, wav, mask = tiny_large_style
+    full, _ = _both(params, wav, mask)
+    out = {}
+    for mode in ("int8", "int8_fused"):
+        out[mode], ref = _both(params, wav, mask, jit=False, quant_dense=mode)
+        np.testing.assert_allclose(out[mode], ref, atol=2e-5, rtol=0)
+    np.testing.assert_array_equal(out["int8"], out["int8_fused"])
+    assert 1e-6 < _rel_l2(out["int8_fused"], full) < 0.05
+
+
+@pytest.mark.parametrize("interpret", [False, True], ids=["xla-reference", "pallas-interpret"])
+def test_fused_frontend_matches_jax(tiny_large_style, monkeypatch, interpret):
+    """`fused_frontend` against the JAX model with it on: through its XLA
+    reference (what the JAX dispatcher takes on the CPU) and through the
+    Pallas kernel in interpret mode; and against the flag off, from which it
+    differs by summation order only in float32."""
+    import functools
+
+    from fddm_asr_tpu.ops import conv_frontend as JC
+
+    params, wav, mask = tiny_large_style
+    if interpret:
+        monkeypatch.setattr(JC, "conv_ln_gelu",
+                            functools.partial(JC.conv_ln_gelu, interpret=True))
+    out, ref = _both(params, wav, mask, fused_frontend=True, gelu_approx_tanh=True)
+    np.testing.assert_allclose(out, ref, atol=ATOL, rtol=0)
+    monkeypatch.undo()
+    unfused, _ = _both(params, wav, mask, gelu_approx_tanh=True)
+    np.testing.assert_allclose(out, unfused, atol=ATOL, rtol=0)
+    erf, _ = _both(params, wav, mask, fused_frontend=True)
+    assert np.abs(out - erf).max() > 1e-6  # the tanh flag reaches the fused layers
+
+
+def test_flags_keep_the_state_dict_and_refuse_autograd(tiny_large_style):
+    """A quantized, fused model loads a full-precision state_dict strictly
+    (and the other way round); both options raise where autograd records;
+    an unknown quant_dense raises."""
+    params, wav, _ = tiny_large_style
+    cfg, _ = _configs(True, 1, False)
+    full = WavLMModel(cfg).eval()
+    full.load_state_dict(wavlm_state_dict_from_jax_params(params), strict=True)
+    flagged = WavLMModel(dataclasses.replace(cfg, quant_dense="int8_fused",
+                                             fused_frontend=True)).eval()
+    flagged.load_state_dict(full.state_dict(), strict=True)
+    full.load_state_dict(flagged.state_dict(), strict=True)
+    assert list(flagged.state_dict()) == list(full.state_dict())
+    x = torch.from_numpy(wav)
+    with pytest.raises(RuntimeError, match="forward only"):
+        flagged(x)
+    with pytest.raises(RuntimeError, match="inference only"):
+        WavLMModel(dataclasses.replace(cfg, quant_dense="int8")).eval()(x)
+    with pytest.raises(ValueError, match="quant_dense"):
+        dataclasses.replace(cfg, quant_dense="int4")
+    with torch.no_grad():  # a reloaded weight is quantized anew
+        before = flagged(x)
+        flagged.load_state_dict({k: v * 1.5 for k, v in full.state_dict().items()})
+        assert not torch.equal(flagged(x), before)
