@@ -19,6 +19,8 @@ Phases, each fatal on failure:
      ragged key masks and one all-masked row; the kernel's time beside the
      plain version's, one `scaled_dot_product_attention` call's (a yardstick
      the port never calls) and the card's least possible time (bound);
+     then, untimed, at the edges of the bf16 kernel's 128-query blocks and
+     64-key steps and at L=203 (bias rows not 16-byte aligned), with lse;
   3. a small float32 pipeline (64-wide WavLM heads) transcribes the same
      batch and x_T on the card and on the CPU from the same weights: the
      token ids must be identical;
@@ -126,6 +128,7 @@ ENCODER_REL_L2_TOL = 5e-2  # bf16 P rounding differs (kernel: before the 1/l, pl
 BWD_REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 AUTOGRAD_REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 LSE_TOL = 1e-3             # the row logsumexp, f32 in both
+EDGE_LENGTHS = (65, 128, 129, 203, 1000)  # phase 2's untimed block-edge lengths
 SMALL_STEP_REL_TOL = 1e-4  # f32 fine-tune step, card vs CPU, of the largest gradient
 FINETUNE_B, FINETUNE_SECONDS, FINETUNE_TOKENS = 32, 20.0, 128
 TIMED_STEPS = 4            # one L_fd period
@@ -245,6 +248,33 @@ def kernel_vs_plain(FA, L: int, dtype, gen) -> dict:
         fail(f"kernel disagrees with its plain version at L={L} {dtype}: {row}")
     torch.cuda.empty_cache()
     return row
+
+
+def edge_lengths_match_plain(FA, gen) -> list:
+    """Phase 2, untimed: the forward kernel at the edges of the bf16 kernel's
+    128-query blocks and 64-key steps (65, 128, 129, 1000) and at an L whose
+    bias rows are not 16-byte aligned (203), B=3 (a ragged, a full and an
+    all-masked row), both types: out within TOL, lse within LSE_TOL and
+    exactly f32-min at the all-masked row, and the inference launch's output
+    bit-identical to the lse launch's."""
+    rows = []
+    for L in EDGE_LENGTHS:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, bias, gate, mask = attention_inputs(3, L, 16, dtype, gen)
+            out, lse = FA.wavlm_gated_attention_fwd_lse_cuda(q, k, v, bias, gate, mask, 16)
+            same = torch.equal(FA.wavlm_gated_attention_cuda(q, k, v, bias, gate, mask, 16), out)
+            ref, ref_lse = FA.wavlm_gated_attention_fwd_lse_plain(q, k, v, bias, gate, mask, 16)
+            row = {"L": L, "dtype": str(dtype).replace("torch.", ""),
+                   "max_abs_err": (out.float() - ref.float()).abs().max().item(),
+                   "lse_err": (lse - ref_lse).abs().max().item(), "outputs_identical": same,
+                   "lse_all_masked_is_f32_min": bool(
+                       (lse[2] == torch.finfo(torch.float32).min).all())}
+            rows.append(row)
+            if not (row["max_abs_err"] <= TOL[dtype] and row["lse_err"] <= LSE_TOL and same
+                    and row["lse_all_masked_is_f32_min"]):
+                fail(f"kernel disagrees with its plain version at an edge length: {row}")
+    print(json.dumps({"edge_lengths_vs_plain": rows}), flush=True)
+    return rows
 
 
 def synthetic_tokenizer(directory: str, vocab_size: int) -> str:
@@ -1121,6 +1151,7 @@ def main() -> int:
     for L in (1024, 4224):
         for dtype in (torch.float32, torch.bfloat16):
             rows[(L, dtype)] = kernel_vs_plain(FA, L, dtype, gen)
+    edge_lengths_match_plain(FA, gen)
 
     with tempfile.TemporaryDirectory() as tmp:
         small_pipeline_matches_cpu(FA, tmp)

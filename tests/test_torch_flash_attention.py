@@ -93,6 +93,70 @@ def test_all_masked_row_averages_the_real_keys(rng):
                                atol=ATOL)
 
 
+def _log2_online_softmax(q, k, v, bias, gate, mask, H):
+    """numpy emulation of the bf16 CUDA kernel's arithmetic (in f32): keys in
+    64-key steps, scores scaled into log2 units (scale and gate carry
+    log2 e), masked keys f32-min *after* scaling, keys past L -inf, a
+    running max in log2 units that starts at f32-min, exp2, and the row
+    logsumexp converted back to natural-log units, exactly f32-min where
+    the running max never left f32-min.  Returns (out [B, L, H*dh], lse)."""
+    f32 = np.float32
+    neg = np.finfo(f32).min
+    log2e, ln2 = f32(np.log2(np.e)), f32(np.log(2.0))
+    B, L, HD = q.shape
+    dh = HD // H
+    heads = lambda x: x.reshape(B, L, H, dh).transpose(0, 2, 1, 3)  # noqa: E731
+    qh, kh, vh = heads(q), heads(k), heads(v)
+    sl2 = f32(1.0 / np.sqrt(dh)) * log2e
+    gl = gate * log2e                                    # [B, H, L]
+    m = np.full((B, H, L), neg, f32)
+    l = np.zeros((B, H, L), f32)
+    acc = np.zeros((B, H, L, dh), f32)
+    for k0 in range(0, L, 64):
+        k1 = min(k0 + 64, L)
+        s = np.full((B, H, L, 64), -np.inf, f32)         # keys past L: -inf
+        s[..., :k1 - k0] = (qh @ kh[:, :, k0:k1].transpose(0, 1, 3, 2)) * sl2 \
+            + gl[..., None] * bias[None, :, :, k0:k1]
+        if mask is not None:
+            s[..., :k1 - k0] = np.where(mask[:, None, None, k0:k1], s[..., :k1 - k0], neg)
+        m_new = np.maximum(m, s.max(-1))
+        corr = np.exp2(m - m_new)                        # 0, or 1 while all masked
+        p = np.exp2(s - m_new[..., None])
+        l = l * corr + p.sum(-1)
+        vt = np.zeros((B, H, 64, dh), f32)
+        vt[:, :, :k1 - k0] = vh[:, :, k0:k1]
+        acc = acc * corr[..., None] + p @ vt
+        m = m_new
+    out = (acc / l[..., None]).transpose(0, 2, 1, 3).reshape(B, L, HD)
+    lse = np.where(m == neg, neg, m * ln2 + np.log(l)).astype(f32)
+    return out, lse
+
+
+def test_log2_domain_online_softmax_matches_the_plain_forward(rng):
+    """The kernel's log2-domain arithmetic, emulated on the CPU where the
+    kernel cannot run, at an L that is no multiple of 64 with a ragged row,
+    a full row and an all-masked row: out within 1e-5, lse within 1e-4 at
+    rows with a kept key and exactly f32-min at the all-masked row."""
+    B, L, H, dh = 3, 203, 2, 64
+    q, k, v, bias, gate, _ = _inputs(rng, B, L, H, dh, "none")
+    mask = np.ones((B, L), bool)
+    mask[0, 150:] = False   # ragged: two whole 64-key steps kept, one partly
+    mask[2] = False         # all masked
+    args = _torch_packed(q, k, v, bias, gate, mask)
+    ref_out, ref_lse = FA.wavlm_gated_attention_fwd_lse_plain(*args, num_heads=H)
+    out, lse = _log2_online_softmax(q.reshape(B, L, H * dh), k.reshape(B, L, H * dh),
+                                    v.reshape(B, L, H * dh), bias, gate, mask, H)
+    np.testing.assert_allclose(out, ref_out.numpy(), atol=1e-5, rtol=0)
+    np.testing.assert_allclose(lse[:2], ref_lse[:2].numpy(), atol=1e-4, rtol=0)
+    neg = np.finfo(np.float32).min
+    assert (lse[2] == neg).all() and (ref_lse[2].numpy() == neg).all()
+    # the trap the special case avoids: f32-min carried through log2 units
+    # does not come back as f32-min
+    with np.errstate(over="ignore"):
+        assert np.float32(neg) * np.float32(np.log2(np.e)) == -np.inf
+    assert np.float32(neg) * np.float32(np.log(2.0)) != neg
+
+
 def test_cpu_tensors_take_the_plain_version_and_the_kernel_rejects_them(rng):
     args = _torch_packed(*_inputs(rng, 2, 9, 2, 64, "ragged"))
     before = FA.wavlm_gated_attention_cuda.launches

@@ -22,14 +22,15 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("L", [203, 1024, 4224])
+@pytest.mark.parametrize("L", [65, 128, 129, 203, 1000, 1024, 4224])
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)],
                          ids=["f32", "bf16"])
 def test_kernel_matches_plain_on_card(cuda_device, L, dtype, atol):
     """Ragged masks plus one all-masked row, on both sides of the TPU
-    kernels' 4096 split, and at an L that is no multiple of 8 (tails of
-    every tile, bias rows not 16-byte aligned); the tolerances are those of
-    unit-scale inputs."""
+    kernels' 4096 split, at the edges of the bf16 kernel's 128-query blocks
+    and 64-key steps (65, 128, 129, 1000), and at an L that is no multiple
+    of 8 (tails of every tile, bias rows not 16-byte aligned); the
+    tolerances are those of unit-scale inputs."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     g = torch.Generator(device=cuda_device).manual_seed(0)
