@@ -23,7 +23,8 @@ Phases, each fatal on failure:
      64-key steps and at L=203 (bias rows not 16-byte aligned), with lse;
   3. a small float32 pipeline (64-wide WavLM heads) transcribes the same
      batch and x_T on the card and on the CPU from the same weights: the
-     token ids must be identical;
+     token ids must be identical; the same with the batch as int16 pcm16
+     and as uint8 mu-law codes (decoded on the pipeline's device);
   4. full-width transcription: WavLM-large + the d768x6 decoder, K=8000,
      T=200, bf16, random weights from a seeded generator and a synthetic
      8000-piece tokenizer; 8 x 20 s of synthetic audio through
@@ -37,7 +38,10 @@ Phases, each fatal on failure:
      plain forward: first at the shape phase 7 gives them (B=32, H=16,
      dh=64, L=1024 with 999 valid keys in every row, bfloat16), then at
      B=8, L=1024, 384, 203, float32 and bfloat16, ragged key masks and one
-     all-masked row; at L=1024 each kernel's time beside the plain
+     all-masked row, then untimed at the edges of B5's tiles (L = 65, 127,
+     128, 129, 203, 1000, 1024; B=1 and B=3, bfloat16); B5 is called twice
+     each time and its outputs must agree bit for bit; at L=1024 each
+     kernel's time beside the plain
      version's, a library yardstick (one `scaled_dot_product_attention`
      call, and autograd of it for the backward pair; the port calls
      neither) and the bound; the kernels line takes the B=32 numbers;
@@ -55,7 +59,7 @@ Phases, each fatal on failure:
      timed steps with the kernels' launches checked per step (B3 47, B4
      24, B5 24 with 23 of 24 layers recomputed), peak memory, one more
      step under torch.profiler (each port kernel's time per launch there
-     beside phase 5's); the loss finite, encoder and decoder
+     beside phase 5's, B5's two kernels by name); the loss finite, encoder and decoder
      weights moved, the conv front-end's not;
   8. the fused int8 matmul (B7) against its plain version at M = 8192 rows
      for WavLM-large's three dense shapes (1024x1024, 1024x4096,
@@ -129,6 +133,9 @@ BWD_REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 AUTOGRAD_REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 LSE_TOL = 1e-3             # the row logsumexp, f32 in both
 EDGE_LENGTHS = (65, 128, 129, 203, 1000)  # phase 2's untimed block-edge lengths
+# phase 5's: the edges of B5's 128-key, 128-query and 64-row tiles, and bias
+# rows that are not 16-byte aligned (127, 129, 203)
+B5_EDGE_LENGTHS = (65, 127, 128, 129, 203, 1000, 1024)
 SMALL_STEP_REL_TOL = 1e-4  # f32 fine-tune step, card vs CPU, of the largest gradient
 FINETUNE_B, FINETUNE_SECONDS, FINETUNE_TOKENS = 32, 20.0, 128
 TIMED_STEPS = 4            # one L_fd period
@@ -320,11 +327,22 @@ def synthetic_audio(B: int, seconds: float, seed: int) -> np.ndarray:
     return wav.astype(np.float32)
 
 
+def wire_codes(wav: np.ndarray) -> dict:
+    """The batch in the serving path's wire dtypes: int16 pcm16 (x * 32768)
+    and uint8 mu-law (mu = 255, u8 = round(127.5 + 127.5 sign(x) ln(1 +
+    255|x|) / ln 256)), which the pipeline decodes on its device."""
+    x = np.clip(wav, -1.0, 1.0)
+    mu = np.sign(x) * np.log1p(255.0 * np.abs(x)) / np.log(256.0)
+    return {"int16": np.clip(np.round(x * 32768.0), -32768, 32767).astype(np.int16),
+            "uint8": np.clip(np.round(127.5 + 127.5 * mu), 0, 255).astype(np.uint8)}
+
+
 def small_pipeline_matches_cpu(FA, tokenizer_dir: str) -> dict:
     """A small float32 pipeline whose WavLM heads are 64 wide (so attention
     takes the kernel) transcribes the same batch and x_T on the card and on
     the CPU (plain attention, the path the CPU tests hold against the JAX
-    package), from the same weights: token ids must be identical."""
+    package), from the same weights: token ids must be identical; the same
+    for the batch as int16 and as uint8 mu-law codes."""
     from fddm_asr_tpu_torch.config import Config
     from fddm_asr_tpu_torch.pipeline import FDDMPipeline
     from fddm_asr_tpu_torch.tokenizer import load_tokenizer
@@ -358,8 +376,17 @@ def small_pipeline_matches_cpu(FA, tokenizer_dir: str) -> dict:
     result = {"frames": gpu.encoder.config.feat_extract_output_length(wav.shape[1]),
               "kernel_launches": launched, "encoder_max_abs_err": feat_err,
               "encoder_tol": SMALL_ENCODER_TOL,
-              "ids_equal": [r[1] for r in got] == [r[1] for r in want]}
+              "ids_equal": [r[1] for r in got] == [r[1] for r in want], "wire": {}}
+    for name, codes in wire_codes(wav).items():
+        got_w = gpu.transcribe_with_ids(codes, seq_len=seq_len, **sampling)
+        want_w = cpu.transcribe_with_ids(codes, seq_len=seq_len, **sampling)
+        err_w = (gpu.encode_waveform(codes)[0].cpu() - cpu.encode_waveform(codes)[0]).abs().max()
+        result["wire"][name] = {"encoder_max_abs_err": err_w.item(),
+                                "ids_equal": [r[1] for r in got_w] == [r[1] for r in want_w]}
     print(json.dumps({"small_pipeline_card_vs_cpu": result}), flush=True)
+    for name, row in result["wire"].items():
+        if not (row["encoder_max_abs_err"] <= SMALL_ENCODER_TOL and row["ids_equal"]):
+            fail(f"small pipeline fed {name} codes, card vs CPU: {row}")
     if launched != 2:
         fail(f"small pipeline launched the kernel {launched} times, expected 2")
     if not feat_err <= SMALL_ENCODER_TOL:
@@ -595,7 +622,11 @@ def training_kernels_vs_plain(FA, L: int, dtype, gen, timed: bool, B: int = 8,
     delta = (dout.float() * out.float()).view(B, L, H, 64).sum(-1).transpose(1, 2).contiguous()
     dq, dgate = wrap["bwd_dq"](q, k, v, bias, gate, mask, lse, delta, dout, H)
     dk, dv, dbias = wrap["bwd_dkv"](q, k, v, bias, gate, mask, lse, delta, dout, H)
+    again = wrap["bwd_dkv"](q, k, v, bias, gate, mask, lse, delta, dout, H)
     torch.cuda.synchronize()
+    # B5 writes each output element once, from a fixed order of sums: bit for bit
+    deterministic = all(torch.equal(a, b) for a, b in zip((dk, dv, dbias), again))
+    del again
     got = {"dq": dq, "dk": dk, "dv": dv, "dbias": dbias, "dgate": dgate}
     ref_out, ref_lse = FA.wavlm_gated_attention_fwd_lse_plain(q, k, v, bias, gate, mask, H)
     plain = dict(zip(("dq", "dk", "dv", "dbias", "dgate"), FA.wavlm_gated_attention_bwd_plain(
@@ -607,8 +638,9 @@ def training_kernels_vs_plain(FA, L: int, dtype, gen, timed: bool, B: int = 8,
 
     row = {"B": B, "L": L, "valid": valid, "dtype": str(dtype).replace("torch.", ""),
            "tol_out": TOL[dtype], "tol_lse": LSE_TOL, "tol_bwd_rel": BWD_REL_TOL[dtype],
-           "tol_autograd_rel": AUTOGRAD_REL_TOL[dtype], "errors": {}}
-    failures = []
+           "tol_autograd_rel": AUTOGRAD_REL_TOL[dtype], "bwd_dkv_deterministic": deterministic,
+           "errors": {}}
+    failures = [] if deterministic else ["B5 outputs differ between two calls"]
     out_err, _ = _rel_err(out, ref_out)
     lse_err, _ = _rel_err(lse, ref_lse)
     row["errors"]["out"], row["errors"]["lse"] = out_err, lse_err
@@ -866,10 +898,17 @@ def finetune_full_width(FA, tokenizer_dir: str, card: str, isolated: dict) -> di
         fail("the frozen conv front-end changed")
 
     breakdown = device_time_breakdown(run, statistics.median(step_s))
-    names = {"fwd_lse": "gated_attention_bf16_kernel", "bwd_dq": "bwd_dq_bf16_kernel",
-             "bwd_dkv": "bwd_dkv_bf16_kernel"}
-    breakdown["port_kernels_ms"] = {k: sum(t["ms"] for t in breakdown["all"] if n in t["name"])
-                                    for k, n in names.items()}
+    names = {"fwd_lse": ("gated_attention_bf16_kernel",), "bwd_dq": ("bwd_dq_bf16_kernel",),
+             "bwd_dkv": ("bwd_dkv_bf16_kernel", "bwd_dbias_bf16_kernel")}
+    breakdown["port_kernels_by_name"] = {t["name"]: t["ms"] for t in breakdown["all"]
+                                         if any(n in t["name"] for ns in names.values()
+                                                for n in ns)}
+    breakdown["port_kernels_ms"] = {k: sum(t["ms"] for t in breakdown["all"]
+                                           if any(n in t["name"] for n in ns))
+                                    for k, ns in names.items()}
+    for k, ns in names.items():
+        if not all(any(n in t["name"] for t in breakdown["all"]) for n in ns):
+            fail(f"the profiled fine-tune step shows no {ns} kernel")
     breakdown["port_kernel_ms_per_launch"] = {
         k: {"profiled": ms / per_step[0][k], "isolated": isolated[k]["ms"]}
         for k, ms in breakdown["port_kernels_ms"].items()}
@@ -1169,6 +1208,9 @@ def main() -> int:
     for L in (1024, 384, 203):
         for dtype in (torch.float32, torch.bfloat16):
             training_kernels_vs_plain(FA, L, dtype, gen, timed=L == 1024)
+    for L in B5_EDGE_LENGTHS:  # untimed: the edges of B5's tiles, one batch row and three
+        training_kernels_vs_plain(FA, L, torch.bfloat16, gen, timed=False, B=1, valid=L - 3)
+        training_kernels_vs_plain(FA, L, torch.bfloat16, gen, timed=False, B=3)
     with tempfile.TemporaryDirectory() as tmp:
         small_finetune_step_matches_cpu(FA, tmp)
     with tempfile.TemporaryDirectory() as tmp:

@@ -36,6 +36,10 @@ def parse_args(argv=None):
     src.add_argument("--csv", type=str, help="batch CSV with a `path` column")
     p.add_argument("--ckpt", type=str, required=True,
                    help="reference-format .pt decoder checkpoint")
+    p.add_argument("--encoder-ckpt", type=str, default=None,
+                   help=".pt of the port's AcousticEncoder state_dict (backbone and proj), "
+                        "e.g. from scripts/export_torch_encoder.py; default: random from "
+                        "the config's seed")
     p.add_argument("--main-config", type=str, required=True)
     p.add_argument("--diffusion-config", type=str, required=True)
     p.add_argument("--tokenizer", type=str, required=True,
@@ -71,9 +75,13 @@ def build_pipeline(args):
         "T": diff.get("T", main_cfg.diffusion["T"]),
         "beta_max": diff.get("beta_max", main_cfg.diffusion.get("beta_max", 0.2)),
     }})
+    encoder_sd = None
+    if args.encoder_ckpt:
+        encoder_sd = torch.load(args.encoder_ckpt, map_location="cpu", weights_only=True)
     return FDDMPipeline.from_config(
-        cfg, ckpt_path=args.ckpt, tokenizer=load_tokenizer(args.tokenizer),
-        device=args.device, dtype=None if args.dtype == "config" else args.dtype)
+        cfg, ckpt_path=args.ckpt, encoder_state_dict=encoder_sd,
+        tokenizer=load_tokenizer(args.tokenizer), device=args.device,
+        dtype=None if args.dtype == "config" else args.dtype)
 
 
 def infer_batch(pipeline, wav_paths: List[str], args, generator) -> List[Dict[str, Any]]:

@@ -13,15 +13,24 @@ at inference; `use_condition_mask=False` (default) keeps that, True masks
 padded audio frames in cross-attention.
 
 Weights: the decoder from a reference `.pt` (`ckpt_path`), the WavLM
-backbone from an HF-named state_dict (`wavlm_state_dict`); whatever is not
-given is drawn at random from a `torch.Generator` seeded by `seed` (default
-the config's `seed`).  `torch.Generator` and `jax.random` differ, so a
-random encoder here is not the JAX package's random encoder.
+backbone from an HF-named state_dict (`wavlm_state_dict`), the whole
+encoder (backbone and the `proj` that maps hidden_size to d_model) from an
+`AcousticEncoder` state_dict (`encoder_state_dict`); whatever is not given
+is drawn at random from a `torch.Generator` seeded by `seed` (default the
+config's `seed`).  `torch.Generator` and `jax.random` differ, so a random
+encoder here is not the JAX package's random encoder: a decoder trained by
+the JAX package on a frozen encoder needs that encoder's `proj`, which no
+checkpoint carries (the JAX pipeline redraws it from the config's seed);
+`scripts/export_torch_encoder.py` writes it as a state_dict.
+
+Waveforms may come as float samples or in the wire dtypes of the JAX
+package's serving path (int16 pcm16, uint8 mu-law), decoded on the device.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import sys
 from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
@@ -31,6 +40,7 @@ from torch import nn
 from fddm_asr_tpu_torch import diffusion as D
 from fddm_asr_tpu_torch.config import Config, resolve_device, resolve_special_ids
 from fddm_asr_tpu_torch.convert import load_reference_checkpoint
+from fddm_asr_tpu_torch.data.wire import decode_wire
 from fddm_asr_tpu_torch.eval import batch_confidence, ids_to_text
 from fddm_asr_tpu_torch.models.decoder import DenoisingTransformerDecoder, MultiheadAttention
 from fddm_asr_tpu_torch.models.encoder import AcousticEncoder
@@ -132,13 +142,16 @@ class FDDMPipeline:
     @classmethod
     def from_config(cls, cfg: Config, ckpt_path: Optional[str] = None,
                     wavlm_state_dict: Optional[Dict[str, torch.Tensor]] = None,
+                    encoder_state_dict: Optional[Dict[str, torch.Tensor]] = None,
                     tokenizer=None, device: Optional[str] = None,
                     dtype: Union[str, torch.dtype, None] = None,
                     seed: Optional[int] = None,
                     use_condition_mask: Optional[bool] = None) -> "FDDMPipeline":
         """Build every module from one config on `device` (default CUDA;
         raises without a GPU unless device="cpu").  `dtype` defaults to the
-        config's model.dtype; parameters stay float32."""
+        config's model.dtype; parameters stay float32.  `encoder_state_dict`
+        (the port's `AcousticEncoder` keys, loaded strictly) is applied after
+        `wavlm_state_dict`."""
         dev = resolve_device(device)
         if seed is None:
             seed = int(cfg.get("seed", 0))
@@ -176,9 +189,20 @@ class FDDMPipeline:
         random_init_(encoder, generator)
         if ckpt_path:
             sd = load_reference_checkpoint(ckpt_path)["decoder"]
+            if decoder.pos_emb_type != "rope":
+                # a buffer, not a parameter: the JAX training loop's export
+                # writes it for every decoder; parameter keys stay strict
+                sd = {k: v for k, v in sd.items() if k != "pos_emb.inv_freq"}
             decoder.load_state_dict(sd, strict=True)
+            if encoder_state_dict is None and hasattr(encoder, "proj"):
+                print("FDDMPipeline: hidden_size != d_model and no encoder state_dict was "
+                      "given, so the encoder projection is random from this seed and is "
+                      "not the JAX package's (see scripts/export_torch_encoder.py)",
+                      file=sys.stderr)
         if wavlm_state_dict is not None:
             encoder.backbone.load_state_dict(wavlm_state_dict, strict=True)
+        if encoder_state_dict is not None:
+            encoder.load_state_dict(encoder_state_dict, strict=True)
         decoder.eval()
         encoder.eval()
         return cls(cfg, decoder, encoder, sched, tokenizer, special, dev,
@@ -191,7 +215,9 @@ class FDDMPipeline:
 
     def encode_waveform(self, wave, lengths=None
                         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        wave = self._tensor(wave, torch.float32)
+        """`wave` [B, T]: float samples, int16 pcm16 or uint8 mu-law codes
+        (moved to the device as they are, decoded there)."""
+        wave = decode_wire(self._tensor(wave))
         if not self.use_condition_mask:
             lengths = None  # reference parity: the encoder sees no lengths
         elif lengths is not None:

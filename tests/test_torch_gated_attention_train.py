@@ -152,3 +152,53 @@ def test_cpu_tensors_never_reach_the_training_kernels(rng):
                       (q, k, v, bias, gate, mask, lse, lse, dout))):
         with pytest.raises(ValueError, match="CUDA"):
             fn(*args, num_heads=H)
+
+
+def _b5_arithmetic(q, k, v, bias, gate, mask, lse, delta, dout, num_heads):
+    """dk, dv, dbias as B5's bf16 kernels compute them, emulated in float32:
+    P = 2^(S scale log2e + gate log2e bias - lse log2e); (a) gives masked keys
+    P = 1/L at a row whose keys are all masked (lse = f32-min) and 0
+    elsewhere, and dS = 0; (b) sums P (dP gate - delta gate) at kept keys
+    over the batch rows in order."""
+    B, L, _ = q.shape
+    log2e = torch.tensor(np.log2(np.e), dtype=torch.float32)
+    scale = 0.125
+    qh, kh, vh, dh = (FA._heads(x, num_heads) for x in (q, k, v, dout))
+    s = torch.matmul(qh, kh.transpose(-1, -2))
+    dp = torch.matmul(dh, vh.transpose(-1, -2))
+    g, ls, de = gate[..., None], lse[..., None], delta[..., None]
+    p = torch.exp2(s * (scale * log2e) + ((g * log2e) * bias[None] - ls * log2e))
+    keep = mask[:, None, None, :]
+    p_a = torch.where(keep, p, torch.where(ls == torch.finfo(torch.float32).min, 1.0 / L, 0.0))
+    ds = torch.where(keep, p * (dp - de), 0.0)
+    dv = torch.matmul(p_a.transpose(-1, -2), dh)
+    dk = torch.matmul(ds.transpose(-1, -2), qh) * scale
+    dbias = torch.zeros(num_heads, L, L)
+    for b in range(B):
+        dbias += torch.where(keep[b], p[b] * (dp[b] * g[b] - de[b] * g[b]), 0.0)
+    return FA._packed(dk), FA._packed(dv), dbias
+
+
+def test_b5_arithmetic_matches_the_plain_backward(rng):
+    """B5's bf16 kernels (dk/dv by key blocks, dbias by a batch loop) use
+    another arithmetic than the plain backward; emulated on the CPU where
+    they cannot run, in float32 at L = 203 with a ragged row, a full row and
+    an all-masked row: within 1e-5 of each reference's largest magnitude."""
+    L = 203
+    q, k, v = (rng.standard_normal((3, L, H * DH)).astype(np.float32) for _ in range(3))
+    bias = rng.standard_normal((H, L, L)).astype(np.float32)
+    gate = rng.uniform(1.0, 2.0, (3, H, L)).astype(np.float32)
+    dout = rng.standard_normal((3, L, H * DH)).astype(np.float32)
+    mask = np.ones((3, L), bool)
+    mask[0, 150:] = False
+    mask[2] = False
+    q, k, v, bias, gate, mask, dout = map(torch.from_numpy, (q, k, v, bias, gate, mask, dout))
+    out, lse = FA.wavlm_gated_attention_fwd_lse_plain(q, k, v, bias, gate, mask, H)
+    delta = (dout * out).reshape(3, L, H, DH).sum(-1).transpose(1, 2)
+    want = FA.wavlm_gated_attention_bwd_plain(q, k, v, bias, gate, mask, out, lse, dout, H)
+    got = _b5_arithmetic(q, k, v, bias, gate, mask, lse, delta, dout, H)
+    for name, a, b in zip(("dk", "dv", "dbias"), got, (want[1], want[2], want[3])):
+        assert torch.isfinite(a).all(), name
+        scale = b.abs().max().item()
+        assert (a - b).abs().max().item() <= 1e-5 * scale, name
+    assert got[1][2].abs().max() > 0  # the all-masked row's dv: 1/L of sum(dO)
