@@ -38,13 +38,13 @@ Phases, each fatal on failure:
      plain forward: first at the shape phase 7 gives them (B=32, H=16,
      dh=64, L=1024 with 999 valid keys in every row, bfloat16), then at
      B=8, L=1024, 384, 203, float32 and bfloat16, ragged key masks and one
-     all-masked row, then untimed at the edges of B5's tiles (L = 65, 127,
-     128, 129, 203, 1000, 1024; B=1 and B=3, bfloat16); B5 is called twice
-     each time and its outputs must agree bit for bit; at L=1024 each
-     kernel's time beside the plain
-     version's, a library yardstick (one `scaled_dot_product_attention`
-     call, and autograd of it for the backward pair; the port calls
-     neither) and the bound; the kernels line takes the B=32 numbers;
+     all-masked row, then untimed at the edges of B4's and B5's tiles (L =
+     65, 127, 128, 129, 203, 1000, 1024; B=1 and B=3, bfloat16); B4 and B5
+     are each called twice each time and their outputs must agree bit for
+     bit; at L=1024 each kernel's time beside the plain version's, a
+     library yardstick (one `scaled_dot_product_attention` call, and
+     autograd of it for the backward pair; the port calls neither) and the
+     bound; the kernels line takes the B=32 numbers;
   6. a small float32 encoder fine-tune step (64-wide WavLM heads, so
      attention takes the kernels) on the card and on the CPU from the same
      weights and the same injected t, x_t and time mask: loss, pre-clip
@@ -59,8 +59,9 @@ Phases, each fatal on failure:
      timed steps with the kernels' launches checked per step (B3 47, B4
      24, B5 24 with 23 of 24 layers recomputed), peak memory, one more
      step under torch.profiler (each port kernel's time per launch there
-     beside phase 5's, B5's two kernels by name); the loss finite, encoder and decoder
-     weights moved, the conv front-end's not;
+     beside phase 5's, B5's two kernels by name, and the device time of the
+     plain-torch delta = rowsum(dO O) ops before B4 and B5); the loss
+     finite, encoder and decoder weights moved, the conv front-end's not;
   8. the fused int8 matmul (B7) against its plain version at M = 8192 rows
      for WavLM-large's three dense shapes (1024x1024, 1024x4096,
      4096x1024), bfloat16 and float32, with and without bias, and at a
@@ -133,9 +134,9 @@ BWD_REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 AUTOGRAD_REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 LSE_TOL = 1e-3             # the row logsumexp, f32 in both
 EDGE_LENGTHS = (65, 128, 129, 203, 1000)  # phase 2's untimed block-edge lengths
-# phase 5's: the edges of B5's 128-key, 128-query and 64-row tiles, and bias
-# rows that are not 16-byte aligned (127, 129, 203)
-B5_EDGE_LENGTHS = (65, 127, 128, 129, 203, 1000, 1024)
+# phase 5's: the edges of B4's and B5's 128-query, 128-key and 64-row tiles,
+# and bias rows that are not 16-byte aligned (127, 129, 203)
+B4_B5_EDGE_LENGTHS = (65, 127, 128, 129, 203, 1000, 1024)
 SMALL_STEP_REL_TOL = 1e-4  # f32 fine-tune step, card vs CPU, of the largest gradient
 FINETUNE_B, FINETUNE_SECONDS, FINETUNE_TOKENS = 32, 20.0, 128
 TIMED_STEPS = 4            # one L_fd period
@@ -396,7 +397,7 @@ def small_pipeline_matches_cpu(FA, tokenizer_dir: str) -> dict:
     return result
 
 
-def device_time_breakdown(run, wall_s: float) -> dict:
+def device_time_breakdown(run, wall_s: float, ranges=()) -> dict:
     """One more run under torch.profiler: device time by event name, and the
     device's busy time against the host wall time of the unprofiled run
     (`idle_share`) and of the profiled run itself (`idle_share_profiled`),
@@ -405,7 +406,10 @@ def device_time_breakdown(run, wall_s: float) -> dict:
     kernels, a second stream) counts once; `overlap_ms` is the plain sum of
     event times less the union, `nested_ms` the events that lie wholly
     inside an earlier one, by name, and `containers` the names that hold
-    them."""
+    them.  For each name in `ranges` (a `record_function` range of the
+    port), `ranges` gives its count and the device time of the kernels
+    launched inside it (`device_ms`), and the device-side spans of the
+    range (`span_ms`, gaps included), which stay out of the busy time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -415,7 +419,18 @@ def device_time_breakdown(run, wall_s: float) -> dict:
         torch.cuda.synchronize()
         profiled_ms = (time.time() - t0) * 1e3
     spans = sorted((e.time_range.start, -e.time_range.end, e.name) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
+                   if e.device_type == DeviceType.CUDA and e.name not in ranges)
+    in_ranges = {name: {"count": 0, "device_ms": 0.0, "span_ms": 0.0} for name in ranges}
+    for e in prof.events():
+        if e.name not in in_ranges:
+            continue
+        r = in_ranges[e.name]
+        if e.device_type == DeviceType.CUDA:
+            r["span_ms"] += (e.time_range.end - e.time_range.start) / 1e3
+        else:
+            r["count"] += 1
+            total = getattr(e, "device_time_total", None)
+            r["device_ms"] += (e.cuda_time_total if total is None else total) / 1e3
     if not spans:
         fail("the profiler saw no device event")
     per_kernel, nested, containers = {}, {}, {}
@@ -448,7 +463,7 @@ def device_time_breakdown(run, wall_s: float) -> dict:
             "profiled_wall_ms": profiled_ms, "idle_share_profiled": 1.0 - busy_ms / profiled_ms,
             "kernels": len(per_kernel),
             "top": [{"name": n[:90], "ms": ms, "share": ms / busy_ms} for n, ms in ranked[:12]],
-            "all": [{"name": n, "ms": ms} for n, ms in ranked]}
+            "all": [{"name": n, "ms": ms} for n, ms in ranked], "ranges": in_ranges}
 
 
 def port_kernel_wrappers() -> dict:
@@ -621,12 +636,14 @@ def training_kernels_vs_plain(FA, L: int, dtype, gen, timed: bool, B: int = 8,
     out, lse = wrap["fwd_lse"](q, k, v, bias, gate, mask, H)
     delta = (dout.float() * out.float()).view(B, L, H, 64).sum(-1).transpose(1, 2).contiguous()
     dq, dgate = wrap["bwd_dq"](q, k, v, bias, gate, mask, lse, delta, dout, H)
+    dq_again = wrap["bwd_dq"](q, k, v, bias, gate, mask, lse, delta, dout, H)
     dk, dv, dbias = wrap["bwd_dkv"](q, k, v, bias, gate, mask, lse, delta, dout, H)
     again = wrap["bwd_dkv"](q, k, v, bias, gate, mask, lse, delta, dout, H)
     torch.cuda.synchronize()
-    # B5 writes each output element once, from a fixed order of sums: bit for bit
+    # B4 and B5 write each output element once, from a fixed order of sums: bit for bit
+    dq_deterministic = all(torch.equal(a, b) for a, b in zip((dq, dgate), dq_again))
     deterministic = all(torch.equal(a, b) for a, b in zip((dk, dv, dbias), again))
-    del again
+    del again, dq_again
     got = {"dq": dq, "dk": dk, "dv": dv, "dbias": dbias, "dgate": dgate}
     ref_out, ref_lse = FA.wavlm_gated_attention_fwd_lse_plain(q, k, v, bias, gate, mask, H)
     plain = dict(zip(("dq", "dk", "dv", "dbias", "dgate"), FA.wavlm_gated_attention_bwd_plain(
@@ -638,9 +655,11 @@ def training_kernels_vs_plain(FA, L: int, dtype, gen, timed: bool, B: int = 8,
 
     row = {"B": B, "L": L, "valid": valid, "dtype": str(dtype).replace("torch.", ""),
            "tol_out": TOL[dtype], "tol_lse": LSE_TOL, "tol_bwd_rel": BWD_REL_TOL[dtype],
-           "tol_autograd_rel": AUTOGRAD_REL_TOL[dtype], "bwd_dkv_deterministic": deterministic,
-           "errors": {}}
-    failures = [] if deterministic else ["B5 outputs differ between two calls"]
+           "tol_autograd_rel": AUTOGRAD_REL_TOL[dtype], "bwd_dq_deterministic": dq_deterministic,
+           "bwd_dkv_deterministic": deterministic, "errors": {}}
+    failures = [] if dq_deterministic else ["B4 outputs differ between two calls"]
+    if not deterministic:
+        failures.append("B5 outputs differ between two calls")
     out_err, _ = _rel_err(out, ref_out)
     lse_err, _ = _rel_err(lse, ref_lse)
     row["errors"]["out"], row["errors"]["lse"] = out_err, lse_err
@@ -897,7 +916,17 @@ def finetune_full_width(FA, tokenizer_dir: str, card: str, isolated: dict) -> di
                for a, p in zip(frontend, backbone.feature_extractor.parameters())):
         fail("the frozen conv front-end changed")
 
-    breakdown = device_time_breakdown(run, statistics.median(step_s))
+    breakdown = device_time_breakdown(run, statistics.median(step_s),
+                                      ranges=(FA.BWD_DELTA_RANGE,))
+    delta_ops = breakdown.pop("ranges")[FA.BWD_DELTA_RANGE]
+    if delta_ops["count"] != n_layers:
+        fail(f"the profiled fine-tune step shows {delta_ops['count']} {FA.BWD_DELTA_RANGE} "
+             f"ranges, expected {n_layers}")
+    print(json.dumps({"finetune_delta_ops": {
+        **delta_ops, "device_ms_per_launch": delta_ops["device_ms"] / n_layers,
+        "ops": "dout.float() * out.float(), .sum(-1) over the head dims, "
+               ".transpose(1, 2).contiguous(): delta = rowsum(dO O) for B4 and B5"}}),
+          flush=True)
     names = {"fwd_lse": ("gated_attention_bf16_kernel",), "bwd_dq": ("bwd_dq_bf16_kernel",),
              "bwd_dkv": ("bwd_dkv_bf16_kernel", "bwd_dbias_bf16_kernel")}
     breakdown["port_kernels_by_name"] = {t["name"]: t["ms"] for t in breakdown["all"]
@@ -1208,7 +1237,7 @@ def main() -> int:
     for L in (1024, 384, 203):
         for dtype in (torch.float32, torch.bfloat16):
             training_kernels_vs_plain(FA, L, dtype, gen, timed=L == 1024)
-    for L in B5_EDGE_LENGTHS:  # untimed: the edges of B5's tiles, one batch row and three
+    for L in B4_B5_EDGE_LENGTHS:  # untimed: B4's and B5's tile edges, one batch row and three
         training_kernels_vs_plain(FA, L, torch.bfloat16, gen, timed=False, B=1, valid=L - 3)
         training_kernels_vs_plain(FA, L, torch.bfloat16, gen, timed=False, B=3)
     with tempfile.TemporaryDirectory() as tmp:

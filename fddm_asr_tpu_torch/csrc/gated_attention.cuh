@@ -1,9 +1,11 @@
 // Shared pieces of the gated-attention kernels (gated_attention.cu, the
 // forward; gated_attention_bwd.cu, the backward): tile sizes, the masked-key
-// score, the bf16 tensor-core helpers (mma.sync m16n8k16, ldmatrix, wgmma),
-// the 128-byte swizzled tile layout, mbarriers, TMA and its tensor maps.
+// score, the float32 tile loads, the bf16 tensor-core helpers (A fragments,
+// mma.sync, wgmma), the 128-byte swizzled tile layout, mbarriers, TMA and its
+// tensor maps.
 //
-// Fragment layouts of mma.m16n8k16 (g = lane / 4, t = lane % 4):
+// Fragment layouts of mma.m16n8k16, which are wgmma's per warp (below)
+// (g = lane / 4, t = lane % 4):
 //   A [16 x 16], row-major: a0 (row g, cols 2t, 2t+1), a1 (row g+8, same
 //     cols), a2 (row g, cols 2t+8, 2t+9), a3 (row g+8, cols 2t+8, 2t+9);
 //   B [16 x 8], "col": b0 (rows 2t, 2t+1 of column g), b1 (rows 2t+8, 2t+9);
@@ -32,14 +34,9 @@ constexpr int PAD = 68;  // smem row stride (floats): 16-byte aligned, fewer ban
 
 typedef __nv_bfloat16 bf16;
 
-// bf16 kernels: four warps of 16 rows each on the tensor cores
-constexpr int MMA_WARPS = 4;
-constexpr int MMA_THREADS = 32 * MMA_WARPS;
-constexpr int KSTR = DH + 8;  // smem row stride (bf16): 144 bytes, so the 32-bit
-                              // fragment reads of 8 rows x 4 threads and
-                              // ldmatrix's 8 row reads are conflict-free
-static_assert(BK == DH && BQ == DH, "all tiles share one smem row stride");
+static_assert(BK == DH && BQ == DH, "the bf16 tiles' rows are 64 elements, 128 bytes");
 
+// mma.sync m16n8k16 (conv_ln_gelu.cu's products)
 __device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32_t b0,
                                          uint32_t b1) {
   asm volatile(
@@ -47,13 +44,6 @@ __device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4], uint32
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t& r0, uint32_t& r1, const bf16* p) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r0), "=r"(r1)
-               : "r"(addr));
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -78,29 +68,6 @@ __device__ __forceinline__ void load_a_fragments(uint32_t a[4][4], const bf16* r
     a[ks][1] = load_pair(row1 + c, valid1);
     a[ks][2] = load_pair(row0 + c + 8, valid0);
     a[ks][3] = load_pair(row1 + c + 8, valid1);
-  }
-}
-
-// A [64 x 64] tile of a row-major bf16 matrix (row stride ld) into smem
-// (row stride KSTR); zero outside rows_valid x cols_valid.  16-byte loads
-// where `vec` says rows are 16-byte aligned, elementwise otherwise.
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* __restrict__ src, size_t ld,
-                                          int rows_valid, int cols_valid, bool vec) {
-  for (int i = threadIdx.x; i < 64 * 8; i += MMA_THREADS) {
-    const int r = i >> 3, c = (i & 7) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < rows_valid) {
-      const bf16* p = src + (size_t)r * ld + c;
-      if (vec && c + 8 <= cols_valid) {
-        val = *reinterpret_cast<const uint4*>(p);
-      } else {
-        __align__(16) bf16 e[8];
-        #pragma unroll
-        for (int j = 0; j < 8; ++j) e[j] = c + j < cols_valid ? p[j] : __float2bfloat16(0.f);
-        val = *reinterpret_cast<const uint4*>(e);
-      }
-    }
-    *reinterpret_cast<uint4*>(dst + r * KSTR + c) = val;
   }
 }
 

@@ -9,8 +9,9 @@
 //   dK = scale * dS^T Q,  dV = P^T dO,  dbias = sum_b dS * gate kernel B (dkv)
 //
 // Replaces the two backward TPU kernels of fddm_asr_tpu/ops/flash_attention.py:
-//   * `_kernel_packed_bwd_dq`   -> kernel A, one block per (64-query tile,
-//     head, batch row) that walks every key, as the forward does;
+//   * `_kernel_packed_bwd_dq`   -> kernel A, one block per (batch row,
+//     head, query tile) that walks the keys, as the forward does (bfloat16:
+//     128-query tiles and only the 64-key tiles holding a kept key);
 //   * `_kernel_packed_bwd_dkv`  -> kernel B, which for bfloat16 is two
 //     kernels launched back to back by one call:
 //       (a) dK, dV: one block per (128-key tile, head, batch row) that walks
@@ -36,24 +37,25 @@
 //     except at a row whose keys are all masked, where the forward averages
 //     v over the L real keys: there lse = f32-min, so exp(f32-min - lse) = 1
 //     and P = 1/L (the `inv_L` factor) feeds dV;
-//   * keys past L and query rows past L get P = dS = 0 (or, in kernel B's
-//     bf16 kernels, a finite value that meets a zero row of dO and Q or a
-//     gate of 0, or lands in a row that is never stored).
+//   * keys past L and query rows past L get P = dS = 0 (or, in the bf16
+//     kernels, a finite value that meets a zero row of dO and Q or a gate of
+//     0, or lands in a row that is never stored).
 // (The TPU kernels differ at all-masked rows: their P there is 1, not 1/Lk,
 // and dS is not zeroed.)
 //
 // Numerics: S is recomputed with the forward's own arithmetic (the f32
 // product scaled, then the gated bias added), so P <= 1 up to rounding.
-//   * bfloat16 (the training path): on the tensor cores, bf16 in and f32
-//     accumulate (kernel A: four warps of 16 rows on mma.sync m16n8k16;
-//     kernel B: wgmma).  dS and P are rounded to bf16 as the A operands of
+//   * bfloat16 (the training path): on the tensor cores (wgmma), bf16 in
+//     and f32 accumulate.  dS and P are rounded to bf16 as the A operands of
 //     the second products, as the TPU kernels round them; delta, dgate and
 //     dbias stay f32.
 //   * float32: exact f32 FMAs, 256 threads of 4x4 register micro-tiles.
 //
 // What bounds it, at the fine-tune shape (B=32, L=1024, H=16, bf16, 999 of
 // 1024 keys kept): kernel A moves ~380 MB (0.11 ms) and does 6*64 flops per
-// (query, kept key) pair and head, ~0.20 ms of tensor-core time; kernel B
+// (query, kept key) pair and head, ~0.20 ms of tensor-core time, beside one
+// exponential and some eight FP32 instructions per (batch row, query, key)
+// (0.5 G of each: ~0.13 ms on the SFU alone); kernel B
 // must do 8*64 (q.k, dO.v, P^T.dO, dS^T.q), ~0.27 ms, and move ~510 MB (0.15
 // ms; the 64 MB f32 dbias written once).  B's design adds 4*64 flops a pair
 // in (b), which recomputes S and dP (the least time of (a) + (b) ~0.41 ms),
@@ -62,6 +64,30 @@
 // takes one exponential and some five to ten FP32 instructions per (batch
 // row, query, key): 0.5 G of each, near 0.15 ms on the SFU alone.  Both also
 // stream their tiles from L2 again and again (about 2 GB each a launch).
+//
+// bfloat16 kernel A, what each part of the design is for:
+//   * two warpgroups of 64 queries, one block an SM (Q, dO, S, dP, dQ and
+//     the packed dS live in registers at once).  128-query blocks rather
+//     than 64 halve the K and V bytes streamed from L2 per query; the grid is
+//     batch-fastest, so the B blocks that read one bias tile run together.
+//   * K, V [64 keys][64] and the bias [128 queries][64 keys] of each key
+//     tile, and its 64 mask bytes, come by TMA into a four-stage full/empty
+//     mbarrier ring, issued by one thread of warp 0 two tiles ahead: no
+//     block barrier in the loop, so the two warpgroups drift apart and one's
+//     softmax overlaps the other's products.
+//   * all three products on wgmma m64n64k16 with A from registers (Q, dO,
+//     then dS packed from S's accumulator); K is read K-major for S and
+//     MN-major (the descriptor's transpose bit) for dQ, with no ldmatrix.
+//     A tile is three commit groups: P is computed while dP runs, and dQ is
+//     waited for at the next tile's S.  The tile's bias words are read from
+//     shared memory once and kept in registers for the dS pass.
+//   * the softmax arithmetic in the log2 domain: scale, gate and lse carry
+//     log2 e, so each P is two FMAs and one ex2.approx.  A tile whose keys
+//     are all kept takes a path without per-key tests; the others select,
+//     and a tile with no kept key is not visited at all (the block lists its
+//     batch row's live tiles first), which is exact since dS = 0 there.
+//   * dgate sums in f32 registers per row and across the quad by shuffles;
+//     each dQ and dgate element is written once by one block.
 //
 // bfloat16 kernel B, what each part of the design is for:
 //   * (a): two warpgroups of 64 keys, one block an SM (222 registers).  The
@@ -85,11 +111,12 @@
 //     slowest, so the blocks in flight share a head's tiles in L2.  Where
 //     every key of a warpgroup is kept, the update is branch-free: P (dP
 //     gate - delta gate), with the constants folded into FMAs.
-//   * every tile has 128-byte rows under the 128-byte swizzle (what TMA
-//     writes and wgmma's descriptors read); rows that TMA cannot address
-//     (not 16-byte aligned: the bias and the f32 rows where L % 8 != 0, and
-//     in (b) also where L % 16 != 0) are loaded elementwise by warp 0's
-//     lanes or by each thread.
+//
+// In A and B every tile has 128-byte rows under the 128-byte swizzle (what
+// TMA writes and wgmma's descriptors read); rows that TMA cannot address
+// (not 16-byte aligned: the bias and (a)'s f32 rows where L % 8 != 0, A's
+// mask row and (b)'s rows where L % 16 != 0) are loaded elementwise by warp
+// 0's lanes or by each thread.
 // Measured times stand in PERF.md.
 
 #include "gated_attention.cuh"
@@ -410,123 +437,313 @@ bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------- bfloat16
+// Shared by the bf16 kernels A and B.
 
-// kernel A: Q and dO stay in registers as A fragments; K, V, bias tiles in smem.
-__global__ void __launch_bounds__(MMA_THREADS)
-bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                   const bf16* __restrict__ v, const bf16* __restrict__ bias,
-                   const float* __restrict__ gate, const uint8_t* __restrict__ mask,
-                   const float* __restrict__ lse, const float* __restrict__ delta,
-                   const bf16* __restrict__ dout, bf16* __restrict__ dq,
-                   float* __restrict__ dgate, int L, int H, float scale) {
-  __shared__ __align__(16) bf16 Ks[BK * KSTR];   // [key][d]
-  __shared__ __align__(16) bf16 Vs[BK * KSTR];   // [key][d]
-  __shared__ __align__(16) bf16 Bs[BQ * KSTR];   // [query][key]
-  __shared__ float keep[BK];
+constexpr int TILE_BYTES = 64 * DH * 2;  // a [64 rows][64] bf16 tile: 8 KB, 128-byte rows
 
-  const int b = blockIdx.x;  // batch fastest: bias tiles reused from L2
+__device__ __forceinline__ float2 unpack_bf16(uint32_t u) {
+  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&u));
+}
+
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return p + ((1024 - (smem_addr(p) & 1023)) & 1023);
+}
+
+// The 64 x 64 tiles of the bias [q0.., k0..] into swizzled shared memory (one
+// per 64 rows of `rows`, one per 64 keys of `halves`), elementwise by the
+// warp's lanes: for bias rows that TMA cannot address (L % 8 != 0).
+__device__ __forceinline__ void bias_tiles_by_lanes(bf16* dst, const bf16* bias_h, int L, int q0,
+                                                    int k0, int rows, int halves, int lane) {
+  for (int i = lane; i < rows * halves * 64; i += 32) {
+    const int tile = i >> 12, r = (i >> 6) & 63, c = i & 63;
+    const int qi = q0 + (tile % (rows / 64)) * 64 + r, kj = k0 + (tile / (rows / 64)) * 64 + c;
+    dst[tile * 64 * DH + sw128(r, c >> 3) + (c & 7)] =
+        qi < L && kj < L ? bias_h[(size_t)qi * L + kj] : __float2bfloat16(0.f);
+  }
+}
+
+// ---------------------------------------------------- bfloat16 kernel A (B4)
+
+constexpr int DQ_BQ = 128;  // queries of a block: two warpgroups of 64
+constexpr int DQ_THREADS = 256;
+constexpr int DQ_STAGES = 4;
+// a stage is freed one step after it is read (dQ += dS K is waited for at
+// the next step), so warp 0 loads DQ_STAGES - 2 steps ahead
+constexpr int DQ_AHEAD = DQ_STAGES - 2;
+// a stage: K and V [64 keys][64] and the bias [128 queries][64 keys]
+constexpr int DQ_STAGE_BYTES = 2 * TILE_BYTES + DQ_BQ * BK * 2;
+constexpr int DQ_MASK_SLOT = 128;  // a stage's 64 mask bytes, in 128-byte aligned slots
+static_assert(DQ_STAGE_BYTES % 1024 == 0, "stages keep the 1024-byte swizzle alignment");
+
+// A block's dynamic shared memory: the ring, the mask slots, the 2 x
+// DQ_STAGES mbarriers, the count (16 bytes) and list (uint16) of the key
+// tiles it walks, a flag byte per key tile, and slack to align the ring to
+// 1024 bytes.
+inline size_t dq_smem_bytes(int nsteps) {
+  return (size_t)DQ_STAGES * (DQ_STAGE_BYTES + DQ_MASK_SLOT) + 2 * DQ_STAGES * 8 + 16 +
+         (size_t)nsteps * 3 + 1024;
+}
+
+struct DqMaps {  // kernel A's tensor maps; bias only when L % 8 == 0, mask when L % 16 == 0
+  CUtensorMap k, v, bias, mask;
+};
+
+// Warp 0 fills the ring stage of key tile `tile`: K and V [64 keys][64 dims]
+// of (b, h) and the bias [128 queries][64 keys] by TMA, and the tile's 64
+// mask bytes into `mslot` by TMA too; where the bias rows or the mask row are
+// not 16-byte aligned (L % 8 != 0, L % 16 != 0), those elementwise by the
+// warp's lanes.  Zeros past L, so a key past L reads as masked.
+__device__ __forceinline__ void dq_produce(uint8_t* stage, uint8_t* mslot, uint64_t* full,
+                                           int tile, const DqMaps& tm, bool bias_tma,
+                                           bool mask_tma, const bf16* bias_h,
+                                           const uint8_t* mask_b, int L, int q0, int h, int b,
+                                           int lane) {
+  const int k0 = tile * BK;
+  const bool mask_lanes = mask_b != nullptr && !mask_tma;
+  if (!bias_tma || mask_lanes) {
+    if (!bias_tma)
+      bias_tiles_by_lanes(reinterpret_cast<bf16*>(stage + 2 * TILE_BYTES), bias_h, L, q0, k0,
+                          DQ_BQ, 1, lane);
+    if (mask_lanes)
+      for (int c = lane; c < BK; c += 32) mslot[c] = k0 + c < L ? mask_b[k0 + c] : 0;
+    __syncwarp();  // the lanes' stores precede lane 0's arrive (a release)
+  }
+  if (lane == 0) {
+    mbar_arrive_expect_tx(full, 2 * TILE_BYTES + (bias_tma ? DQ_BQ * BK * 2 : 0) +
+                                    (mask_tma ? BK : 0));
+    tma_load_3d(stage, &tm.k, full, h * DH, k0, b);
+    tma_load_3d(stage + TILE_BYTES, &tm.v, full, h * DH, k0, b);
+    if (bias_tma) tma_load_3d(stage + 2 * TILE_BYTES, &tm.bias, full, k0, q0, h);
+    if (mask_tma) tma_load_2d(mslot, &tm.mask, full, k0, b);
+  }
+}
+
+// P of one key tile in the log2 domain, in place over S's accumulator:
+//   P = 2^(s scale log2e + gate log2e bias - lse log2e)
+// bias_r0/r1: the thread's two bias rows (swizzled; their row % 8 is g); bw
+// keeps the thread's bias words for the dS pass (bw[j][i]: row i, key
+// columns 8j + 2t, 8j + 2t + 1).  Without kFull, keys whose bit of `kept`
+// is clear (bit 8j + e for key column 8j + 2t + e) get P = 0 by a select: a
+// multiply by the flag would give inf * 0 = NaN at a row whose keys are all
+// masked (lse = f32-min).
+template <bool kFull>
+__device__ __forceinline__ void dq_probs(float s[8][4], const uint32_t* bias_r0,
+                                         const uint32_t* bias_r1, uint32_t bw[8][2], int g,
+                                         int t, float sl2, const float gl[2], const float nll[2],
+                                         uint64_t kept) {
+  #pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int w = ((j ^ g) << 2) + t;  // 32-bit word of key columns 8j + 2t, 8j + 2t + 1
+    bw[j][0] = bias_r0[w];
+    bw[j][1] = bias_r1[w];
+    const float2 b0 = unpack_bf16(bw[j][0]), b1 = unpack_bf16(bw[j][1]);
+    const float bv[4] = {b0.x, b0.y, b1.x, b1.y};
+    #pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = ex2(fmaf(s[j][e], sl2, fmaf(gl[e >> 1], bv[e], nll[e >> 1])));
+      s[j][e] = (kFull || ((kept >> (8 * j + (e & 1))) & 1)) ? p : 0.f;
+    }
+  }
+}
+
+// Kernel A, dQ and dgate: one block per (batch row, head, 128-query tile),
+// each warpgroup 64 queries whose Q and dO rows stay in registers as wgmma A
+// operands, walking the key tiles of its batch row that hold a kept key.
+// Three products a tile, all on wgmma with A from registers: S = Q K^T and
+// dP = dO V^T (K and V K-major), then dQ += dS K (K MN-major, the transpose
+// bit) with dS packed to bf16 from the accumulator.  P is computed while dP
+// runs; dQ is waited for at the next tile's S, and the tile's stage freed
+// then.
+__global__ void __launch_bounds__(DQ_THREADS, 1)
+bwd_dq_bf16_kernel(const __grid_constant__ DqMaps tm, const bf16* __restrict__ q,
+                   const bf16* __restrict__ bias, const float* __restrict__ gate,
+                   const uint8_t* __restrict__ mask, const float* __restrict__ lse,
+                   const float* __restrict__ delta, const bf16* __restrict__ dout,
+                   bf16* __restrict__ dq, float* __restrict__ dgate, int L, int H, float scale,
+                   int bias_tma, int mask_tma) {
+  extern __shared__ uint8_t dq_smem_raw[];
+  const int nsteps = (L + BK - 1) / BK;
+  uint8_t* smem = align1024(dq_smem_raw);
+  uint8_t* mslots = smem + DQ_STAGES * DQ_STAGE_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(mslots + DQ_STAGES * DQ_MASK_SLOT);
+  uint64_t* empty = full + DQ_STAGES;  // full[s]: the tile's loads landed; empty[s]: all read
+  int* nlive_s = reinterpret_cast<int*>(empty + DQ_STAGES);
+  uint16_t* live = reinterpret_cast<uint16_t*>(nlive_s + 4);  // the key tiles walked, in order
+  uint8_t* any_kept = reinterpret_cast<uint8_t*>(live + nsteps);
+
+  const int b = blockIdx.x;  // batch fastest: the blocks in flight share a head's bias tiles in L2
   const int h = blockIdx.y;
-  const int q0 = blockIdx.z * BQ;
+  const int q0 = blockIdx.z * DQ_BQ;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
+  const int g = lane >> 2, t = lane & 3;  // fragment row group / column pair
   const size_t HD = (size_t)H * DH;
-  const int lr0 = warp * 16 + g, lr1 = lr0 + 8;
+  const int lr0 = warp * 16 + g, lr1 = lr0 + 8;  // the thread's two rows in the block
   const int r0 = q0 + lr0, r1 = q0 + lr1;
+  const bf16* bias_h = bias + (size_t)h * L * L;
+  const uint8_t* mask_b = mask == nullptr ? nullptr : mask + (size_t)b * L;
 
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < DQ_STAGES; ++st) {
+      mbar_init(&full[st], 1);                 // the producer's arrive + the bytes
+      mbar_init(&empty[st], DQ_THREADS / 32);  // one arrive per warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (mask_b != nullptr) {
+    // the key tiles of this batch row that hold a kept key, 16 threads a
+    // tile: the others are skipped, which is exact (dS = 0 on all their keys)
+    for (int base = 0; base < nsteps * 16; base += DQ_THREADS) {
+      const int i = base + threadIdx.x;
+      const int c0 = (i >> 4) * BK + (i & 15) * 4;
+      bool any = false;
+      if (i < nsteps * 16) {
+        #pragma unroll
+        for (int e = 0; e < 4; ++e) any |= c0 + e < L && mask_b[c0 + e] != 0;
+      }
+      const uint32_t vote = __ballot_sync(0xffffffffu, any);
+      if ((lane & 15) == 0 && i < nsteps * 16)
+        any_kept[i >> 4] = ((vote >> (lane & 16)) & 0xffffu) != 0;
+    }
+    __syncthreads();
+    if (warp == 0) {
+      int n = 0;
+      for (int base = 0; base < nsteps; base += 32) {
+        const bool kept = base + lane < nsteps && any_kept[base + lane];
+        const uint32_t vote = __ballot_sync(0xffffffffu, kept);
+        if (kept) live[n + __popc(vote & ((1u << lane) - 1))] = (uint16_t)(base + lane);
+        n += __popc(vote);
+      }
+      if (lane == 0) *nlive_s = n;
+    }
+  }
+  __syncthreads();
+  const int nlive = mask_b == nullptr ? nsteps : *nlive_s;
+  if (warp == 0)
+    for (int jn = 0; jn < DQ_AHEAD && jn < nlive; ++jn)
+      dq_produce(smem + jn * DQ_STAGE_BYTES, mslots + jn * DQ_MASK_SLOT, &full[jn],
+                 mask_b == nullptr ? jn : live[jn], tm, bias_tma, mask_tma, bias_h, mask_b, L,
+                 q0, h, b, lane);
+
+  // Q and dO as A fragments, 4 slices of 16 head dims each, kept in registers
   uint32_t qa[4][4], da[4][4];
   load_a_fragments(qa, q + ((size_t)b * L + r0) * HD + h * DH,
                    q + ((size_t)b * L + r1) * HD + h * DH, r0 < L, r1 < L, t);
   load_a_fragments(da, dout + ((size_t)b * L + r0) * HD + h * DH,
                    dout + ((size_t)b * L + r1) * HD + h * DH, r0 < L, r1 < L, t);
-  float gate_r[2], lse_r[2], delta_r[2];
+  // per row, log2 e folded in: gate log2e, -lse log2e; and delta.  Rows past
+  // L: zeros, so P = 1 meets dP = delta = 0 there (and is never stored).
+  const size_t bh = ((size_t)b * H + h) * L;
+  const float sl2 = scale * LOG2E;
+  float gl[2], nll[2], de[2];
   #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int r = i == 0 ? r0 : r1;
-    const size_t idx = ((size_t)b * H + h) * L + r;
-    gate_r[i] = r < L ? gate[idx] : 0.f;
-    lse_r[i] = r < L ? lse[idx] : 0.f;
-    delta_r[i] = r < L ? delta[idx] : 0.f;
+    const int r = i ? r1 : r0;
+    gl[i] = r < L ? gate[bh + r] * LOG2E : 0.f;
+    nll[i] = r < L ? -lse[bh + r] * LOG2E : 0.f;
+    de[i] = r < L ? delta[bh + r] : 0.f;
   }
 
-  float acc[8][4];  // dQ: 8 tiles of 8 head dims, mma C layout
+  float acc[8][4];          // dQ: 8 tiles of 8 head dims, accumulator layout
+  float s[8][4], dp[8][4];  // S, then P, then dS; dP: 8 tiles of 8 keys
   #pragma unroll
   for (int n = 0; n < 8; ++n)
     #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-  float dg[2] = {0.f, 0.f};
+    for (int e = 0; e < 4; ++e) acc[n][e] = s[n][e] = dp[n][e] = 0.f;
+  float dg[2] = {0.f, 0.f};  // dgate of rows r0, r1 (this thread's key columns)
 
-  const bf16* k_bh = k + (size_t)b * L * HD + h * DH;
-  const bf16* v_bh = v + (size_t)b * L * HD + h * DH;
-  const bf16* bias_q = bias + (size_t)h * L * L + (size_t)q0 * L;
-  const bool bias_vec = (L & 7) == 0;
-  const uint32_t* Ks32 = reinterpret_cast<const uint32_t*>(Ks);
-  const uint32_t* Vs32 = reinterpret_cast<const uint32_t*>(Vs);
-  const uint32_t* Bs32 = reinterpret_cast<const uint32_t*>(Bs);
-  constexpr int KSTR32 = KSTR / 2;
+  for (int it = 0; it < nlive; ++it) {
+    // warp 0 loads step it + DQ_AHEAD into the stage that step it - 2 used,
+    // once every warp has released it (a warp releases step it - 2 during
+    // step it - 1)
+    if (warp == 0 && it + DQ_AHEAD < nlive) {
+      const int jn = it + DQ_AHEAD;
+      if (jn >= DQ_STAGES) mbar_wait(&empty[jn % DQ_STAGES], (jn / DQ_STAGES - 1) & 1);
+      dq_produce(smem + (jn % DQ_STAGES) * DQ_STAGE_BYTES, mslots + (jn % DQ_STAGES) * DQ_MASK_SLOT,
+                 &full[jn % DQ_STAGES], mask_b == nullptr ? jn : live[jn], tm, bias_tma, mask_tma,
+                 bias_h, mask_b, L, q0, h, b, lane);
+    }
+    const int st = it % DQ_STAGES;
+    const uint8_t* stage = smem + st * DQ_STAGE_BYTES;
+    const int k0 = (mask_b == nullptr ? it : live[it]) * BK;
+    mbar_wait(&full[st], (it / DQ_STAGES) & 1);
 
-  for (int k0 = 0; k0 < L; k0 += BK) {
-    __syncthreads();
-    load_tile(Ks, k_bh + (size_t)k0 * HD, HD, L - k0, DH, true);
-    load_tile(Vs, v_bh + (size_t)k0 * HD, HD, L - k0, DH, true);
-    load_tile(Bs, bias_q + k0, L, L - q0, L - k0, bias_vec);
-    if (threadIdx.x < BK) keep[threadIdx.x] = keep_flag(mask, b, k0 + threadIdx.x, L);
-    __syncthreads();
-
-    // S = Q K^T, dP = dO V^T: 8 tiles of 8 keys over 4 slices of 16 head dims
-    float s[8][4], dp[8][4];
+    // S = Q K^T and dP = dO V^T, two groups; K and V [key][d] are K-major
+    // B operands, 16 head dims = 32 bytes along each row
+    reg_fence(s);
+    reg_fence(dp);
+    wgmma_fence();
     #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      #pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-      const uint32_t* krow = Ks32 + (j * 8 + g) * KSTR32;
-      const uint32_t* vrow = Vs32 + (j * 8 + g) * KSTR32;
-      #pragma unroll
-      for (int ks = 0; ks < 4; ++ks) {
-        mma_bf16(s[j], qa[ks], krow[ks * 8 + t], krow[ks * 8 + 4 + t]);
-        mma_bf16(dp[j], da[ks], vrow[ks * 8 + t], vrow[ks * 8 + 4 + t]);
-      }
+    for (int ks = 0; ks < 4; ++ks)
+      wgmma_m64n64k16_rs<0>(s, qa[ks], sw128_desc(stage, 16) + 2 * ks, ks > 0);
+    wgmma_commit();
+    #pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      wgmma_m64n64k16_rs<0>(dp, da[ks], sw128_desc(stage + TILE_BYTES, 16) + 2 * ks, ks > 0);
+    wgmma_commit();
+    // keep flags of the tile's 64 keys, from the stage's mask bytes
+    bool keep_lo, keep_hi;
+    if (mask_b == nullptr) {
+      keep_lo = k0 + lane < L;
+      keep_hi = k0 + 32 + lane < L;
+    } else {
+      const uint8_t* ms = mslots + st * DQ_MASK_SLOT;
+      keep_lo = ms[lane] != 0;
+      keep_hi = ms[32 + lane] != 0;
+    }
+    const uint32_t lo = __ballot_sync(0xffffffffu, keep_lo);
+    const uint32_t hi = __ballot_sync(0xffffffffu, keep_hi);
+    wgmma_wait<1>();  // S, and dQ of the previous step
+    reg_fence(s);
+    reg_fence(acc);
+    if (it > 0) {  // this warp is done with step it - 1's stage
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[(it - 1) % DQ_STAGES]);
     }
 
-    // dS = P (dP - delta) at kept keys (rows lr0: e = 0, 1; lr1: e = 2, 3;
-    // key columns 8j + 2t + (e & 1)), 0 elsewhere; dgate += dS * bias
+    // P in place while dP runs (rows lr0: e = 0, 1; lr1: e = 2, 3; key
+    // columns 8j + 2t + (e & 1))
+    const uint32_t* Bs32 = reinterpret_cast<const uint32_t*>(stage + 2 * TILE_BYTES);
+    uint32_t bw[8][2];  // read once from the stage, kept for the dS pass
+    if ((lo & hi) == 0xffffffffu)  // every key kept (and so below L): no per-key select
+      dq_probs<true>(s, Bs32 + lr0 * (DH / 2), Bs32 + lr1 * (DH / 2), bw, g, t, sl2, gl, nll, 0);
+    else
+      dq_probs<false>(s, Bs32 + lr0 * (DH / 2), Bs32 + lr1 * (DH / 2), bw, g, t, sl2, gl, nll,
+                      ((uint64_t)hi << 32 | lo) >> (2 * t));
+    wgmma_wait<0>();  // dP
+    reg_fence(dp);
+
+    // dS = P (dP - delta) in place (0 where P is); dgate += dS bias
     #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const int c = j * 8 + 2 * t;
-      const float2 b0 = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(Bs32 + lr0 * KSTR32 + (c >> 1)));
-      const float2 b1 = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(Bs32 + lr1 * KSTR32 + (c >> 1)));
+      const float2 b0 = unpack_bf16(bw[j][0]), b1 = unpack_bf16(bw[j][1]);
       const float bv[4] = {b0.x, b0.y, b1.x, b1.y};
       #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1;
-        float ds = 0.f;
-        if (keep[c + (e & 1)] > 0.f) {
-          const float sv = s[j][e] * scale + gate_r[i] * bv[e];
-          ds = expf(sv - lse_r[i]) * (dp[j][e] - delta_r[i]);
-        }
-        dg[i] = fmaf(ds, bv[e], dg[i]);
+        const float ds = s[j][e] * (dp[j][e] - de[e >> 1]);
+        dg[e >> 1] = fmaf(ds, bv[e], dg[e >> 1]);
         s[j][e] = ds;
       }
     }
-
-    // dQ += dS K: dS (rounded to bf16) from the accumulators straight into A
-    // fragments, 16 keys at a time; K's B fragments through ldmatrix.trans
+    // dQ += dS K: dS, rounded to bf16, is the A operand, 16 keys a k-slice;
+    // K [key][d] is MN-major, 16 keys = two 8-row groups = 2048 bytes.
+    // Waited for at the next step's S.
+    uint32_t sa[4][4];
     #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      const uint32_t sa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                              pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                              pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                              pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-      const bf16* krow = Ks + (kk * 16 + (lane & 15)) * KSTR;
-      #pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        uint32_t kb0, kb1;
-        ldmatrix_x2_trans(kb0, kb1, krow + n * 8);
-        mma_bf16(acc[n], sa, kb0, kb1);
-      }
+      sa[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      sa[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      sa[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      sa[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
     }
+    reg_fence(acc);
+    wgmma_fence();
+    #pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_m64n64k16_rs<1>(acc, sa[kk], sw128_desc(stage, 1024) + 128 * kk, 1);
+    wgmma_commit();
   }
+  wgmma_wait<0>();
+  reg_fence(acc);
 
   #pragma unroll
   for (int i = 0; i < 2; ++i) {  // the 4 threads of a row group share a row
@@ -544,7 +761,7 @@ bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           pack_bf16(acc[n][2] * scale, acc[n][3] * scale);
   }
   if (t == 0) {
-    float* dg_bh = dgate + ((size_t)b * H + h) * L;
+    float* dg_bh = dgate + bh;
     if (r0 < L) dg_bh[r0] = dg[0];
     if (r1 < L) dg_bh[r1] = dg[1];
   }
@@ -553,7 +770,6 @@ bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // ---------------------------------------------------- bfloat16 kernel B (B5)
 // Two kernels, launched back to back by one call: (a) dK and dV, (b) dbias.
 
-constexpr int TILE_BYTES = 64 * DH * 2;  // a [64 rows][64] bf16 tile: 8 KB, 128-byte rows
 constexpr int DKV_KEYS = 128;            // keys of a block of (a): two warpgroups of 64
 constexpr int DKV_THREADS = 256;
 constexpr int DKV_STAGES = 4;
@@ -578,27 +794,6 @@ constexpr int DB_STAGE_BYTES = 8 * TILE_BYTES;
 constexpr int DB_ROWS_BYTES = 3 * DB_TILE * 4 + DB_TILE;
 constexpr size_t DB_SMEM_BYTES = DB_STAGES * (DB_STAGE_BYTES + DB_ROWS_BYTES) + 4 * TILE_BYTES +
                                  (2 * DB_STAGES + 1) * 8 + 1024;
-
-__device__ __forceinline__ float2 unpack_bf16(uint32_t u) {
-  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&u));
-}
-
-__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
-  return p + ((1024 - (smem_addr(p) & 1023)) & 1023);
-}
-
-// The 64 x 64 tiles of the bias [q0.., k0..] into swizzled shared memory (one
-// per 64 rows of `rows`, one per 64 keys of `halves`), elementwise by the
-// warp's lanes: for bias rows that TMA cannot address (L % 8 != 0).
-__device__ __forceinline__ void bias_tiles_by_lanes(bf16* dst, const bf16* bias_h, int L, int q0,
-                                                    int k0, int rows, int halves, int lane) {
-  for (int i = lane; i < rows * halves * 64; i += 32) {
-    const int tile = i >> 12, r = (i >> 6) & 63, c = i & 63;
-    const int qi = q0 + (tile % (rows / 64)) * 64 + r, kj = k0 + (tile / (rows / 64)) * 64 + c;
-    dst[tile * 64 * DH + sw128(r, c >> 3) + (c & 7)] =
-        qi < L && kj < L ? bias_h[(size_t)qi * L + kj] : __float2bfloat16(0.f);
-  }
-}
 
 struct DkvMaps {  // (a)'s tensor maps; bias and the f32 rows only when L % 8 == 0
   CUtensorMap q, dout, bias, lse, delta, gate;
@@ -1105,10 +1300,28 @@ int fddm_gated_attention_bwd_dq(const void* q, const void* k, const void* v,
         static_cast<const float*>(dout), static_cast<float*>(dq), static_cast<float*>(dgate),
         L, H, scale);
   } else if (dtype == 1) {
-    bwd_dq_bf16_kernel<<<grid, MMA_THREADS, 0, s>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-        static_cast<const bf16*>(bias), g, m, ls, dl, static_cast<const bf16*>(dout),
-        static_cast<bf16*>(dq), static_cast<float*>(dgate), L, H, scale);
+    // K and V as [B][L][H*64] in 64-key tiles; the bias [H][L][L] in tiles of
+    // 128 queries x 64 keys where its rows are 16-byte aligned (L % 8 == 0)
+    // and the mask [B][L] in rows of 64 bytes where L % 16 == 0 (the kernel
+    // loads them elementwise otherwise)
+    const uint64_t HD = (uint64_t)H * DH;
+    const bool bias_tma = (L & 7) == 0, mask_tma = mask != nullptr && (L & 15) == 0;
+    DqMaps tm = {};
+    bool ok = encode_3d(&tm.k, k, HD, L, B, HD * 2, DH, BK) &&
+              encode_3d(&tm.v, v, HD, L, B, HD * 2, DH, BK);
+    if (ok && bias_tma) ok = encode_3d(&tm.bias, bias, L, L, H, (uint64_t)L * 2, BK, DQ_BQ);
+    if (ok && mask_tma)
+      ok = encode_rows(&tm.mask, CU_TENSOR_MAP_DATA_TYPE_UINT8, mask, L, B, BK);
+    if (!ok) return (int)cudaErrorInvalidValue;
+    const size_t smem = dq_smem_bytes((L + BK - 1) / BK);
+    cudaError_t err = cudaFuncSetAttribute(
+        bwd_dq_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 bf16_grid(B, H, (L + DQ_BQ - 1) / DQ_BQ);
+    bwd_dq_bf16_kernel<<<bf16_grid, DQ_THREADS, smem, s>>>(
+        tm, static_cast<const bf16*>(q), static_cast<const bf16*>(bias), g, m, ls, dl,
+        static_cast<const bf16*>(dout), static_cast<bf16*>(dq), static_cast<float*>(dgate), L,
+        H, scale, bias_tma, mask_tma);
   } else {
     return (int)cudaErrorInvalidValue;
   }

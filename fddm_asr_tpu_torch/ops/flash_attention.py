@@ -304,6 +304,9 @@ def wavlm_gated_attention_fwd_lse(q, k, v, pos_bias, gate, key_mask=None,
     return wavlm_gated_attention_fwd_lse_cuda(q, k, v, pos_bias, gate, key_mask, num_heads)
 
 
+BWD_DELTA_RANGE = "gated_attention_bwd_delta"  # the delta ops' range in a torch.profiler trace
+
+
 def wavlm_gated_attention_bwd(q, k, v, pos_bias, gate, key_mask, out, lse, dout,
                               num_heads: int = 16):
     """(dq, dk, dv, dbias, dgate) on the tensors' device: CPU -> plain
@@ -313,8 +316,9 @@ def wavlm_gated_attention_bwd(q, k, v, pos_bias, gate, key_mask, out, lse, dout,
         return wavlm_gated_attention_bwd_plain(q, k, v, pos_bias, gate, key_mask, out, lse,
                                                dout, num_heads)
     B, L, HD = q.shape
-    delta = (dout.float() * out.float()).view(B, L, num_heads, -1).sum(-1)
-    delta = delta.transpose(1, 2).contiguous()
+    with torch.profiler.record_function(BWD_DELTA_RANGE):
+        delta = (dout.float() * out.float()).view(B, L, num_heads, -1).sum(-1)
+        delta = delta.transpose(1, 2).contiguous()
     dq, dgate = wavlm_gated_attention_bwd_dq_cuda(q, k, v, pos_bias, gate, key_mask, lse,
                                                   delta, dout, num_heads)
     dk, dv, dbias = wavlm_gated_attention_bwd_dkv_cuda(q, k, v, pos_bias, gate, key_mask,

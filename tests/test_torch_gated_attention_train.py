@@ -14,6 +14,8 @@
   the kernels' plain versions), against autograd of the plain forward,
   including a row whose keys are all masked: the exact gradient of the
   port's forward (the TPU kernels differ there).
+* The arithmetic of the bf16 B4 and B5 kernels (log2-domain P, their
+  masking and loop orders), emulated in float32, against the plain backward.
 """
 import jax
 import jax.numpy as jnp
@@ -202,3 +204,72 @@ def test_b5_arithmetic_matches_the_plain_backward(rng):
         scale = b.abs().max().item()
         assert (a - b).abs().max().item() <= 1e-5 * scale, name
     assert got[1][2].abs().max() > 0  # the all-masked row's dv: 1/L of sum(dO)
+
+
+def _b4_arithmetic(q, k, v, bias, gate, mask, lse, delta, dout, num_heads, skip=True,
+                   select=True):
+    """dq, dgate as B4's bf16 kernel computes them, emulated in float32, and
+    the number of (batch row, key tile) pairs it visits.  Per 64-key tile:
+    P = 2^(S scale log2e + (gate log2e bias + (-lse log2e))), P = 0 at masked
+    keys and keys past L (by a select, or with `select` False by a multiply
+    by the keep flag), dS = P (dP - delta), dgate += dS bias, dQ += dS K;
+    with `skip`, a tile with no kept key of its batch row is not visited."""
+    B, L, _ = q.shape
+    log2e = torch.tensor(np.log2(np.e), dtype=torch.float32)
+    scale = 0.125
+    qh, kh, vh, dh = (FA._heads(x, num_heads) for x in (q, k, v, dout))
+    gl, nll, de = gate[..., None] * log2e, -lse[..., None] * log2e, delta[..., None]
+    dq = torch.zeros_like(qh)
+    dgate = torch.zeros(B, num_heads, L)
+    visited = 0
+    for b in range(B):
+        for k0 in range(0, L, 64):
+            cols = slice(k0, min(k0 + 64, L))
+            keep = mask[b, cols]
+            if skip and not keep.any():
+                continue
+            visited += 1
+            s = torch.matmul(qh[b], kh[b, :, cols].transpose(-1, -2))
+            dp = torch.matmul(dh[b], vh[b, :, cols].transpose(-1, -2))
+            p = torch.exp2(s * (scale * log2e) + (gl[b] * bias[:, :, cols] + nll[b]))
+            p = torch.where(keep, p, 0.0) if select else p * keep
+            ds = p * (dp - de[b])
+            dgate[b] += (ds * bias[:, :, cols]).sum(-1)
+            dq[b] += torch.matmul(ds, kh[b, :, cols])
+    return FA._packed(dq * scale), dgate, visited
+
+
+@pytest.mark.parametrize("skip", [True, False], ids=["skip", "no_skip"])
+def test_b4_arithmetic_matches_the_plain_backward(rng, skip):
+    """B4's bf16 kernel (log2-domain P with the constants folded, a select
+    at masked keys, key tiles without a kept key skipped) uses another
+    arithmetic than the plain backward; emulated on the CPU where it cannot
+    run, in float32 at L = 203 with a ragged row, a full row and an
+    all-masked row: within 1e-5 of each reference's largest magnitude, with
+    and without the skip (which is exact).  The all-masked row's lse is
+    f32-min, so its P overflows to inf: a select gives dS = 0 there, a
+    multiply by the keep flag NaN."""
+    L = 203
+    q, k, v = (rng.standard_normal((3, L, H * DH)).astype(np.float32) for _ in range(3))
+    bias = rng.standard_normal((H, L, L)).astype(np.float32)
+    gate = rng.uniform(1.0, 2.0, (3, H, L)).astype(np.float32)
+    dout = rng.standard_normal((3, L, H * DH)).astype(np.float32)
+    mask = np.ones((3, L), bool)
+    mask[0, 150:] = False  # tile 2 (keys 128..191) partly kept, tile 3 (192..202) not at all
+    mask[2] = False
+    q, k, v, bias, gate, mask, dout = map(torch.from_numpy, (q, k, v, bias, gate, mask, dout))
+    out, lse = FA.wavlm_gated_attention_fwd_lse_plain(q, k, v, bias, gate, mask, H)
+    delta = (dout * out).reshape(3, L, H, DH).sum(-1).transpose(1, 2)
+    want = FA.wavlm_gated_attention_bwd_plain(q, k, v, bias, gate, mask, out, lse, dout, H)
+    dq, dgate, visited = _b4_arithmetic(q, k, v, bias, gate, mask, lse, delta, dout, H,
+                                        skip=skip)
+    assert visited == (3 + 4 if skip else 3 * 4)
+    for name, a, b in (("dq", dq, want[0]), ("dgate", dgate, want[4])):
+        assert torch.isfinite(a).all(), name
+        scale = b.abs().max().item()
+        assert (a - b).abs().max().item() <= 1e-5 * scale, name
+    assert not dq[2].any() and not dgate[2].any()  # the all-masked row: exactly 0
+    if not skip:
+        dq_mul, _, _ = _b4_arithmetic(q, k, v, bias, gate, mask, lse, delta, dout, H,
+                                      skip=False, select=False)
+        assert torch.isnan(dq_mul[2]).all() and torch.isfinite(dq_mul[:2]).all()

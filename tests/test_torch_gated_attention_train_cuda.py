@@ -10,15 +10,16 @@ it also runs on the GPU machine (see test_torch_gated_attention_cuda.py):
 
 Inputs are unit-scale with ragged key masks and one all-masked row, at an L
 that is no multiple of 8 (203), the tail-block length of the TPU kernels'
-fault (384) and the training length (1024); B5 (dk/dv/dbias, two kernels:
-128-key blocks for dk/dv, 128-query x 64-key blocks looping over the batch
-for dbias) also at the edges of those tiles (65, 127, 128, 129, 1000), with
-one batch row and with the fine-tune's 32, and twice in a row, where its
-outputs must agree bit for bit.  Tolerances, each a fraction of
-the reference's largest magnitude: float32 1e-4 (summation order only);
-bfloat16 2e-2 against the plain versions, which round P and dS where the
-kernels do, and 5e-2 against autograd of the plain forward, which keeps dS
-in f32 but rounds dP = dO V^T to bf16 instead.
+fault (384) and the training length (1024); B4 (dq/dgate: 128-query blocks
+walking 64-key tiles, those without a kept key skipped) and B5 (dk/dv/dbias,
+two kernels: 128-key blocks for dk/dv, 128-query x 128-key blocks looping
+over the batch for dbias) also at the edges of those tiles (65, 127, 128,
+129, 1000), with one and three batch rows and with the fine-tune's 32, and
+twice in a row, where their outputs must agree bit for bit.  Tolerances,
+each a fraction of the reference's largest magnitude: float32 1e-4
+(summation order only); bfloat16 2e-2 against the plain versions, which
+round P and dS where the kernels do, and 5e-2 against autograd of the plain
+forward, which keeps dS in f32 but rounds dP = dO V^T to bf16 instead.
 """
 import pytest
 import torch
@@ -140,17 +141,31 @@ def test_kernels_refuse_what_they_do_not_take(cuda_device):
     assert FA.wavlm_gated_attention_bwd_dq_cuda.launches == before
 
 
-def _dkv(q, k, v, bias, gate, mask, dout):
-    """B3's lse and the dispatcher's delta, then B5; with the plain backward."""
+def _backward(kernel, q, k, v, bias, gate, mask, dout):
+    """B3's lse and the dispatcher's delta, then `kernel` (B4 or B5); with the
+    plain backward's (dq, dk, dv, dbias, dgate)."""
     batch, L, _ = q.shape
     out, lse = FA.wavlm_gated_attention_fwd_lse_cuda(q, k, v, bias, gate, mask, H)
     delta = (dout.float() * out.float()).view(batch, L, H, 64).sum(-1).transpose(1, 2)
     delta = delta.contiguous()
-    got = FA.wavlm_gated_attention_bwd_dkv_cuda(q, k, v, bias, gate, mask, lse, delta, dout, H)
+    got = kernel(q, k, v, bias, gate, mask, lse, delta, dout, H)
     torch.cuda.synchronize()
-    _, dk, dv, dbias, _ = FA.wavlm_gated_attention_bwd_plain(q, k, v, bias, gate, mask, out, lse,
-                                                             dout, H)
-    return got, (dk, dv, dbias), (lse, delta)
+    want = FA.wavlm_gated_attention_bwd_plain(q, k, v, bias, gate, mask, out, lse, dout, H)
+    return got, want, (lse, delta)
+
+
+def _dkv(q, k, v, bias, gate, mask, dout):
+    """B5's outputs, the plain (dk, dv, dbias), and (lse, delta)."""
+    got, want, rows = _backward(FA.wavlm_gated_attention_bwd_dkv_cuda, q, k, v, bias, gate, mask,
+                                dout)
+    return got, want[1:4], rows
+
+
+def _dq(q, k, v, bias, gate, mask, dout):
+    """B4's outputs, the plain (dq, dgate), and (lse, delta)."""
+    got, want, rows = _backward(FA.wavlm_gated_attention_bwd_dq_cuda, q, k, v, bias, gate, mask,
+                                dout)
+    return got, (want[0], want[4]), rows
 
 
 @pytest.mark.cuda
@@ -189,4 +204,46 @@ def test_dkv_kernel_is_deterministic(cuda_device):
     first, _, (lse, delta) = _dkv(q, k, v, bias, gate, mask, dout)
     again = FA.wavlm_gated_attention_bwd_dkv_cuda(q, k, v, bias, gate, mask, lse, delta, dout, H)
     for name, a, b in zip(("dk", "dv", "dbias"), first, again):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 3])
+@pytest.mark.parametrize("L", [65, 127, 128, 129, 203, 1000, 1024])
+def test_dq_kernel_at_its_tile_edges(cuda_device, L, batch):
+    """bf16 B4 against the plain backward at the edges of its 128-query
+    blocks and 64-key tiles; bias rows not 16-byte aligned at 127, 129 and
+    203 (loaded elementwise, not by TMA), and mask rows neither where
+    L % 16 != 0.  With three rows the last one is all masked: no key tile
+    is visited, and its dq and dgate are exactly 0."""
+    q, k, v, bias, gate, mask, dout = _inputs(cuda_device, L, torch.bfloat16, seed=5,
+                                              batch=batch)
+    (dq, dgate), want, _ = _dq(q, k, v, bias, gate, mask, dout)
+    for name, a, b in zip(("dq", "dgate"), (dq, dgate), want):
+        assert torch.isfinite(a).all(), name
+        _assert_rel(name, a, b, REL_TOL[torch.bfloat16])
+    if batch > 1:
+        assert dq[-1].abs().max().item() == 0 and dgate[-1].abs().max().item() == 0
+
+
+@pytest.mark.cuda
+def test_dq_kernel_at_the_fine_tune_batch(cuda_device):
+    """B = 32 at L = 1024 with ragged rows (whole 64-key tiles masked, which
+    B4 skips) and one all-masked row, whose dq and dgate are exactly 0."""
+    q, k, v, bias, gate, mask, dout = _inputs(cuda_device, 1024, torch.bfloat16, seed=6,
+                                              batch=32)
+    (dq, dgate), want, _ = _dq(q, k, v, bias, gate, mask, dout)
+    for name, a, b in zip(("dq", "dgate"), (dq, dgate), want):
+        assert torch.isfinite(a).all(), name
+        _assert_rel(name, a, b, REL_TOL[torch.bfloat16])
+    assert dq[31].abs().max().item() == 0 and dgate[31].abs().max().item() == 0
+
+
+@pytest.mark.cuda
+def test_dq_kernel_is_deterministic(cuda_device):
+    """No atomics: two calls on the same inputs agree bit for bit."""
+    q, k, v, bias, gate, mask, dout = _inputs(cuda_device, 1024, torch.bfloat16, seed=7, batch=8)
+    first, _, (lse, delta) = _dq(q, k, v, bias, gate, mask, dout)
+    again = FA.wavlm_gated_attention_bwd_dq_cuda(q, k, v, bias, gate, mask, lse, delta, dout, H)
+    for name, a, b in zip(("dq", "dgate"), first, again):
         assert torch.equal(a, b), name
