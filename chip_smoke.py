@@ -64,11 +64,14 @@ Phases, each fatal on failure:
      finite, encoder and decoder weights moved, the conv front-end's not;
   8. the fused int8 matmul (B7) against its plain version at M = 8192 rows
      for WavLM-large's three dense shapes (1024x1024, 1024x4096,
-     4096x1024), bfloat16 and float32, with and without bias, and at a
-     ragged size (51 rows, dout 136): the integers are exact in both, so the
-     outputs must agree within one ulp of the output type; its time beside
-     the plain version's, the library path's (row quantization in torch +
-     `torch._int_mm` + epilogue, the port's own `int8` mode) and the bound;
+     4096x1024), bfloat16 and float32, with and without bias, at M = 1024
+     (one 20 s utterance) in bfloat16 with bias, and at a ragged size (51
+     rows, dout 136): the integers are exact in both, so the outputs must
+     agree within one ulp of the output type; its time (CUDA events over
+     back-to-back calls, as every kernel's) beside its device time
+     (profiler), its workspace, the plain version's time, the library path's (row quantization in torch +
+     `torch._int_mm` + epilogue, the port's own `int8` mode), one bf16
+     `F.linear`'s (the yardstick: the matmul int8 replaces) and the bound;
   9. the fused conv+LayerNorm+GELU (B8) against its plain version at B = 8,
      512 channels, (k, s) = (3, 2) at T = 63999 and (2, 2) at T = 1999,
      bfloat16 (3e-2 abs + one bf16 ulp of the value: outputs reach past 4,
@@ -108,6 +111,13 @@ whole takes well under half of its time limit, so nothing was cut.
 
 Prints the kernels' JSON line, then the card line, then as the last line
 {"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py --b7-times DIR
+
+times only the fused int8 kernel of the port checked out at DIR (at phase
+8's bfloat16 shapes: CUDA events over back-to-back calls, device time per
+launch, host time a call), to compare two trees on one card; it prints no
+result line.
 """
 from __future__ import annotations
 
@@ -184,6 +194,25 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int, name: str = "") -> float:
+    """Device time of one call of `fn` by torch.profiler: the mean over
+    `reps` calls of the device events whose name holds `name` (all events
+    when `name` is empty).  A kernel's own time, free of the host's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+                for e in prof.key_averages() if name in e.key)
+    if total <= 0:
+        fail(f"the profiler saw no device event named {name!r}")
+    return total / reps / 1e3
 
 
 def attention_inputs(B, L, H, dtype, gen, ragged=True, valid=None):
@@ -988,7 +1017,12 @@ def int8_matmul_vs_plain(Q, M: int, din: int, dout: int, dtype, with_bias: bool,
     del err, ulp
     if timed:
         es = x.element_size()
-        row["ms"] = time_ms(lambda: Q.int8_matmul_fused_cuda(x, *wq_sw, bias, dtype), 20)
+        kernel = lambda: Q.int8_matmul_fused_cuda(x, *wq_sw, bias, dtype)  # noqa: E731
+        # back-to-back calls by CUDA events, as every kernel's `ms`; the
+        # kernel's own device time (profiler) beside it
+        row["ms"] = time_ms(kernel, 20)
+        row["device_ms"] = device_ms(kernel, 20, "int8_matmul_fused_kernel")
+        row["workspace_bytes"] = Q.fused_workspace_bytes(M, din)
         row["plain_ms"] = time_ms(
             lambda: Q.int8_matmul_fused_plain(x, weight, bias, dtype, wq_sw=wq_sw), 3, 1)
         # yardstick: the port's own unfused `int8` mode on the same inputs
@@ -996,8 +1030,13 @@ def int8_matmul_vs_plain(Q, M: int, din: int, dout: int, dtype, with_bias: bool,
         row["library_max_abs_diff"] = (lib.float() - out.float()).abs().max().item()
         row["library_ms"] = time_ms(
             lambda: Q.int8_matmul(x, weight, bias, dtype, wq_sw=wq_sw), 10)
-        row["bf16_matmul_ms"] = time_ms(lambda: torch.nn.functional.linear(
-            x.bfloat16(), weight.bfloat16()), 10) if dtype == torch.bfloat16 else None
+        if dtype == torch.bfloat16:  # the yardstick int8 has to beat: the bf16 matmul
+            wb = weight.bfloat16()
+            row["bf16_matmul_ms"] = time_ms(lambda: torch.nn.functional.linear(x, wb), 10)
+            row["bf16_matmul_device_ms"] = device_ms(
+                lambda: torch.nn.functional.linear(x, wb), 10)
+        else:
+            row["bf16_matmul_ms"] = row["bf16_matmul_device_ms"] = None
         nbytes = M * din * es + din * dout + dout * 4 * (2 if with_bias else 1) + M * dout * es
         row["bound_ms"], row["bound_by"] = _bound(nbytes, 2.0 * M * din * dout, INT8_PEAK_OPS)
         # the weight's quantization, done once per weight and kept (ops/quant.quantized_weight)
@@ -1194,10 +1233,49 @@ def transcribe_quantized_full_width(FA, tokenizer_dir: str, card: str, base_feat
     return fused
 
 
+def b7_times(root: str) -> int:
+    """`--b7-times ROOT`: the fused int8 kernel of the port in the checkout
+    at ROOT (this one or another, to compare two trees on one card), timed
+    alone at phase 8's bfloat16 shapes with bias: CUDA events over
+    back-to-back calls (as phase 8's `ms`), device time per launch by
+    torch.profiler and the wrapper's host time a call, one JSON line a
+    shape, then the card line."""
+    sys.path.insert(0, os.path.abspath(root))
+    from fddm_asr_tpu_torch.ops import _build
+    from fddm_asr_tpu_torch.ops import quant as Q
+
+    _build.build_libraries()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for M in (8192, 1024):
+        for din, dout in WAVLM_DENSE_SHAPES:
+            x = torch.randn(M, din, device="cuda", generator=gen).bfloat16()
+            weight = (torch.rand(dout, din, device="cuda", generator=gen) * 2 - 1) / din ** 0.5
+            bias = torch.randn(dout, device="cuda", generator=gen)
+            wq, sw = Q.quantized_weight({}, "w", weight)
+            call = lambda: Q.int8_matmul_fused_cuda(x, wq, sw, bias, torch.bfloat16)  # noqa: E731
+            ms = time_ms(call, 20)
+            dev_ms = device_ms(call, 20, "int8_matmul_fused_kernel")
+            host_us = float("inf")
+            for _ in range(5):  # the host's time a call, the least of five runs of 100
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(100):
+                    call()
+                host_us = min(host_us, (time.perf_counter() - t0) / 100 * 1e6)
+            torch.cuda.synchronize()
+            print(json.dumps({"b7_times": {"root": root, "M": M, "din": din, "dout": dout,
+                                               "ms": ms, "device_ms": dev_ms,
+                                               "host_us": host_us}}), flush=True)
+    print(card_line())
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if len(sys.argv) == 3 and sys.argv[1] == "--b7-times":
+        return b7_times(sys.argv[2])
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from fddm_asr_tpu_torch.ops import _build
     from fddm_asr_tpu_torch.ops import conv_frontend as CF
@@ -1252,6 +1330,10 @@ def main() -> int:
             for with_bias in (True, False):
                 int8_rows[(din, dout, dtype, with_bias)] = int8_matmul_vs_plain(
                     Q, 8192, din, dout, dtype, with_bias, gen, timed=with_bias)
+    # one 20 s utterance: 1024 rows, a fraction of the card's SMs busy
+    int8_rows_1024 = {(din, dout): int8_matmul_vs_plain(Q, 1024, din, dout, torch.bfloat16,
+                                                        True, gen, timed=True)
+                      for din, dout in WAVLM_DENSE_SHAPES}
     for dtype in (torch.bfloat16, torch.float32):
         int8_matmul_vs_plain(Q, 51, 64, 136, dtype, False, gen, timed=False)
     conv_rows = {}
@@ -1324,11 +1406,16 @@ def main() -> int:
         "bound_ms": ffn["bound_ms"], "bound_by": ffn["bound_by"],
         "library_ms": ffn["library_ms"],
         "shape": "M=8192 din=1024 dout=4096 bf16 in and out, with bias",
-        "by_shape": [{"din": din, "dout": dout, "launches_per_layer": 4 if din == dout else 1,
-                      **{k: int8_rows[(din, dout, torch.bfloat16, True)][k] for k in (
-                          "ms", "plain_ms", "library_ms", "bf16_matmul_ms", "bound_ms",
-                          "bound_by", "max_abs_err")}}
-                     for din, dout in WAVLM_DENSE_SHAPES],
+        "ms_is": "CUDA events over back-to-back calls of the wrapper, as every kernel's ms; "
+                 "device_ms: the kernel's device time per launch (torch.profiler)",
+        "by_shape": [{"launches_per_layer": 4 if row["din"] == row["dout"] else 1,
+                      **{k: row[k] for k in (
+                          "M", "din", "dout", "ms", "device_ms", "plain_ms", "library_ms",
+                          "bf16_matmul_ms", "bf16_matmul_device_ms", "bound_ms", "bound_by",
+                          "max_abs_err", "workspace_bytes")}}
+                     for row in [int8_rows[(din, dout, torch.bfloat16, True)]
+                                 for din, dout in WAVLM_DENSE_SHAPES]
+                     + list(int8_rows_1024.values())],
     })
     conv = conv_rows[(3, torch.bfloat16, True)]  # layers 1-4's geometry at layer 1's length
     kernels.append({

@@ -2,7 +2,8 @@
 // forward; gated_attention_bwd.cu, the backward): tile sizes, the masked-key
 // score, the float32 tile loads, the bf16 tensor-core helpers (A fragments,
 // mma.sync, wgmma), the 128-byte swizzled tile layout, mbarriers, TMA and its
-// tensor maps.
+// tensor maps.  The fused int8 matmul (int8_matmul_fused.cu) takes the
+// Hopper part: mbarriers, TMA, the swizzled descriptors and the s8 wgmma.
 //
 // Fragment layouts of mma.m16n8k16, which are wgmma's per warp (below)
 // (g = lane / 4, t = lane % 4):
@@ -228,6 +229,43 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float d[8][4], uint64_t desc_
       : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kTransB));
 }
 
+// The int8 product of int8_matmul_fused.cu: d[64 x 256] (+)= A[64 x 32] .
+// B[32 x 256], s8 x s8 -> s32, both operands K-major from descriptors (the
+// only layout integer wgmma takes).  The s32 accumulator has the f32 one's
+// layout: d[j][e] is column tile j (8 columns), rows g / g + 8 of the warp's 16.
+__device__ __forceinline__ void wgmma_m64n256k32_s8(int d[32][4], uint64_t desc_a,
+                                                    uint64_t desc_b, int scale_d) {
+#define FDDM_D4(j) "+r"(d[j][0]), "+r"(d[j][1]), "+r"(d[j][2]), "+r"(d[j][3])
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, "
+      "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, "
+      "%125, %126, %127}, %128, %129, p;\n}\n"
+      : FDDM_D4(0), FDDM_D4(1), FDDM_D4(2), FDDM_D4(3), FDDM_D4(4), FDDM_D4(5), FDDM_D4(6),
+        FDDM_D4(7), FDDM_D4(8), FDDM_D4(9), FDDM_D4(10), FDDM_D4(11), FDDM_D4(12),
+        FDDM_D4(13), FDDM_D4(14), FDDM_D4(15), FDDM_D4(16), FDDM_D4(17), FDDM_D4(18),
+        FDDM_D4(19), FDDM_D4(20), FDDM_D4(21), FDDM_D4(22), FDDM_D4(23), FDDM_D4(24),
+        FDDM_D4(25), FDDM_D4(26), FDDM_D4(27), FDDM_D4(28), FDDM_D4(29), FDDM_D4(30),
+        FDDM_D4(31)
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+#undef FDDM_D4
+}
+
+// As reg_fence, for the s32 accumulator of wgmma_m64n256k32_s8.
+__device__ __forceinline__ void reg_fence(int d[32][4]) {
+  #pragma unroll
+  for (int j = 0; j < 32; ++j)
+    #pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(d[j][e])::"memory");
+}
+
 // cuTensorMapEncodeTiled, a driver function, through the runtime's entry
 // point query (the library links no libcuda)
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -283,6 +321,23 @@ inline bool encode_rows(CUtensorMap* map, CUtensorMapDataType type, const void* 
   return fn(map, type, 2, const_cast<void*>(base), dims, strides, box, unit,
             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
             CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A tensor map over an int8 [d1][d0] matrix (d0 contiguous, a row a
+// multiple of 16 bytes) in boxes of 128 bytes x box1 rows, 128-byte
+// swizzled: the K-major operand tiles of an s8 wgmma.  Zero outside.
+inline bool encode_s8_sw128(CUtensorMap* map, const void* base, uint64_t d0, uint64_t d1,
+                            uint32_t box1) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {d0, d1};
+  const cuuint64_t strides[1] = {d0};
+  const cuuint32_t box[2] = {128, box1};
+  const cuuint32_t unit[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), dims, strides,
+            box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
 }
 
 }  // namespace fddm

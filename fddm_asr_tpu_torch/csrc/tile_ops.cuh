@@ -1,14 +1,11 @@
-// Tile helpers shared by int8_matmul_fused.cu and conv_ln_gelu.cu: 16-byte
-// asynchronous copies into shared memory (cp.async, zero-filled where the
-// source is out of range), their commit/wait groups, and ldmatrix.x4 loads
-// of mma.sync fragments.
+// Tile helpers of conv_ln_gelu.cu: 16-byte asynchronous copies into shared
+// memory (cp.async, zero-filled where the source is out of range), their
+// commit/wait groups, and ldmatrix.x4 loads of mma.sync fragments.
 //
 // ldmatrix reads 8x8 matrices of 16-bit elements whose rows are 16 bytes in
 // shared memory; lanes 8j..8j+7 give the row addresses of matrix j, and
 // lane l receives from each matrix the 32-bit word (row l/4, word l%4), or
 // with .trans the two 16-bit elements (rows 2(l%4), 2(l%4)+1 of column l/4).
-// An int8 tile of 8 rows x 16 bytes is read the same way (non-transposed),
-// which is the s8 fragment layout of mma.m16n8k32.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -20,7 +20,8 @@ package's [din, dout] kernel and exists for that comparison.)
 
   * `int8_matmul_fused` is the TPU's Pallas path (`_fused_kernel`): on a
     CUDA tensor it launches `csrc/int8_matmul_fused.cu`, which quantizes the
-    activations inside the kernel, or raises; on a CPU tensor it takes
+    activations and multiplies in one launch (through a workspace this
+    module allocates), or raises; on a CPU tensor it takes
     `int8_matmul_fused_plain`.  Routing is by the tensor's device alone.
   * `int8_matmul` is the TPU package's XLA path, which has no Pallas body:
     row quantization in plain torch, then an exact integer product (on the
@@ -33,6 +34,7 @@ each weight once.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -40,10 +42,61 @@ import torch
 from fddm_asr_tpu_torch.ops import _build
 
 EPS = 1e-8
-MAX_FUSED_DIN = 5312  # 32 rows of int8 beside the kernel's weight ring in shared memory
+# the longest din the fused kernel takes (its workspace, not its shared
+# memory, grows with din; the limit stays where it was so that the kernel
+# takes the inputs it always took)
+MAX_FUSED_DIN = 5312
+ROW_TILE = 128  # the kernel's output tile rows: one arrival counter per row tile
 
+_build.register("fddm_int8_matmul_fused_weight_maps", "int8_matmul_fused",
+                [_build.P] * 3 + [_build.I] * 2 + [_build.P])
 _build.register("fddm_int8_matmul_fused", "int8_matmul_fused",
-                [_build.P] * 5 + [_build.I] * 5 + [_build.F])
+                [_build.P, _build.P, _build.I] + [_build.P] * 4 + [_build.I] * 5 + [_build.F])
+
+# (device index, stream) -> the kernel's u32 counters: [blocks done, rows
+# quantized per row tile...], zeroed once and left at 0 by every launch
+_sync_buffers: Dict[Tuple[int, int], torch.Tensor] = {}
+# (device index, wq, sw, bias addresses, din, dout) -> the weight's three
+# tensor maps (host bytes).  A map describes only an address and sizes, so
+# an entry is right for whatever tensor lies there: nothing goes stale.
+_weight_maps: Dict[Tuple[int, int, int, int, int, int], ctypes.Array] = {}
+_WEIGHT_MAPS_KEPT = 4096  # entries kept before the dict is emptied
+_TENSOR_MAP_BYTES = 128
+
+
+def fused_workspace_bytes(rows: int, din: int) -> int:
+    """Device memory one fused launch borrows from the caching allocator:
+    xq [rows, din] int8 and sx [rows] f32."""
+    return rows * din + 4 * rows
+
+
+def _sync_buffer(dev: torch.device, rows: int) -> torch.Tensor:
+    """The counters for a launch of `rows` rows on `dev`'s current stream,
+    the one `_build.launch` uses (one buffer per stream: launches on one
+    stream run in turn)."""
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    need = 1 + -(-rows // ROW_TILE)
+    buf = _sync_buffers.get(key)
+    if buf is None or buf.numel() < need:
+        buf = torch.zeros(need, device=dev, dtype=torch.int32)
+        _sync_buffers[key] = buf
+    return buf
+
+
+def _fused_weight_maps(dev: torch.device, wq: torch.Tensor, sw: torch.Tensor,
+                       bias: Optional[torch.Tensor]) -> ctypes.Array:
+    """The tensor maps of wq, sw and bias, encoded on a weight's first call."""
+    dout, din = wq.shape
+    key = (dev.index, wq.data_ptr(), sw.data_ptr(), _build.ptr(bias) or 0, din, dout)
+    maps = _weight_maps.get(key)
+    if maps is None:
+        if len(_weight_maps) >= _WEIGHT_MAPS_KEPT:
+            _weight_maps.clear()
+        maps = ctypes.create_string_buffer(3 * _TENSOR_MAP_BYTES)
+        _build.launch("fddm_int8_matmul_fused_weight_maps", dev, wq.data_ptr(), sw.data_ptr(),
+                      _build.ptr(bias), din, dout, maps)
+        _weight_maps[key] = maps
+    return maps
 
 
 def _quantize(x: torch.Tensor, dim: int, eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -150,7 +203,9 @@ def int8_matmul_fused_cuda(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
                            eps: float = EPS) -> torch.Tensor:
     """B7: launch the fused kernel on CUDA tensors (raises on anything else):
     x [..., din] float32 or bfloat16, wq [dout, din] int8, sw [dout] f32,
-    bias [dout] f32 or None.  Adds one to `int8_matmul_fused_cuda.launches`
+    bias [dout] f32 or None.  Allocates the workspace (`fused_workspace_bytes`)
+    from the caching allocator; encodes wq's, sw's and bias's tensor maps
+    once per weight (`_fused_weight_maps`), xq's every call.  Adds one to `int8_matmul_fused_cuda.launches`
     per launch; an input with no rows returns zeros without one."""
     if x.device.type != "cuda":
         raise ValueError(f"the fused int8 kernel needs CUDA tensors, got {x.device}")
@@ -174,9 +229,13 @@ def int8_matmul_fused_cuda(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
     if bias is not None:
         _build.check_tensor("bias", bias, (dout,), torch.float32, dev)
     out = torch.empty(M, dout, device=dev, dtype=out_dtype)
-    _build.launch("fddm_int8_matmul_fused", dev, x2.data_ptr(), wq.data_ptr(), sw.data_ptr(),
-                  _build.ptr(bias), out.data_ptr(), M, din, dout,
-                  _build.DTYPE_CODE[x.dtype], _build.DTYPE_CODE[out_dtype], eps)
+    # xq [M, din] int8, then sx [M] f32 (16-byte aligned: din % 16 == 0)
+    work = torch.empty(fused_workspace_bytes(M, din), device=dev, dtype=torch.uint8)
+    maps = _fused_weight_maps(dev, wq, sw, bias)
+    sync = _sync_buffer(dev, M)
+    _build.launch("fddm_int8_matmul_fused", dev, x2.data_ptr(), maps, int(bias is not None),
+                  out.data_ptr(), work.data_ptr(), work.data_ptr() + M * din, sync.data_ptr(),
+                  M, din, dout, _build.DTYPE_CODE[x.dtype], _build.DTYPE_CODE[out_dtype], eps)
     int8_matmul_fused_cuda.launches += 1
     return out.reshape(*lead, dout)
 

@@ -11,7 +11,13 @@ conftest.py (which imports JAX) has to be left out:
 The integers are exact in both, and the kernel's epilogue rounds each f32
 step separately as the plain version does, so float32 outputs must be
 identical and bfloat16 outputs within one bf16 ulp (they round the same f32
-value; a difference would be a fault)."""
+value; a difference would be a fault).
+
+The kernel quantizes into a workspace and multiplies in 128-row x 256-column
+tiles over 128-byte steps of din, with per-row-tile counters that one launch
+leaves at 0 for the next, and keeps each weight's tensor maps: so the cases
+below sit at those tiles' edges, at WavLM-large's shapes, and repeat calls
+across shapes and weights."""
 import pytest
 import torch
 
@@ -36,7 +42,8 @@ def _case(dev, M, din, dout, in_dtype, with_bias, seed=0):
 @pytest.mark.cuda
 @pytest.mark.parametrize("M,din,dout", [(51, 64, 136), (300, 1024, 1024), (130, 4096, 264),
                                         (64, 48, 7), (33, 1792, 256), (8, 1808, 512)],
-                         ids=["ragged", "square", "long-k", "odd-dout", "k-limit-64", "k-32rows"])
+                         ids=["ragged", "square", "long-k", "odd-dout", "k-1792-33-rows",
+                              "k-tail-8-rows"])
 @pytest.mark.parametrize("in_dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16], ids=["to-f32", "to-bf16"])
 @pytest.mark.parametrize("with_bias", [True, False], ids=["bias", "nobias"])
@@ -49,6 +56,78 @@ def test_kernel_matches_plain_on_card(cuda_device, M, din, dout, in_dtype, out_d
     ref = Q.int8_matmul_fused_plain(x, w, bias, out_dtype)
     assert out.dtype == out_dtype and out.shape == (M, dout)
     torch.testing.assert_close(out, ref, rtol=0, atol=0)
+
+
+# WavLM-large's three denses (q/k/v/out, fc1, fc2) at 8 x 20 s and one 20 s
+# utterance; rows and columns at the 128 x 256 output tile's edges; din at
+# the kernel's limit
+EDGE_SHAPES = [(8192, 1024, 1024), (8192, 1024, 4096), (8192, 4096, 1024),
+               (1024, 1024, 1024), (1024, 1024, 4096), (1024, 4096, 1024),
+               (127, 256, 512), (128, 256, 512), (129, 256, 512), (257, 256, 512),
+               (300, 256, 255), (300, 256, 256), (300, 256, 264), (64, Q.MAX_FUSED_DIN, 256)]
+EDGE_IDS = ["qkvo-8x20s", "fc1-8x20s", "fc2-8x20s", "qkvo-20s", "fc1-20s", "fc2-20s",
+            "m127", "m128", "m129", "m257", "n255", "n256", "n264", "din-limit"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,din,dout", EDGE_SHAPES, ids=EDGE_IDS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("with_bias", [True, False], ids=["bias", "nobias"])
+def test_kernel_matches_plain_at_path_and_tile_edges(cuda_device, M, din, dout, dtype,
+                                                     with_bias):
+    """Output type = input type, as WavLM calls it; bit for bit."""
+    x, w, bias = _case(cuda_device, M, din, dout, dtype, with_bias, seed=M + din + dout)
+    out = Q.int8_matmul_fused(x, w, bias, dtype)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, Q.int8_matmul_fused_plain(x, w, bias, dtype),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_two_calls_give_the_same_bits(cuda_device):
+    x, w, bias = _case(cuda_device, 8192, 1024, 4096, torch.bfloat16, True)
+    wq_sw = Q.quantized_weight({}, "w", w)
+    first = Q.int8_matmul_fused(x, w, bias, torch.bfloat16, wq_sw=wq_sw)
+    second = Q.int8_matmul_fused(x, w, bias, torch.bfloat16, wq_sw=wq_sw)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+def test_kept_weight_maps_follow_the_weight(cuda_device):
+    """The weight's tensor maps are encoded once and kept by address and
+    size: the same wq and sw with a bias, without one and with another, and
+    a new weight of the same shape (the allocator may hand it the freed
+    weight's address), each give the plain version's outputs."""
+    x, w, bias = _case(cuda_device, 300, 1024, 1024, torch.bfloat16, True)
+    wq_sw = Q.quantized_weight({}, "w", w)
+    for b in (bias, None, bias * 2.0):
+        out = Q.int8_matmul_fused(x, w, b, torch.bfloat16, wq_sw=wq_sw)
+        torch.testing.assert_close(out, Q.int8_matmul_fused_plain(x, w, b, torch.bfloat16),
+                                   rtol=0, atol=0)
+    del wq_sw
+    for seed in (1, 2):
+        x, w, bias = _case(cuda_device, 300, 1024, 1024, torch.bfloat16, True, seed=seed)
+        out = Q.int8_matmul_fused(x, w, bias, torch.bfloat16)
+        torch.testing.assert_close(out, Q.int8_matmul_fused_plain(x, w, bias, torch.bfloat16),
+                                   rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_interleaved_shapes_then_the_first_again(cuda_device):
+    """Calls of other row counts between two calls of one shape (each sets
+    other row tiles' counters, and leaves them at 0) change nothing."""
+    shapes = [(300, 1024, 1024), (8192, 4096, 1024), (51, 64, 136), (1024, 1024, 4096),
+              (8, 1808, 512)]
+    cases = [_case(cuda_device, *shape, torch.bfloat16, True, seed=i)
+             for i, shape in enumerate(shapes)]
+    outs = [Q.int8_matmul_fused(x, w, bias, torch.bfloat16) for x, w, bias in cases]
+    again = Q.int8_matmul_fused(*cases[0], torch.bfloat16)
+    torch.cuda.synchronize()
+    assert torch.equal(again, outs[0])
+    for (x, w, bias), out in zip(cases, outs):
+        torch.testing.assert_close(out, Q.int8_matmul_fused_plain(x, w, bias, torch.bfloat16),
+                                   rtol=0, atol=0)
 
 
 @pytest.mark.cuda
