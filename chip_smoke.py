@@ -73,11 +73,17 @@ Phases, each fatal on failure:
      `torch._int_mm` + epilogue, the port's own `int8` mode), one bf16
      `F.linear`'s (the yardstick: the matmul int8 replaces) and the bound;
   9. the fused conv+LayerNorm+GELU (B8) against its plain version at B = 8,
-     512 channels, (k, s) = (3, 2) at T = 63999 and (2, 2) at T = 1999,
-     bfloat16 (3e-2 abs + one bf16 ulp of the value: outputs reach past 4,
-     where an ulp is 0.03125) and float32 (2e-4 abs + 1e-3 rel), erf and tanh,
-     and at inputs that give no and one output row; its time beside the
-     plain version's, `F.conv1d` + `F.layer_norm` + `F.gelu`'s and the bound;
+     512 channels, at the six front-end layers' shapes of an 8 x 20 s
+     transcribe ((k, s) = (3, 2) at T = 63999, 31999, 15999, 7999 and (2, 2)
+     at T = 3999, 1999) in bfloat16 with tanh GELU, as the fused
+     configuration runs them, and at layers 1 and 6 also with erf and in
+     float32; bfloat16 within 3e-2 abs + one bf16 ulp of the value (outputs
+     reach past 4, where an ulp is 0.03125), float32 within 2e-4 abs + 1e-3
+     rel; and at inputs that give no and one output row; each time (CUDA
+     events over back-to-back calls) beside its device time (profiler), the
+     plain version's, `F.conv1d` + `F.layer_norm` + `F.gelu`'s and the
+     bound, and the six bfloat16 times summed over one transcribe beside
+     phase 12's profiled B8 time;
  10. `wavlm_gated_attention` on [B, L, H, dh] operands (B6's entry point,
      which no model path reaches, as in the JAX package): driven once
      through the dispatcher with its count read, held against its plain
@@ -113,11 +119,14 @@ Prints the kernels' JSON line, then the card line, then as the last line
 {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --b7-times DIR
+    python3 chip_smoke.py --b8-times DIR
 
-times only the fused int8 kernel of the port checked out at DIR (at phase
-8's bfloat16 shapes: CUDA events over back-to-back calls, device time per
-launch, host time a call), to compare two trees on one card; it prints no
-result line.
+time only the fused int8 kernel (at phase 8's bfloat16 shapes: CUDA events
+over back-to-back calls, device time per launch, host time a call), or only
+the fused conv layer (its kernel and the layer's weight handling, at phase
+9's six bfloat16 layer shapes: CUDA events, device time, host time a call),
+of the port checked out at DIR, to compare two trees on one card; they
+print no result line.
 """
 from __future__ import annotations
 
@@ -158,6 +167,9 @@ CONV_TOL = {torch.float32: (2e-4, 1e-3), torch.bfloat16: (3e-2, 2.0 ** -7)}
 SMALL_QUANT_ENCODER_TOL = 5e-2  # phase 11: int8 steps flip at f32 rounding of a half
 QUANT_REL_L2 = (1e-6, 5e-2)     # int8 encoder vs full precision: must differ, and little
 WAVLM_DENSE_SHAPES = ((1024, 1024), (1024, 4096), (4096, 1024))  # (din, dout): 4 + 1 + 1 a layer
+# (T, k, s) of conv layers 1-6 at 8 x 20 s: what B8 runs in one fused-front-end transcribe
+FRONTEND_LAYERS = ((63999, 3, 2), (31999, 3, 2), (15999, 3, 2), (7999, 3, 2), (3999, 2, 2),
+                   (1999, 2, 2))
 FUSED_WAVLM_CONFIG = {"quant_dense": "int8_fused", "fused_frontend": True,
                       "gelu_approx_tanh": True}
 
@@ -197,22 +209,29 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
 
 
 def device_ms(fn, reps: int, name: str = "") -> float:
-    """Device time of one call of `fn` by torch.profiler: the mean over
-    `reps` calls of the device events whose name holds `name` (all events
-    when `name` is empty).  A kernel's own time, free of the host's."""
+    """Device time by torch.profiler over `reps` calls of `fn`, free of the
+    host's: with `name`, a kernel's own time a launch, the mean over the
+    device events whose name holds it; without, all device events of a call.
+    The profiler can leave events of a window unrecorded (on an H100, one
+    launch of every window in phase 9, and once all of a window's), so a
+    named time is the mean over the launches it recorded, and a window with
+    no event is profiled again, three windows at most."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
-                for e in prof.key_averages() if name in e.key)
-    if total <= 0:
-        fail(f"the profiler saw no device event named {name!r}")
-    return total / reps / 1e3
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if name in e.key]
+        total = sum(getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+                    for e in events)
+        count = sum(e.count for e in events)
+        if total > 0 and count > 0:
+            return total / (count if name else reps) / 1e3
+    fail(f"the profiler saw no device event named {name!r} in three windows")
 
 
 def attention_inputs(B, L, H, dtype, gen, ragged=True, valid=None):
@@ -590,6 +609,7 @@ def transcribe_full_width(FA, tokenizer_dir: str, card: str, name: str = "transc
     breakdown["port_kernels_ms"] = {k: sum(t["ms"] for t in breakdown["all"] if n in t["name"])
                                     for k, n in port_names.items() if want[k]}
     del breakdown["all"]
+    port_kernels_ms = breakdown["port_kernels_ms"]
     print(json.dumps({f"{name}_device_time": breakdown}), flush=True)
 
     result = {
@@ -602,7 +622,7 @@ def transcribe_full_width(FA, tokenizer_dir: str, card: str, name: str = "transc
         "wavlm_config": wavlm_config or {},
         "encoder_rel_l2_kernel_vs_plain": rel_l2, "encoder_rel_l2_tol": ENCODER_REL_L2_TOL,
         "example_text": rows[0][0][:16], "example_confidence": rows[0][2],
-        "peak_mem_gb": peak_mem_gb,
+        "peak_mem_gb": peak_mem_gb, "port_kernels_ms": port_kernels_ms,
     }
     print(json.dumps({name: result}, ensure_ascii=False), flush=True)
     result["feats"] = feats
@@ -1047,16 +1067,28 @@ def int8_matmul_vs_plain(Q, M: int, din: int, dout: int, dtype, with_bias: bool,
     return row
 
 
-def conv_vs_plain(CF, T: int, k: int, s: int, dtype, gelu_tanh: bool, gen, timed: bool) -> dict:
-    """B8 against its plain version at B = 8, Cin = Cout = 512."""
-    F = torch.nn.functional
+def conv_inputs(T: int, k: int, dtype, gen) -> tuple:
+    """x [8, T, 512] in `dtype` and, in float32 as an `nn.Conv1d` layer
+    holds them, its weight [512, 512, k] (its init scale) and bias, with
+    ln_scale and ln_bias, on the card."""
     dev = torch.device("cuda")
     B, C = 8, 512
     x = torch.randn(B, T, C, device=dev, generator=gen).to(dtype)
-    w = (torch.rand(k, C, C, device=dev, generator=gen) * 2 - 1) / (k * C) ** 0.5
+    weight = (torch.rand(C, C, k, device=dev, generator=gen) * 2 - 1) / (k * C) ** 0.5
     b = torch.randn(C, device=dev, generator=gen) * 0.1
     ln_scale = torch.rand(C, device=dev, generator=gen) + 0.5
     ln_bias = torch.randn(C, device=dev, generator=gen) * 0.1
+    return x, weight, b, ln_scale, ln_bias
+
+
+def conv_vs_plain(CF, T: int, k: int, s: int, dtype, gelu_tanh: bool, gen, timed: bool) -> dict:
+    """B8 against its plain version at B = 8, Cin = Cout = 512, with the
+    weight in the form the fused layer passes it (`CF.kernel_weight`)."""
+    F = torch.nn.functional
+    x, weight, b, ln_scale, ln_bias = conv_inputs(T, k, dtype, gen)
+    B, C = x.shape[0], x.shape[2]
+    cache = {}
+    w = CF.kernel_weight(cache, weight, dtype)
     with torch.no_grad():
         out = CF.conv_ln_gelu_cuda(x, w, b, ln_scale, ln_bias, s, gelu_tanh=gelu_tanh)
         torch.cuda.synchronize()
@@ -1078,12 +1110,17 @@ def conv_vs_plain(CF, T: int, k: int, s: int, dtype, gelu_tanh: bool, gen, timed
     if timed:
         reps = 10 if dtype == torch.bfloat16 else 3
         with torch.no_grad():
-            row["ms"] = time_ms(lambda: CF.conv_ln_gelu_cuda(
-                x, w, b, ln_scale, ln_bias, s, gelu_tanh=gelu_tanh), reps)
+            kernel = lambda: CF.conv_ln_gelu_cuda(  # noqa: E731  as models/wavlm.py calls it
+                x, CF.kernel_weight(cache, weight, dtype), b, ln_scale, ln_bias, s,
+                gelu_tanh=gelu_tanh)
+            row["ms"] = time_ms(kernel, reps)
+            row["device_ms"] = device_ms(
+                kernel, reps, "conv_ln_gelu_bf16_kernel" if dtype == torch.bfloat16
+                else "conv_ln_gelu_f32_kernel")
             row["plain_ms"] = time_ms(lambda: CF.conv_ln_gelu_plain(
                 x, w, b, ln_scale, ln_bias, s, gelu_tanh=gelu_tanh), 2, 1)
             # yardstick: the unfused layer's three library calls, as models/wavlm.py runs them
-            wt, bt = w.permute(2, 1, 0).to(dtype).contiguous(), b.to(dtype)
+            wt, bt = weight.to(dtype), b.to(dtype)
             ls, lb = ln_scale.to(dtype), ln_bias.to(dtype)
 
             def library():
@@ -1270,12 +1307,57 @@ def b7_times(root: str) -> int:
     return 0
 
 
+def b8_times(root: str) -> int:
+    """`--b8-times ROOT`: the fused conv layer of the port in the checkout
+    at ROOT (this one or another, to compare two trees on one card), timed
+    alone at phase 9's six bfloat16 layer shapes with tanh GELU: its
+    `models/wavlm.ConvLayer` (fused, float32 parameters, as the transcribe
+    runs it), so each tree's weight handling is in the time.  CUDA events
+    over back-to-back calls (five runs of 20: each run and their median),
+    device time per launch by torch.profiler and the host's time a call
+    (the least of five runs of 20), one JSON line a shape, then the card
+    line."""
+    sys.path.insert(0, os.path.abspath(root))
+    from fddm_asr_tpu_torch.models.wavlm import ConvLayer
+    from fddm_asr_tpu_torch.ops import _build
+
+    _build.build_libraries()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for T, k, s in FRONTEND_LAYERS:
+        x, weight, b, ln_scale, ln_bias = conv_inputs(T, k, torch.bfloat16, gen)
+        layer = ConvLayer(512, 512, k, s, True, "layer", 1e-5, True, fused=True).cuda()
+        with torch.no_grad():
+            for p, v in ((layer.conv.weight, weight), (layer.conv.bias, b),
+                         (layer.layer_norm.weight, ln_scale), (layer.layer_norm.bias, ln_bias)):
+                p.copy_(v)
+            call = lambda: layer(x, torch.bfloat16, channels_last=True)  # noqa: E731
+            runs = [time_ms(call, 20) for _ in range(5)]
+            dev_ms = device_ms(call, 20, "conv_ln_gelu_bf16_kernel")
+            host_us = float("inf")
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(20):
+                    call()
+                host_us = min(host_us, (time.perf_counter() - t0) / 20 * 1e6)
+            torch.cuda.synchronize()
+        print(json.dumps({"b8_times": {"root": root, "T": T, "k": k, "s": s,
+                                       "ms": statistics.median(runs), "ms_runs": runs,
+                                       "device_ms": dev_ms, "host_us": host_us}}), flush=True)
+        del x, layer
+        torch.cuda.empty_cache()
+    print(card_line())
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     if len(sys.argv) == 3 and sys.argv[1] == "--b7-times":
         return b7_times(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == "--b8-times":
+        return b8_times(sys.argv[2])
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from fddm_asr_tpu_torch.ops import _build
     from fddm_asr_tpu_torch.ops import conv_frontend as CF
@@ -1337,11 +1419,14 @@ def main() -> int:
     for dtype in (torch.bfloat16, torch.float32):
         int8_matmul_vs_plain(Q, 51, 64, 136, dtype, False, gen, timed=False)
     conv_rows = {}
-    for T, k, s in ((63999, 3, 2), (1999, 2, 2)):
-        for dtype in (torch.bfloat16, torch.float32):
-            for gelu_tanh in (True, False):
-                conv_rows[(k, dtype, gelu_tanh)] = conv_vs_plain(
-                    CF, T, k, s, dtype, gelu_tanh, gen, timed=True)
+    for T, k, s in FRONTEND_LAYERS:  # as the fused configuration runs them
+        conv_rows[(T, torch.bfloat16, True)] = conv_vs_plain(
+            CF, T, k, s, torch.bfloat16, True, gen, timed=True)
+    for T, k, s in (FRONTEND_LAYERS[0], FRONTEND_LAYERS[-1]):
+        for dtype, gelu_tanh in ((torch.bfloat16, False), (torch.float32, True),
+                                 (torch.float32, False)):
+            conv_rows[(T, dtype, gelu_tanh)] = conv_vs_plain(
+                CF, T, k, s, dtype, gelu_tanh, gen, timed=True)
     for T in (2, 3):  # no output row, one output row
         for dtype in (torch.bfloat16, torch.float32):
             conv_vs_plain(CF, T, 3, 2, dtype, True, gen, timed=False)
@@ -1417,16 +1502,29 @@ def main() -> int:
                                  for din, dout in WAVLM_DENSE_SHAPES]
                      + list(int8_rows_1024.values())],
     })
-    conv = conv_rows[(3, torch.bfloat16, True)]  # layers 1-4's geometry at layer 1's length
+    layers = [conv_rows[(T, torch.bfloat16, True)] for T, _, _ in FRONTEND_LAYERS]
+    conv = layers[0]  # layer 1, the largest
+    per_transcribe = {"ms_sum": sum(r["ms"] for r in layers),
+                      "device_ms_sum": sum(r["device_ms"] for r in layers),
+                      "bound_ms_sum": sum(r["bound_ms"] for r in layers),
+                      "profiled_ms_in_transcribe_int8_fused":
+                          quantized["port_kernels_ms"]["conv_ln_gelu"]}
+    print(json.dumps({"conv_ln_gelu_per_transcribe": per_transcribe}), flush=True)
     kernels.append({
         "name": "conv_ln_gelu", "route": "cuda",
         "source": "fddm_asr_tpu_torch/csrc/conv_ln_gelu.cu",
         "replaces": "fddm_asr_tpu/ops/conv_frontend.py:108 (kernel, made by _make_kernel :98)",
         "launches": quantized["launches"]["conv_ln_gelu"],
-        "max_abs_err": conv["max_abs_err"], "ms": conv["ms"], "plain_ms": conv["plain_ms"],
+        "max_abs_err": max(r["max_abs_err"] for r in layers),
+        "ms": conv["ms"], "device_ms": conv["device_ms"], "plain_ms": conv["plain_ms"],
         "bound_ms": conv["bound_ms"], "bound_by": conv["bound_by"],
         "library_ms": conv["library_ms"],
-        "shape": "B=8 T=63999 Cin=Cout=512 k=3 s=2 bf16, tanh GELU",
+        "shape": "B=8 T=63999 Cin=Cout=512 k=3 s=2 bf16, tanh GELU (layer 1); max_abs_err: "
+                 "the largest over the six layers",
+        "by_shape": [{k: r[k] for k in ("T", "T_out", "k", "s", "ms", "device_ms", "plain_ms",
+                                         "library_ms", "bound_ms", "bound_by", "max_abs_err")}
+                     for r in layers],
+        "per_transcribe": per_transcribe,
     })
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -5,43 +5,66 @@
 //   y[b, t, :]   = sum_j x[b, t*s + j, :] . w[j, :, :] + cb            (f32)
 //   out[b, t, :] = gelu(layer_norm(y[b, t, :]) * ln_scale + ln_bias)    (f32, then cast)
 //
-// Replaces the TPU kernel made by `_make_kernel` in
-// fddm_asr_tpu/ops/conv_frontend.py (reached through `conv_ln_gelu_pallas`).
-// x is channels-last [B, T, Cin], so the patch of output row t is the
-// contiguous span of k*Cin elements that starts at input row t*s: the conv
-// is a product [rows, k*Cin] x [k*Cin, Cout] whose A operand has row stride
-// s*Cin.  The TPU's reshape gather, its 32-row tile from the next block,
-// its zero-padded phantom tile and the reframing of the waveform layer are
-// Mosaic's needs and are not carried over; a row past the end is masked.
-// Any k and s are taken (not only k - s <= s).
-//
-// LayerNorm needs the whole row of Cout channels, so one block owns every
-// channel (up to 512) of its rows and keeps the f32 accumulators in
-// registers across the block; mean and the two-pass variance are reduced
-// over the warps that share a row through shared memory.  GELU is erff (the
-// TPU's polynomial exists only because Mosaic has no erf) or the tanh form.
-//   * bfloat16 (the main path): 64 rows a block, 16 warps (2 along rows x 8
-//     along channels, each 32 x 64), mma.sync m16n8k16 with f32 accumulate;
-//     x patches [64 x 32] and weights [32 x 512] come through a three-stage
-//     cp.async ring, fragments through ldmatrix (transposed for the weights).
-//   * float32: exact f32 scalar FMAs, 32 rows a block, 256 threads each an
-//     8 x 8 register tile, synchronous loads.
+// Replaces the TPU kernel `kernel` of fddm_asr_tpu/ops/conv_frontend.py:108,
+// made by `_make_kernel` (:98) and reached through `conv_ln_gelu_pallas`.
+// x is channels-last [B, T, Cin], so tap j of output row t is input row
+// t*s + j: the conv is a sum over taps of products [rows, Cin] x [Cin, Cout]
+// whose A operand has row stride s*Cin.  The TPU's reshape gather, its
+// 32-row tile from the next block, its zero-padded phantom tile and the
+// reframing of the waveform layer are Mosaic's needs and are not carried
+// over.  Any s and any k are taken (not only k - s <= s); the bfloat16 kernel
+// takes k <= MAX_TAPS.
 //
 // What bounds it: layer 1 of WavLM-large at 8 x 20 s (rows = 255992, k*Cin =
 // 1536, Cout = 512, bf16) is 403 GFLOP against 0.79 GB moved: operations,
-// 0.41 ms at the card's dense bf16 peak.  This design stays well short of
-// it: every block streams the whole weight matrix from L2 (rows / 64 times
-// in all), and mma.sync reads 6 bytes of shared memory per lane and product.
-// Measured times stand in PERF.md.
+// 0.41 ms at the card's dense bf16 peak; so are layers 2-6.  The design
+// answers with the Hopper GEMM shape:
+//   * bfloat16 (the main path): a persistent grid of 2-CTA clusters, one CTA
+//     an SM (twelve warps).  A cluster owns tiles of 128 output rows of one
+//     batch row (so TMA's bounds mask the end of each utterance), the two
+//     CTAs 256 channels each: per row the pair holds all 512 channels, and
+//     each CTA streams only its half of the weight.  One lane of warp 8, the
+//     producer, feeds a four-stage ring through full/empty mbarriers; a
+//     stage is one (tap, 64-channel chunk) of the K loop: the patch rows
+//     [128 x 64] by TMA from tap j's own tensor map (x + j*Cin viewed as
+//     [B][T_out][Cin] with rows s*Cin apart: no im2col, no overlapping
+//     rows) and the weight [64 x 256] from w viewed as
+//     [k][Cin][Cout], both 128-byte swizzled and zero outside (a ragged
+//     tile's rows, Cin and Cout tails add nothing).  Warps 0-3 and 4-7 are
+//     two consumer warpgroups of 64 rows: wgmma m64n256k16, A K-major and the
+//     weight MN-major from the same swizzled descriptors, the f32
+//     accumulator in registers (setmaxnreg 40 / 232).  The producer runs on
+//     into the next tile while the consumers finish this one.
+//   * LayerNorm spans the cluster: each warp sums its 16 rows over its 256
+//     channels (conv bias added, channels past Cout left out), stores the
+//     sums into the peer CTA's shared memory (mapa, st.shared::cluster) and
+//     arrives on the peer warp's mbarrier (release.cluster); it waits on
+//     its own (acquire.cluster) for the peer's.  Twice: the mean, then the
+//     squared deviations about it (the two-pass variance).  A barrier a
+//     warp and a pass, so the exchange never waits on a whole CTA.
+//   * The epilogue (normalize, scale, shift, GELU: erff, or tanh by
+//     tanh.approx) stages each warp's rows in shared memory and stores
+//     whole 16-byte pieces, masked by row and Cout.
+//   * float32: exact f32 scalar FMAs, 32 rows a block, 256 threads each an
+//     8 x 8 register tile, synchronous loads.
+// What holds the bf16 kernel above the bound (at layer 1 on an H100, about
+// 1.6x): the larger part is the products' own rate, which the weight's and
+// the patches' L2 traffic does not set (loading half of either barely moves
+// it); the smaller part is the epilogue, which runs with the tensor cores
+// idle (the accumulator fills the consumers' registers, so the next tile's
+// products cannot start under it).  The measured times stand in PERF.md.
+
+#include <cstdio>
+#include <cstring>
 
 #include "gated_attention.cuh"
-#include "tile_ops.cuh"
 
 namespace {
 
 using namespace fddm;
 
 constexpr int MAX_COUT = 512;
+constexpr int MAX_TAPS = 16;  // tensor maps in the kernel's parameters (128 bytes each)
 
 __device__ __forceinline__ float gelu(float v, bool tanh_form) {
   if (tanh_form) {
@@ -60,171 +83,299 @@ __device__ __forceinline__ long long patch_offset(int R, int rows, int T, int T_
 }
 
 // ---------------------------------------------------------------- bfloat16
-constexpr int H_THREADS = 512;
-constexpr int H_BM = 64;
-constexpr int H_BK = 32;                 // patch elements per ring stage (two k16 steps)
-constexpr int H_STAGES = 3;
-constexpr int H_AS = H_BK + 8;           // A row stride (bf16): 80 bytes, ldmatrix conflict-free
-constexpr int H_WS = MAX_COUT + 8;       // W row stride (bf16): 1040 bytes, likewise
-constexpr int H_WARPS_N = 8;
-constexpr size_t H_SMEM_BYTES =
-    (size_t)H_STAGES * (H_BM * H_AS + H_BK * H_WS) * sizeof(bf16)   // the rings
-    + H_BM * H_WARPS_N * sizeof(float)                              // row partials
-    + H_BM * sizeof(long long);                                     // patch offsets
+constexpr int TILE_M = 128;         // output rows of a tile: two warpgroups of 64
+constexpr int HALF_N = 256;         // channels of a CTA: one wgmma n256
+constexpr int CHUNK = 64;           // input channels a ring stage: one 128-byte swizzle row
+constexpr int STAGES = 4;
+constexpr int CONSUMER_WARPS = 8;   // warps 0-7, two warpgroups; warps 8-11 the producer's
+constexpr int THREADS = (CONSUMER_WARPS + 4) * 32;
+// setmaxnreg: __launch_bounds__(THREADS, 1) gives each of the 384 threads at
+// most LAUNCH_REGS = 168 registers; the producer's warpgroup frees 128 x
+// (168 - 40), which the consumers' increase takes whole.  An increase the
+// freed registers cannot cover never returns, so the launcher refuses a
+// build whose register count is not LAUNCH_REGS.
+constexpr int LAUNCH_REGS = 65536 / THREADS / 8 * 8;
+constexpr int PRODUCER_REGS = 40;
+constexpr int CONSUMER_REGS = 232;
+constexpr int REG_POOL = 128 * PRODUCER_REGS + CONSUMER_WARPS * 32 * CONSUMER_REGS;
+static_assert(REG_POOL == LAUNCH_REGS * THREADS,
+              "the consumers take exactly what the producer frees");
+constexpr int A_BYTES = TILE_M * CHUNK * 2;       // patch rows [128][64]
+constexpr int W_GROUP_BYTES = CHUNK * 64 * 2;     // weight [64 k][64 channels]: one swizzle atom column
+constexpr int W_BYTES = (HALF_N / 64) * W_GROUP_BYTES;
+constexpr int STAGE_BYTES = A_BYTES + W_BYTES;
+constexpr int STAGING_ROW = 144;  // a staging row: 128 bytes of output + 16 of padding
+constexpr int STAGING_BYTES = 16 * STAGING_ROW;   // a consumer warp's 16 rows
+constexpr int XCHG_FLOATS = 2 * 16;               // a warp's row sums from the peer: [pass][8][2]
+// the ring, the staging buffers, the CTA's conv bias / ln_scale / ln_bias,
+// the exchanged sums, the ring's and the exchange's mbarriers, and slack to
+// align the ring to 1024 bytes
+constexpr size_t SMEM_BYTES = STAGES * STAGE_BYTES + CONSUMER_WARPS * STAGING_BYTES +
+                              3 * HALF_N * 4 + CONSUMER_WARPS * XCHG_FLOATS * 4 +
+                              (2 * STAGES + 2 * CONSUMER_WARPS) * 8 + 1024;
+static_assert(A_BYTES % 1024 == 0 && STAGE_BYTES % 1024 == 0,
+              "tiles keep the 1024-byte swizzle alignment");
+static_assert(SMEM_BYTES <= 232448, "fits an SM's shared memory");
 
-__global__ void __launch_bounds__(H_THREADS, 1)
-conv_ln_gelu_bf16_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                         const float* __restrict__ cb, const float* __restrict__ ln_scale,
-                         const float* __restrict__ ln_bias, bf16* __restrict__ out,
-                         int rows, int T, int T_out, int Cin, int Cout, int K, int stride,
-                         float eps, int tanh_form) {
-  extern __shared__ uint4 smem16[];
-  bf16* a_ring = reinterpret_cast<bf16*>(smem16);               // [STAGES][BM][AS]
-  bf16* w_ring = a_ring + H_STAGES * H_BM * H_AS;               // [STAGES][BK][WS]
-  float* red = reinterpret_cast<float*>(w_ring + H_STAGES * H_BK * H_WS);  // [BM][8]
-  long long* rowoff = reinterpret_cast<long long*>(red + H_BM * H_WARPS_N);  // [BM]
+// The kernel's tensor maps, a __grid_constant__ parameter: tap j's patch rows
+// and the weight.
+struct ConvMaps {
+  CUtensorMap x[MAX_TAPS];  // x + j*Cin as [B][T_out][Cin], rows s*Cin and batch rows T*Cin apart
+  CUtensorMap w;            // w as [k][Cin][Cout]
+};
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int warp_m = warp >> 3, warp_n = warp & 7;
-  const int R0 = blockIdx.x * H_BM;
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
 
-  if (tid < H_BM) rowoff[tid] = patch_offset(R0 + tid, rows, T, T_out, Cin, stride);
-  __syncthreads();
+// Every thread of both CTAs: release what came before, acquire the peer's.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
 
-  const int total = (K + H_BK - 1) / H_BK;
-  auto load_stage = [&](int s) {
-    if (s < total) {
-      const int k0 = s * H_BK;
-      bf16* a_slot = a_ring + (s % H_STAGES) * H_BM * H_AS;
-      bf16* w_slot = w_ring + (s % H_STAGES) * H_BK * H_WS;
-      if (tid < H_BM * (H_BK / 8)) {  // 64 rows x 4 chunks of 8 elements
-        const int m = tid >> 2, kk = k0 + (tid & 3) * 8;
-        const bool valid = rowoff[m] >= 0 && kk < K;
-        cp_async16(a_slot + m * H_AS + (tid & 3) * 8, valid ? x + rowoff[m] + kk : x, valid);
-      }
-      #pragma unroll
-      for (int j = 0; j < H_BK * (MAX_COUT / 8) / H_THREADS; ++j) {  // 32 rows x 64 chunks
-        const int id = tid + j * H_THREADS;
-        const int kr = id >> 6, col = (id & 63) * 8;
-        const bool valid = k0 + kr < K && col < Cout;
-        cp_async16(w_slot + kr * H_WS + col,
-                   valid ? w + (size_t)(k0 + kr) * Cout + col : w, valid);
-      }
-    }
-    cp_async_commit();  // one group per stage, empty past the end
-  };
-  #pragma unroll
-  for (int s = 0; s < H_STAGES - 1; ++s) load_stage(s);
+// The shared::cluster address of `p`'s counterpart in CTA `rank` of the cluster.
+__device__ __forceinline__ uint32_t peer_addr(const void* p, uint32_t rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(a) : "r"(smem_addr(p)), "r"(rank));
+  return a;
+}
 
-  float acc[2][8][4];
-  #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-    #pragma unroll
-    for (int p = 0; p < 8; ++p)
-      #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][p][e] = 0.f;
+// Two floats into the peer's shared memory, then one arrive on the peer's
+// mbarrier that releases them at cluster scope.
+__device__ __forceinline__ void send_to_peer(uint32_t dst, float a, float b, uint32_t bar) {
+  asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n"
+               "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%3];\n"
+               :: "r"(dst), "f"(a), "f"(b), "r"(bar) : "memory");
+}
 
-  // ldmatrix row addresses of this lane: A rows +8 for matrices 1 and 3,
-  // k +8 for 2 and 3; W (transposed) k rows +8 for 1 and 3, channels +8 for 2 and 3
-  const int a_lane = (warp_m * 32 + (lane & 7) + ((lane >> 3) & 1) * 8) * H_AS + (lane >> 4) * 8;
-  const int w_lane = ((lane & 7) + ((lane >> 3) & 1) * 8) * H_WS + warp_n * 64 + (lane >> 4) * 8;
+// mbar_wait with acquire at cluster scope: what the peer released is visible.
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_addr(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(a), "r"(parity) : "memory");
+  } while (!done);
+}
 
-  for (int s = 0; s < total; ++s) {
-    cp_async_wait<H_STAGES - 2>();
-    __syncthreads();  // stage s has landed for everyone; stage s - 1 is done with
-    load_stage(s + H_STAGES - 1);
-    const bf16* a_slot = a_ring + (s % H_STAGES) * H_BM * H_AS;
-    const bf16* w_slot = w_ring + (s % H_STAGES) * H_BK * H_WS;
-    #pragma unroll
-    for (int ks = 0; ks < H_BK / 16; ++ks) {
-      uint32_t a[2][4];
-      #pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-        ldmatrix_x4(a[mt], a_slot + a_lane + mt * 16 * H_AS + ks * 16);
-      #pragma unroll
-      for (int pp = 0; pp < 4; ++pp) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, w_slot + w_lane + ks * 16 * H_WS + pp * 16);
-        #pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          mma_bf16(acc[mt][2 * pp], a[mt], b[0], b[1]);
-          mma_bf16(acc[mt][2 * pp + 1], a[mt], b[2], b[3]);
-        }
-      }
-    }
+__device__ __forceinline__ float tanh_approx(float x) {
+  float y;
+  asm("tanh.approx.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// gelu() of the bf16 kernel's epilogue: the tanh form in five FP32
+// operations and one tanh.approx (MUFU), 0.5 v (1 + tanh(u)) with
+// u = sqrt(2 / pi) (v + 0.044715 v^3); or erff.
+template <bool kTanh>
+__device__ __forceinline__ float gelu_bf16_path(float v) {
+  if (kTanh) {
+    const float c = 0.7978845608028654f;  // sqrt(2 / pi)
+    const float u = v * fmaf(c * 0.044715f, v * v, c);
+    const float h = 0.5f * v;
+    return fmaf(h, tanh_approx(u), h);
   }
-  cp_async_wait<0>();
+  return 0.5f * v * (1.f + erff(v * 0.7071067811865476f));
+}
 
-  // the thread holds rows r(mt, half) = warp_m*32 + mt*16 + g + half*8 at
-  // channels warp_n*64 + p*8 + 2t + (e & 1)
-  const int c_base = warp_n * 64 + 2 * t;
-  float mean[2][2], rstd[2][2];
-  #pragma unroll
-  for (int pass = 0; pass < 2; ++pass) {  // 0: conv bias and row mean; 1: variance about it
-    float part[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-    #pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-      #pragma unroll
-      for (int p = 0; p < 8; ++p)
-        #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int c = c_base + p * 8 + (e & 1);
-          if (c < Cout) {
-            if (pass == 0) {
-              if (cb != nullptr) acc[mt][p][e] += cb[c];
-              part[mt][e >> 1] += acc[mt][p][e];
-            } else {
-              const float d = acc[mt][p][e] - mean[mt][e >> 1];
-              part[mt][e >> 1] += d * d;
-            }
+template <bool kTanh>
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(THREADS, 1)
+conv_ln_gelu_bf16_kernel(const __grid_constant__ ConvMaps maps, const float* __restrict__ cb,
+                         const float* __restrict__ ln_scale, const float* __restrict__ ln_bias,
+                         bf16* __restrict__ out, int B, int T_out, int Cin, int Cout, int ksize,
+                         float eps) {
+  extern __shared__ uint8_t smem_raw[];
+  // the same offset in every CTA (the dynamic base is), so mapa finds the peer's arrays
+  uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint8_t* staging = smem + STAGES * STAGE_BYTES;  // [CONSUMER_WARPS][16][STAGING_ROW]
+  float* vec = reinterpret_cast<float*>(staging + CONSUMER_WARPS * STAGING_BYTES);  // [3][HALF_N]
+  float* xchg = vec + 3 * HALF_N;  // [CONSUMER_WARPS][pass][8][2], written by the peer
+  uint64_t* full = reinterpret_cast<uint64_t*>(xchg + CONSUMER_WARPS * XCHG_FLOATS);
+  uint64_t* empty = full + STAGES;  // full[s]: the stage's tiles landed; empty[s]: all read
+  uint64_t* xbar = empty + STAGES;  // [warp][pass]: the peer warp's row sums arrived
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const uint32_t rank = cluster_rank();
+  const int n0 = (int)rank * HALF_N;  // the CTA's first channel
+  const int clusters = gridDim.x / 2, cluster = blockIdx.x / 2;
+  const int row_tiles = (T_out + TILE_M - 1) / TILE_M, tiles = B * row_tiles;
+  const int chunks = (Cin + CHUNK - 1) / CHUNK, k_stages = ksize * chunks;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < STAGES; ++st) {
+      mbar_init(&full[st], 1);                // the producer's arrive + the bytes
+      mbar_init(&empty[st], CONSUMER_WARPS);  // one arrive per consumer warp
+    }
+    for (int i = 0; i < 2 * CONSUMER_WARPS; ++i) mbar_init(&xbar[i], 8);  // the peer warp's 8 senders
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int i = threadIdx.x; i < HALF_N; i += THREADS) {  // zero past Cout
+    const int c = n0 + i;
+    const bool ok = c < Cout;
+    vec[i] = ok && cb != nullptr ? cb[c] : 0.f;
+    vec[HALF_N + i] = ok ? ln_scale[c] : 0.f;
+    vec[2 * HALF_N + i] = ok ? ln_bias[c] : 0.f;
+  }
+  cluster_sync();  // both CTAs' mbarriers exist before either arrives on the peer's
+
+  if (warp >= CONSUMER_WARPS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (warp == CONSUMER_WARPS && lane == 0) {
+      int it = 0;
+      for (int tile = cluster; tile < tiles; tile += clusters) {
+        const int b = tile / row_tiles, t0 = (tile - b * row_tiles) * TILE_M;
+        for (int j = 0; j < ksize; ++j) {
+          for (int c = 0; c < chunks; ++c, ++it) {
+            const int st = it % STAGES;
+            if (it >= STAGES) mbar_wait(&empty[st], (it / STAGES - 1) & 1);
+            uint8_t* stage = smem + st * STAGE_BYTES;
+            mbar_arrive_expect_tx(&full[st], STAGE_BYTES);
+            tma_load_3d(stage, &maps.x[j], &full[st], c * CHUNK, t0, b);
+            #pragma unroll
+            for (int g = 0; g < HALF_N / 64; ++g)
+              tma_load_3d(stage + A_BYTES + g * W_GROUP_BYTES, &maps.w, &full[st],
+                          n0 + g * 64, c * CHUNK, j);
           }
         }
-    __syncthreads();  // the previous pass's readers of `red` are done
-    #pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-      #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        float v = part[mt][half];
-        v += __shfl_xor_sync(0xffffffffu, v, 1);
-        v += __shfl_xor_sync(0xffffffffu, v, 2);
-        if (t == 0) red[(warp_m * 32 + mt * 16 + g + half * 8) * H_WARPS_N + warp_n] = v;
-      }
-    __syncthreads();
-    #pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-      #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const float* rp = red + (warp_m * 32 + mt * 16 + g + half * 8) * H_WARPS_N;
-        float v = 0.f;
-        #pragma unroll
-        for (int i = 0; i < H_WARPS_N; ++i) v += rp[i];
-        v /= (float)Cout;
-        if (pass == 0) mean[mt][half] = v;
-        else rstd[mt][half] = rsqrtf(v + eps);
-      }
-  }
-
-  #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-    #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int R = R0 + warp_m * 32 + mt * 16 + g + half * 8;
-      if (R >= rows) continue;
-      bf16* o = out + (size_t)R * Cout;
-      #pragma unroll
-      for (int p = 0; p < 8; ++p) {
-        const int c = c_base + p * 8;
-        if (c >= Cout) continue;  // Cout % 8 == 0: the pair is in or out together
-        float y[2];
-        #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float n = (acc[mt][p][2 * half + e] - mean[mt][half]) * rstd[mt][half];
-          y[e] = gelu(n * ln_scale[c + e] + ln_bias[c + e], tanh_form != 0);
-        }
-        *reinterpret_cast<uint32_t*>(o + c) = pack_bf16(y[0], y[1]);
       }
     }
+    __syncwarp();
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+
+    // Warpgroup wg owns rows 64 wg .. 64 wg + 63 of the tile, the warp 16 of
+    // those (from lr0); the thread holds rows lr0 + g and lr0 + g + 8 at the
+    // CTA's channels 8j + 2t and 8j + 2t + 1 (j = 0..31).
+    const int wg = warp >> 2, g = lane >> 2, t4 = lane & 3;
+    const int lr0 = wg * 64 + (warp & 3) * 16;
+    const int valid_j = min(HALF_N / 8, max(0, (Cout - n0) / 8));  // column tiles below Cout
+    uint8_t* stage_buf = staging + warp * STAGING_BYTES;
+    float* my_sums = xchg + warp * XCHG_FLOATS;
+    const uint32_t peer = rank ^ 1u;
+    const uint32_t peer_sums = peer_addr(my_sums, peer) + 8 * g;  // this lane's pair, pass 0
+    const uint32_t peer_bar = peer_addr(&xbar[2 * warp], peer);
+    const float inv_cout = 1.f / (float)Cout;
+    float acc[32][4];
+    #pragma unroll
+    for (int j = 0; j < 32; ++j)
+      #pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+    int it = 0, i = 0;
+    for (int tile = cluster; tile < tiles; tile += clusters, ++i) {
+      const int b = tile / row_tiles, t0 = (tile - b * row_tiles) * TILE_M;
+      for (int kb = 0; kb < k_stages; ++kb, ++it) {
+        const int st = it % STAGES;
+        mbar_wait(&full[st], (it / STAGES) & 1);
+        const uint8_t* stage = smem + st * STAGE_BYTES;
+        // A: K-major 128-byte rows, k16 = 32 bytes steps the descriptor by 2.
+        // W: MN-major, four 64-channel atoms W_GROUP_BYTES apart (the
+        // leading byte offset), 8-row groups 1024 bytes apart; k16 = 16 rows
+        // = 2048 bytes steps it by 128.
+        const uint64_t da = sw128_desc(stage + wg * 64 * 128, 16);
+        const uint64_t db = sw128_desc(stage + A_BYTES, W_GROUP_BYTES);
+        reg_fence_n256(acc);
+        wgmma_fence();
+        #pragma unroll
+        for (int ks = 0; ks < CHUNK / 16; ++ks)
+          wgmma_m64n256k16_bf16<1>(acc, da + 2 * ks, db + 128 * ks, kb > 0 || ks > 0);
+        wgmma_commit();
+        wgmma_wait<1>();  // the previous stage's products are done
+        reg_fence_n256(acc);
+        if (kb > 0) {
+          __syncwarp();
+          if (lane == 0) mbar_arrive(&empty[(it - 1) % STAGES]);
+        }
+      }
+      wgmma_wait<0>();
+      reg_fence_n256(acc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[(it - 1) % STAGES]);
+
+      // Row sums over the CTA's channels -> the whole row's, through the
+      // peer: lanes t = 0 send rows g and g + 8 and take the peer's, then
+      // share them with their quad.  own + peer in one order in both CTAs.
+      auto row_totals = [&](int pass, float& s0, float& s1) {
+        s0 += __shfl_xor_sync(0xffffffffu, s0, 1);
+        s0 += __shfl_xor_sync(0xffffffffu, s0, 2);
+        s1 += __shfl_xor_sync(0xffffffffu, s1, 1);
+        s1 += __shfl_xor_sync(0xffffffffu, s1, 2);
+        if (t4 == 0) {
+          send_to_peer(peer_sums + pass * 64, s0, s1, peer_bar + pass * 8);
+          mbar_wait_cluster(&xbar[2 * warp + pass], i & 1);
+          const float2 p = *reinterpret_cast<const float2*>(my_sums + pass * 16 + 2 * g);
+          s0 += p.x;
+          s1 += p.y;
+        }
+        s0 = __shfl_sync(0xffffffffu, s0, lane & ~3);
+        s1 = __shfl_sync(0xffffffffu, s1, lane & ~3);
+      };
+
+      float s0 = 0.f, s1 = 0.f;  // pass 0: conv bias, then the mean
+      #pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        const float2 c = *reinterpret_cast<const float2*>(vec + 8 * j + 2 * t4);
+        acc[j][0] += c.x; acc[j][1] += c.y; acc[j][2] += c.x; acc[j][3] += c.y;
+        if (j < valid_j) {
+          s0 += acc[j][0] + acc[j][1];
+          s1 += acc[j][2] + acc[j][3];
+        }
+      }
+      row_totals(0, s0, s1);
+      const float mean0 = s0 * inv_cout, mean1 = s1 * inv_cout;
+      float q0 = 0.f, q1 = 0.f;  // pass 1: squared deviations about the mean
+      #pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        acc[j][0] -= mean0; acc[j][1] -= mean0; acc[j][2] -= mean1; acc[j][3] -= mean1;
+        if (j < valid_j) {
+          q0 += acc[j][0] * acc[j][0] + acc[j][1] * acc[j][1];
+          q1 += acc[j][2] * acc[j][2] + acc[j][3] * acc[j][3];
+        }
+      }
+      row_totals(1, q0, q1);
+      const float rstd0 = rsqrtf(q0 * inv_cout + eps), rstd1 = rsqrtf(q1 * inv_cout + eps);
+
+      // normalize, scale, shift, GELU; 64 channels at a time through the
+      // warp's staging rows, stored as whole 16-byte pieces of rows
+      const int rows_left = T_out - t0;
+      bf16* out_tile = out + ((size_t)b * T_out + t0) * Cout;
+      #pragma unroll
+      for (int ch = 0; ch < HALF_N / 64; ++ch) {
+        if (n0 + ch * 64 >= Cout) break;
+        #pragma unroll
+        for (int jj = 0; jj < 8; ++jj) {
+          const int j = ch * 8 + jj;
+          const float2 sc = *reinterpret_cast<const float2*>(vec + HALF_N + 8 * j + 2 * t4);
+          const float2 sh = *reinterpret_cast<const float2*>(vec + 2 * HALF_N + 8 * j + 2 * t4);
+          const float y0 = gelu_bf16_path<kTanh>(fmaf(acc[j][0] * rstd0, sc.x, sh.x));
+          const float y1 = gelu_bf16_path<kTanh>(fmaf(acc[j][1] * rstd0, sc.y, sh.y));
+          const float y2 = gelu_bf16_path<kTanh>(fmaf(acc[j][2] * rstd1, sc.x, sh.x));
+          const float y3 = gelu_bf16_path<kTanh>(fmaf(acc[j][3] * rstd1, sc.y, sh.y));
+          *reinterpret_cast<uint32_t*>(stage_buf + g * STAGING_ROW + (8 * jj + 2 * t4) * 2) =
+              pack_bf16(y0, y1);
+          *reinterpret_cast<uint32_t*>(stage_buf + (g + 8) * STAGING_ROW + (8 * jj + 2 * t4) * 2) =
+              pack_bf16(y2, y3);
+        }
+        __syncwarp();
+        // 16 rows x 8 pieces: lane takes piece lane % 8 of rows lane / 8 + 4 r
+        #pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int row = lr0 + lane / 8 + 4 * r, c = n0 + ch * 64 + (lane % 8) * 8;
+          if (row < rows_left && c < Cout)
+            *reinterpret_cast<uint4*>(out_tile + (size_t)row * Cout + c) =
+                *reinterpret_cast<const uint4*>(stage_buf + (lane / 8 + 4 * r) * STAGING_ROW +
+                                                (lane % 8) * 16);
+        }
+        __syncwarp();
+      }
+    }
+  }
+  // no CTA leaves while its peer may still write into its shared memory
+  cluster_sync();
 }
 
 // ----------------------------------------------------------------- float32
@@ -348,6 +499,55 @@ conv_ln_gelu_f32_kernel(const float* __restrict__ x, const float* __restrict__ w
   }
 }
 
+
+// The bf16 kernel's launch: per device, the shared-memory opt-in, the
+// register check and the clusters that fit at once; a persistent grid of at
+// most that many clusters, on the caller's stream.
+template <bool kTanh>
+cudaError_t launch_bf16(const ConvMaps& maps, const float* cb, const float* ln_scale,
+                        const float* ln_bias, bf16* out, int B, int T_out, int Cin, int Cout,
+                        int ksize, float eps, cudaStream_t stream) {
+  auto kernel = conv_ln_gelu_bf16_kernel<kTanh>;
+  constexpr int MAX_DEVICES = 64;
+  static int fit[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (fit[dev] == 0) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)SMEM_BYTES);
+    if (err != cudaSuccess) return err;
+    // setmaxnreg's budgets balance only at LAUNCH_REGS registers a thread:
+    // with fewer, the consumers' increase would wait forever
+    cudaFuncAttributes attr;
+    err = cudaFuncGetAttributes(&attr, kernel);
+    if (err != cudaSuccess) return err;
+    if (attr.numRegs * THREADS != REG_POOL) {
+      fprintf(stderr,
+              "conv_ln_gelu: the kernel was built with %d registers a thread; its "
+              "setmaxnreg budgets (%d / %d) need %d\n",
+              attr.numRegs, PRODUCER_REGS, CONSUMER_REGS, LAUNCH_REGS);
+      return cudaErrorLaunchOutOfResources;
+    }
+    cudaLaunchConfig_t config = {};
+    config.gridDim = dim3(2);
+    config.blockDim = dim3(THREADS);
+    config.dynamicSmemBytes = SMEM_BYTES;
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, reinterpret_cast<const void*>(kernel),
+                                         &config);
+    if (err != cudaSuccess) return err;
+    if (clusters < 1) return cudaErrorInvalidConfiguration;
+    fit[dev] = clusters;
+  }
+  const int tiles = B * ((T_out + TILE_M - 1) / TILE_M);
+  const int grid = 2 * (tiles < fit[dev] ? tiles : fit[dev]);
+  kernel<<<grid, THREADS, SMEM_BYTES, stream>>>(maps, cb, ln_scale, ln_bias, out, B, T_out, Cin,
+                                                Cout, ksize, eps);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -356,7 +556,8 @@ extern "C" {
 // dtype (0 = float32, 1 = bfloat16); cb [Cout] f32 or null, ln_scale and
 // ln_bias [Cout] f32; out [B, T_out, Cout] of dtype, T_out = (T - k) / s + 1
 // >= 1.  Cin and Cout multiples of 8, Cout <= 512.  Pointers 16-byte
-// aligned.  Returns cudaGetLastError() after the launch (0 = launched).
+// aligned.  k <= MAX_TAPS in bfloat16.  Returns cudaGetLastError() after
+// the launch (0 = launched), or the error that kept it from launching.
 int fddm_conv_ln_gelu(const void* x, const void* w, const void* cb, const void* ln_scale,
                       const void* ln_bias, void* out, int B, int T, int Cin, int Cout,
                       int ksize, int stride, int dtype, int tanh_form, float eps,
@@ -374,21 +575,34 @@ int fddm_conv_ln_gelu(const void* x, const void* w, const void* cb, const void* 
   const float* lsf = static_cast<const float*>(ln_scale);
   const float* lbf = static_cast<const float*>(ln_bias);
   if (dtype == 1) {
-    cudaError_t err = cudaFuncSetAttribute(conv_ln_gelu_bf16_kernel,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)H_SMEM_BYTES);
-    if (err != cudaSuccess) return (int)err;
-    conv_ln_gelu_bf16_kernel<<<(rows + H_BM - 1) / H_BM, H_THREADS, H_SMEM_BYTES, s>>>(
-        static_cast<const bf16*>(x), static_cast<const bf16*>(w), cbf, lsf, lbf,
-        static_cast<bf16*>(out), rows, T, T_out, Cin, Cout, K, stride, eps, tanh_form);
-  } else if (dtype == 0) {
+    if (ksize > MAX_TAPS) return (int)cudaErrorInvalidValue;
+    ConvMaps maps;
+    memset(&maps, 0, sizeof(maps));
+    // tap j: x[b, t*s + j, :] at x + j*Cin + b*T*Cin + t*s*Cin.  Offset and
+    // strides are multiples of 16 bytes (Cin % 8 == 0); the last element,
+    // x[B-1, (T_out-1)*s + j, Cin-1], lies inside x as (T_out-1)*s + k <= T.
+    for (int j = 0; j < ksize; ++j) {
+      if (!encode_3d_strided(&maps.x[j], static_cast<const bf16*>(x) + (long long)j * Cin, Cin,
+                             T_out, B, (uint64_t)stride * Cin * 2, (uint64_t)T * Cin * 2, CHUNK,
+                             TILE_M))
+        return (int)cudaErrorInvalidValue;
+    }
+    if (!encode_3d_strided(&maps.w, w, Cout, Cin, ksize, (uint64_t)Cout * 2,
+                           (uint64_t)Cin * Cout * 2, 64, CHUNK))
+      return (int)cudaErrorInvalidValue;
+    bf16* o = static_cast<bf16*>(out);
+    return (int)(tanh_form ? launch_bf16<true>(maps, cbf, lsf, lbf, o, B, T_out, Cin, Cout,
+                                               ksize, eps, s)
+                           : launch_bf16<false>(maps, cbf, lsf, lbf, o, B, T_out, Cin, Cout,
+                                                ksize, eps, s));
+  }
+  if (dtype == 0) {
     conv_ln_gelu_f32_kernel<<<(rows + S_BM - 1) / S_BM, S_THREADS, 0, s>>>(
         static_cast<const float*>(x), static_cast<const float*>(w), cbf, lsf, lbf,
         static_cast<float*>(out), rows, T, T_out, Cin, Cout, K, stride, eps, tanh_form);
-  } else {
-    return (int)cudaErrorInvalidValue;
+    return (int)cudaGetLastError();
   }
-  return (int)cudaGetLastError();
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

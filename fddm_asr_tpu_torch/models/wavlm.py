@@ -60,7 +60,7 @@ from torch import nn
 
 from torch.utils.checkpoint import checkpoint
 
-from fddm_asr_tpu_torch.ops.conv_frontend import conv_ln_gelu
+from fddm_asr_tpu_torch.ops.conv_frontend import conv_ln_gelu, kernel_weight
 from fddm_asr_tpu_torch.ops.flash_attention import (
     wavlm_gated_attention_heads_packed,
     wavlm_gated_attention_heads_packed_trainable,
@@ -197,8 +197,10 @@ class ConvLayer(nn.Module):
         front-end's layout) [B, T, C] -> [B, T', C']."""
         if self.fused:
             ln = self.layer_norm
-            return conv_ln_gelu(x.to(dtype), self.conv.weight.permute(2, 1, 0), self.conv.bias,
-                                ln.weight, ln.bias, self.conv.stride[0], ln.eps, self.gelu_tanh)
+            w = kernel_weight(self.__dict__.setdefault("_kernel_weight", {}), self.conv.weight,
+                              dtype)
+            return conv_ln_gelu(x.to(dtype), w, self.conv.bias, ln.weight, ln.bias,
+                                self.conv.stride[0], ln.eps, self.gelu_tanh)
         if channels_last:
             x = x.transpose(1, 2)
         x = _conv(self.conv, x, dtype)

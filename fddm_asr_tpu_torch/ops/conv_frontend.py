@@ -20,21 +20,23 @@ agree to summation order.
 `conv_ln_gelu` routes by x's device and nothing else: CPU -> the plain
 version, CUDA -> `csrc/conv_ln_gelu.cu` or raise.  The kernel is forward
 only, as the Pallas call is: where autograd records, it raises.  It takes
-Cin and Cout in multiples of 8 and Cout up to 512; the waveform layer
-(Cin = 1) is outside that, as it is outside the TPU kernel on hardware
-(Cin % 128 != 0 goes to XLA there), and stays on `F.conv1d` + LayerNorm +
-GELU in `models/wavlm.py`.
+Cin and Cout in multiples of 8, Cout up to 512 and, in bfloat16, kernel
+widths up to `MAX_TAPS` (a tensor map a tap, over x's rows j, j + s, ...);
+the waveform layer (Cin = 1) is outside that, as it is outside the TPU kernel
+on hardware (Cin % 128 != 0 goes to XLA there), and stays on `F.conv1d` +
+LayerNorm + GELU in `models/wavlm.py`.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
 
 from fddm_asr_tpu_torch.ops import _build
 
-MAX_COUT = 512  # one block owns a whole row of channels (LayerNorm)
+MAX_COUT = 512  # a 2-CTA cluster owns a whole row of channels (LayerNorm)
+MAX_TAPS = 16   # the bf16 kernel's tensor maps, one a tap, in its parameters
 
 _build.register("fddm_conv_ln_gelu", "conv_ln_gelu",
                 [_build.P] * 6 + [_build.I] * 8 + [_build.F])
@@ -47,6 +49,21 @@ def kernel_takes(cin: int, cout: int) -> bool:
 
 def _out_length(T: int, k: int, stride: int) -> int:
     return (T - k) // stride + 1 if T >= k else 0
+
+
+def kernel_weight(cache: Dict[str, tuple], weight: torch.Tensor,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """An `nn.Conv1d` weight [Cout, Cin, k] as the kernel's operand: w [k,
+    Cin, Cout] in `dtype`, contiguous.  `cache` is a dict the calling module
+    owns; the copy is reused while the weight's version counter, device and
+    storage stay what they were when it was made, so a call casts nothing."""
+    stamp = (weight._version, weight.device, weight.data_ptr(), dtype)
+    hit = cache.get("w")
+    if hit is not None and hit[0] == stamp:
+        return hit[1]
+    w = weight.detach().permute(2, 1, 0).to(dtype).contiguous()
+    cache["w"] = (stamp, w)
+    return w
 
 
 def conv_ln_gelu_plain(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
@@ -94,6 +111,9 @@ def conv_ln_gelu_cuda(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor
                          f"8 and Cout <= {MAX_COUT}; got Cin={Cin}, Cout={Cout}")
     if stride < 1:
         raise ValueError(f"stride must be positive, got {stride}")
+    if x.dtype == torch.bfloat16 and k > MAX_TAPS:
+        raise ValueError(f"the bfloat16 conv+LayerNorm+GELU kernel takes kernel widths up to "
+                         f"{MAX_TAPS}; got {k}")
     T_out = _out_length(T, k, stride)
     if B == 0 or T_out == 0:
         return x.new_zeros((B, T_out, Cout))

@@ -108,3 +108,80 @@ def test_forward_only_and_cuda_wrapper_refuses_cpu_tensors(rng):
         CF.conv_ln_gelu_cuda(*args, 2)
     assert CF.kernel_takes(512, 512) and not CF.kernel_takes(1, 512)
     assert not CF.kernel_takes(512, 520)
+
+
+def _taps_as_strided_rows(rng, B, T, cin, k, s, cout=24):
+    """The conv as the CUDA kernel reads it: tap j's rows as the view of x
+    [B, T, Cin] at element offset j * Cin with rows s * Cin and batch rows
+    T * Cin apart (its tensor map's geometry).  Each view is unfold's tap j
+    and ends inside x; the port's CPU route equals the sum over taps of
+    view_j @ w[j] with the LayerNorm and GELU in float64."""
+    T_out = (T - k) // s + 1
+    x = torch.from_numpy(rng.standard_normal((B, T, cin), dtype=np.float32))
+    w = torch.from_numpy((rng.standard_normal((k, cin, cout)) * 0.1).astype(np.float32))
+    b, ln_scale, ln_bias = (torch.from_numpy(a) for a in _inputs(rng, 1, 8, cout, 1)[2:])
+    patches = x.unfold(1, k, s)  # [B, T_out, Cin, k]
+    y = b.double()
+    for j in range(k):
+        assert j * cin + (B - 1) * T * cin + (T_out - 1) * s * cin + cin <= x.numel()
+        view = torch.as_strided(x, (B, T_out, cin), (T * cin, s * cin, 1), j * cin)
+        assert torch.equal(view, patches[..., j])
+        y = y + view.double() @ w[j].double()
+    y = F.layer_norm(y, (cout,), eps=1e-5) * ln_scale.double() + ln_bias.double()
+    with torch.no_grad():
+        out = CF.conv_ln_gelu(x, w, b, ln_scale, ln_bias, s, gelu_tanh=True)
+    assert out.shape == (B, T_out, cout)
+    torch.testing.assert_close(out.double(), F.gelu(y, approximate="tanh"), **TOL)
+
+
+@pytest.mark.parametrize("T_out", [127, 128, 129, 255, 257])
+@pytest.mark.parametrize("k,s", [(1, 1), (2, 2), (3, 2), (5, 1), (4, 3), (1, 2), (2, 3)])
+@pytest.mark.parametrize("cin", [8, 200, 512])
+def test_tap_views_are_the_patches(rng, k, s, T_out, cin):
+    """At the CUDA kernel's edges (B = 3), taps that overlap (k > s) and
+    that skip rows (k < s, where T_out * s passes T)."""
+    _taps_as_strided_rows(rng, 3, (T_out - 1) * s + k, cin, k, s)
+
+
+@pytest.mark.parametrize("T,k,s", [(63999, 3, 2), (31999, 3, 2), (15999, 3, 2),
+                                   (7999, 3, 2), (3999, 2, 2), (1999, 2, 2)])
+def test_tap_views_at_the_front_end_layers(rng, T, k, s):
+    """The six layers of an 8 x 20 s transcribe, one batch row (the batch
+    stride is covered above), 512 input channels."""
+    _taps_as_strided_rows(rng, 1, T, 512, k, s, cout=8)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_weight_is_cast_once_per_weight(dtype):
+    """The kernel's operand of a conv weight is made on the first call and
+    reused until the weight changes in place."""
+    conv = torch.nn.Conv1d(16, 24, 3)
+    cache = {}
+    w = CF.kernel_weight(cache, conv.weight, dtype)
+    assert w.dtype == dtype and w.is_contiguous() and not w.requires_grad
+    assert torch.equal(w, conv.weight.detach().permute(2, 1, 0).to(dtype))
+    assert CF.kernel_weight(cache, conv.weight, dtype) is w
+    with torch.no_grad():
+        conv.weight.mul_(2)
+    again = CF.kernel_weight(cache, conv.weight, dtype)
+    assert again is not w
+    assert torch.equal(again, conv.weight.detach().permute(2, 1, 0).to(dtype))
+
+
+def test_fused_layer_reuses_its_kernel_weight(rng):
+    """The fused front-end layer passes its weight through `kernel_weight`:
+    one copy in the run's dtype, reused by every call, and the same output
+    as the plain version on the layer's own weight."""
+    from fddm_asr_tpu_torch.models.wavlm import ConvLayer
+
+    layer = ConvLayer(32, 64, 3, 2, True, "layer", 1e-5, True, fused=True)
+    x = torch.from_numpy(rng.standard_normal((2, 101, 32), dtype=np.float32))
+    with torch.no_grad():
+        out = layer(x, torch.bfloat16, channels_last=True)
+        kept = layer._kernel_weight["w"][1]
+        again = layer(x, torch.bfloat16, channels_last=True)
+        assert layer._kernel_weight["w"][1] is kept and kept.dtype == torch.bfloat16
+        ln = layer.layer_norm
+        ref = CF.conv_ln_gelu_plain(x.bfloat16(), layer.conv.weight.permute(2, 1, 0),
+                                    layer.conv.bias, ln.weight, ln.bias, 2, gelu_tanh=True)
+    assert torch.equal(out, again) and torch.equal(out, ref)

@@ -59,6 +59,74 @@ def test_kernel_matches_plain_on_card(cuda_device, B, T, cin, cout, k, s, dtype,
     torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
 
 
+def _edge_case(dev, B, T_out, cin, cout, k, s, gelu_tanh=True):
+    """The bfloat16 kernel at one shape, called twice: bit-identical outputs
+    (no atomics, a fixed order of sums), within TOL of the plain version."""
+    args = _case(dev, B, (T_out - 1) * s + k, cin, cout, k, torch.bfloat16)
+    with torch.no_grad():
+        out = CF.conv_ln_gelu(*args, s, gelu_tanh=gelu_tanh)
+        again = CF.conv_ln_gelu(*args, s, gelu_tanh=gelu_tanh)
+    torch.cuda.synchronize()
+    assert out.shape == (B, T_out, cout) and torch.equal(out, again)
+    ref = CF.conv_ln_gelu_plain(*args, s, gelu_tanh=gelu_tanh)
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[torch.bfloat16])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T_out", [127, 128, 129, 255, 257])
+def test_bf16_row_tile_edges(cuda_device, T_out):
+    """Around the 128-row tiles, which never cross a batch row (B = 3)."""
+    _edge_case(cuda_device, 3, T_out, 512, 512, 3, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cout", [8, 248, 256, 264, 512])
+def test_bf16_channel_halves(cuda_device, cout):
+    """Each CTA of a cluster owns 256 channels: Cout <= 256 leaves the second
+    with none, 248 and 264 end inside a 64-channel store chunk."""
+    _edge_case(cuda_device, 3, 129, 128, cout, 3, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin", [8, 200, 512])
+def test_bf16_input_channel_chunks(cuda_device, cin):
+    """The K loop's 64-channel chunks: Cin below one, ending inside one, whole."""
+    _edge_case(cuda_device, 3, 129, cin, 512, 3, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,s", [(1, 1), (2, 2), (3, 2), (5, 1), (4, 3), (1, 2), (2, 3)])
+@pytest.mark.parametrize("gelu_tanh", [False, True], ids=["erf", "tanh"])
+def test_bf16_kernel_widths_and_strides(cuda_device, k, s, gelu_tanh):
+    """One tensor map a tap, rows s * Cin apart: taps overlap when k > s and
+    skip rows when k < s, where a map's T_out rows of s * Cin pass a batch
+    row's T * Cin (T = 257 and 386 here)."""
+    _edge_case(cuda_device, 3, 129, 64, 512, k, s, gelu_tanh)
+
+
+@pytest.mark.cuda
+def test_bf16_layer_one_shape(cuda_device):
+    """Layer 1 of the front-end at 8 x 20 s: x [8, 63999, 512], k = 3, s = 2."""
+    _edge_case(cuda_device, 8, 31999, 512, 512, 3, 2)
+
+
+@pytest.mark.cuda
+def test_bf16_refuses_more_taps_than_maps(cuda_device):
+    """The bf16 kernel holds one tensor map a tap, MAX_TAPS of them: a wider
+    kernel raises before any launch; the f32 kernel takes it."""
+    args = _case(cuda_device, 1, 40, 8, 8, CF.MAX_TAPS + 1, torch.bfloat16)
+    before = CF.conv_ln_gelu_cuda.launches
+    with torch.no_grad():
+        with pytest.raises(ValueError, match=f"kernel widths up to {CF.MAX_TAPS}"):
+            CF.conv_ln_gelu(*args, 1)
+        assert CF.conv_ln_gelu_cuda.launches == before
+        f32 = [a.float() if a is not None else None for a in args]
+        out = CF.conv_ln_gelu(*f32, 1)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, CF.conv_ln_gelu_plain(*f32, 1), **TOL[torch.float32])
+    _edge_case(cuda_device, 1, 24, 8, 8, CF.MAX_TAPS, 1)  # the widest it takes
+
+
 @pytest.mark.cuda
 def test_no_bias_and_the_unfused_layer(cuda_device):
     """Without a conv bias; and against F.conv1d + layer_norm + gelu in f32,
