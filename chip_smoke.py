@@ -2,8 +2,9 @@
 # -*- coding: utf-8 -*-
 """GPU smoke run of the PyTorch/CUDA port: builds the kernels, holds each
 against its plain version, transcribes a batch (in full precision, and with
-the int8 encoder and the fused conv front-end) and takes encoder fine-tune
-steps at full model width.
+the int8 encoder and the fused conv front-end, and best-of-4), takes encoder
+fine-tune steps, runs the four evaluators and runs the inference CLI from a
+YAML config, all at full model width.
 
     python3 chip_smoke.py
 
@@ -16,15 +17,20 @@ Phases, each fatal on failure:
      parallel), timed;
   2. kernel vs plain version at B=8, H=16, dh=64 on both sides of the TPU
      kernels' 4096-frame split (L=1024, 4224), float32 and bfloat16, with
-     ragged key masks and one all-masked row; the kernel's time beside the
-     plain version's, one `scaled_dot_product_attention` call's (a yardstick
+     ragged key masks and one all-masked row, and at phase 15 (c)'s
+     whole-file shape (B=1, L=5120, 4999 valid keys); the kernel's time
+     beside the plain version's, one `scaled_dot_product_attention` call's (a yardstick
      the port never calls) and the card's least possible time (bound);
      then, untimed, at the edges of the bf16 kernel's 128-query blocks and
      64-key steps and at L=203 (bias rows not 16-byte aligned), with lse;
   3. a small float32 pipeline (64-wide WavLM heads) transcribes the same
      batch and x_T on the card and on the CPU from the same weights: the
      token ids must be identical; the same with the batch as int16 pcm16
-     and as uint8 mu-law codes (decoded on the pipeline's device);
+     and as uint8 mu-law codes (decoded on the pipeline's device); then
+     `transcribe_nbest` with N = 4 at an injected [B*N, L] x_T (the same
+     candidates, confidences within 1e-5) and the windows
+     `plan_silence_chunks` cuts from a 3.3 s recording, as one
+     condition-masked batch (the same ids);
   4. full-width transcription: WavLM-large + the d768x6 decoder, K=8000,
      T=200, bf16, random weights from a seeded generator and a synthetic
      8000-piece tokenizer; 8 x 20 s of synthetic audio through
@@ -112,6 +118,30 @@ Phases, each fatal on failure:
      full-precision encoder: rel-L2 below 0.05 and above 1e-6 (the flag
      must change the output).
 
+ 13. `nbest`: phase 4's batch, weights and sampling best-of-4
+     (`transcribe_with_ids(num_candidates=4)`), timed as phase 4: B1 24
+     launches (the encoder runs once), four decoder calls of 32 rows, the
+     rows the most confident of `transcribe_nbest`'s candidates; wall,
+     RTFx, peak memory and busy time beside phase 4's and phase 12's
+     `transcribe_repeat`;
+ 14. `eval`: two batches of 8 x 20 s with 64-token targets through
+     `evaluate_validation_loss`, `evaluate_validation_kl_sampled`,
+     `evaluate_cer_with_full_sampling` and
+     `evaluate_cer_with_multi_sample(voting="logprob", num_samples=3)`:
+     each value (finite, positive), wall time and launches (B1 48 each);
+ 15. `cli`: `python3 -m fddm_asr_tpu_torch.inference` in a subprocess
+     from configs/fddm_zhTW_base.yaml and configs/diffusion.yaml,
+     `--wavlm-ckpt` an HF directory (config.json, pytorch_model.bin) of a seeded random
+     WavLM-large, `--ckpt` a random decoder's bare state_dict: (a) a
+     16-row CSV of 20 s WAVs with a `text` column, 8 a batch, bucketed,
+     best-of-4 with confidence, ending in the CER summary line; (b) a 180 s
+     WAV in silence-cut 20 s windows (9-10); (c) a 100 s WAV whole, 4999
+     frames padded to 5120 (the TPU's B2 regime, past 4096). Each run's ids
+     equal those of the CLI's own `transcribe` of the same arguments in
+     this process, on the pipeline `build_pipeline` makes of them; each run's wall,
+     RTFx and launches from `--stats-json` beside the in-process wall;
+     (c) once more under the profiler (the kernel's time at L = 5120).
+
 Phases 4 and 7 run at full depth with as many timed runs as before: the
 whole takes well under half of its time limit, so nothing was cut.
 
@@ -165,6 +195,7 @@ INT8_PEAK_OPS = 1979e12    # H100 SXM dense int8
 # (abs, rel); bfloat16: 3e-2 plus one bf16 ulp of the reference, whose values reach past 4
 CONV_TOL = {torch.float32: (2e-4, 1e-3), torch.bfloat16: (3e-2, 2.0 ** -7)}
 SMALL_QUANT_ENCODER_TOL = 5e-2  # phase 11: int8 steps flip at f32 rounding of a half
+NBEST_CONFIDENCE_TOL = 1e-5     # phase 3: f32 geometric means, card vs CPU
 QUANT_REL_L2 = (1e-6, 5e-2)     # int8 encoder vs full precision: must differ, and little
 WAVLM_DENSE_SHAPES = ((1024, 1024), (1024, 4096), (4096, 1024))  # (din, dout): 4 + 1 + 1 a layer
 # (T, k, s) of conv layers 1-6 at 8 x 20 s: what B8 runs in one fused-front-end transcribe
@@ -272,17 +303,17 @@ def attention_bound_ms(q, bias, gate, mask, H) -> tuple:
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def kernel_vs_plain(FA, L: int, dtype, gen) -> dict:
-    B, H = 8, 16
-    q, k, v, bias, gate, mask = attention_inputs(B, L, H, dtype, gen)
+def kernel_vs_plain(FA, L: int, dtype, gen, B: int = 8, valid: int = None) -> dict:
+    H = 16
+    q, k, v, bias, gate, mask = attention_inputs(B, L, H, dtype, gen, valid=valid)
     out = FA.wavlm_gated_attention_cuda(q, k, v, bias, gate, mask, num_heads=H)
     torch.cuda.synchronize()
     ref = FA.wavlm_gated_attention_plain(q, k, v, bias, gate, mask, num_heads=H)
     err = (out.float() - ref.float()).abs()
     del out, ref
     if not torch.isfinite(err).all():
-        fail(f"kernel output not finite at L={L} {dtype}")
-    row = {"L": L, "dtype": str(dtype).replace("torch.", ""),
+        fail(f"kernel output not finite at B={B} L={L} {dtype}")
+    row = {"B": B, "L": L, "valid": valid, "dtype": str(dtype).replace("torch.", ""),
            "max_abs_err": err.max().item(), "mean_abs_err": err.mean().item(),
            "tol": TOL[dtype]}
     del err
@@ -301,7 +332,7 @@ def kernel_vs_plain(FA, L: int, dtype, gen) -> dict:
     row["bound_ms"], row["bound_by"] = attention_bound_ms(q, bias, gate, mask, H)
     print(json.dumps({"kernel_vs_plain": row}), flush=True)
     if not row["max_abs_err"] <= TOL[dtype]:
-        fail(f"kernel disagrees with its plain version at L={L} {dtype}: {row}")
+        fail(f"kernel disagrees with its plain version at B={B} L={L} {dtype}: {row}")
     torch.cuda.empty_cache()
     return row
 
@@ -432,7 +463,13 @@ def small_pipeline_matches_cpu(FA, tokenizer_dir: str) -> dict:
         err_w = (gpu.encode_waveform(codes)[0].cpu() - cpu.encode_waveform(codes)[0]).abs().max()
         result["wire"][name] = {"encoder_max_abs_err": err_w.item(),
                                 "ids_equal": [r[1] for r in got_w] == [r[1] for r in want_w]}
+    result["nbest"], result["chunks"] = small_nbest_and_chunks(gpu, cpu, K, seq_len)
     print(json.dumps({"small_pipeline_card_vs_cpu": result}), flush=True)
+    if not (result["nbest"]["ids_equal"] and result["nbest"]["confidence_max_abs_err"]
+            <= NBEST_CONFIDENCE_TOL):
+        fail(f"small pipeline best-of-N, card vs CPU: {result['nbest']}")
+    if not result["chunks"]["ids_equal"]:
+        fail(f"small pipeline on silence-planned windows, card vs CPU: {result['chunks']}")
     for name, row in result["wire"].items():
         if not (row["encoder_max_abs_err"] <= SMALL_ENCODER_TOL and row["ids_equal"]):
             fail(f"small pipeline fed {name} codes, card vs CPU: {row}")
@@ -443,6 +480,46 @@ def small_pipeline_matches_cpu(FA, tokenizer_dir: str) -> dict:
     if not result["ids_equal"]:
         fail(f"small pipeline token ids differ, card {got} vs CPU {want}")
     return result
+
+
+def small_nbest_and_chunks(gpu, cpu, K: int, seq_len: int) -> dict:
+    """Phase 3, continued: `transcribe_nbest` with N = 4 at one injected
+    [B*N, L] x_T gives the same candidates on the card and the CPU (each
+    utterance's candidates compared in (ids, confidence) order, so that two
+    of nearly equal confidence may sort either way), confidences within
+    NBEST_CONFIDENCE_TOL; and the windows `plan_silence_chunks` cuts from a
+    3.3 s recording, transcribed as one condition-masked batch at one
+    injected x_T, give the same ids."""
+    from fddm_asr_tpu_torch.data.audio_io import plan_silence_chunks
+
+    n, B = 4, 2
+    wav = synthetic_audio(B, 1.0, seed=1)
+    x_init = np.random.default_rng(3).integers(0, K, (B * n, seq_len))
+    kw = dict(seq_len=seq_len, num_candidates=n, x_init=x_init, T_infer=20, r=5, greedy=True)
+    got = [sorted(u, key=lambda c: c[1:]) for u in gpu.transcribe_nbest(wav, **kw)]
+    want = [sorted(u, key=lambda c: c[1:]) for u in cpu.transcribe_nbest(wav, **kw)]
+    nbest = {"candidates": n, "ids_equal": [[c[1] for c in u] for u in got]
+             == [[c[1] for c in u] for u in want],
+             "confidence_max_abs_err": max(abs(a[2] - b[2]) for ua, ub in zip(got, want)
+                                           for a, b in zip(ua, ub)),
+             "confidence_tol": NBEST_CONFIDENCE_TOL}
+    long = synthetic_audio(1, 3.3, seed=4)[0]
+    spans = plan_silence_chunks(long, 16000)
+    batch = np.zeros((len(spans), 16000), np.float32)
+    for j, (a, b) in enumerate(spans):
+        batch[j, :b - a] = long[a:b]
+    lengths = np.asarray([max(b - a, 400) for a, b in spans])
+    x_win = np.random.default_rng(5).integers(0, K, (len(spans), seq_len))
+    rows = {}
+    for name, pipe in (("card", gpu), ("cpu", cpu)):
+        pipe.use_condition_mask = True
+        try:
+            rows[name] = [r[1] for r in pipe.transcribe_with_ids(
+                batch, lengths, seq_len=seq_len, x_init=x_win, T_infer=20, r=5, greedy=True)]
+        finally:
+            pipe.use_condition_mask = False
+    chunks = {"spans": spans, "ids_equal": rows["card"] == rows["cpu"]}
+    return nbest, chunks
 
 
 def device_time_breakdown(run, wall_s: float, ranges=()) -> dict:
@@ -517,13 +594,9 @@ def device_time_breakdown(run, wall_s: float, ranges=()) -> dict:
 def port_kernel_wrappers() -> dict:
     """Every kernel wrapper of the port, by the name its launches are
     reported under; each carries a `.launches` count."""
-    from fddm_asr_tpu_torch.ops import conv_frontend as CF
-    from fddm_asr_tpu_torch.ops import flash_attention as FA
-    from fddm_asr_tpu_torch.ops import quant as Q
+    from fddm_asr_tpu_torch.ops import kernel_wrappers
 
-    return {"fwd": FA.wavlm_gated_attention_cuda, **_training_wrappers(FA),
-            "bhld": FA.wavlm_gated_attention_bhld_cuda,
-            "int8_matmul_fused": Q.int8_matmul_fused_cuda, "conv_ln_gelu": CF.conv_ln_gelu_cuda}
+    return kernel_wrappers()
 
 
 def transcribe_full_width(FA, tokenizer_dir: str, card: str, name: str = "transcribe",
@@ -623,6 +696,7 @@ def transcribe_full_width(FA, tokenizer_dir: str, card: str, name: str = "transc
         "encoder_rel_l2_kernel_vs_plain": rel_l2, "encoder_rel_l2_tol": ENCODER_REL_L2_TOL,
         "example_text": rows[0][0][:16], "example_confidence": rows[0][2],
         "peak_mem_gb": peak_mem_gb, "port_kernels_ms": port_kernels_ms,
+        "device_busy_ms": breakdown["device_busy_ms"], "idle_share": breakdown["idle_share"],
     }
     print(json.dumps({name: result}, ensure_ascii=False), flush=True)
     result["feats"] = feats
@@ -772,8 +846,8 @@ def training_kernels_vs_plain(FA, L: int, dtype, gen, timed: bool, B: int = 8,
 
 
 def finetune_config(tokenizer_path: str, small: bool = False):
-    """configs/fddm_zhTW_finetune.yaml over fddm_zhTW_base.yaml, in code
-    (the card's machine has no YAML reader); `small` is phase 6's float32
+    """configs/fddm_zhTW_finetune.yaml over fddm_zhTW_base.yaml, in code,
+    as `flagship_config`; `small` is phase 6's float32
     version with 64-wide WavLM heads, no dropout and a tiny vocabulary."""
     from fddm_asr_tpu_torch.config import Config
 
@@ -1250,7 +1324,8 @@ def transcribe_quantized_full_width(FA, tokenizer_dir: str, card: str, base_feat
     ref = front["feats"].float()
     # phase 4's configuration once more, late in the process: the host's share of the wall
     # time grows over the run, so walls compare only between neighbours
-    transcribe_full_width(FA, tokenizer_dir, card, "transcribe_repeat")
+    repeat = transcribe_full_width(FA, tokenizer_dir, card, "transcribe_repeat")
+    fused["transcribe_repeat"] = {k: v for k, v in repeat.items() if k != "feats"}
 
     def rel_l2(a):
         return ((a.float() - ref).norm() / ref.norm()).item()
@@ -1268,6 +1343,341 @@ def transcribe_quantized_full_width(FA, tokenizer_dir: str, card: str, base_feat
     if not result["fused_frontend_tanh_vs_phase_4"] > lo:
         fail("fused_frontend + gelu_approx_tanh left the encoder's output unchanged")
     return fused
+
+
+# ------------------------------------------------- the transcription surface
+NBEST_N = 4
+CLI_MAIN_CONFIG = os.path.join("configs", "fddm_zhTW_base.yaml")  # relative to the repo
+# phase 15 (c)'s whole 100 s WAV: its frames, padded to a multiple of 128
+WHOLE_FILE_FRAMES, WHOLE_FILE_L = 4999, 5120
+CLI_RUNS = ("a_csv_best_of_4", "b_180s_in_20s_windows", "c_100s_whole_file")
+
+
+def _flagship_pipeline(tokenizer_dir: str, seed: int = None):
+    from fddm_asr_tpu_torch.pipeline import FDDMPipeline
+    from fddm_asr_tpu_torch.tokenizer import load_tokenizer
+
+    cfg = flagship_config(synthetic_tokenizer(tokenizer_dir, 8000))
+    return cfg, FDDMPipeline.from_config(cfg, tokenizer=load_tokenizer(cfg.data.tokenizer_path),
+                                         seed=seed)
+
+
+def _counts_since_reset(wrappers: dict) -> dict:
+    return {k: f.launches for k, f in wrappers.items()}
+
+
+def _reset(wrappers: dict) -> None:
+    for f in wrappers.values():
+        f.launches = 0
+
+
+def nbest_full_width(tokenizer_dir: str, card: str, phase4: dict, repeat: dict) -> dict:
+    """Phase 13: phase 4's batch (8 x 20 s, full width, same weights and
+    sampling) best-of-4, timed as phase 4 times `transcribe`: the encoder
+    runs once (B1 24 launches) and every decoder call takes the 32 folded
+    rows; the rows are the most confident of `transcribe_nbest`'s
+    candidates; wall, RTFx, peak memory and busy time beside phase 4's and
+    phase 12's `transcribe_repeat` (phase 4's configuration late in the
+    process)."""
+    B, seconds = 8, 20.0
+    _, pipe = _flagship_pipeline(tokenizer_dir)
+    n_layers = pipe.encoder.config.num_hidden_layers
+    wav = synthetic_audio(B, seconds, seed=0)
+    sampling = dict(T_infer=20, r=5, greedy=True, posterior_mode="map", sampling_mode="exact")
+    decoder_rows = []
+    hook = pipe.decoder.register_forward_pre_hook(
+        lambda module, args: decoder_rows.append(args[0].shape[0]))
+
+    def run():
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        rows = pipe.transcribe_with_ids(wav, seq_len=64, generator=gen, with_confidence=True,
+                                        num_candidates=NBEST_N, **sampling)
+        torch.cuda.synchronize()
+        return rows
+
+    gc.collect()
+    run()
+    torch.cuda.reset_peak_memory_stats()
+    wrappers = port_kernel_wrappers()
+    _reset(wrappers)
+    decoder_rows.clear()
+    rows = run()  # the main path's run: its launches are counted
+    counts = _counts_since_reset(wrappers)
+    peak_mem_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    rows_seen = list(decoder_rows)
+    want = {k: 0 for k in wrappers}
+    want["fwd"] = n_layers
+    if counts != want:
+        fail(f"kernel launches in one best-of-{NBEST_N} transcribe {counts}, expected {want}")
+    if rows_seen != [B * NBEST_N] * 4:
+        fail(f"decoder calls took {rows_seen} rows, expected four of {B * NBEST_N}")
+    step_samples = seconds_of(run, REPEATS)
+    hook.remove()
+    nbest = pipe.transcribe_nbest(wav, seq_len=64, generator=torch.Generator(
+        device="cuda").manual_seed(0), num_candidates=NBEST_N, **sampling)
+    if [r[1:] for r in rows] != [(u[0][1], u[0][2]) for u in nbest]:
+        fail("best-of-N rows are not the most confident of transcribe_nbest's candidates")
+    if not all(len(u) == NBEST_N and all(0 <= i < 8000 for c in u for i in c[1]) for u in nbest):
+        fail("transcribe_nbest did not give 4 candidates of in-range ids per utterance")
+    step_s = statistics.median(step_samples)
+    breakdown = device_time_breakdown(run, step_s)
+    breakdown["port_kernels_ms"] = {"fwd": sum(t["ms"] for t in breakdown["all"]
+                                               if "gated_attention_bf16_kernel" in t["name"])}
+    del breakdown["all"]
+    print(json.dumps({"nbest_device_time": breakdown}), flush=True)
+
+    def beside(r):
+        return {k: r[k] for k in ("step_s", "rtfx", "peak_mem_gb", "device_busy_ms",
+                                  "idle_share")}
+
+    result = {"card": card, "candidates": NBEST_N, "audio_s": B * seconds,
+              "step_s": step_s, "rtfx": B * seconds / step_s, "step_s_samples": step_samples,
+              "repeats": REPEATS, "peak_mem_gb": peak_mem_gb,
+              "device_busy_ms": breakdown["device_busy_ms"],
+              "idle_share": breakdown["idle_share"], "launches": {k: n for k, n in counts.items()
+                                                                  if n},
+              "decoder_rows_per_call": rows_seen, "example_confidence": rows[0][2],
+              "confidences_of_utterance_0": [c[2] for c in nbest[0]],
+              "phase_4": beside(phase4), "transcribe_repeat": beside(repeat)}
+    print(json.dumps({"nbest": result}), flush=True)
+    return result
+
+
+def evaluators_full_width(tokenizer_dir: str, card: str) -> dict:
+    """Phase 14: two batches of 8 x 20 s with 64-token targets (random ids,
+    eos then pad after 40-63 tokens) at full width through the four
+    evaluators; each value, wall time and launch counts (B1: 24 per encoded
+    batch, so 48 each)."""
+    from collections import namedtuple
+
+    from fddm_asr_tpu_torch import eval as E
+
+    cfg, pipe = _flagship_pipeline(tokenizer_dir)
+    pad, eos = pipe.pad_id, pipe.special_ids["eos_id"]
+    Batch = namedtuple("Batch", "wave wave_lengths tokens")
+    rng = np.random.default_rng(31)
+    batches = []
+    for i in range(2):
+        wav = synthetic_audio(8, 20.0, seed=40 + i)
+        tokens = rng.integers(4, 8000, (8, 64))
+        for b, n in enumerate(rng.integers(40, 64, 8)):
+            tokens[b, n], tokens[b, n + 1:] = eos, pad
+        batches.append(Batch(wav, np.full(8, wav.shape[1]), tokens))
+    runs = {
+        "validation_loss": lambda: E.evaluate_validation_loss(pipe, batches),
+        "validation_kl_sampled": lambda: E.evaluate_validation_kl_sampled(pipe, batches),
+        "cer_full_sampling": lambda: E.evaluate_cer_with_full_sampling(pipe, batches, cfg),
+        "cer_multi_sample_logprob": lambda: E.evaluate_cer_with_multi_sample(
+            pipe, batches, cfg, voting="logprob", num_samples=3),
+    }
+    pipe.encode_waveform(batches[0].wave)  # warm-up
+    wrappers = port_kernel_wrappers()
+    want = {k: 0 for k in wrappers}
+    want["fwd"] = 2 * pipe.encoder.config.num_hidden_layers
+    result = {"card": card, "batches": 2, "batch": "8 x 20 s, 64-token targets"}
+    for name, fn in runs.items():
+        _reset(wrappers)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        value = fn()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        counts = _counts_since_reset(wrappers)
+        result[name] = {"value": value, "wall_s": wall,
+                        "launches": {k: n for k, n in counts.items() if n}}
+        if counts != want:
+            fail(f"{name}: kernel launches {counts}, expected {want}")
+        if not (np.isfinite(value) and value > 0):
+            fail(f"{name} gave {value}: expected a finite positive value for random weights")
+    print(json.dumps({"eval": result}), flush=True)
+    return result
+
+
+def write_hf_wavlm(backbone, directory: str) -> None:
+    """The port's WavLM as a Hugging Face directory: config.json and
+    pytorch_model.bin, the positional conv as weight_g / weight_v (HF's
+    weight norm over dim 2), float32."""
+    import dataclasses
+
+    os.makedirs(directory, exist_ok=True)
+    sd = {k: v.detach().float().cpu() for k, v in backbone.state_dict().items()}
+    w = sd.pop("encoder.pos_conv_embed.conv.weight")
+    sd["encoder.pos_conv_embed.conv.weight_g"] = w.norm(dim=(0, 1), keepdim=True)
+    sd["encoder.pos_conv_embed.conv.weight_v"] = w
+    torch.save(sd, os.path.join(directory, "pytorch_model.bin"))
+    fields = dataclasses.asdict(backbone.cfg)
+    keys = ("hidden_size", "num_hidden_layers", "num_attention_heads", "intermediate_size",
+            "conv_dim", "conv_kernel", "conv_stride", "conv_bias", "feat_extract_norm",
+            "do_stable_layer_norm", "num_buckets", "max_bucket_distance",
+            "num_conv_pos_embeddings", "num_conv_pos_embedding_groups", "layer_norm_eps",
+            "feat_proj_dropout", "hidden_dropout", "attention_dropout", "activation_dropout")
+    config = {"model_type": "wavlm", "architectures": ["WavLMModel"],
+              **{k: list(fields[k]) if isinstance(fields[k], tuple) else fields[k] for k in keys}}
+    with open(os.path.join(directory, "config.json"), "w", encoding="utf-8") as f:
+        json.dump(config, f, indent=2)
+
+
+def _cli_output(stdout: str) -> list:
+    out = stdout.strip()
+    if out.startswith("{\n"):
+        return [json.loads(out)]
+    return [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+
+
+def cli_full_width(tokenizer_dir: str, card: str) -> dict:
+    """Phase 15: the port's CLI in a subprocess (`python3 -m
+    fddm_asr_tpu_torch.inference`) from configs/fddm_zhTW_base.yaml and
+    configs/diffusion.yaml, with `--wavlm-ckpt` an HF directory written from
+    a seeded random WavLM-large and `--ckpt` a random decoder's bare
+    state_dict: (a) a 16-row CSV (20 s each, a `text` column) 8 a batch,
+    bucketed to whole seconds, best-of-4 with confidence, ending in the CER
+    summary; (b) a 180 s WAV in silence-cut 20 s windows (9 or 10); (c) a
+    100 s WAV whole (4999 frames, padded to 5120: the gated-attention
+    kernel past 4096 frames, the TPU's B2).  Each run's ids against the
+    CLI's own `transcribe` of the same arguments in this process, on the
+    pipeline `build_pipeline` makes of them; each run's wall and launches
+    from `--stats-json` (the process's first calls included), and the
+    in-process wall of the same work; (c) once more under the profiler for
+    the kernel's device time at L = 5120."""
+    import fddm_asr_tpu_torch.models.wavlm as W
+    from fddm_asr_tpu_torch import inference as cli
+    from fddm_asr_tpu_torch.data.audio_io import load_audio, save_wav
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    d = tokenizer_dir
+    _, pipe = _flagship_pipeline(d, seed=5)
+    ckpt = os.path.join(d, "decoder.pt")
+    torch.save({k: v.cpu() for k, v in pipe.decoder.state_dict().items()}, ckpt)
+    hf_dir = os.path.join(d, "wavlm-large")
+    write_hf_wavlm(pipe.encoder.backbone, hf_dir)
+    del pipe
+    rng = np.random.default_rng(50)
+    csv_path = os.path.join(d, "set.csv")
+    rows = []
+    for i in range(16):
+        path = os.path.join(d, f"u{i:02d}.wav")
+        save_wav(path, synthetic_audio(1, 20.0, seed=100 + i)[0], 16000)
+        text = "".join(chr(0x4E00 + int(j)) for j in rng.integers(0, 7996, int(rng.integers(8, 21))))
+        rows.append(f"{path},{text}")
+    with open(csv_path, "w", encoding="utf-8") as f:
+        f.write("path,text\n" + "\n".join(rows) + "\n")
+    p180, p100 = os.path.join(d, "long180.wav"), os.path.join(d, "long100.wav")
+    save_wav(p180, synthetic_audio(1, 180.0, seed=200)[0], 16000)
+    save_wav(p100, synthetic_audio(1, 100.0, seed=201)[0], 16000)
+    base = ["--ckpt", ckpt, "--main-config", os.path.join(root, CLI_MAIN_CONFIG),
+            "--diffusion-config", os.path.join(root, "configs", "diffusion.yaml"),
+            "--tokenizer", os.path.join(d, "spm_synth.vocab"), "--wavlm-ckpt", hf_dir, "--greedy"]
+    extra = {"a_csv_best_of_4": ["--csv", csv_path, "--batch-size", "8", "--bucket-seconds", "1",
+                                 "--num-candidates", str(NBEST_N), "--confidence"],
+             "b_180s_in_20s_windows": ["--wav", p180, "--chunk-seconds", "20"],
+             "c_100s_whole_file": ["--wav", p100]}
+    audio_s = {"a_csv_best_of_4": 320.0, "b_180s_in_20s_windows": 180.0, "c_100s_whole_file": 100.0}
+    gc.collect()
+    torch.cuda.empty_cache()  # the subprocess needs the memory this process has cached
+    result = {"card": card}
+    printed = {}
+    for name in CLI_RUNS:
+        stats_path = os.path.join(d, f"{name}.stats.json")
+        t0 = time.time()
+        proc = subprocess.run(
+            [sys.executable, "-m", "fddm_asr_tpu_torch.inference", *extra[name], *base,
+             "--stats-json", stats_path], cwd=root, capture_output=True, text=True,
+            timeout=600)
+        process_s = time.time() - t0
+        if proc.returncode != 0:
+            fail(f"CLI run {name} exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+        printed[name] = _cli_output(proc.stdout)
+        with open(stats_path, encoding="utf-8") as f:
+            stats = json.load(f)
+        result[name] = {"process_s": process_s, "build_s": stats["build_s"],
+                        "transcribe_s": stats["transcribe_s"],
+                        "rtfx": audio_s[name] / stats["transcribe_s"],
+                        "launches": {k: n for k, n in stats["launches"].items() if n}}
+
+    # the same three runs through the CLI's own `transcribe` in this process, on the
+    # pipeline it builds from the same arguments
+    allow_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default, as in the CLI's process
+    try:
+        run_args = {name: cli.parse_args([*extra[name], *base]) for name in CLI_RUNS}
+        pipe = cli.build_pipeline(run_args["a_csv_best_of_4"])
+        n_layers = pipe.encoder.config.num_hidden_layers
+        wrappers = port_kernel_wrappers()
+
+        def timed(fn):
+            _reset(wrappers)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out = fn()
+            torch.cuda.synchronize()
+            return out, time.time() - t0, _counts_since_reset(wrappers)
+
+        built_mask = pipe.use_condition_mask
+        long180 = load_audio(p180, target_sr=16000)[0]
+        spans = cli.chunk_spans(long180, 320000, run_args["b_180s_in_20s_windows"].chunk_align)
+        long100 = load_audio(p100, target_sr=16000)[0]
+        attention_L = []
+        kernel_route = W.wavlm_gated_attention_heads_packed
+
+        def recording(q, *a, **k):
+            attention_L.append(q.shape[1])
+            return kernel_route(q, *a, **k)
+
+        def run(name):
+            pipe.use_condition_mask = built_mask  # as the CLI's process finds it
+            return cli.transcribe(pipe, run_args[name])
+
+        expect_fwd = {"a_csv_best_of_4": 2 * n_layers,
+                      "b_180s_in_20s_windows": -(-len(spans) // 8) * n_layers,
+                      "c_100s_whole_file": n_layers}
+        W.wavlm_gated_attention_heads_packed = recording
+        try:
+            for name in CLI_RUNS:
+                run(name)  # warm: this process has run nothing at these shapes yet
+                attention_L.clear()
+                out, wall, counts = timed(lambda: run(name))
+                r = result[name]
+                r.update({"in_process_s": wall, "in_process_rtfx": audio_s[name] / wall,
+                          "in_process_launches": {k: n for k, n in counts.items() if n},
+                          "ids_equal_in_process": [x["ids"] for x in out] == [
+                              x["ids"] for x in printed[name] if "ids" in x],
+                          "attention_L": sorted(set(attention_L))})
+                want = {k: 0 for k in wrappers}
+                want["fwd"] = expect_fwd[name]
+                if counts != want or {k: r["launches"].get(k, 0) for k in wrappers} != want:
+                    fail(f"CLI run {name}: launches {r['launches']} (CLI), {counts} (in "
+                         f"process), expected {want}")
+                if not r["ids_equal_in_process"]:
+                    fail(f"CLI run {name}: ids differ from the in-process pipeline's")
+        finally:
+            W.wavlm_gated_attention_heads_packed = kernel_route
+        breakdown = device_time_breakdown(lambda: run("c_100s_whole_file"),
+                                          result["c_100s_whole_file"]["in_process_s"])
+        fwd_ms = sum(t["ms"] for t in breakdown["all"] if "gated_attention_bf16_kernel" in t["name"])
+        result["c_100s_whole_file"].update({
+            "device_busy_ms": breakdown["device_busy_ms"], "idle_share": breakdown["idle_share"],
+            "gated_attention_device_ms": fwd_ms, "gated_attention_ms_per_launch": fwd_ms / n_layers,
+            "frames": pipe.encoder.config.feat_extract_output_length(len(long100))})
+    finally:
+        torch.backends.cudnn.allow_tf32 = allow_tf32
+
+    a, b, c = (printed[n] for n in CLI_RUNS)
+    result["a_csv_best_of_4"].update({"rows": len(a) - 1, "summary": a[-1],
+                                      "example": {k: a[0][k] for k in ("text", "confidence",
+                                                                        "cer")}})
+    result["b_180s_in_20s_windows"].update({"windows": len(b[0]["chunks"]), "spans": spans,
+                                            "confidence": b[0].get("confidence")})
+    print(json.dumps({"cli": result}, ensure_ascii=False), flush=True)
+    if len(a) != 17 or a[-1].get("summary") != "cer" or a[-1].get("utterances") != 16:
+        fail(f"CLI run a: expected 16 rows and a CER summary line, got {a[-1]}")
+    if not 9 <= len(spans) <= 10 or len(b[0]["chunks"]) != len(spans):
+        fail(f"CLI run b: {len(b[0]['chunks'])} windows ({len(spans)} planned), expected 9-10")
+    if (result["c_100s_whole_file"]["attention_L"] != [WHOLE_FILE_L]
+            or result["c_100s_whole_file"]["frames"] != WHOLE_FILE_FRAMES):
+        fail(f"CLI run c: attention at L = {result['c_100s_whole_file']['attention_L']} over "
+             f"{result['c_100s_whole_file']['frames']} frames, expected {WHOLE_FILE_L} over "
+             f"{WHOLE_FILE_FRAMES} (phase 2's whole-file shape)")
+    return result
 
 
 def b7_times(root: str) -> int:
@@ -1379,6 +1789,9 @@ def main() -> int:
     for L in (1024, 4224):
         for dtype in (torch.float32, torch.bfloat16):
             rows[(L, dtype)] = kernel_vs_plain(FA, L, dtype, gen)
+    for dtype in (torch.float32, torch.bfloat16):  # phase 15 (c): 100 s whole, 4999 frames
+        rows[(WHOLE_FILE_L, dtype)] = kernel_vs_plain(FA, WHOLE_FILE_L, dtype, gen, B=1,
+                                                      valid=WHOLE_FILE_FRAMES)
     edge_lengths_match_plain(FA, gen)
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -1437,6 +1850,14 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         quantized = transcribe_quantized_full_width(FA, tmp, card, result["feats"])
 
+    # phases 13-15: best-of-N, the evaluators, the CLI from a YAML config
+    with tempfile.TemporaryDirectory() as tmp:
+        nbest = nbest_full_width(tmp, card, result, quantized["transcribe_repeat"])
+    with tempfile.TemporaryDirectory() as tmp:
+        evaluators_full_width(tmp, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        cli_runs = cli_full_width(tmp, card)
+
     main_row = rows[(1024, torch.bfloat16)]  # the transcribe's shape and type
     kernels = [{
         "name": "wavlm_gated_attention",
@@ -1450,6 +1871,14 @@ def main() -> int:
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
         "shape": "B=8 L=1024 H=16 bf16, ragged key masks",
+        "launches_by_path": {
+            "transcribe": result["kernel_launches"], "nbest": nbest["launches"]["fwd"],
+            **{f"cli_{n}": cli_runs[n]["launches"]["fwd"] for n in CLI_RUNS}},
+        "cli_c_100s_whole_file_L5120": {
+            **{k: cli_runs["c_100s_whole_file"][k] for k in (
+                "attention_L", "gated_attention_device_ms", "gated_attention_ms_per_launch")},
+            **{k: rows[(WHOLE_FILE_L, torch.bfloat16)][k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}},
     }]
     for key, kernel, source, replaces in (
             ("fwd_lse", "wavlm_gated_attention_fwd_lse", "gated_attention.cu",

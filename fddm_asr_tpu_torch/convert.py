@@ -9,6 +9,10 @@ parameter trees (nested dicts of numpy arrays) become the port's
 [out, in/groups, k]).  Scanned trees (`layers_scan` / `blocks_scan`) hold
 layers stacked on a leading axis and are unstacked here.
 
+A pretrained WavLM comes from a local Hugging Face directory
+(`load_pretrained_wavlm`: `config.json` with `pytorch_model.bin` or
+`model.safetensors`), read without `transformers` or `safetensors`.
+
 The int8 and fused-front-end options (`quant_dense`, `fused_frontend`)
 change no parameter, in the JAX package or here: weights are quantized on
 the fly from the same `nn.Linear` / `Conv1d` tensors, so a quantized model
@@ -18,10 +22,15 @@ one into the other with `strict=True`).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+import json
+import os
+import struct
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
+
+from fddm_asr_tpu_torch.models.wavlm import WavLMConfig
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -145,6 +154,65 @@ def wavlm_state_dict_from_hf(sd: Mapping[str, Any]) -> StateDict:
     if "masked_spec_embed" not in out:
         out["masked_spec_embed"] = torch.zeros(out["feature_projection.projection.bias"].shape)
     return out
+
+
+_SAFETENSORS_DTYPES = {
+    "F64": torch.float64, "F32": torch.float32, "F16": torch.float16, "BF16": torch.bfloat16,
+    "I64": torch.int64, "I32": torch.int32, "I16": torch.int16, "I8": torch.int8,
+    "U8": torch.uint8, "BOOL": torch.bool,
+}
+
+
+def read_safetensors(path: str) -> StateDict:
+    """A `.safetensors` file -> {name: tensor} on the CPU.  The format: an
+    8-byte little-endian header length, a JSON header naming each tensor's
+    dtype, shape and [begin, end) byte offsets into the data that follows
+    (plus an optional `__metadata__`), then the data, little-endian.  The
+    tensors share one buffer read from the file."""
+    with open(path, "rb") as f:
+        (n,) = struct.unpack("<Q", f.read(8))
+        header = json.loads(f.read(n))
+        data = bytearray(os.path.getsize(path) - 8 - n)
+        f.readinto(data)
+    out: StateDict = {}
+    for name, info in header.items():
+        if name == "__metadata__":
+            continue
+        if info["dtype"] not in _SAFETENSORS_DTYPES:
+            raise ValueError(f"{path}: tensor {name!r} has dtype {info['dtype']}, "
+                             f"not one of {sorted(_SAFETENSORS_DTYPES)}")
+        dtype = _SAFETENSORS_DTYPES[info["dtype"]]
+        begin, end = info["data_offsets"]
+        shape = tuple(info["shape"])
+        count = int(np.prod(shape, dtype=np.int64))
+        if end - begin != count * torch.empty((), dtype=dtype).element_size():
+            raise ValueError(f"{path}: tensor {name!r} holds {end - begin} bytes, "
+                             f"not those of {shape} {info['dtype']}")
+        out[name] = (torch.frombuffer(data, dtype=dtype, count=count, offset=begin)
+                     .reshape(shape) if count else torch.empty(shape, dtype=dtype))
+    return out
+
+
+def load_pretrained_wavlm(path: str) -> Tuple[WavLMConfig, StateDict]:
+    """A local Hugging Face WavLM directory -> (WavLMConfig from its
+    `config.json`, the port's WavLMModel state_dict).  Weights come from
+    `model.safetensors` or `pytorch_model.bin` (`torch.load` with
+    weights_only); a checkpoint of a model around WavLM (keys under
+    `wavlm.`) gives its WavLM part."""
+    with open(os.path.join(path, "config.json"), encoding="utf-8") as f:
+        config = WavLMConfig.from_hf(json.load(f))
+    st_path = os.path.join(path, "model.safetensors")
+    bin_path = os.path.join(path, "pytorch_model.bin")
+    if os.path.exists(st_path):
+        sd = read_safetensors(st_path)
+    elif os.path.exists(bin_path):
+        sd = torch.load(bin_path, map_location="cpu", weights_only=True)
+    else:
+        raise FileNotFoundError(f"{path} holds neither model.safetensors nor "
+                                "pytorch_model.bin")
+    if any(k.startswith("wavlm.") for k in sd):
+        sd = {k[len("wavlm."):]: v for k, v in sd.items() if k.startswith("wavlm.")}
+    return config, wavlm_state_dict_from_hf(sd)
 
 
 # ----------------------------------------------------------------- decoder

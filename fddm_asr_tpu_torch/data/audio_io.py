@@ -1,10 +1,11 @@
 # -*- coding: utf-8 -*-
-"""WAV reading and resampling without audio wheels.
+"""WAV reading and writing, resampling and long-form chunk planning without audio wheels.
 
 Counterpart of the WAV subset of `fddm_asr_tpu/data/audio_io.py`: PCM WAV
 (8/16/24/32-bit int) through the stdlib `wave` module, 32/64-bit float and
-WAVE_FORMAT_EXTENSIBLE through a minimal RIFF parser, and polyphase
-resampling with scipy.  Other formats raise (no ffmpeg path).
+WAVE_FORMAT_EXTENSIBLE through a minimal RIFF parser, 16-bit PCM writing,
+polyphase resampling with scipy, and the silence-aligned split of a long
+recording into windows.  Other formats raise (no ffmpeg path).
 """
 from __future__ import annotations
 
@@ -16,7 +17,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-__all__ = ["load_wav", "resample", "load_audio"]
+__all__ = ["load_wav", "save_wav", "resample", "load_audio", "silence_cut",
+           "plan_silence_chunks"]
 
 
 def _decode_pcm_int(raw: bytes, width: int, path: str) -> np.ndarray:
@@ -89,6 +91,21 @@ def load_wav(path: str) -> Tuple[np.ndarray, int]:
     return data, sr
 
 
+def save_wav(path: str, samples: np.ndarray, sr: int) -> None:
+    """Write float samples in [-1, 1] ([T], or [C, T] mixed down to mono) as
+    16-bit PCM: round(x * 32767), clipped."""
+    samples = np.asarray(samples, np.float32)
+    if samples.ndim == 2:
+        samples = samples.mean(axis=0)
+    pcm = np.clip(np.round(samples * 32767.0), -32768, 32767).astype("<i2")
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with wave.open(path, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(sr)
+        w.writeframes(pcm.tobytes())
+
+
 def resample(samples: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
     """Polyphase windowed-sinc resampling (scipy.signal.resample_poly)."""
     if orig_sr == target_sr:
@@ -112,3 +129,41 @@ def load_audio(path: str, target_sr: Optional[int] = None,
         data = resample(data, sr, target_sr)
         sr = target_sr
     return data, sr
+
+
+def silence_cut(window: np.ndarray, win: int, search: int = 16000, frame: int = 400) -> int:
+    """Cut offset, window-relative in [frame, win], for one window holding at
+    least `win` samples: the centre of the quietest `frame`-sample (25 ms)
+    RMS frame inside the trailing `search` samples (clamped to win / 4 so
+    short windows do not fragment)."""
+    search = max(frame, min(search, win // 4))
+    lo = max(frame, win - search)
+    seg = np.asarray(window[lo:win], np.float32)
+    nf = len(seg) // frame
+    if nf >= 1:
+        rms = np.sqrt(np.mean(seg[: nf * frame].reshape(nf, frame) ** 2, axis=1))
+        cut = lo + int(np.argmin(rms)) * frame + frame // 2
+    else:
+        cut = win
+    return max(frame, min(cut, win))  # forward progress, span <= win
+
+
+def plan_silence_chunks(samples: np.ndarray, win: int, search: int = 16000,
+                        frame: int = 400) -> list:
+    """Long-form spans [(start, end)], each at most `win` samples, every cut
+    at the quietest 25 ms frame in the last `search` samples of its window
+    (`silence_cut`) rather than at the window's edge, so a cut falls in a
+    pause and not mid-word.  Every window keeps the [rows, win] shape; only
+    the lengths vary.  The last span may be shorter than 400 samples:
+    callers clamp lengths to one conv receptive field."""
+    n = len(samples)
+    if n <= win:
+        return [(0, n)]
+    bounds = [0]
+    pos = 0
+    while n - pos > win:
+        cut = pos + silence_cut(samples[pos:pos + win], win, search, frame)
+        bounds.append(cut)
+        pos = cut
+    bounds.append(n)
+    return list(zip(bounds[:-1], bounds[1:]))

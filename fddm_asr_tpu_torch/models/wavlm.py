@@ -139,6 +139,24 @@ class WavLMConfig:
             num_conv_pos_embeddings=16, num_conv_pos_embedding_groups=4,
         )
 
+    @classmethod
+    def from_hf(cls, hf_config: dict) -> "WavLMConfig":
+        """The fields of an HF WavLM `config.json` (read as a dict) that
+        define the network; every one must be present."""
+        scalars = ("hidden_size", "num_hidden_layers", "num_attention_heads",
+                   "intermediate_size", "conv_bias", "feat_extract_norm",
+                   "do_stable_layer_norm", "num_buckets", "max_bucket_distance",
+                   "num_conv_pos_embeddings", "num_conv_pos_embedding_groups",
+                   "layer_norm_eps", "feat_proj_dropout", "hidden_dropout",
+                   "attention_dropout", "activation_dropout")
+        missing = [k for k in (*scalars, "conv_dim", "conv_kernel", "conv_stride")
+                   if k not in hf_config]
+        if missing:
+            raise KeyError(f"WavLM config.json lacks {missing}")
+        return cls(**{k: hf_config[k] for k in scalars},
+                   **{k: tuple(hf_config[k]) for k in ("conv_dim", "conv_kernel",
+                                                       "conv_stride")})
+
     def feat_extract_output_length(self, input_length):
         """Conv-stack output length: floor((len - k) / s) + 1 per layer."""
         length = input_length

@@ -1,12 +1,21 @@
 # -*- coding: utf-8 -*-
 """FDDMPipeline — waveform to transcript: encoder, decoder, schedule, sampler, tokenizer.
 
-Counterpart of `fddm_asr_tpu/pipeline.py` (the single-utterance-batch
-transcription path):
+Counterpart of `fddm_asr_tpu/pipeline.py` (the transcription paths):
 
-  encode_waveform(wave, lengths) -> (c, c_mask)
-  sample(cond, seq_len, ...)     -> (ids, p_x0)
-  transcribe_with_ids(wave, ...) -> [(text, ids[, confidence])]
+  encode_waveform(wave, lengths)            -> (c, c_mask)
+  decoder_forward(xt, t, c, x_mask, c_mask) -> logits
+  sample(cond, seq_len, ...)                -> (ids, p_x0)
+  sample_nbest(cond, seq_len, n, ...)       -> (ids [B, N, L], p_x0 [B, N, L, K])
+  transcribe_with_ids(wave, ...)            -> [(text, ids[, confidence])]
+  transcribe_with_ids_async(wave, ...)      -> finalize() -> the same rows
+  transcribe_nbest(wave, ...)               -> [[(text, ids, confidence)] * N]
+
+Best-of-N encodes once and folds the N candidates into the batch, rows
+[u0c0, u0c1, ..., u1c0, ...] (`repeat_interleave`), with the x_T of all
+B*N rows from one draw of the caller's generator; confidence is reduced on
+the device and only ids and [B*N] confidences reach the host, where the
+winner is `np.argmax` (ties to the first candidate).
 
 The reference calls the encoder without lengths, so no condition mask exists
 at inference; `use_condition_mask=False` (default) keeps that, True masks
@@ -31,7 +40,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import sys
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -138,6 +147,7 @@ class FDDMPipeline:
         self.pad_id = special_ids["pad_id"]
         self.device = device
         self.use_condition_mask = use_condition_mask
+        self._samplers: Dict[SamplerConfig, Callable] = {}
 
     @classmethod
     def from_config(cls, cfg: Config, ckpt_path: Optional[str] = None,
@@ -200,7 +210,13 @@ class FDDMPipeline:
                       "not the JAX package's (see scripts/export_torch_encoder.py)",
                       file=sys.stderr)
         if wavlm_state_dict is not None:
-            encoder.backbone.load_state_dict(wavlm_state_dict, strict=True)
+            try:
+                encoder.backbone.load_state_dict(wavlm_state_dict, strict=True)
+            except RuntimeError as e:
+                raise ValueError(
+                    "the WavLM weights do not fit the encoder model.encoder builds: config "
+                    f"{_geometry(encoder.config)}, weights {_state_dict_geometry(wavlm_state_dict)}"
+                    f"\n{e}") from e
         if encoder_state_dict is not None:
             encoder.load_state_dict(encoder_state_dict, strict=True)
         decoder.eval()
@@ -226,6 +242,23 @@ class FDDMPipeline:
             feats, feat_mask, _ = self.encoder(wave, lengths)
         return feats, feat_mask
 
+    def decoder_forward(self, xt, t, c: torch.Tensor, x_mask=None, c_mask=None
+                        ) -> torch.Tensor:
+        """One decoder call: [B, L] ids at [B] steps over the condition ->
+        logits [B, L, K] (dropout off)."""
+        with torch.inference_mode():
+            return self.decoder(self._tensor(xt, torch.long), self._tensor(t, torch.long), c,
+                                None if x_mask is None else self._tensor(x_mask),
+                                None if c_mask is None else self._tensor(c_mask))
+
+    def _sampler(self, scfg: SamplerConfig) -> Callable:
+        if scfg not in self._samplers:
+            def decoder_apply(xt, t, c, cm):
+                return self.decoder(xt, t, c, None, cm)
+
+            self._samplers[scfg] = make_sample_fn(decoder_apply, self.sched, scfg)
+        return self._samplers[scfg]
+
     def sample(self, cond: torch.Tensor, seq_len: int, c_mask=None,
                generator: Optional[torch.Generator] = None, x_init=None,
                T_infer: int = 20, r: int = 5, greedy: bool = True,
@@ -243,13 +276,25 @@ class FDDMPipeline:
             c_mask = None
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
-
-        def decoder_apply(xt, t, c, cm):
-            return self.decoder(xt, t, c, None, cm)
-
-        fn = make_sample_fn(decoder_apply, self.sched, scfg)
         with torch.inference_mode():
-            return fn(cond, seq_len, c_mask=c_mask, x_init=x_init, generator=generator)
+            return self._sampler(scfg)(cond, seq_len, c_mask=c_mask, x_init=x_init,
+                                       generator=generator)
+
+    def sample_nbest(self, cond: torch.Tensor, seq_len: int, num_candidates: int,
+                     c_mask=None, generator: Optional[torch.Generator] = None, x_init=None,
+                     **sampling) -> Tuple[torch.Tensor, torch.Tensor]:
+        """`num_candidates` trajectories per utterance of an encoded batch, as
+        one sample at batch B*N (rows [u0c0, u0c1, ..., u1c0, ...]; `x_init`,
+        if given, is [B*N, seq_len]); device tensors ids [B, N, seq_len] and
+        p_x0 [B, N, seq_len, K]."""
+        n = _candidates(num_candidates)
+        B = cond.shape[0]
+        if n > 1:
+            cond = cond.repeat_interleave(n, dim=0)
+            c_mask = None if c_mask is None else c_mask.repeat_interleave(n, dim=0)
+        ids, p = self.sample(cond, seq_len, c_mask, generator=generator, x_init=x_init,
+                             **sampling)
+        return ids.reshape(B, n, *ids.shape[1:]), p.reshape(B, n, *p.shape[1:])
 
     def ids_to_text(self, ids) -> str:
         return ids_to_text(ids, self.tokenizer, self.pad_id,
@@ -266,23 +311,100 @@ class FDDMPipeline:
                             x_init=None, **sampling) -> List[tuple]:
         """[(text, ids)] per utterance, or [(text, ids, confidence)] with
         `with_confidence`: the geometric mean of the final p_x0 of each
-        emitted token over the decoded span (0.0 when nothing decoded)."""
-        if num_candidates != 1:
-            raise NotImplementedError("best-of-N decoding is not ported yet")
+        emitted token over the decoded span (0.0 when nothing decoded).
+        `num_candidates` N > 1 keeps, per utterance, the most confident of N
+        trajectories (`transcribe_nbest` gives them all)."""
+        return self.transcribe_with_ids_async(
+            wave, lengths, seq_len=seq_len, generator=generator,
+            with_confidence=with_confidence, num_candidates=num_candidates, x_init=x_init,
+            **sampling)()
+
+    def _encode_and_sample(self, wave, lengths, seq_len, generator, n, confidence, x_init,
+                           sampling) -> torch.Tensor:
+        """Queue the encode and the sample (at batch B*n) and, with
+        `confidence`, the per-row confidence; returns one device tensor
+        [B*n, seq_len (+1)] of ids (and confidences), float64 when it holds
+        both, so a single copy brings everything to the host."""
         wave = np.asarray(wave) if not torch.is_tensor(wave) else wave
         if wave.ndim == 1:
             wave = wave[None]
         c, c_mask = self.encode_waveform(wave, lengths)
-        ids_d, p = self.sample(c, seq_len, c_mask, generator=generator, x_init=x_init,
-                               **sampling)
-        confs = None
-        if with_confidence:
-            confs = batch_confidence(ids_d, p, self.pad_id, self.special_ids).cpu().numpy()
-        ids = ids_d.cpu().numpy()
+        ids, p = self.sample_nbest(c, seq_len, n, c_mask, generator=generator, x_init=x_init,
+                                   **sampling)
+        ids, p = ids.flatten(0, 1), p.flatten(0, 1)
+        if not confidence:
+            return ids
+        conf = batch_confidence(ids, p, self.pad_id, self.special_ids)
+        return torch.cat([ids.double(), conf.double()[:, None]], dim=1)
+
+    def transcribe_with_ids_async(self, wave, lengths=None, seq_len: int = 64,
+                                  generator: Optional[torch.Generator] = None,
+                                  with_confidence: bool = False, num_candidates: int = 1,
+                                  x_init=None, **sampling) -> Callable[[], List[tuple]]:
+        """`transcribe_with_ids` in two phases: queues the encode, the sample
+        and the confidence on the device and returns at once with a
+        `finalize()` that makes the one device-to-host copy and builds the
+        rows; nothing in between waits for the device."""
+        n = _candidates(num_candidates)
+        out = self._encode_and_sample(wave, lengths, seq_len, generator, n,
+                                      with_confidence or n > 1, x_init, sampling)
+
+        def finalize() -> List[tuple]:
+            host = out.cpu().numpy()
+            ids = host[:, :seq_len].astype(np.int64)
+            confs = host[:, seq_len] if host.shape[1] > seq_len else None
+            rows = []
+            for i in range(ids.shape[0] // n):
+                k = i * n + (int(np.argmax(confs[i * n:(i + 1) * n])) if n > 1 else 0)
+                row = (self.ids_to_text(ids[k]), ids[k].tolist())
+                if with_confidence:
+                    row = row + (float(confs[k]),)
+                rows.append(row)
+            return rows
+
+        return finalize
+
+    def transcribe_nbest(self, wave, lengths=None, seq_len: int = 64,
+                         generator: Optional[torch.Generator] = None,
+                         num_candidates: int = 4, x_init=None,
+                         **sampling) -> List[List[Tuple[str, List[int], float]]]:
+        """Per utterance, its `num_candidates` trajectories as (text, ids,
+        confidence), most confident first (a stable sort: ties keep the
+        candidates' order)."""
+        n = _candidates(num_candidates)
+        host = self._encode_and_sample(wave, lengths, seq_len, generator, n, True, x_init,
+                                       sampling).cpu().numpy()
+        ids = host[:, :seq_len].astype(np.int64)
         out = []
-        for i in range(ids.shape[0]):
-            row = (self.ids_to_text(ids[i]), ids[i].tolist())
-            if confs is not None:
-                row = row + (float(confs[i]),)
-            out.append(row)
+        for i in range(ids.shape[0] // n):
+            cands = [(self.ids_to_text(ids[k]), ids[k].tolist(), float(host[k, seq_len]))
+                     for k in range(i * n, (i + 1) * n)]
+            cands.sort(key=lambda cand: cand[2], reverse=True)
+            out.append(cands)
         return out
+
+
+def _geometry(c: WavLMConfig) -> str:
+    return (f"hidden {c.hidden_size}, {c.num_hidden_layers} layers, ff "
+            f"{c.intermediate_size}, {c.num_attention_heads} heads, conv {list(c.conv_dim)}")
+
+
+def _state_dict_geometry(sd: Dict[str, torch.Tensor]) -> str:
+    """The shape facts a WavLM state_dict carries, in `_geometry`'s words."""
+    def dim(key, axis=0):
+        return tuple(sd[key].shape)[axis] if key in sd else "?"
+
+    layers = {k.split(".")[2] for k in sd if k.startswith("encoder.layers.")}
+    convs = sorted(int(k.split(".")[2]) for k in sd
+                   if k.startswith("feature_extractor.conv_layers.") and k.endswith("conv.weight"))
+    heads = dim("encoder.layers.0.attention.rel_attn_embed.weight", 1)
+    return (f"hidden {dim('feature_projection.projection.weight')}, {len(layers)} layers, ff "
+            f"{dim('encoder.layers.0.feed_forward.intermediate_dense.weight')}, {heads} heads, "
+            f"conv {[dim(f'feature_extractor.conv_layers.{i}.conv.weight') for i in convs]}")
+
+
+def _candidates(num_candidates) -> int:
+    n = int(num_candidates)
+    if n < 1:
+        raise ValueError(f"num_candidates must be >= 1, got {n}")
+    return n

@@ -16,11 +16,13 @@ loop over the few jumps here).  Semantics, as the reference's:
 
 Randomness comes from an explicit `torch.Generator`; `x_init` overrides the
 uniform draw of x_T (how tests compare the two frameworks token for token).
+Where the JAX package splits its key per batch (`rng, step = split(rng)`),
+the port takes a step generator from the caller's (`split_generator`).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Tuple
+from typing import Callable, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -29,7 +31,7 @@ import torch.nn.functional as F
 from fddm_asr_tpu_torch.diffusion import DiffusionSchedule, q_posterior_multi_step
 
 __all__ = ["SamplerConfig", "argmax_repeat_penalized", "build_jump_schedule",
-           "make_sample_fn"]
+           "make_sample_fn", "split_generator"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,6 +47,18 @@ class SamplerConfig:
     ref_compat: bool = True          # reproduce the reference's multi-step recurrence
     # > 0: repetition-penalized final read-out (argmax_repeat_penalized)
     repeat_penalty: float = 0.0
+
+
+def split_generator(generator: torch.Generator,
+                    device: Union[str, torch.device, None] = None) -> torch.Generator:
+    """A new generator on `device` (default the parent's), seeded by one
+    63-bit draw of `generator`: the port's `rng, step = jax.random.split(rng)`.
+    The parent advances by that draw only, so successive calls give
+    independent streams, reproducibly from the parent's seed.  A CPU
+    parent draws without touching the device."""
+    seed = torch.empty((), dtype=torch.int64, device=generator.device).random_(
+        generator=generator).item()
+    return torch.Generator(device=device or generator.device).manual_seed(seed)
 
 
 def build_jump_schedule(T_infer: int, r: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -105,7 +119,10 @@ def make_sample_fn(decoder_apply: Callable, sched: DiffusionSchedule,
 
     decoder_apply(xt [B, L] int, t [B] int, cond, c_mask) -> logits [B, L, K]."""
     ts_np, deltas_np = build_jump_schedule(cfg.T_infer, cfg.r)
-    ab_targets = _fast_alpha_bar_targets(sched, cfg, ts_np, deltas_np).tolist()
+    # fast mode reads the schedule table on the host once, here; exact mode
+    # never does, so building a sampler queues nothing and waits for nothing
+    ab_targets = (_fast_alpha_bar_targets(sched, cfg, ts_np, deltas_np).tolist()
+                  if cfg.sampling_mode == "fast" else [None] * len(ts_np))
 
     def to_indices(probs, generator):
         if cfg.posterior_mode == "max" or cfg.greedy:

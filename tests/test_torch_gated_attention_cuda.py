@@ -22,7 +22,7 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("L", [65, 128, 129, 203, 1000, 1024, 4224])
+@pytest.mark.parametrize("L", [65, 128, 129, 203, 1000, 1024, 4224, 5120])
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)],
                          ids=["f32", "bf16"])
 def test_kernel_matches_plain_on_card(cuda_device, L, dtype, atol):
@@ -49,6 +49,31 @@ def test_kernel_matches_plain_on_card(cuda_device, L, dtype, atol):
     out = FA.wavlm_gated_attention_heads_packed(q, k, v, bias, gate, mask, num_heads=H)
     torch.cuda.synchronize()
     assert FA.wavlm_gated_attention_cuda.launches == before + 1
+    ref = FA.wavlm_gated_attention_plain(q, k, v, bias, gate, mask, num_heads=H)
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)],
+                         ids=["f32", "bf16"])
+def test_kernel_matches_plain_at_the_whole_file_shape(cuda_device, dtype, atol):
+    """A 100 s recording transcribed whole: one row of 4999 frames padded to
+    5120 (the CLI's longest single-file shape, past the TPU kernels' 4096
+    split), tolerances as above."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    B, L, H, valid = 1, 5120, 16, 4999
+
+    def randn(*shape):
+        return torch.randn(*shape, device=cuda_device, generator=g).to(dtype)
+
+    q, k, v = randn(B, L, H * 64), randn(B, L, H * 64), randn(B, L, H * 64)
+    bias = randn(H, L, L)
+    gate = torch.rand(B, H, L, device=cuda_device, generator=g) + 1.0
+    mask = torch.zeros(B, L, dtype=torch.bool, device=cuda_device)
+    mask[:, :valid] = True
+    out = FA.wavlm_gated_attention_heads_packed(q, k, v, bias, gate, mask, num_heads=H)
     ref = FA.wavlm_gated_attention_plain(q, k, v, bias, gate, mask, num_heads=H)
     torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=0)
 

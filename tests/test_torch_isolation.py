@@ -1,9 +1,9 @@
 # -*- coding: utf-8 -*-
 """The PyTorch port stands alone: no module of `fddm_asr_tpu_torch`, and not
-`chip_smoke.py`, imports JAX, Flax or the JAX package, because the GPU
-machine has none of them.  YAML is imported lazily, only by the CLI's config
-loader.  Checked twice: statically over every import statement, and by
-importing the port in a fresh interpreter."""
+`chip_smoke.py`, imports JAX, Flax or the JAX package, nor transformers,
+safetensors or pandas, because the GPU machine has none of them.  YAML is
+imported lazily, only by the config loader.  Checked statically over every
+import statement, and by importing the port in a fresh interpreter."""
 import ast
 import os
 import subprocess
@@ -47,6 +47,33 @@ def _imports(path):
 def test_no_jax_or_jax_package_imports(path):
     bad = [(mod, line) for mod, line, _ in _imports(path) if mod in FORBIDDEN]
     assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
+
+
+# what the GPU machine lacks besides JAX: the port reads HF checkpoints, safetensors
+# files and CSVs with its own code
+ABSENT_ON_THE_CARD = {"transformers", "safetensors", "pandas"}
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_transformers_safetensors_or_pandas_imports(path):
+    bad = [(mod, line) for mod, line, _ in _imports(path) if mod in ABSENT_ON_THE_CARD]
+    assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
+
+
+def test_yaml_is_imported_by_load_yaml_alone():
+    """The one `import yaml` of the port and chip_smoke.py is the one in
+    `config.load_yaml`, so building a pipeline in code needs no YAML package."""
+    found = []
+    for path in _port_files():
+        with open(path, encoding="utf-8") as f:
+            tree = ast.parse(f.read(), path)
+        for fn in ast.walk(tree):
+            if isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                for node in ast.walk(fn):
+                    if isinstance(node, ast.Import) and any(
+                            a.name.split(".")[0] == "yaml" for a in node.names):
+                        found.append((os.path.relpath(path, ROOT), fn.name))
+    assert sorted(set(found)) == [("fddm_asr_tpu_torch/config.py", "load_yaml")]
 
 
 def test_yaml_only_inside_functions():
