@@ -1,19 +1,23 @@
 # -*- coding: utf-8 -*-
-"""WAV reading and writing, resampling and long-form chunk planning without audio wheels.
+"""Audio reading and writing, resampling and long-form chunk planning without audio wheels.
 
-Counterpart of the WAV subset of `fddm_asr_tpu/data/audio_io.py`: PCM WAV
-(8/16/24/32-bit int) through the stdlib `wave` module, 32/64-bit float and
-WAVE_FORMAT_EXTENSIBLE through a minimal RIFF parser, 16-bit PCM writing,
-polyphase resampling with scipy, and the silence-aligned split of a long
-recording into windows.  Other formats raise (no ffmpeg path).
+Counterpart of `fddm_asr_tpu/data/audio_io.py`: PCM WAV (8/16/24/32-bit
+int) through the stdlib `wave` module, 32/64-bit float and
+WAVE_FORMAT_EXTENSIBLE through a minimal RIFF parser, from a path or a
+binary file object (an upload); MP3/MP2 through libmpg123 (`data/mp3.py`),
+then ffmpeg when it is on PATH, which also takes any other format; 16-bit
+PCM writing, polyphase resampling with scipy, and the silence-aligned split
+of a long recording into windows.
 """
 from __future__ import annotations
 
 import math
 import os
+import shutil
 import struct
+import subprocess
 import wave
-from typing import Optional, Tuple
+from typing import BinaryIO, Optional, Tuple, Union
 
 import numpy as np
 
@@ -37,11 +41,16 @@ def _decode_pcm_int(raw: bytes, width: int, path: str) -> np.ndarray:
     raise ValueError(f"unsupported WAV sample width {width} in {path}")
 
 
-def _load_wav_riff(path: str) -> Tuple[np.ndarray, int]:
+def _load_wav_riff(src: Union[str, BinaryIO]) -> Tuple[np.ndarray, int]:
     """RIFF parser for the WAVs stdlib `wave` rejects: IEEE float (format
-    tag 3) and WAVE_FORMAT_EXTENSIBLE wrapping float or PCM."""
-    with open(path, "rb") as f:
-        buf = f.read()
+    tag 3) and WAVE_FORMAT_EXTENSIBLE wrapping float or PCM.  `src` is a
+    path or a seekable binary file object, read from its start."""
+    if hasattr(src, "read"):
+        src.seek(0)
+        buf, path = src.read(), "<bytes>"
+    else:
+        with open(src, "rb") as f:
+            buf, path = f.read(), src
     if buf[:4] != b"RIFF" or buf[8:12] != b"WAVE":
         raise ValueError(f"not a RIFF/WAVE file: {path}")
     pos, fmt, data = 12, None, None
@@ -75,17 +84,18 @@ def _load_wav_riff(path: str) -> Tuple[np.ndarray, int]:
     return samples, int(sr)
 
 
-def load_wav(path: str) -> Tuple[np.ndarray, int]:
-    """Read a WAV -> (float32 samples, [T] mono or [C, T], sample rate)."""
+def load_wav(src: Union[str, BinaryIO]) -> Tuple[np.ndarray, int]:
+    """Read a WAV, from a path or a seekable binary file object -> (float32
+    samples, [T] mono or [C, T], sample rate)."""
     try:
-        with wave.open(path, "rb") as w:
+        with wave.open(src, "rb") as w:
             sr = w.getframerate()
             channels = w.getnchannels()
             width = w.getsampwidth()
             raw = w.readframes(w.getnframes())
     except wave.Error:
-        return _load_wav_riff(path)
-    data = _decode_pcm_int(raw, width, path)
+        return _load_wav_riff(src)
+    data = _decode_pcm_int(raw, width, src if isinstance(src, str) else "<bytes>")
     if channels > 1:
         data = data.reshape(-1, channels).T
     return data, sr
@@ -117,18 +127,53 @@ def resample(samples: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
                          axis=-1).astype(np.float32)
 
 
+MPEG_EXTENSIONS = (".mp3", ".mp2", ".mpga")
+
+
 def load_audio(path: str, target_sr: Optional[int] = None,
                mono: bool = True) -> Tuple[np.ndarray, int]:
-    """Load a WAV, mix down to mono and resample on request."""
-    if os.path.splitext(path)[1].lower() != ".wav":
-        raise RuntimeError(f"only WAV input is supported; convert {path} to WAV first")
-    data, sr = load_wav(path)
+    """Load a WAV natively, MP3/MP2 through libmpg123 (else ffmpeg), any
+    other format through ffmpeg; mix down to mono and resample on request.
+    Raises RuntimeError when no decoder for the format is present."""
+    ext = os.path.splitext(path)[1].lower()
+    ffmpeg = shutil.which("ffmpeg")
+    if ext == ".wav":
+        data, sr = load_wav(path)
+    elif ext in MPEG_EXTENSIONS:
+        from fddm_asr_tpu_torch.data.mp3 import decode_mp3, mpg123_available
+
+        if mpg123_available():
+            data, sr = decode_mp3(path)
+        elif ffmpeg:
+            return _load_via_ffmpeg(ffmpeg, path, target_sr, mono)
+        else:
+            raise RuntimeError(f"cannot decode {ext}: neither libmpg123 nor ffmpeg is "
+                               f"available; convert {path} to WAV first")
+    elif ffmpeg:
+        return _load_via_ffmpeg(ffmpeg, path, target_sr, mono)
+    else:
+        raise RuntimeError(f"cannot decode {ext} without ffmpeg; convert {path} to WAV first")
     if mono and data.ndim == 2:
         data = data.mean(axis=0)
     if target_sr and sr != target_sr:
         data = resample(data, sr, target_sr)
         sr = target_sr
     return data, sr
+
+
+def _load_via_ffmpeg(ffmpeg: str, path: str, target_sr: Optional[int],
+                     mono: bool) -> Tuple[np.ndarray, int]:
+    out_sr = target_sr or 16000
+    proc = subprocess.run([ffmpeg, "-v", "error", "-i", path, "-f", "f32le",
+                           "-ac", "1" if mono else "2", "-ar", str(out_sr), "-"],
+                          capture_output=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"ffmpeg could not decode {path}: "
+                           f"{proc.stderr.decode(errors='replace').strip()[-500:]}")
+    data = np.frombuffer(proc.stdout, np.float32).copy()
+    if not mono:
+        data = data.reshape(-1, 2).T  # interleaved -> [C, T], as the WAV branch gives
+    return data, out_sr
 
 
 def silence_cut(window: np.ndarray, win: int, search: int = 16000, frame: int = 400) -> int:

@@ -341,8 +341,10 @@ class GatedRelPosAttention(nn.Module):
         weight = self.rel_attn_embed.weight
         if self._buckets is None or self._buckets[0] != (L, weight.device):
             buckets = torch.from_numpy(relative_position_buckets(
-                L, L, cfg.num_buckets, cfg.max_bucket_distance)).to(weight.device)
-            self._buckets = ((L, weight.device), buckets)
+                L, L, cfg.num_buckets, cfg.max_bucket_distance))
+            if weight.device.type == "cuda":  # pinned: the copy does not wait for the stream
+                buckets = buckets.pin_memory()
+            self._buckets = ((L, weight.device), buckets.to(weight.device, non_blocking=True))
         values = F.embedding(self._buckets[1], weight.to(dtype))  # [L, L, H]
         return values.permute(2, 0, 1).contiguous()  # [H, L, L]
 

@@ -46,6 +46,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from fddm_asr_tpu_torch import CONV_RECEPTIVE_FIELD
 from fddm_asr_tpu_torch import diffusion as D
 from fddm_asr_tpu_torch.config import Config, resolve_device, resolve_special_ids
 from fddm_asr_tpu_torch.convert import load_reference_checkpoint
@@ -103,11 +104,13 @@ def _compute_dtype(name: Union[str, torch.dtype, None]) -> torch.dtype:
 @torch.no_grad()
 def random_init_(module: nn.Module, generator: torch.Generator) -> None:
     """Draw every parameter of `module` from `generator` (torch's own
-    default distributions): Linear/Conv uniform(±1/sqrt(fan_in)), packed
-    attention in-projections xavier-uniform with zero bias, embeddings
-    N(0, 1), norms 1/0, WavLM gate constants 1; last, WavLM's
-    `masked_spec_embed` uniform(0, 1) (HF's and the JAX package's init;
-    drawn after everything else so the other weights of a seed stay put)."""
+    default distributions, `model.init_scheme: "torch"` for the decoder):
+    Linear/Conv uniform(±1/sqrt(fan_in)), packed attention in-projections
+    xavier-uniform with zero bias and the out-projections' biases zero (as
+    `nn.MultiheadAttention` has them), embeddings N(0, 1), norms 1/0, WavLM
+    gate constants 1; last, WavLM's `masked_spec_embed` uniform(0, 1) (HF's
+    and the JAX package's init; drawn after everything else so the other
+    weights of a seed stay put)."""
     for m in module.modules():
         if isinstance(m, (nn.Linear, nn.Conv1d)):
             bound = 1.0 / math.sqrt(m.weight[0].numel())
@@ -128,9 +131,42 @@ def random_init_(module: nn.Module, generator: torch.Generator) -> None:
             m.gru_rel_pos_const.fill_(1.0)
     if isinstance(module, DenoisingTransformerDecoder):
         module.tok_emb.weight[module.pad_id].zero_()
+        for m in module.modules():
+            if isinstance(m, MultiheadAttention):
+                m.out_proj.bias.zero_()  # after the loop above drew it as a Linear
     for m in module.modules():
         if isinstance(m, WavLMModel):
             m.masked_spec_embed.uniform_(0.0, 1.0, generator=generator)
+
+
+# flax's lecun_normal: a normal truncated at two standard deviations, rescaled
+# by the standard deviation of the unit normal so truncated (variance_scaling)
+_TRUNCATED_NORMAL_STD = 0.87962566103423978
+
+
+@torch.no_grad()
+def flax_init_(decoder: DenoisingTransformerDecoder, generator: torch.Generator) -> None:
+    """Redraw the decoder as the JAX package's flax init draws it
+    (`model.init_scheme: "flax"`): dense kernels, the packed q/k/v
+    in-projection included, lecun-normal (variance 1/fan_in, truncated at
+    two standard deviations) with zero biases; token embeddings N(0, 1)
+    with the pad row zero; a learned position table N(0, 1/d_model), flax's
+    `Embed` default.  LayerNorms keep the 1/0 `random_init_` gave them."""
+    def lecun_normal_(w: torch.Tensor) -> None:
+        std = math.sqrt(1.0 / w.shape[1]) / _TRUNCATED_NORMAL_STD  # [out, in]: fan_in = in
+        nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+
+    for m in decoder.modules():
+        if isinstance(m, nn.Linear):
+            lecun_normal_(m.weight)
+            m.bias.zero_()
+        elif isinstance(m, MultiheadAttention):
+            lecun_normal_(m.in_proj_weight)
+            m.in_proj_bias.zero_()
+        elif isinstance(m, nn.Embedding):
+            std = 1.0 if m is decoder.tok_emb else 1.0 / math.sqrt(m.weight.shape[1])
+            m.weight.normal_(0.0, std, generator=generator)
+    decoder.tok_emb.weight[decoder.pad_id].zero_()
 
 
 class FDDMPipeline:
@@ -147,6 +183,9 @@ class FDDMPipeline:
         self.pad_id = special_ids["pad_id"]
         self.device = device
         self.use_condition_mask = use_condition_mask
+        # the wire dtype (data/wire.py) a server encodes requests in; every
+        # one of them is decoded on the device by `encode_waveform`
+        self.input_encoding = "f32"
         self._samplers: Dict[SamplerConfig, Callable] = {}
 
     @classmethod
@@ -197,7 +236,18 @@ class FDDMPipeline:
                 freeze=enc_cfg.get("freeze", True), dtype=dtype)
         random_init_(decoder, generator)
         random_init_(encoder, generator)
-        if ckpt_path:
+        if not ckpt_path:
+            # model.init_scheme, read as the JAX pipeline reads it: only for a
+            # decoder that no checkpoint replaces
+            scheme = str(model_cfg.get("init_scheme", "flax")).lower()
+            if scheme == "flax":
+                # a stream of its own: the encoder drawn after the torch draw
+                # above stays the same under either scheme
+                flax_init_(decoder, torch.Generator(device=dev).manual_seed(
+                    (int(seed) + (1 << 32)) % (1 << 64)))
+            elif scheme != "torch":
+                raise ValueError(f"model.init_scheme={scheme!r}: expected 'flax' or 'torch'")
+        else:
             sd = load_reference_checkpoint(ckpt_path)["decoder"]
             if decoder.pos_emb_type != "rope":
                 # a buffer, not a parameter: the JAX training loop's export
@@ -232,7 +282,15 @@ class FDDMPipeline:
     def encode_waveform(self, wave, lengths=None
                         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """`wave` [B, T]: float samples, int16 pcm16 or uint8 mu-law codes
-        (moved to the device as they are, decoded there)."""
+        (moved to the device as they are, decoded there).  T must be at
+        least `CONV_RECEPTIVE_FIELD` samples: a shorter batch gives no
+        encoder frame (the JAX pipeline returns NaN there), so it raises
+        before any device work."""
+        if np.shape(wave)[-1] < CONV_RECEPTIVE_FIELD:
+            raise ValueError(
+                f"a batch of {np.shape(wave)[-1]} samples is shorter than one conv receptive "
+                f"field (CONV_RECEPTIVE_FIELD = {CONV_RECEPTIVE_FIELD}) and gives no encoder "
+                "frame; pad it to at least that")
         wave = decode_wire(self._tensor(wave))
         if not self.use_condition_mask:
             lengths = None  # reference parity: the encoder sees no lengths

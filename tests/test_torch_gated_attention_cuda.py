@@ -53,17 +53,31 @@ def test_kernel_matches_plain_on_card(cuda_device, L, dtype, atol):
     torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=0)
 
 
+# (L, each row's valid keys) of the model paths' long and mixed shapes: a
+# 100 s recording transcribed whole (4999 frames padded to 5120, the CLI's
+# longest single-file shape, past the TPU kernels' 4096 split); a served
+# batch in the 20 s bucket (12 requests of 2-20 s and 4 pad rows of 0.1 s);
+# the four 30 s windows the server cuts a 100 s recording into
+PATH_SHAPES = {
+    "whole_file_B1_L5120": (5120, [4999]),
+    "served_B16_L1024": (1024, [609, 487, 184, 413, 659, 119, 886, 868, 139, 821, 266, 725,
+                                4, 4, 4, 4]),
+    "served_B4_L1536": (1536, [1464, 1467, 1467, 599]),
+}
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(PATH_SHAPES))
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4), (torch.bfloat16, 3e-2)],
                          ids=["f32", "bf16"])
-def test_kernel_matches_plain_at_the_whole_file_shape(cuda_device, dtype, atol):
-    """A 100 s recording transcribed whole: one row of 4999 frames padded to
-    5120 (the CLI's longest single-file shape, past the TPU kernels' 4096
-    split), tolerances as above."""
+def test_kernel_matches_plain_at_path_shapes(cuda_device, case, dtype, atol):
+    """Rows of their own lengths, as the CLI and the server give them;
+    tolerances as above."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     g = torch.Generator(device=cuda_device).manual_seed(1)
-    B, L, H, valid = 1, 5120, 16, 4999
+    L, valid = PATH_SHAPES[case]
+    B, H = len(valid), 16
 
     def randn(*shape):
         return torch.randn(*shape, device=cuda_device, generator=g).to(dtype)
@@ -71,8 +85,8 @@ def test_kernel_matches_plain_at_the_whole_file_shape(cuda_device, dtype, atol):
     q, k, v = randn(B, L, H * 64), randn(B, L, H * 64), randn(B, L, H * 64)
     bias = randn(H, L, L)
     gate = torch.rand(B, H, L, device=cuda_device, generator=g) + 1.0
-    mask = torch.zeros(B, L, dtype=torch.bool, device=cuda_device)
-    mask[:, :valid] = True
+    mask = (torch.arange(L, device=cuda_device)[None, :]
+            < torch.tensor(valid, device=cuda_device)[:, None])
     out = FA.wavlm_gated_attention_heads_packed(q, k, v, bias, gate, mask, num_heads=H)
     ref = FA.wavlm_gated_attention_plain(q, k, v, bias, gate, mask, num_heads=H)
     torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=0)

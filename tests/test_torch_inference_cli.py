@@ -62,9 +62,10 @@ def files(pipelines, tmp_path_factory):
         conv_dim=[16] * 7, conv_bias=True, feat_extract_norm="layer", do_stable_layer_norm=True,
         num_buckets=32, max_bucket_distance=80, num_conv_pos_embeddings=16,
         num_conv_pos_embedding_groups=4)).save_pretrained(str(tmp / "hf"))
-    # the port's own random decoder (torch's default init): more sensitive to
-    # x_t than the JAX package's flax init, so sampler options show in its ids
-    torch.save(FDDMPipeline.from_config(Config(CFG), tokenizer=object(),
+    # a random decoder under model.init_scheme "torch": more sensitive to
+    # x_t than the default flax init, so sampler options show in its ids
+    torch_init = Config(CFG).updated({"model": {"init_scheme": "torch"}})
+    torch.save(FDDMPipeline.from_config(torch_init, tokenizer=object(),
                                         device="cpu").decoder.state_dict(),
                str(tmp / "torch_init.pt"))
     base = ["--ckpt", ckpt, "--main-config", str(tmp / "main.yaml"),

@@ -108,11 +108,29 @@ def test_resample_matches(rng):
         np.testing.assert_array_equal(TA.resample(x, orig, target), JA.resample(x, orig, target))
 
 
-def test_non_wav_input_raises(tmp_path):
-    path = tmp_path / "a.mp3"
+def test_non_wav_input_raises(tmp_path, monkeypatch):
+    """A format no decoder of the port reads (MP3 has its own): without
+    ffmpeg, load_audio refuses it as the JAX package does."""
+    path = tmp_path / "a.txt"
     path.write_bytes(b"\xff\xfb")
+    monkeypatch.setattr(TA.shutil, "which", lambda name: None)
     with pytest.raises(RuntimeError, match="WAV"):
         TA.load_audio(str(path))
+
+
+def test_corrupt_mp3_raises(tmp_path):
+    """An .mp3 with no MPEG frame: libmpg123 finds nothing to decode (without
+    the library, the refusal names both decoders)."""
+    from fddm_asr_tpu_torch.data.mp3 import mpg123_available
+
+    path = tmp_path / "a.mp3"
+    path.write_bytes(b"\x00" * 4096)
+    if mpg123_available():
+        with pytest.raises(ValueError, match="no decodable MPEG audio frames"):
+            TA.load_audio(str(path))
+    else:
+        with pytest.raises(RuntimeError, match="libmpg123"):
+            TA.load_audio(str(path))
 
 
 def test_load_config_with_base_and_special_ids(tmp_path):

@@ -1,9 +1,11 @@
 # -*- coding: utf-8 -*-
 """The PyTorch port stands alone: no module of `fddm_asr_tpu_torch`, and not
 `chip_smoke.py`, imports JAX, Flax or the JAX package, nor transformers,
-safetensors or pandas, because the GPU machine has none of them.  YAML is
-imported lazily, only by the config loader.  Checked statically over every
-import statement, and by importing the port in a fresh interpreter."""
+safetensors or pandas, because the GPU machine has none of them, nor the
+repository's own scripts (`serve.py`, `inference.py`, `train.py`,
+`bench.py`).  YAML is imported lazily, only by the config loader.  Checked
+statically over every import statement, and by importing the port in a
+fresh interpreter."""
 import ast
 import os
 import subprocess
@@ -49,6 +51,17 @@ def test_no_jax_or_jax_package_imports(path):
     assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
 
 
+ROOT_SCRIPTS = {"serve", "inference", "train", "bench"}
+
+
+@pytest.mark.parametrize("path", _port_files(), ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_root_script_imports(path):
+    """The port has its own server and CLI: a bare `import serve` would be
+    the JAX package's."""
+    bad = [(mod, line) for mod, line, _ in _imports(path) if mod in ROOT_SCRIPTS]
+    assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
+
+
 # what the GPU machine lacks besides JAX: the port reads HF checkpoints, safetensors
 # files and CSVs with its own code
 ABSENT_ON_THE_CARD = {"transformers", "safetensors", "pandas"}
@@ -86,12 +99,19 @@ def test_fresh_interpreter_loads_no_jax():
     code = (
         "import sys; sys.path.insert(0, sys.argv[1])\n"
         "import chip_smoke, fddm_asr_tpu_torch.pipeline, fddm_asr_tpu_torch.inference\n"
+        "import fddm_asr_tpu_torch.serve, fddm_asr_tpu_torch.data.mp3\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in {'jax', 'flax', 'yaml', "
-        "'fddm_asr_tpu'})\n"
+        "'fddm_asr_tpu', 'serve', 'inference'})\n"
         "print(bad); sys.exit(1 if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code, ROOT], capture_output=True, text=True,
                           cwd=ROOT, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_walk_covers_the_serving_modules():
+    walked = {os.path.relpath(p, PORT) for p in _port_files()}
+    for module in ("serve.py", "data/mp3.py", "data/wire.py", "data/audio_io.py"):
+        assert module in walked
 
 
 def test_walk_covers_the_kernel_modules_and_their_sources():
