@@ -14,6 +14,9 @@ Layer map (bottom-up):
   - `convert`           weights from the JAX package's trees and reference .pt
   - `pipeline`          FDDMPipeline: waveform -> transcript
   - `inference`         CLI (`python -m fddm_asr_tpu_torch.inference`)
+  - `serve`             batching HTTP server (`python -m fddm_asr_tpu_torch.serve`)
+  - `aot`, `export_model`  AOT artifacts: `torch.export` programs replayed
+                        as CUDA graphs (`python -m fddm_asr_tpu_torch.export_model`)
 """
 
 __version__ = "0.1.0"

@@ -276,7 +276,14 @@ def load_reference_checkpoint(path: str) -> Dict[str, Any]:
     """A reference `.pt` in any of the three formats the reference inference
     accepts: a training dict with a `decoder` key, `{state_dict: ...}`, or a
     bare decoder state_dict.  Returns {decoder, s_proj, t_embed, t_proj,
-    epoch, step, best_val_cer, config}, absent entries None."""
+    epoch, step, best_val_cer, config}, absent entries None.  A directory
+    (the JAX package's orbax checkpoint) raises: it needs JAX to read."""
+    if os.path.isdir(path):
+        raise NotImplementedError(
+            f"--ckpt {path}: a directory, not a reference .pt (an orbax checkpoint needs JAX "
+            "to read): where JAX is, write the decoder as a .pt with the JAX package's "
+            "export_reference_ckpt and the encoder with scripts/export_torch_encoder.py, "
+            "then pass them as --ckpt and --encoder-ckpt")
     raw = torch.load(path, map_location="cpu", weights_only=False)
     out: Dict[str, Any] = dict.fromkeys(
         ("s_proj", "t_embed", "t_proj", "epoch", "step", "best_val_cer", "config"))

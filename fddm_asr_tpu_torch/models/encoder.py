@@ -53,8 +53,10 @@ class AcousticEncoder(nn.Module):
         if lengths is not None:
             attention_mask = torch.arange(T, device=waveforms.device)[None, :] < lengths[:, None]
         # frozen: nothing upstream of the condition trains, so the whole
-        # encoder (the projection too) runs without recording autograd
-        with torch.no_grad() if self.freeze else contextlib.nullcontext():
+        # encoder (the projection too) runs without recording autograd (a
+        # no-op switch is left out: `torch.export` splits its program there)
+        frozen = self.freeze and torch.is_grad_enabled()
+        with torch.no_grad() if frozen else contextlib.nullcontext():
             feats = self.backbone(waveforms, attention_mask=attention_mask,
                                   mask_time_indices=mask_time_indices,
                                   mask_feature_indices=mask_feature_indices)

@@ -298,7 +298,11 @@ def relative_position_buckets(query_len: int, key_len: int, num_buckets: int,
     `_relative_positions_bucket`), [Lq, Lk] int64."""
     context = np.arange(query_len, dtype=np.int64)[:, None]
     memory = np.arange(key_len, dtype=np.int64)[None, :]
-    rel = memory - context
+    return _bucket_of(memory - context, num_buckets, max_distance)
+
+
+def _bucket_of(rel: np.ndarray, num_buckets: int, max_distance: int) -> np.ndarray:
+    """The bucket of each relative position (key - query) in `rel`, int64."""
     nb = num_buckets // 2
     buckets = (rel > 0).astype(np.int64) * nb
     rel = np.abs(rel)
@@ -331,22 +335,41 @@ class GatedRelPosAttention(nn.Module):
         self.gru_rel_pos_const = nn.Parameter(torch.ones(1, H, 1, 1))
         if has_relative_position_bias:
             self.rel_attn_embed = nn.Embedding(cfg.num_buckets, H)
-        # ((L, device), [L, L] bucket ids): the table depends on L alone and
-        # costs tens of ms on the host at L=1024, so it is built once per
-        # length (the JAX package builds it once per traced shape)
-        self._buckets = None
+        # (L, device) -> the buckets of relative positions -(L-1) .. L-1
+        # [2L - 1] on the device, built on the host once per length (the JAX
+        # package builds them once per traced shape) and kept: a program
+        # traced at L holds its length's table as a constant, and a CUDA
+        # graph captured at L reads it for as long as the graph lives
+        self._relative_buckets = {}
+
+    def relative_buckets(self, L: int, device: torch.device) -> torch.Tensor:
+        """The bucket of each relative position -(L-1) .. L-1, [2L - 1] int64
+        on `device`.  Built outside a trace: a trace finds it made (see
+        `WavLMModel.prepare_position_bias`)."""
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:  # one key for "cuda" and "cuda:0"
+            device = torch.device("cuda", torch.cuda.current_device())
+        key = (L, device)
+        table = self._relative_buckets.get(key)
+        if table is None:
+            if torch.compiler.is_compiling():
+                raise RuntimeError(f"no position-bucket table for L={L} on {device}: build "
+                                   "it before tracing (WavLMModel.prepare_position_bias)")
+            table = torch.from_numpy(_bucket_of(np.arange(1 - L, L), self.cfg.num_buckets,
+                                                self.cfg.max_bucket_distance))
+            if device.type == "cuda":  # pinned: the copy does not wait for the stream
+                table = table.pin_memory()
+            table = table.to(device, non_blocking=True)
+            self._relative_buckets[key] = table
+        return table
 
     def position_bias(self, L: int, dtype: torch.dtype) -> torch.Tensor:
-        cfg = self.cfg
+        """[H, L, L]: head h's embedding of bucket(k - q) at (q, k), gathered
+        on the device from the [2L - 1] table, (k - q) + L - 1 its index."""
         weight = self.rel_attn_embed.weight
-        if self._buckets is None or self._buckets[0] != (L, weight.device):
-            buckets = torch.from_numpy(relative_position_buckets(
-                L, L, cfg.num_buckets, cfg.max_bucket_distance))
-            if weight.device.type == "cuda":  # pinned: the copy does not wait for the stream
-                buckets = buckets.pin_memory()
-            self._buckets = ((L, weight.device), buckets.to(weight.device, non_blocking=True))
-        values = F.embedding(self._buckets[1], weight.to(dtype))  # [L, L, H]
-        return values.permute(2, 0, 1).contiguous()  # [H, L, L]
+        values = F.embedding(self.relative_buckets(L, weight.device), weight.to(dtype))
+        pos = torch.arange(L, device=weight.device)
+        return values.t()[:, pos[None, :] - pos[:, None] + (L - 1)]  # [H, L, L]
 
     def forward(self, x: torch.Tensor, key_mask: Optional[torch.Tensor],
                 position_bias: Optional[torch.Tensor], dtype: torch.dtype
@@ -504,6 +527,14 @@ class WavLMModel(nn.Module):
         self.feature_projection = FeatureProjection(cfg)
         self.masked_spec_embed = nn.Parameter(torch.zeros(cfg.hidden_size))
         self.encoder = Encoder(cfg)
+
+    def prepare_position_bias(self, num_samples: int, device) -> None:
+        """Build the position-bucket table of `num_samples`-sample inputs (the
+        front-end's frames padded to `seq_pad_multiple`) on `device` ahead of
+        a trace, which records it as a constant."""
+        m = max(self.cfg.seq_pad_multiple, 1)
+        L = -(-self.cfg.feat_extract_output_length(num_samples) // m) * m
+        self.encoder.layers[0].attention.relative_buckets(L, device)
 
     def forward(self, input_values: torch.Tensor,
                 attention_mask: Optional[torch.Tensor] = None,

@@ -13,6 +13,12 @@ The kernel modules (`flash_attention`, `quant`, `conv_frontend`) declare
 their C functions with `register` and launch them with `launch`, which
 passes PyTorch's current stream and raises when the launch is refused.
 Nothing here falls back to a plain version.
+
+Each inference entry point is also a `torch.library.custom_op` in the
+`fddm` namespace (`torch.ops.fddm.*`), so that `torch.export` records the
+kernel as one node of its program.  Eager calls go to the launcher
+directly; only a trace (`tracing()`) records the op, whose implementation
+is the same device-routed function.
 """
 from __future__ import annotations
 
@@ -46,6 +52,12 @@ _libs: Dict[str, ctypes.CDLL] = {}             # loaded on first CUDA call
 def register(fn_name: str, library: str, argtypes: List) -> None:
     """Declare a C function `int fn(argtypes..., void* stream)` of `library`."""
     _signatures[fn_name] = (library, [*argtypes, P])
+
+
+def tracing() -> bool:
+    """True while `torch.export` (or `torch.compile`) traces: the kernel
+    wrappers then record their `torch.ops.fddm` op and keep no cache."""
+    return torch.compiler.is_compiling()
 
 
 def _source_digest(name: str) -> str:

@@ -56,7 +56,11 @@ def kernel_weight(cache: Dict[str, tuple], weight: torch.Tensor,
     """An `nn.Conv1d` weight [Cout, Cin, k] as the kernel's operand: w [k,
     Cin, Cout] in `dtype`, contiguous.  `cache` is a dict the calling module
     owns; the copy is reused while the weight's version counter, device and
-    storage stay what they were when it was made, so a call casts nothing."""
+    storage stay what they were when it was made, so a call casts nothing.
+    Under a trace (`_build.tracing()`) the cast is a step of the program,
+    where the weight is an input, and nothing is cached."""
+    if _build.tracing():
+        return weight.detach().permute(2, 1, 0).to(dtype).contiguous()
     stamp = (weight._version, weight.device, weight.data_ptr(), dtype)
     hit = cache.get("w")
     if hit is not None and hit[0] == stamp:
@@ -136,15 +140,30 @@ def conv_ln_gelu_cuda(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor
 conv_ln_gelu_cuda.launches = 0
 
 
+def _routed(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor], ln_scale: torch.Tensor,
+            ln_bias: torch.Tensor, stride: int, eps: float, gelu_tanh: bool) -> torch.Tensor:
+    """B8 on x's device: CPU -> the plain version, CUDA -> the kernel."""
+    if x.device.type == "cpu":
+        return conv_ln_gelu_plain(x, w, b, ln_scale, ln_bias, stride, eps, gelu_tanh)
+    return conv_ln_gelu_cuda(x.contiguous(), w, b, ln_scale, ln_bias, stride, eps, gelu_tanh)
+
+
+# the op a trace records; eager calls skip its dispatch
+torch.library.custom_op("fddm::conv_ln_gelu", _routed, mutates_args=()).register_fake(
+    lambda x, w, b, ln_scale, ln_bias, stride, eps, gelu_tanh: x.new_empty(
+        (x.shape[0], _out_length(x.shape[1], w.shape[0], stride), w.shape[2])))
+
+
 def conv_ln_gelu(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
                  ln_scale: torch.Tensor, ln_bias: torch.Tensor, stride: int,
                  eps: float = 1e-5, gelu_tanh: bool = False) -> torch.Tensor:
-    """Dispatch on x's device: CPU -> plain version, CUDA -> kernel or raise.
-    Forward only: raises where autograd records."""
+    """Dispatch on x's device: CPU -> plain version, CUDA -> kernel or raise;
+    a trace records `torch.ops.fddm.conv_ln_gelu`.  Forward only: raises
+    where autograd records."""
     if torch.is_grad_enabled():
         raise RuntimeError("the fused conv front-end is forward only: call it under "
                            "torch.no_grad() or torch.inference_mode() (in training, with "
                            "freeze_feature_extractor), or set fused_frontend: false")
-    if x.device.type == "cpu":
-        return conv_ln_gelu_plain(x, w, b, ln_scale, ln_bias, stride, eps, gelu_tanh)
-    return conv_ln_gelu_cuda(x.contiguous(), w, b, ln_scale, ln_bias, stride, eps, gelu_tanh)
+    if _build.tracing():
+        return torch.ops.fddm.conv_ln_gelu(x, w, b, ln_scale, ln_bias, stride, eps, gelu_tanh)
+    return _routed(x, w, b, ln_scale, ln_bias, stride, eps, gelu_tanh)

@@ -267,14 +267,29 @@ for _wrapper in (wavlm_gated_attention_cuda, wavlm_gated_attention_fwd_lse_cuda,
 
 
 # --------------------------------------------------------------- dispatchers
+def _heads_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos_bias: torch.Tensor,
+                  gate: torch.Tensor, key_mask: Optional[torch.Tensor],
+                  num_heads: int) -> torch.Tensor:
+    """B1/B2 on the tensors' device: CPU -> plain version, CUDA -> kernel."""
+    if q.device.type == "cpu":
+        return wavlm_gated_attention_plain(q, k, v, pos_bias, gate, key_mask, num_heads)
+    return wavlm_gated_attention_cuda(q, k, v, pos_bias, gate, key_mask, num_heads)
+
+
+# the op a trace records; eager calls skip its dispatch (tens of us a call)
+torch.library.custom_op("fddm::gated_attention", _heads_packed, mutates_args=()).register_fake(
+    lambda q, k, v, pos_bias, gate, key_mask, num_heads: torch.empty_like(q))
+
+
 def wavlm_gated_attention_heads_packed(
     q, k, v, pos_bias, gate, key_mask=None, num_heads: int = 16,
 ) -> torch.Tensor:
     """Inference dispatch on the tensors' device: CPU -> plain version,
-    CUDA -> kernel (no autograd graph through the kernel)."""
-    if q.device.type == "cpu":
-        return wavlm_gated_attention_plain(q, k, v, pos_bias, gate, key_mask, num_heads)
-    return wavlm_gated_attention_cuda(q, k, v, pos_bias, gate, key_mask, num_heads)
+    CUDA -> kernel (no autograd graph through the kernel); a trace records
+    the op `torch.ops.fddm.gated_attention`, which routes the same way."""
+    if _build.tracing():
+        return torch.ops.fddm.gated_attention(q, k, v, pos_bias, gate, key_mask, num_heads)
+    return _heads_packed(q, k, v, pos_bias, gate, key_mask, num_heads)
 
 
 def wavlm_gated_attention_bhld_plain(q, k, v, pos_bias, gate, key_mask=None) -> torch.Tensor:
@@ -286,13 +301,26 @@ def wavlm_gated_attention_bhld_plain(q, k, v, pos_bias, gate, key_mask=None) -> 
     return out.view(B, L, H, dh)
 
 
-def wavlm_gated_attention(q, k, v, pos_bias, gate, key_mask=None) -> torch.Tensor:
-    """Dispatch for q/k/v [B, L, H, dh] on the tensors' device: CPU -> plain
-    version, CUDA -> the forward kernel (B6) or raise (dh other than 64
-    raises on the card).  No model path calls it, as in the JAX package."""
+def _bhld(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos_bias: torch.Tensor,
+          gate: torch.Tensor, key_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """B6 on the tensors' device: CPU -> plain version, CUDA -> kernel."""
     if q.device.type == "cpu":
         return wavlm_gated_attention_bhld_plain(q, k, v, pos_bias, gate, key_mask)
     return wavlm_gated_attention_bhld_cuda(q, k, v, pos_bias, gate, key_mask)
+
+
+torch.library.custom_op("fddm::gated_attention_bhld", _bhld, mutates_args=()).register_fake(
+    lambda q, k, v, pos_bias, gate, key_mask: torch.empty_like(q))
+
+
+def wavlm_gated_attention(q, k, v, pos_bias, gate, key_mask=None) -> torch.Tensor:
+    """Dispatch for q/k/v [B, L, H, dh] on the tensors' device: CPU -> plain
+    version, CUDA -> the forward kernel (B6) or raise (dh other than 64
+    raises on the card); a trace records `torch.ops.fddm.gated_attention_bhld`.
+    No model path calls it, as in the JAX package."""
+    if _build.tracing():
+        return torch.ops.fddm.gated_attention_bhld(q, k, v, pos_bias, gate, key_mask)
+    return _bhld(q, k, v, pos_bias, gate, key_mask)
 
 
 def wavlm_gated_attention_fwd_lse(q, k, v, pos_bias, gate, key_mask=None,

@@ -125,15 +125,20 @@ def quantized_weight(cache: Dict[str, tuple], key: str, weight: torch.Tensor,
     each output channel on its own.  `cache` is a dict the calling module
     owns; an entry is reused while the weight's version counter, device and
     storage stay what they were when it was made (an in-place update, a
-    `load_state_dict` or a move to another device makes a new one)."""
-    stamp = (weight._version, weight.device, weight.data_ptr())
-    hit = cache.get(key)
-    if hit is not None and hit[0] == stamp:
-        return hit[1], hit[2]
+    `load_state_dict` or a move to another device makes a new one).  Under
+    a trace (`_build.tracing()`) the quantization is a step of the program,
+    where the weight is an input, and nothing is cached."""
+    tracing = _build.tracing()
+    if not tracing:
+        stamp = (weight._version, weight.device, weight.data_ptr())
+        hit = cache.get(key)
+        if hit is not None and hit[0] == stamp:
+            return hit[1], hit[2]
     w = weight.detach() if rows is None else weight.detach()[rows]
     wq, sw = quantize_rows_int8(w)
     wq, sw = wq.contiguous(), sw.reshape(-1).contiguous()
-    cache[key] = (stamp, wq, sw)
+    if not tracing:
+        cache[key] = (stamp, wq, sw)
     return wq, sw
 
 
@@ -243,6 +248,21 @@ def int8_matmul_fused_cuda(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
 int8_matmul_fused_cuda.launches = 0
 
 
+def _fused(x: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor, bias: Optional[torch.Tensor],
+           out_dtype: torch.dtype, eps: float) -> torch.Tensor:
+    """B7 on x's device: CPU -> the plain version, CUDA -> the kernel."""
+    if x.device.type == "cpu":
+        return int8_matmul_fused_plain(x, None, bias, out_dtype, eps, (wq, sw))
+    bias = None if bias is None else bias.float().contiguous()
+    return int8_matmul_fused_cuda(x.contiguous(), wq, sw, bias, out_dtype, eps)
+
+
+# the op a trace records; eager calls skip its dispatch
+torch.library.custom_op("fddm::int8_matmul_fused", _fused, mutates_args=()).register_fake(
+    lambda x, wq, sw, bias, out_dtype, eps: x.new_empty((*x.shape[:-1], wq.shape[0]),
+                                                         dtype=out_dtype))
+
+
 def int8_matmul_fused(x: torch.Tensor, weight: torch.Tensor,
                       bias: Optional[torch.Tensor] = None,
                       out_dtype: torch.dtype = torch.bfloat16, eps: float = EPS,
@@ -250,12 +270,12 @@ def int8_matmul_fused(x: torch.Tensor, weight: torch.Tensor,
                       ) -> torch.Tensor:
     """Fused-quantization variant of `int8_matmul` (same numerics), routed
     by x's device: CPU -> `int8_matmul_fused_plain`, CUDA -> the kernel or
-    raise.  weight [dout, din] full precision, or `wq_sw` its quantization."""
-    if x.device.type == "cpu":
-        return int8_matmul_fused_plain(x, weight, bias, out_dtype, eps, wq_sw)
+    raise; a trace records `torch.ops.fddm.int8_matmul_fused`.  weight
+    [dout, din] full precision, or `wq_sw` its quantization."""
     wq, sw = wq_sw if wq_sw is not None else quantized_weight({}, "w", weight)
-    bias = None if bias is None else bias.float().contiguous()
-    return int8_matmul_fused_cuda(x.contiguous(), wq, sw, bias, out_dtype, eps)
+    if _build.tracing():
+        return torch.ops.fddm.int8_matmul_fused(x, wq, sw, bias, out_dtype, eps)
+    return _fused(x, wq, sw, bias, out_dtype, eps)
 
 
 def quantized_linear(mode: str, cache: Dict[str, tuple], key: str, x: torch.Tensor,

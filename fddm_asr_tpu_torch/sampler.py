@@ -18,6 +18,13 @@ Randomness comes from an explicit `torch.Generator`; `x_init` overrides the
 uniform draw of x_T (how tests compare the two frameworks token for token).
 Where the JAX package splits its key per batch (`rng, step = split(rng)`),
 the port takes a step generator from the caller's (`split_generator`).
+
+A non-greedy step draws each position's token by inverse CDF from one
+uniform a position (`categorical`): x_T first, then one [B, seq_len]
+uniform draw a step, from the same generator in that order.  `noise`
+passes those uniforms in instead, as an exported program takes them
+(`aot.py`), so a program and the live sampler fed the same generator give
+the same ids.  The draws cannot match `jax.random`'s.
 """
 from __future__ import annotations
 
@@ -30,7 +37,7 @@ import torch.nn.functional as F
 
 from fddm_asr_tpu_torch.diffusion import DiffusionSchedule, q_posterior_multi_step
 
-__all__ = ["SamplerConfig", "argmax_repeat_penalized", "build_jump_schedule",
+__all__ = ["SamplerConfig", "argmax_repeat_penalized", "build_jump_schedule", "categorical",
            "make_sample_fn", "split_generator"]
 
 
@@ -112,10 +119,30 @@ def argmax_repeat_penalized(p_last: torch.Tensor, penalty: float) -> torch.Tenso
     return torch.stack(idxs, dim=1)
 
 
+def categorical(probs: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """One draw a position from `probs` [..., K] (rows need not sum to 1)
+    by inverse CDF at `u` [...] in [0, 1): the first k whose cumulative sum
+    exceeds u times the row's total.  A token of probability 0 is never
+    drawn."""
+    cdf = probs.cumsum(dim=-1)
+    k = torch.searchsorted(cdf, (u * cdf[..., -1])[..., None], right=True)[..., 0]
+    return k.clamp(max=probs.shape[-1] - 1)
+
+
+def sampling_draws(cfg: SamplerConfig) -> int:
+    """The [B, seq_len] uniform draws a sample makes after x_T: one a jump
+    unless every step is an argmax."""
+    if cfg.posterior_mode == "max" or cfg.greedy:
+        return 0
+    return len(build_jump_schedule(cfg.T_infer, cfg.r)[0])
+
+
 def make_sample_fn(decoder_apply: Callable, sched: DiffusionSchedule,
                    cfg: SamplerConfig) -> Callable:
-    """sample(cond [B, S, D], seq_len, c_mask=None, x_init=None, generator=None)
-    -> (x0 ids [B, seq_len] int64, p_x0 of the last step [B, seq_len, K]).
+    """sample(cond [B, S, D], seq_len, c_mask=None, x_init=None, generator=None,
+    noise=None) -> (x0 ids [B, seq_len] int64, p_x0 of the last step
+    [B, seq_len, K]).  `noise` [sampling_draws(cfg), B, seq_len]: the
+    uniforms the steps would draw from `generator`.
 
     decoder_apply(xt [B, L] int, t [B] int, cond, c_mask) -> logits [B, L, K]."""
     ts_np, deltas_np = build_jump_schedule(cfg.T_infer, cfg.r)
@@ -124,16 +151,18 @@ def make_sample_fn(decoder_apply: Callable, sched: DiffusionSchedule,
     ab_targets = (_fast_alpha_bar_targets(sched, cfg, ts_np, deltas_np).tolist()
                   if cfg.sampling_mode == "fast" else [None] * len(ts_np))
 
-    def to_indices(probs, generator):
+    def to_indices(probs, generator, u):
         if cfg.posterior_mode == "max" or cfg.greedy:
             return probs.argmax(dim=-1)
+        if u is None:
+            u = torch.rand(probs.shape[:-1], generator=generator, device=probs.device)
         logits = probs.clamp(min=1e-12).log() / cfg.temperature
-        flat = torch.softmax(logits, dim=-1).reshape(-1, probs.shape[-1])
-        return torch.multinomial(flat, 1, generator=generator).reshape(probs.shape[:-1])
+        return categorical(torch.softmax(logits, dim=-1), u)
 
     def sample(cond: torch.Tensor, seq_len: int, c_mask: Optional[torch.Tensor] = None,
                x_init: Optional[torch.Tensor] = None,
-               generator: Optional[torch.Generator] = None):
+               generator: Optional[torch.Generator] = None,
+               noise: Optional[torch.Tensor] = None):
         B = cond.shape[0]
         device = cond.device
         if x_init is None:
@@ -141,7 +170,8 @@ def make_sample_fn(decoder_apply: Callable, sched: DiffusionSchedule,
         else:
             x_t = torch.as_tensor(x_init, device=device).long()
         p_x0 = None
-        for t, delta, ab in zip(ts_np.tolist(), deltas_np.tolist(), ab_targets):
+        for step, (t, delta, ab) in enumerate(zip(ts_np.tolist(), deltas_np.tolist(),
+                                                  ab_targets)):
             t_b = torch.full((B,), t, dtype=torch.long, device=device)
             logits = decoder_apply(x_t, t_b, cond, c_mask)
             p_x0 = torch.softmax(logits.float(), dim=-1)
@@ -151,7 +181,7 @@ def make_sample_fn(decoder_apply: Callable, sched: DiffusionSchedule,
                                                 ref_compat=cfg.ref_compat)
             else:  # fast: convex mix with uniform at the remapped target step
                 p_next = ab * p_x0 + (1.0 - ab) / cfg.K
-            x_t = to_indices(p_next, generator)
+            x_t = to_indices(p_next, generator, None if noise is None else noise[step])
         if cfg.repeat_penalty > 0.0:
             return argmax_repeat_penalized(p_x0, cfg.repeat_penalty), p_x0
         return p_x0.argmax(dim=-1), p_x0

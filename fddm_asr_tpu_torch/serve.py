@@ -33,8 +33,11 @@ alone, so a warmed server and a cold one give the same transcripts at the
 same counter.  On CUDA the padded batch and its lengths go to the device
 from pinned host buffers with non-blocking copies, so dispatching batch
 n + 1 does not wait for batch n.  Runs on CUDA; without a GPU it raises
-unless `--device cpu` is given.  Not ported: `--exported` (the AOT
-artifacts, ROADMAP A8) and `--mesh`/`--seq-parallel` (ROADMAP A7) raise.
+unless `--device cpu` is given.  `--exported DIR` serves an AOT artifact
+(`aot.py`, from `python -m fddm_asr_tpu_torch.export_model`) instead of the
+live pipeline: its buckets, sampling and wire dtype come from the artifact,
+and on CUDA every bucket is a CUDA graph replay.  Not ported:
+`--mesh`/`--seq-parallel` (ROADMAP A7) raise.
 """
 from __future__ import annotations
 
@@ -718,18 +721,90 @@ def make_handler(engine: BatchingEngine, config_echo: dict,
     return Handler
 
 
+class ExportedEngineAdapter:
+    """`FDDMPipeline`-shaped front of an AOT artifact (`aot.ExportedPipeline`)
+    for the engine.  seq_len and sampling are baked into the programs, so
+    the engine's per-call values are ignored (the engine is built from the
+    artifact's meta, so they agree); x_T is drawn from the generator the
+    engine seeds at its counter, at the artifact bucket's batch."""
+
+    def __init__(self, exported):
+        self.ep = exported
+        self.input_encoding = exported.input_encoding
+        self.device = exported.device
+
+    def transcribe_with_ids(self, wave, lengths=None, seq_len=None, generator=None,
+                            with_confidence=False, **_sampling):
+        return self.transcribe_with_ids_async(wave, lengths, generator=generator,
+                                              with_confidence=with_confidence)()
+
+    def transcribe_with_ids_async(self, wave, lengths=None, seq_len=None, generator=None,
+                                  with_confidence=False, **_sampling):
+        return self.ep.transcribe_with_ids_async(wave, lengths, generator=generator,
+                                                 with_confidence=with_confidence)
+
+
+def _build_exported_server(args) -> ThreadingHTTPServer:
+    import warnings
+
+    from fddm_asr_tpu_torch.aot import ExportedPipeline
+
+    if args.num_candidates > 1:
+        raise SystemExit("--num-candidates needs the live pipeline (--config/--ckpt): "
+                         "exported artifacts bake their sampling and batch shapes")
+    ep = ExportedPipeline.load(args.exported, device=args.device)
+    meta = ep.meta
+    # the artifact's baked wire dtype wins: a conflicting --wire-dtype would
+    # be ignored while clients encode for it
+    if args.wire_dtype != "f32" and args.wire_dtype != ep.input_encoding:
+        raise SystemExit(
+            f"--wire-dtype {args.wire_dtype} conflicts with the exported artifact's baked "
+            f"input encoding '{ep.input_encoding}': the wire format is fixed at export time "
+            "(export_model --input-encoding); drop the flag or re-export")
+    if not meta.get("use_condition_mask"):
+        warnings.warn("artifact was exported with --condition-mask off: co-batched padding "
+                      "can alter transcripts (export serving artifacts with --condition-mask "
+                      "on)", stacklevel=2)
+    batches = sorted({b for b, _ in ep.buckets})
+    samples = sorted({n for _, n in ep.buckets})
+    s = meta["sampling"]
+    sampling = {"T_infer": s["T_infer"], "r": s["r"], "greedy": s["greedy"],
+                "posterior_mode": s["posterior_mode"]}
+    max_batch = max(batches)
+    if args.max_batch:
+        if args.max_batch not in batches:
+            raise SystemExit(f"--max-batch {args.max_batch} is not an exported batch bucket "
+                             f"(artifact has {batches})")
+        max_batch = args.max_batch
+    engine = BatchingEngine(
+        ExportedEngineAdapter(ep), sampling, meta["seq_len"], max_batch=max_batch,
+        max_wait_ms=args.max_wait_ms, bucket_seconds=min(samples) / 16000.0,
+        max_seconds=max(samples) / 16000.0, request_timeout_s=args.request_timeout_s,
+        pipeline_depth=args.pipeline_depth)
+    echo = {"model": "fddm-asr-tpu", "exported": args.exported, "seq_len": meta["seq_len"],
+            **sampling, "max_batch": max_batch,
+            # buckets replayed as CUDA graphs (all of them on CUDA, none on the CPU)
+            "native_buckets": sorted(list(bn) for bn in ep.native)}
+    loopback = args.host in ("127.0.0.1", "localhost", "::1")
+    server = FDDMHTTPServer(
+        (args.host, args.port),
+        make_handler(engine, echo, audio_root=args.audio_root, loopback_only_paths=not loopback))
+    server.engine = engine
+    server.warmup = _warmup(engine, args.warmup_seconds, max_batch) if args.warmup_seconds else []
+    return server
+
+
 def build_server(args) -> ThreadingHTTPServer:
-    """The pipeline from --config/--ckpt on --device, its engine and the
-    HTTP server bound to --host/--port (not yet serving), warmed up when
-    --warmup-seconds is given."""
-    if args.exported:
-        raise SystemExit("--exported: serving AOT artifacts is not ported yet (ROADMAP A8, "
-                         "the aot.py half); serve the live pipeline with --config/--ckpt")
+    """The pipeline from --config/--ckpt (or the artifact --exported) on
+    --device, its engine and the HTTP server bound to --host/--port (not yet
+    serving), warmed up when --warmup-seconds is given."""
     if args.mesh or args.seq_parallel:
         raise SystemExit("--mesh / --seq-parallel: multi-device serving is not ported yet "
                          "(ROADMAP A7)")
+    if args.exported:
+        return _build_exported_server(args)
     if not (args.config and args.ckpt):
-        raise SystemExit("both --config and --ckpt are required")
+        raise SystemExit("either --exported or both --config and --ckpt are required")
     from fddm_asr_tpu_torch.config import load_config
     from fddm_asr_tpu_torch.pipeline import FDDMPipeline
     from fddm_asr_tpu_torch.tokenizer import load_tokenizer
@@ -804,7 +879,8 @@ def parse_args(argv=None):
     ap.add_argument("--config", default=None, help="the model's YAML config")
     ap.add_argument("--ckpt", default=None, help="reference-format .pt decoder checkpoint")
     ap.add_argument("--exported", default=None,
-                    help="serve an AOT artifact: not ported yet (raises)")
+                    help="serve an AOT artifact directory (python -m "
+                         "fddm_asr_tpu_torch.export_model) instead of --config/--ckpt")
     ap.add_argument("--tokenizer", default=None)
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8080)

@@ -110,7 +110,8 @@ def test_fresh_interpreter_loads_no_jax():
 
 def test_walk_covers_the_serving_modules():
     walked = {os.path.relpath(p, PORT) for p in _port_files()}
-    for module in ("serve.py", "data/mp3.py", "data/wire.py", "data/audio_io.py"):
+    for module in ("serve.py", "data/mp3.py", "data/wire.py", "data/audio_io.py", "aot.py",
+                   "export_model.py"):
         assert module in walked
 
 

@@ -616,8 +616,9 @@ def test_a_failing_batch_fails_only_its_requests():
 
 
 def test_flags_that_are_not_ported_raise(files):
-    for extra, item in ((["--exported", "artifact"], "A8"), (["--mesh", "data=2"], "A7"),
-                        (["--seq-parallel"], "A7")):
+    # --exported is served (tests/test_torch_aot.py); with a mesh it raises as the rest
+    for extra, item in ((["--exported", "artifact", "--mesh", "data=2"], "A7"),
+                        (["--mesh", "data=2"], "A7"), (["--seq-parallel"], "A7")):
         with pytest.raises(SystemExit, match=item):
             S.build_server(_args(files, *extra))
 
@@ -770,20 +771,28 @@ def test_mp3_without_any_decoder_names_both(tmp_path, monkeypatch):
 
 
 def test_position_bias_table_is_cached_for_its_length():
-    """The bucket table is built once for a length and rebuilt when the
-    length changes; the bias equals a fresh layer's at every length."""
-    from fddm_asr_tpu_torch.models.wavlm import GatedRelPosAttention, WavLMConfig
+    """The bucket table is built once for a length and kept while other
+    lengths come (a CUDA graph captured at a length reads it for as long as
+    the graph lives); the bias equals a fresh layer's at every length and
+    the embedding of the [L, L] bucket table."""
+    from fddm_asr_tpu_torch.models.wavlm import (GatedRelPosAttention, WavLMConfig,
+                                                 relative_position_buckets)
 
     torch.manual_seed(0)
     cfg = WavLMConfig.tiny_for_tests()
     layer = GatedRelPosAttention(cfg, has_relative_position_bias=True)
+    cpu = torch.device("cpu")
     a = layer.position_bias(7, torch.float32)
-    table = layer._buckets[1]
+    table = layer._relative_buckets[(7, cpu)]
     assert torch.equal(layer.position_bias(7, torch.float32), a)
-    assert layer._buckets[1] is table  # not rebuilt
+    assert layer._relative_buckets[(7, cpu)] is table  # not rebuilt
     for L in (9, 7, *range(10, 40)):
         fresh = GatedRelPosAttention(cfg, has_relative_position_bias=True)
         fresh.load_state_dict(layer.state_dict())
-        assert torch.equal(layer.position_bias(L, torch.float32),
-                           fresh.position_bias(L, torch.float32))
-        assert layer._buckets[0] == (L, torch.device("cpu"))
+        bias = layer.position_bias(L, torch.float32)
+        assert torch.equal(bias, fresh.position_bias(L, torch.float32))
+        buckets = torch.from_numpy(relative_position_buckets(
+            L, L, cfg.num_buckets, cfg.max_bucket_distance))
+        assert torch.equal(bias, torch.nn.functional.embedding(
+            buckets, layer.rel_attn_embed.weight).permute(2, 0, 1))
+    assert layer._relative_buckets[(7, cpu)] is table  # kept
