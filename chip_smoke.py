@@ -4,8 +4,9 @@
 against its plain version, transcribes a batch (in full precision, and with
 the int8 encoder and the fused conv front-end, and best-of-4), takes encoder
 fine-tune steps, runs the four evaluators, runs the inference CLI from a
-YAML config, serves requests through the batching HTTP server, and exports,
-loads and serves the AOT artifacts as CUDA graphs, all at full model width.
+YAML config, serves requests through the batching HTTP server, exports,
+loads and serves the AOT artifacts as CUDA graphs, and trains through the
+training entry point, all at full model width.
 
     python3 chip_smoke.py
 
@@ -188,10 +189,35 @@ Phases, each fatal on failure:
      (c)'s load (256 untraced, 64 traced uploads), every served batch's ids
      equal to the live pipeline's at the artifact's bucket and the
      engine's counter, beside phase 16's numbers, and `python3 -m
-     fddm_asr_tpu_torch.serve --exported` in a subprocess as in 16 (e).
+     fddm_asr_tpu_torch.serve --exported` in a subprocess as in 16 (e);
+ 18. `train`: the training entry point on 64 train, 16 validation and 16
+     test clips of 20 s (`synthetic_audio`, written with `save_wav`; texts
+     of the 8000-piece tokenizer's pieces, 40-120 ids each) and phase 15's
+     tokenizer and HF WavLM-large: the loader's encode time for a batch of
+     32; (a) `python3 -m fddm_asr_tpu_torch.train` in a subprocess from
+     configs/fddm_zhTW_base.yaml with `data.cache_features` (frozen
+     decoder training, B = 16, 4 steps, `log_every: 1`, `metrics_jsonl`,
+     `val_kl: sampled`): the cache built and device-resident, its seconds
+     and bytes, steps/s, eval and checkpoint seconds and bytes; then
+     `--resume ep001.state.pt` to two epochs, which must start at epoch 2
+     and step 5 with the best_val_cer carried; (b) `train.main` in this
+     process from configs/fddm_zhTW_finetune.yaml with `--wavlm-ckpt`, 12
+     steps of 32 x 20 s (the train manifest six times over): B3, B4 and
+     B5 per step equal to phase 7's, L_fd at steps 4, 8 and 12, B1 24 times
+     an eval decode batch, examples/s over steps 3-8 from metrics.jsonl
+     beside phase 7's bare step, steps 9-12 under the profiler (busy, idle
+     share, host time in `host_to_device`; started after step 8's record,
+     so the profiler stays out of the timed steps), how far the host runs
+     ahead of the device at steps 4 and 8, peak memory, and the bytes and
+     seconds of each checkpoint file; (c) `python3 -m fddm_asr_tpu_torch.inference --ckpt
+     best_model.pt --encoder-ckpt best_model.encoder.pt` on 8 validation
+     clips, whose ids equal those of the CLI's `transcribe` in this process
+     on a pipeline carrying the EMA weights of `best_model.state.pt`.
 
-Phases 4 and 7 run at full depth with as many timed runs as before: the
-whole takes well under half of its time limit, so nothing was cut.
+Phases 4 and 7 run at full depth with as many timed runs as before; the
+whole took 708 s of its 1200 s limit on an NVIDIA H100 80GB HBM3 at 700 W
+with phase 18 (about 90 s of it), past the half it aims at: phases 15-17's
+processes take most of the time, and would be cut in depth first.
 
 Prints the kernels' JSON line, then the card line, then as the last line
 {"ok": true, "device": {...}}.
@@ -212,6 +238,7 @@ import contextlib
 import gc
 import io
 import json
+import logging
 import os
 import shutil
 import statistics
@@ -636,7 +663,6 @@ def device_time_breakdown(run, wall_s: float, ranges=()) -> dict:
     port), `ranges` gives its count and the device time of the kernels
     launched inside it (`device_ms`), and the device-side spans of the
     range (`span_ms`, gaps included), which stay out of the busy time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -644,9 +670,19 @@ def device_time_breakdown(run, wall_s: float, ranges=()) -> dict:
         run()
         torch.cuda.synchronize()
         profiled_ms = (time.time() - t0) * 1e3
+    return profile_breakdown(prof, wall_s * 1e3, profiled_ms, ranges)
+
+
+def profile_breakdown(prof, wall_ms: float, profiled_ms: float, ranges=()) -> dict:
+    """`device_time_breakdown`'s numbers from a finished profiler window:
+    `wall_ms` the unprofiled wall time, `profiled_ms` the window's own; each
+    range also with the host time of its spans (`host_ms`)."""
+    from torch.autograd import DeviceType
+
     spans = sorted((e.time_range.start, -e.time_range.end, e.name) for e in prof.events()
                    if e.device_type == DeviceType.CUDA and e.name not in ranges)
-    in_ranges = {name: {"count": 0, "device_ms": 0.0, "span_ms": 0.0} for name in ranges}
+    in_ranges = {name: {"count": 0, "device_ms": 0.0, "span_ms": 0.0, "host_ms": 0.0}
+                 for name in ranges}
     for e in prof.events():
         if e.name not in in_ranges:
             continue
@@ -655,6 +691,7 @@ def device_time_breakdown(run, wall_s: float, ranges=()) -> dict:
             r["span_ms"] += (e.time_range.end - e.time_range.start) / 1e3
         else:
             r["count"] += 1
+            r["host_ms"] += (e.time_range.end - e.time_range.start) / 1e3
             total = getattr(e, "device_time_total", None)
             r["device_ms"] += (e.cuda_time_total if total is None else total) / 1e3
     if not spans:
@@ -685,7 +722,7 @@ def device_time_breakdown(run, wall_s: float, ranges=()) -> dict:
             "overlap_ms": (sum_us - busy_us) / 1e3,
             "nested_ms": dict(sorted(nested.items(), key=lambda kv: -kv[1])[:8]),
             "containers": dict(sorted(containers.items(), key=lambda kv: -kv[1])[:8]),
-            "wall_ms": wall_s * 1e3, "idle_share": 1.0 - busy_ms / (wall_s * 1e3),
+            "wall_ms": wall_ms, "idle_share": 1.0 - busy_ms / wall_ms,
             "profiled_wall_ms": profiled_ms, "idle_share_profiled": 1.0 - busy_ms / profiled_ms,
             "kernels": len(per_kernel),
             "top": [{"name": n[:90], "ms": ms, "share": ms / busy_ms} for n, ms in ranked[:12]],
@@ -2682,6 +2719,339 @@ def exported_full_width(d: str, card: str, served: dict) -> dict:
     return result
 
 
+# ------------------------------------------------------- phase 18: training
+TRAIN_SPLITS = (("train", 64), ("validation", 16), ("test", 16))  # 20 s clips
+TRAIN_A_BATCH, TRAIN_A_STEPS = 16, 4
+# (b): examples/s from the step timer over steps 3-8 (the step-8 record of
+# metrics.jsonl), then one L_fd period under the profiler, whose start and
+# stop stay out of the timed steps (inside them, the timer's intervals
+# would hold the profiler's start and stop)
+TRAIN_B_STEPS, TRAIN_B_TIMED_TO, TRAIN_B_PROFILED = 12, 8, (9, 12)
+TRAIN_C_CLIPS = 8
+
+
+def train_corpus(d: str) -> dict:
+    """Phase 18's data: 64 train, 16 validation and 16 test clips of 20 s
+    from `synthetic_audio` (a seed a clip), written with the port's
+    `save_wav`; each text 39-119 of the synthetic tokenizer's single-
+    ideograph pieces, so `encode` gives 40-120 ids (the dummy-prefix U+2581
+    is no piece and encodes as unk).  Manifests by split, and (b)'s train
+    manifest listing the 64 clips six times: 12 steps of 32."""
+    from fddm_asr_tpu_torch.data.audio_io import save_wav
+
+    rng = np.random.default_rng(60)
+    out, seed = {}, 300
+    for split, n in TRAIN_SPLITS:
+        records = []
+        for i in range(n):
+            path = os.path.join(d, f"{split}{i:02d}.wav")
+            save_wav(path, synthetic_audio(1, 20.0, seed=seed)[0], 16000)
+            seed += 1
+            n_chars = int(rng.integers(39, 120))
+            records.append({"processed_path": path, "text": "".join(
+                chr(0x4E00 + int(j)) for j in rng.integers(0, 7996, n_chars))})
+        out[split] = records
+    paths = {}
+    for name, records in (*out.items(), ("train_x6", out["train"] * 6)):
+        paths[name] = os.path.join(d, f"{name}.json")
+        with open(paths[name], "w", encoding="utf-8") as f:
+            json.dump(records, f, ensure_ascii=False)
+    return {"manifests": paths, "records": out}
+
+
+def _train_config(path: str, base: str, overrides: dict) -> str:
+    """A YAML config (written as JSON, which YAML reads) over one of the
+    repo's configs through `base_config:`."""
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump({"base_config": base, **overrides}, f, ensure_ascii=False)
+    return path
+
+
+def _metrics(ckpt_dir: str) -> list:
+    with open(os.path.join(ckpt_dir, "metrics.jsonl"), encoding="utf-8") as f:
+        return [json.loads(line) for line in f]
+
+
+def _train_process(args: list, root: str, tag: str) -> tuple:
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-m", "fddm_asr_tpu_torch.train", *args], cwd=root,
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        fail(f"(a) {tag}: the training process exited {proc.returncode}:\n"
+             f"{proc.stderr[-4000:]}")
+    return proc, time.time() - t0
+
+
+def _files(records: list, name: str) -> dict:
+    return {f: v for r in records if r["kind"] == "checkpoint" and r["name"] == name
+            for f, v in r["files"].items()}
+
+
+def train_full_width(d: str, card: str, phase7: dict) -> dict:
+    """Phase 18: the training entry point at full width (module docstring).
+    `d` holds phase 15's tokenizer and HF WavLM-large; `phase7` is the bare
+    fine-tune step's line of this process."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from fddm_asr_tpu_torch import eval as E
+    from fddm_asr_tpu_torch import inference as cli
+    from fddm_asr_tpu_torch import train as train_cli
+    from fddm_asr_tpu_torch import train_lib as TL
+    from fddm_asr_tpu_torch.data.dataset import ManifestDataset
+    from fddm_asr_tpu_torch.tokenizer import load_tokenizer
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    vocab = os.path.join(d, "spm_synth.vocab")
+    t0 = time.time()
+    corpus = train_corpus(d)
+    manifests = corpus["manifests"]
+    result = {"card": card, "corpus_write_s": time.time() - t0}
+    tok = load_tokenizer(vocab)
+    lengths = [len(tok.encode(r["text"])) for r in corpus["records"]["train"]]
+    if not 40 <= min(lengths) <= max(lengths) <= 120:
+        fail(f"phase 18's texts encode to {min(lengths)}-{max(lengths)} ids, expected 40-120")
+    # the loader's own encode time for one batch of (b), in this process
+    texts = [r["text"] for r in corpus["records"]["train"][:FINETUNE_B]]
+    ds = ManifestDataset(manifests["train"], tok, max_len=FINETUNE_TOKENS, pad_id=3)
+    t0 = time.perf_counter()
+    for text in texts:
+        ds.tokenize(text)
+    encode_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    for i in range(FINETUNE_B):
+        ds[i]
+    item_ms = (time.perf_counter() - t0) * 1e3
+    result["loader"] = {"encode_ms_per_batch_of_32": encode_ms,
+                        "read_and_encode_ms_per_batch_of_32_one_thread": item_ms,
+                        "ids_per_text": [min(lengths), max(lengths)]}
+    data = {"train_json": manifests["train"], "val_json": manifests["validation"],
+            "test_json": manifests["test"], "tokenizer_path": vocab}
+    gc.collect()
+    torch.cuda.empty_cache()  # the subprocesses need the memory this process has cached
+
+    # (a) frozen decoder training on the feature cache, then a resume
+    a_dir = os.path.join(d, "ckpt_a")
+    a_log = {"log_every": 1, "metrics_jsonl": True, "val_kl": "sampled", "ckpt_dir": a_dir}
+    base = os.path.join(root, "configs", "fddm_zhTW_base.yaml")
+    common = {"data": {**data, "cache_features": os.path.join(d, "feats")}, "log": a_log}
+    cfg_a = _train_config(os.path.join(d, "a.yaml"), base, {
+        **common, "optim": {"batch_size": TRAIN_A_BATCH, "num_epochs": 1}})
+    steps = ["--max-steps-per-epoch", str(TRAIN_A_STEPS)]
+    _, a_s = _train_process(["--config", cfg_a, *steps], root, "first run")
+    first = _metrics(a_dir)
+    cfg_r = _train_config(os.path.join(d, "a_resume.yaml"), base, {
+        **common, "optim": {"batch_size": TRAIN_A_BATCH, "num_epochs": 2}})
+    proc, r_s = _train_process(["--config", cfg_r, *steps, "--resume",
+                                os.path.join(a_dir, "ep001.state.pt")], root, "resume")
+    resumed = _metrics(a_dir)[len(first):]
+    cache = [r for r in first if r["kind"] == "feature_cache"]
+    a_steps = [r for r in first if r["kind"] == "step"]
+    r_steps = [r for r in resumed if r["kind"] == "step"]
+    epoch1 = [r for r in first if r["kind"] == "epoch"][0]
+    epoch2 = [r for r in resumed if r["kind"] == "epoch"]
+    best = f"best_val_cer so far {epoch1['best_val_cer']:.4f}"
+    if len(cache) != 1 or not cache[0]["built"] or not cache[0]["device_resident"]:
+        fail(f"(a) the feature cache was not built and device-resident: {cache}")
+    if [r["step"] for r in a_steps] != list(range(1, TRAIN_A_STEPS + 1)):
+        fail(f"(a) ran steps {[r['step'] for r in a_steps]}")
+    if ([r["step"] for r in r_steps] != list(range(TRAIN_A_STEPS + 1, 2 * TRAIN_A_STEPS + 1))
+            or {r["epoch"] for r in r_steps} != {2} or len(epoch2) != 1
+            or "Resumed from" not in proc.stderr or "at epoch 2" not in proc.stderr
+            or best not in proc.stderr):
+        fail(f"(a) the resume did not start at epoch 2, step {TRAIN_A_STEPS + 1} with "
+             f"{best}: steps {[(r['epoch'], r['step']) for r in r_steps]}")
+    if any(r["kind"] == "feature_cache" and r["built"] for r in resumed):
+        fail("(a) the resumed run rebuilt the feature cache")
+    if not all(np.isfinite(r["total_loss"]) for r in a_steps + r_steps):
+        fail("(a) a training loss is not finite")
+    eps = [r["examples_per_s"] for r in a_steps + r_steps if "examples_per_s" in r]
+    result["a"] = {
+        "process_s": a_s, "resume_process_s": r_s,
+        "feature_cache": {k: cache[0][k] for k in ("seconds", "bytes", "shape",
+                                                   "device_resident", "upload_seconds")},
+        "examples_per_s": eps, "steps_per_s": [e / TRAIN_A_BATCH for e in eps],
+        "eval_s": [r["seconds"] for r in first + resumed if r["kind"] == "eval"],
+        "checkpoints": {n: _files(first + resumed, n) for n in ("ep001", "best_model", "ep002")},
+        "losses": [r["total_loss"] for r in a_steps + r_steps],
+        "val_cer": [epoch1["val_cer"], epoch2[0]["val_cer"]],
+        "best_val_cer": [epoch1["best_val_cer"], epoch2[0]["best_val_cer"]]}
+    print(json.dumps({"train_a": result["a"]}), flush=True)
+
+    # (b) fine-tuning at 32 x 20 s in this process through train.main
+    b_dir = os.path.join(d, "ckpt_b")
+    cfg_b = _train_config(os.path.join(d, "b.yaml"),
+                          os.path.join(root, "configs", "fddm_zhTW_finetune.yaml"), {
+        "data": {**data, "train_json": manifests["train_x6"]},
+        "optim": {"num_epochs": 1},
+        "log": {"log_every": 4, "metrics_jsonl": True, "ckpt_dir": b_dir}})
+    wrappers = port_kernel_wrappers()
+    per_step, lfd, window, evals, host_lead = [], [], {}, [], []
+    make_step, setup_logging = TL.make_train_step, TL.setup_logging
+    evaluators = {n: getattr(E, n) for n in ("evaluate_cer_with_jumpy_sampling",
+                                              "evaluate_validation_loss",
+                                              "evaluate_validation_kl_sampled")}
+
+    def counted_step(*a, **k):
+        step = make_step(*a, **k)
+
+        def run(*args, **kw):
+            i = len(per_step) + 1
+            if i == TRAIN_B_PROFILED[0]:  # from the end of step 8's record to step 12's end
+                torch.cuda.synchronize()
+                window["prof"] = profile(activities=[ProfilerActivity.CPU,
+                                                     ProfilerActivity.CUDA])
+                window["prof"].__enter__()
+                window["t0"] = time.time()
+            before = {n: w.launches for n, w in wrappers.items()}
+            metrics = step(*args, **kw)
+            per_step.append({n: w.launches - before[n] for n, w in wrappers.items()})
+            lfd.append("loss_fd" in metrics)
+            if i == TRAIN_B_PROFILED[1]:
+                torch.cuda.synchronize()
+                window["ms"] = (time.time() - window["t0"]) * 1e3
+                window["prof"].__exit__(None, None, None)
+            return metrics
+
+        run.forward = step.forward
+        return run
+
+    def counted_eval(name):
+        def run(pipeline, batches, *a, **k):
+            before = wrappers["fwd"].launches
+            t0 = time.time()
+            value = evaluators[name](pipeline, batches, *a, **k)
+            torch.cuda.synchronize()
+            evals.append({"evaluator": name, "batches": len(batches), "value": value,
+                          "seconds": time.time() - t0,
+                          "fwd": wrappers["fwd"].launches - before})
+            return value
+        return run
+
+    class LeadLog(logging.Handler):
+        def emit(self, record):
+            msg = record.getMessage()
+            if "host_lead_ms=" in msg:
+                host_lead.append(float(msg.split("host_lead_ms=")[1].split()[0]))
+
+    def logging_with_probe(*a, **k):
+        out = setup_logging(*a, **k)
+        logging.getLogger().addHandler(LeadLog())
+        return out
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset(wrappers)
+    TL.make_train_step, TL.setup_logging = counted_step, logging_with_probe
+    for n in evaluators:
+        setattr(E, n, counted_eval(n))
+    t0 = time.time()
+    try:
+        summary = train_cli.main(["--config", cfg_b, "--wavlm-ckpt", os.path.join(d, "wavlm-large"),
+                                  "--max-steps-per-epoch", str(TRAIN_B_STEPS)])
+        torch.cuda.synchronize()
+    finally:
+        TL.make_train_step, TL.setup_logging = make_step, setup_logging
+        for n, f in evaluators.items():
+            setattr(E, n, f)
+        logging.getLogger().handlers.clear()
+    b_s = time.time() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = _counts_since_reset(wrappers)
+    records = _metrics(b_dir)
+    want = phase7["kernel_launches_per_step"]
+    if len(per_step) != TRAIN_B_STEPS or any(
+            {k: c[k] for k in want} != want or any(c[k] for k in c if k not in want)
+            for c in per_step):
+        fail(f"(b) kernel launches per step {per_step}, expected phase 7's {want}")
+    lfd_steps = [i + 1 for i, x in enumerate(lfd) if x]
+    if lfd_steps != [4, 8, 12]:
+        fail(f"(b) L_fd ran on steps {lfd_steps}, expected [4, 8, 12]")
+    n_layers = want["bwd_dq"]
+    if not evals or any(e["fwd"] != n_layers * e["batches"] for e in evals):
+        fail(f"(b) B1 launches per eval decode batch {evals}, expected {n_layers}")
+    if not all(launches[k] for k in ("fwd", "fwd_lse", "bwd_dq", "bwd_dkv")):
+        fail(f"(b) a kernel of the training path never launched: {launches}")
+    steps_b = [r for r in records if r["kind"] == "step"]
+    if not all(np.isfinite(r["total_loss"]) for r in steps_b) or not np.isfinite(
+            summary["train_loss"]):
+        fail(f"(b) a training loss is not finite: {steps_b}")
+    names = set(os.listdir(b_dir))
+    for prefix in ("ep001", "best_model"):
+        missing = {f"{prefix}{x}" for x in (".pt", ".state.pt", ".encoder.pt", ".meta.json")} - names
+        if missing:
+            fail(f"(b) missing checkpoint files {sorted(missing)}")
+    breakdown = profile_breakdown(window["prof"], window["ms"], window["ms"],
+                                  ranges=("host_to_device",))
+    h2d = breakdown.pop("ranges")["host_to_device"]
+    del breakdown["all"]
+    timed = [r for r in steps_b if r["step"] == TRAIN_B_TIMED_TO]
+    if not timed or "examples_per_s" not in timed[0]:
+        fail(f"(b) metrics.jsonl has no examples_per_s at step {TRAIN_B_TIMED_TO}: {steps_b}")
+    eps = timed[0]["examples_per_s"]
+    result["b"] = {
+        "process_s": b_s, "peak_mem_gb": peak_gb, "steps": TRAIN_B_STEPS,
+        "examples_per_s_steps_3_to_8": eps, "phase7_examples_per_s": phase7["examples_per_s"],
+        "loop_over_bare_step": eps / phase7["examples_per_s"],
+        "kernel_launches_per_step": per_step[0], "lfd_steps": lfd_steps,
+        "eval": evals, "eval_s": [r["seconds"] for r in records if r["kind"] == "eval"],
+        "steps_9_to_12_profiled": {"wall_ms": window["ms"],
+                                  "device_busy_ms": breakdown["device_busy_ms"],
+                                  "idle_share": breakdown["idle_share"],
+                                  "host_to_device": h2d, "top": breakdown["top"][:6]},
+        # at the logged steps 4 and 8 (step 12's ends in the profiler's synchronize)
+        "host_lead_ms": host_lead[:2],
+        "checkpoints": {n: _files(records, n) for n in ("ep001", "best_model")},
+        "losses": [r["total_loss"] for r in steps_b], "launches": launches}
+    print(json.dumps({"train_b": result["b"]}), flush=True)
+
+    # (c) the inference CLI from (b)'s best model beside the in-process
+    # pipeline built from the EMA weights in best_model.state.pt
+    csv_path = os.path.join(d, "val8.csv")
+    with open(csv_path, "w", encoding="utf-8") as f:
+        f.write("path,text\n" + "".join(f"{r['processed_path']},{r['text']}\n" for r in
+                                        corpus["records"]["validation"][:TRAIN_C_CLIPS]))
+    args = ["--csv", csv_path, "--ckpt", os.path.join(b_dir, "best_model.pt"),
+            "--encoder-ckpt", os.path.join(b_dir, "best_model.encoder.pt"),
+            "--main-config", cfg_b,
+            "--diffusion-config", os.path.join(root, "configs", "diffusion.yaml"),
+            "--tokenizer", vocab, "--batch-size", str(TRAIN_C_CLIPS), "--greedy",
+            "--seq-len", str(FINETUNE_TOKENS)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-m", "fddm_asr_tpu_torch.inference", *args],
+                          cwd=root, capture_output=True, text=True, timeout=600)
+    c_s = time.time() - t0
+    if proc.returncode != 0:
+        fail(f"(c) the inference CLI exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    printed = [x["ids"] for x in _cli_output(proc.stdout) if "ids" in x]
+    run_args = cli.parse_args(args)
+    pipe = cli.build_pipeline(run_args)
+    state = TL.init_train_state(pipe, pipe.cfg)  # for the names of the EMA's tensors
+    blob = torch.load(os.path.join(b_dir, "best_model.state.pt"), map_location="cpu",
+                      weights_only=True)
+    with torch.no_grad():
+        pipe.encoder.load_state_dict(blob["modules"]["encoder"])
+        pipe.decoder.load_state_dict(blob["modules"]["decoder"])
+        modules = {"decoder": pipe.decoder, "encoder": pipe.encoder}
+        params = {k: dict(m.named_parameters()) for k, m in modules.items()}
+        for (key, name), e in zip(state.param_names(), blob["ema"]):
+            if key in params:
+                params[key][name].copy_(e)
+    del state, blob
+    ids = [x["ids"] for x in cli.transcribe(pipe, run_args)]
+    del pipe
+    result["c"] = {"process_s": c_s, "rows": len(printed), "ids_equal_in_process": ids == printed}
+    print(json.dumps({"train_c": result["c"]}), flush=True)
+    if len(printed) != TRAIN_C_CLIPS or ids != printed:
+        fail(f"(c) the CLI's ids ({len(printed)} rows) differ from the in-process pipeline's "
+             "built from best_model.state.pt's EMA")
+    print(json.dumps({"train": {"card": card, "corpus_write_s": result["corpus_write_s"],
+                                "loader": result["loader"]}}), flush=True)
+    return result
+
+
 def b7_times(root: str) -> int:
     """`--b7-times ROOT`: the fused int8 kernel of the port in the checkout
     at ROOT (this one or another, to compare two trees on one card), timed
@@ -2871,6 +3241,8 @@ def main() -> int:
         served = serve_full_width(tmp, card)
         # phase 17: the AOT artifacts from the same files, replayed as CUDA graphs
         exported = exported_full_width(tmp, card, served)
+        # phase 18: the training entry point, on phase 15's tokenizer and HF WavLM
+        trained = train_full_width(tmp, card, finetune)
 
     main_row = rows[(1024, torch.bfloat16)]  # the transcribe's shape and type
     kernels = [{
@@ -2894,7 +3266,10 @@ def main() -> int:
             "exported_transcribe": exported["phase4_shape"]["graph"]["launches"]["fwd"],
             "exported_int8_fused": exported["int8_fused"]["launches"]["fwd"],
             "exported_serve_load": exported["serve"]["launches"]["fwd"],
-            "exported_serve_per_batch": exported["serve"]["launches_per_batch"]},
+            "exported_serve_per_batch": exported["serve"]["launches_per_batch"],
+            "train_finetune_loop": trained["b"]["launches"]["fwd"],
+            "train_eval_per_decode_batch": [e["fwd"] // e["batches"]
+                                            for e in trained["b"]["eval"]]},
         "cli_c_100s_whole_file_L5120": {
             **{k: cli_runs["c_100s_whole_file"][k] for k in (
                 "attention_L", "gated_attention_device_ms", "gated_attention_ms_per_launch")},
@@ -2921,6 +3296,9 @@ def main() -> int:
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
             "shape": f"B={FINETUNE_B} L={step_L} H=16 bf16, {frames} valid keys per row",
+            "launches_by_path": {"finetune_step": finetune["kernel_launches_per_step"][key],
+                                 "train_loop_step": trained["b"]["kernel_launches_per_step"][key],
+                                 "train_loop": trained["b"]["launches"][key]},
             **({"plain_and_library_cover": "B4+B5"} if key != "fwd_lse" else {}),
         })
     bhld = bhld_rows[torch.bfloat16]

@@ -281,9 +281,11 @@ def load_reference_checkpoint(path: str) -> Dict[str, Any]:
     if os.path.isdir(path):
         raise NotImplementedError(
             f"--ckpt {path}: a directory, not a reference .pt (an orbax checkpoint needs JAX "
-            "to read): where JAX is, write the decoder as a .pt with the JAX package's "
-            "export_reference_ckpt and the encoder with scripts/export_torch_encoder.py, "
-            "then pass them as --ckpt and --encoder-ckpt")
+            "to read).  The port's own training (python -m fddm_asr_tpu_torch.train) writes "
+            "{prefix}.pt and, for a fine-tuned encoder, {prefix}.encoder.pt: pass them as "
+            "--ckpt and --encoder-ckpt.  For a JAX run, where JAX is, write the decoder as a "
+            ".pt with the JAX package's export_reference_ckpt and the encoder with "
+            "scripts/export_torch_encoder.py, then pass them the same way")
     raw = torch.load(path, map_location="cpu", weights_only=False)
     out: Dict[str, Any] = dict.fromkeys(
         ("s_proj", "t_embed", "t_proj", "epoch", "step", "best_val_cer", "config"))

@@ -1,1 +1,1 @@
-"""Host data helpers (WAV reading and resampling)."""
+"""Host data: audio reading and resampling, manifests and batches, the feature cache."""

@@ -1,8 +1,9 @@
 # -*- coding: utf-8 -*-
-"""Training: learning-rate schedule, AdamW, the train state and one train step.
+"""Training: learning-rate schedule, AdamW, the train state, the train steps and the loop.
 
-Counterpart of `fddm_asr_tpu/train_lib.py:82-414` (`_lr_schedule`,
-`make_optimizer`, `TrainState`, `make_train_step`):
+Counterpart of `fddm_asr_tpu/train_lib.py` (`_lr_schedule`,
+`make_optimizer`, `TrainState`, `make_train_step`, `run_training`,
+`setup_logging`, `RunLock`, `_ensure_feature_cache`):
 
   * the loss is the diffusion KL (`diffusion.kl_term_sparse` by default,
     `optim.kl_impl: dense` for the reference's form) plus, on L_fd steps,
@@ -13,7 +14,16 @@ Counterpart of `fddm_asr_tpu/train_lib.py:82-414` (`_lr_schedule`,
   * an EMA of the trained parameters (`optim.ema_decay`);
   * the fine-tune step (model.encoder.freeze: false) runs WavLM in training
     mode with SpecAugment inside the differentiated graph; the frozen step
-    encodes under no_grad (the inference kernel on a GPU).
+    encodes under no_grad (the inference kernel on a GPU); the
+    feature-cache step takes the frozen encoder's output from
+    `data/feature_cache.py`;
+  * `run_training`: manifests through `data/dataset.py`, the feature cache
+    (device-resident up to 2 GiB), the L_fd schedule over global steps,
+    evaluation with the port's `eval` (EMA weights under optim.ema_eval),
+    best-model selection, early stop, collapse_restore, checkpoints and
+    `--resume` through `checkpoint.py`.  Each step's draws come from one
+    device generator reseeded per step from np.random.default_rng(seed), as
+    the JAX loop seeds its step keys, so a resumed run restarts the stream.
 
 The optimizer reproduces optax's arithmetic (the JAX package's): the
 schedule is read at the update count BEFORE the update (so under linear
@@ -31,22 +41,31 @@ generator of the device.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import json
+import logging
 import math
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+import os
+import sys
+import time
+from datetime import datetime
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
 from fddm_asr_tpu_torch import diffusion as D
-from fddm_asr_tpu_torch.config import Config
+from fddm_asr_tpu_torch.config import Config, resolve_special_ids
 from fddm_asr_tpu_torch.losses import align_speech_to_text, lfd_loss
 from fddm_asr_tpu_torch.models.projection import SpeechProjector, TextEmbedding, TextProjector
 from fddm_asr_tpu_torch.models.wavlm import sample_time_mask
 from fddm_asr_tpu_torch.pipeline import random_init_
 
 __all__ = ["AdamW", "TrainState", "lr_schedule", "make_optimizer",
-           "make_projection_heads", "init_train_state", "make_train_step"]
+           "make_projection_heads", "init_train_state", "make_train_step", "setup_logging",
+           "RunLock", "run_training"]
 
 Schedule = Callable[[int], float]
 
@@ -160,9 +179,9 @@ def make_optimizer(cfg: Config, main_params: Sequence[nn.Parameter],
     unsupported = {key: optim.get(key) for key in ("adam_mu_dtype", "ema_dtype")
                    if optim.get(key) not in (None, "float32")}
     if unsupported:
-        raise NotImplementedError(f"not ported yet: optim {unsupported}")
+        raise NotImplementedError(f"not ported yet (ROADMAP A5): optim {unsupported}")
     if int(optim.get("grad_accum_steps", 1) or 1) > 1:
-        raise NotImplementedError("optim.grad_accum_steps > 1 is not ported yet")
+        raise NotImplementedError("optim.grad_accum_steps > 1 is not ported yet (ROADMAP A5)")
     lr = float(optim.get("lr", 2e-4))
     warmup = int(optim.get("warmup_steps", 0) or 0)
     groups = [(list(main_params), lr_schedule(optim, lr, warmup))]
@@ -196,6 +215,19 @@ class TrainState:
         mods = [self.decoder, self.s_proj, self.t_embed, self.t_proj]
         return mods + ([self.encoder] if self.encoder is not None else [])
 
+    def param_names(self) -> List[Tuple[str, str]]:
+        """(module key, parameter name) of each of `optimizer.params`, in
+        order; the keys are MODULE_KEYS."""
+        names = [(key, n) for key, m in zip(MODULE_KEYS, self.trained_modules()[:4])
+                 for n, _ in m.named_parameters()]
+        if self.encoder is not None:
+            names += [("encoder", n) for n, p in self.encoder.named_parameters()
+                      if p.requires_grad]
+        return names
+
+
+MODULE_KEYS = ("decoder", "s_proj", "t_embed", "t_proj", "encoder")
+
 
 def make_projection_heads(cfg: Config, device, dtype: torch.dtype,
                           generator: Optional[torch.Generator] = None):
@@ -223,7 +255,8 @@ def init_train_state(pipeline, cfg: Config, train_encoder: Optional[bool] = None
     if train_encoder is None:
         train_encoder = not enc_cfg.get("freeze", True)
     if int(enc_cfg.get("lora_rank", 0) or 0) > 0:
-        raise NotImplementedError("LoRA fine-tuning is not ported yet")
+        raise NotImplementedError("LoRA fine-tuning (model.encoder.lora_rank) is not ported "
+                                  "yet (ROADMAP A6)")
     if heads is None:
         heads = make_projection_heads(cfg, pipeline.device, pipeline.decoder.dtype, generator)
     main = [p for m in (pipeline.decoder, *heads) for p in m.parameters()]
@@ -244,7 +277,8 @@ def init_train_state(pipeline, cfg: Config, train_encoder: Optional[bool] = None
     return TrainState(pipeline.decoder, *heads, optimizer=optimizer, encoder=encoder, ema=ema)
 
 
-def make_train_step(pipeline, cfg: Config, train_encoder: bool = False):
+def make_train_step(pipeline, cfg: Config, train_encoder: bool = False,
+                    cached_features: bool = False):
     """Returns step(state, wave, x0, apply_lfd=None, lengths=None,
     generator=None, t=None, xt=None, time_mask=None, feat_mask=None) -> metrics.
 
@@ -255,7 +289,17 @@ def make_train_step(pipeline, cfg: Config, train_encoder: bool = False):
     disabled.  train_encoder=True is the fine-tune step (the encoder trains,
     in training mode, with SpecAugment masks drawn unless given); False the
     frozen step.  Metrics (0-d tensors): loss_diff, total_loss, grad_norm
-    (before the clip), and on L_fd steps loss_fd and w_t."""
+    (before the clip), and on L_fd steps loss_fd and w_t.
+
+    cached_features=True returns the feature-cache step instead,
+    step(state, c, x0, apply_lfd=None, c_mask=None, generator=None, t=None,
+    xt=None) (and its `.forward`): `c` [B, S, d] is the frozen encoder's
+    output read from `data/feature_cache.py` and `c_mask` an optional [B, S]
+    frame mask; the encoder does not run.  It shares the loss and the update
+    with the wave step, so on the same `c` and draws it is the frozen step."""
+    if train_encoder and cached_features:
+        raise ValueError("cached_features is incompatible with train_encoder "
+                         "(fine-tuning changes the features every step)")
     if train_encoder and pipeline.encoder.freeze:
         raise ValueError("train_encoder=True but the encoder was built with freeze: true; "
                          "set model.encoder.freeze: false")
@@ -278,8 +322,23 @@ def make_train_step(pipeline, cfg: Config, train_encoder: bool = False):
     encoder = pipeline.encoder
     dev = pipeline.device
 
-    def as_tensor(x, dtype):
+    def as_tensor(x, dtype=None):
         return None if x is None else torch.as_tensor(x, dtype=dtype, device=dev)
+
+    def corrupt(state: TrainState, x0, generator, t, xt):
+        """x0 on the device, t ~ U{1..T} and x_t ~ q(x_t | x_0) unless given,
+        the token masks; the trained modules in training mode."""
+        x0 = as_tensor(x0, torch.long)
+        B = x0.shape[0]
+        t = (torch.randint(1, T_total + 1, (B,), generator=generator, device=dev)
+             if t is None else as_tensor(t, torch.long))
+        xt = (D.sample_xt_tokens(sched, x0, t, generator) if xt is None
+              else as_tensor(xt, torch.long))
+        x_mask = x0 != pad_id
+        loss_mask = x_mask if mask_pad_loss else torch.ones_like(x_mask)
+        for m in state.trained_modules():
+            m.train()
+        return x0, t, xt, x_mask, loss_mask
 
     def losses(state, c, c_mask, xt, x0, t, x_mask, loss_mask, apply_lfd):
         logits = state.decoder(xt, t, c, x_mask, c_mask)
@@ -296,22 +355,55 @@ def make_train_step(pipeline, cfg: Config, train_encoder: bool = False):
         metrics["total_loss"] = loss
         return loss, metrics
 
+    def update(state: TrainState, loss: torch.Tensor,
+               metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Backward, the optimizer step and the EMA; the detached metrics."""
+        params = state.optimizer.params
+        for p in params:
+            p.grad = None
+        loss.backward()
+        grad_norm, _ = state.optimizer.step([p.grad for p in params])
+        for p in params:
+            p.grad = None
+        state.step += 1
+        if state.ema is not None:
+            decay = min(ema_decay, (1.0 + state.step) / (10.0 + state.step))
+            with torch.no_grad():
+                diff = torch._foreach_sub(params, state.ema)
+                torch._foreach_add_(state.ema, diff, alpha=1.0 - decay)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics["grad_norm"] = grad_norm
+        return metrics
+
+    def scheduled(state: TrainState, apply_lfd: Optional[bool]) -> bool:
+        if apply_lfd is None:
+            return lfd_enabled and (state.step + 1) % n_step_fd == 0
+        return apply_lfd
+
+    if cached_features:
+        def cached_forward(state: TrainState, c, x0, apply_lfd: bool, c_mask=None,
+                           generator: Optional[torch.Generator] = None, t=None, xt=None):
+            x0, t, xt, x_mask, loss_mask = corrupt(state, x0, generator, t, xt)
+            return losses(state, as_tensor(c), as_tensor(c_mask, torch.bool), xt, x0, t,
+                          x_mask, loss_mask, apply_lfd)
+
+        def cached_step(state: TrainState, c, x0, apply_lfd: Optional[bool] = None,
+                        c_mask=None, generator: Optional[torch.Generator] = None, t=None,
+                        xt=None) -> Dict[str, torch.Tensor]:
+            loss, metrics = cached_forward(state, c, x0, scheduled(state, apply_lfd), c_mask,
+                                           generator, t, xt)
+            return update(state, loss, metrics)
+
+        cached_step.forward = cached_forward
+        return cached_step
+
     def forward(state: TrainState, wave, x0, apply_lfd: bool, lengths=None,
                 generator: Optional[torch.Generator] = None, t=None, xt=None,
                 time_mask=None, feat_mask=None):
         wave = as_tensor(wave, torch.float32)
-        x0 = as_tensor(x0, torch.long)
         lengths = as_tensor(lengths, torch.long)
+        x0, t, xt, x_mask, loss_mask = corrupt(state, x0, generator, t, xt)
         B = x0.shape[0]
-        t = (torch.randint(1, T_total + 1, (B,), generator=generator, device=dev)
-             if t is None else as_tensor(t, torch.long))
-        xt = (D.sample_xt_tokens(sched, x0, t, generator) if xt is None
-              else as_tensor(xt, torch.long))
-        x_mask = x0 != pad_id
-        loss_mask = x_mask if mask_pad_loss else torch.ones_like(x_mask)
-
-        for m in state.trained_modules():
-            m.train()
         if train_encoder:
             S = encoder.config.feat_extract_output_length(wave.shape[1])
             if time_mask is None and mask_time_prob > 0.0:
@@ -331,26 +423,549 @@ def make_train_step(pipeline, cfg: Config, train_encoder: bool = False):
     def step(state: TrainState, wave, x0, apply_lfd: Optional[bool] = None, lengths=None,
              generator: Optional[torch.Generator] = None, t=None, xt=None,
              time_mask=None, feat_mask=None) -> Dict[str, torch.Tensor]:
-        if apply_lfd is None:
-            apply_lfd = lfd_enabled and (state.step + 1) % n_step_fd == 0
-        loss, metrics = forward(state, wave, x0, apply_lfd, lengths, generator, t, xt,
-                                time_mask, feat_mask)
-        params = state.optimizer.params
-        for p in params:
-            p.grad = None
-        loss.backward()
-        grad_norm, _ = state.optimizer.step([p.grad for p in params])
-        for p in params:
-            p.grad = None
-        state.step += 1
-        if state.ema is not None:
-            decay = min(ema_decay, (1.0 + state.step) / (10.0 + state.step))
-            with torch.no_grad():
-                diff = torch._foreach_sub(params, state.ema)
-                torch._foreach_add_(state.ema, diff, alpha=1.0 - decay)
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics["grad_norm"] = grad_norm
-        return metrics
+        loss, metrics = forward(state, wave, x0, scheduled(state, apply_lfd), lengths,
+                                generator, t, xt, time_mask, feat_mask)
+        return update(state, loss, metrics)
 
     step.forward = forward
     return step
+
+
+# ------------------------------------------------------------ the training loop
+def setup_logging(log_dir: str = "logs") -> str:
+    """Console + `<log_dir>/train_<timestamp>.log`, the reference's format."""
+    os.makedirs(log_dir, exist_ok=True)
+    log_file = os.path.join(log_dir, f"train_{datetime.now().strftime('%Y%m%d_%H%M%S')}.log")
+    logger = logging.getLogger()
+    logger.setLevel(logging.INFO)
+    if logger.hasHandlers():
+        logger.handlers.clear()
+    fmt = logging.Formatter("%(asctime)s - %(levelname)s - %(message)s")
+    for handler in (logging.FileHandler(log_file, encoding="utf-8"), logging.StreamHandler()):
+        handler.setFormatter(fmt)
+        logger.addHandler(handler)
+    logging.info("Logging initialised.")
+    return log_file
+
+
+def _active_log_file() -> Optional[str]:
+    for h in logging.getLogger().handlers:
+        if isinstance(h, logging.FileHandler):
+            return h.baseFilename
+    return None
+
+
+class RunLock:
+    """`<ckpt_dir>/.run.lock`: refuse to start while another live process
+    owns the checkpoint directory (two runs in one directory overwrite each
+    other's checkpoints).  The file records pid, log file and start time; a
+    lock whose pid is dead is stale and taken over.  log.run_lock: false
+    turns it off."""
+
+    def __init__(self, ckpt_dir: str):
+        self.path = os.path.join(ckpt_dir, ".run.lock")
+        self.acquired = False
+
+    @staticmethod
+    def _pid_alive(pid: int) -> bool:
+        try:
+            os.kill(pid, 0)
+        except ProcessLookupError:
+            return False
+        except PermissionError:
+            return True  # exists, owned by someone else
+        return True
+
+    def acquire(self) -> None:
+        os.makedirs(os.path.dirname(self.path), exist_ok=True)
+        if os.path.exists(self.path):
+            try:
+                with open(self.path, encoding="utf-8") as f:
+                    holder = json.load(f)
+            except (OSError, ValueError):
+                holder = {}
+            pid = int(holder.get("pid", -1))
+            if pid > 0 and pid != os.getpid() and self._pid_alive(pid):
+                raise RuntimeError(
+                    f"ckpt_dir is owned by a LIVE training run: pid {pid} (log "
+                    f"{holder.get('log_file')}, started {holder.get('started')}) holds "
+                    f"{self.path}.  Two concurrent runs sharing one ckpt_dir stomp each "
+                    "other's checkpoints: pick a different log.ckpt_dir, wait for / kill "
+                    "the other run, or (if you really mean it) set log.run_lock: false")
+            if pid > 0 and not self._pid_alive(pid):
+                logging.info(f"stale run lock (dead pid {pid}) in {self.path}: taking over")
+        record = {"pid": os.getpid(), "host": os.uname().nodename,
+                  "log_file": _active_log_file(),
+                  "started": datetime.now().isoformat(timespec="seconds"), "argv": sys.argv}
+        tmp = self.path + f".tmp{os.getpid()}"
+        with open(tmp, "w", encoding="utf-8") as f:
+            json.dump(record, f)
+        os.replace(tmp, self.path)
+        self.acquired = True
+        logging.info(f"run lock: pid {record['pid']} log={record['log_file']} "
+                     f"ckpt_dir={os.path.dirname(self.path)}")
+
+    def release(self) -> None:
+        if not self.acquired:
+            return
+        try:
+            os.remove(self.path)
+        except FileNotFoundError:
+            pass
+        self.acquired = False
+
+
+def run_training(cfg: Config, raw_cfg: Optional[dict] = None, resume: Optional[str] = None,
+                 wavlm_state_dict: Optional[Dict[str, torch.Tensor]] = None,
+                 max_steps_per_epoch: Optional[int] = None, export_pt: bool = True,
+                 profile_dir: Optional[str] = None, debug_nans: bool = False,
+                 eval_every: Optional[int] = None, device: Optional[str] = None
+                 ) -> Dict[str, Any]:
+    """A whole training run on `device` (default CUDA; raises without a GPU
+    unless device="cpu"); returns the last epoch's summary.  CLI:
+    `python -m fddm_asr_tpu_torch.train`.
+
+    eval_every=k evaluates val/test CER every k-th epoch and at the last;
+    None takes log.eval_every (default 1).  `--resume` takes a
+    `{prefix}.state.pt`.  The profiler trace and the NaN guard wrap the
+    whole run, so a run that raises still writes its trace and restores the
+    anomaly mode; the run lock is released at the end either way."""
+    from fddm_asr_tpu_torch.profiling import nan_guard, trace
+
+    lock = None
+    if cfg.get("log", Config()).get("run_lock", True):
+        lock = RunLock(os.path.abspath(cfg.get("log", Config()).get("ckpt_dir", "ckpts/run")))
+        lock.acquire()
+    try:
+        with trace(profile_dir), nan_guard(debug_nans) as guard:
+            return _run_training_impl(cfg, raw_cfg, resume, wavlm_state_dict,
+                                      max_steps_per_epoch, export_pt, eval_every, device, guard)
+    finally:
+        if lock is not None:
+            lock.release()
+
+
+def _clones(tensors) -> List[torch.Tensor]:
+    return [t.detach().clone() for t in tensors]
+
+
+class _Snapshot:
+    """A device copy of what collapse_restore puts back: the trained
+    parameters, the optimizer's moments and counts, the EMA and the step."""
+
+    def __init__(self, state: TrainState):
+        opt = state.optimizer
+        self.params, self.mu, self.nu = _clones(opt.params), _clones(opt.mu), _clones(opt.nu)
+        self.ema = None if state.ema is None else _clones(state.ema)
+        self.count, self.notfinite_count, self.step = opt.count, opt.notfinite_count, state.step
+
+    @torch.no_grad()
+    def restore(self, state: TrainState) -> None:
+        opt = state.optimizer
+        for dst, src in ((opt.params, self.params), (opt.mu, self.mu), (opt.nu, self.nu),
+                         (state.ema, self.ema)):
+            if dst is not None:
+                torch._foreach_copy_(dst, src)
+        opt.count, opt.notfinite_count, state.step = self.count, self.notfinite_count, self.step
+
+
+@contextlib.contextmanager
+def _evaluating(pipeline, state: TrainState, use_ema: bool):
+    """The pipeline's modules in eval mode, with the EMA swapped into the
+    trained parameters when `use_ema` (and back, bit for bit, after)."""
+    for m in (pipeline.decoder, pipeline.encoder):
+        m.eval()
+    swap = use_ema and state.ema is not None
+    params = state.optimizer.params
+
+    def exchange():
+        for i, p in enumerate(params):
+            p.data, state.ema[i] = state.ema[i], p.data
+
+    if swap:
+        exchange()
+    try:
+        yield
+    finally:
+        if swap:
+            exchange()
+
+
+def _run_training_impl(cfg: Config, raw_cfg, resume, wavlm_state_dict, max_steps_per_epoch,
+                       export_pt, eval_every, device, guard) -> Dict[str, Any]:
+    from fddm_asr_tpu_torch import checkpoint as C
+    from fddm_asr_tpu_torch import eval as E
+    from fddm_asr_tpu_torch.config import resolve_device
+    from fddm_asr_tpu_torch.data.dataset import ManifestDataset, make_batches
+    from fddm_asr_tpu_torch.models.encoder import frame_length_estimate
+    from fddm_asr_tpu_torch.pipeline import FDDMPipeline
+    from fddm_asr_tpu_torch.profiling import StepTimer, annotate
+
+    seed = int(cfg.get("seed", 1337))
+    log_cfg = cfg.get("log", Config())
+    enc_cfg = cfg.model.get("encoder", Config())
+    train_encoder = not enc_cfg.get("freeze", True)
+    if int(enc_cfg.get("lora_rank", 0) or 0) > 0:
+        raise NotImplementedError("LoRA fine-tuning (model.encoder.lora_rank) is not ported "
+                                  "yet (ROADMAP A6)")
+    if log_cfg.get("async_checkpoint", False):
+        raise NotImplementedError("log.async_checkpoint: true is not ported yet (ROADMAP A5); "
+                                  "checkpoints are written synchronously")
+    dev = resolve_device(device)
+    pad_id = resolve_special_ids(cfg)["pad_id"]
+    # the training compute dtype: optim.dtype over model.dtype (parameters stay float32)
+    dtype = cfg.optim.get("dtype", cfg.model.get("dtype", "bfloat16"))
+    # model.init_ckpt: warm-start the decoder from a reference .pt with a fresh
+    # optimizer, schedule and epoch 1 (--resume restores the whole state)
+    init_ckpt = cfg.model.get("init_ckpt")
+    pipeline = FDDMPipeline.from_config(cfg, ckpt_path=init_ckpt,
+                                        wavlm_state_dict=wavlm_state_dict, device=str(dev),
+                                        dtype=dtype, seed=seed)
+    if init_ckpt:
+        logging.info(f"decoder warm-started from {init_ckpt} (fresh optimizer state)")
+    heads = make_projection_heads(cfg, dev, pipeline.decoder.dtype,
+                                  torch.Generator(device=dev).manual_seed(seed + 1))
+    state = init_train_state(pipeline, cfg, train_encoder=train_encoder, heads=heads)
+    ema_eval = state.ema is not None and bool(cfg.optim.get("ema_eval", True))
+
+    ckpt_dir = os.path.abspath(log_cfg.get("ckpt_dir", "ckpts/run"))
+    os.makedirs(ckpt_dir, exist_ok=True)
+    # log.metrics_jsonl: one JSON line per logged step ("step") and epoch
+    # ("epoch"), as the JAX loop writes them; also "feature_cache", "eval",
+    # "checkpoint" and "collapse_restore" lines.  true -> <ckpt_dir>/metrics.jsonl
+    metrics_path = log_cfg.get("metrics_jsonl")
+    if metrics_path is True:
+        metrics_path = os.path.join(ckpt_dir, "metrics.jsonl")
+
+    def emit_metrics(**record):
+        if not metrics_path:
+            return
+        record["ts"] = time.time()
+        with open(metrics_path, "a", encoding="utf-8") as f:
+            f.write(json.dumps(record) + "\n")
+
+    def save(name: str, epoch: int, best):
+        files = C.save_ckpt(os.path.join(ckpt_dir, name), state, epoch, raw_cfg, best,
+                            export_pt, ema_export=ema_eval)
+        emit_metrics(kind="checkpoint", name=name, epoch=epoch, files=files)
+
+    start_epoch, resumed_best_cer = 1, float("inf")
+    if resume:
+        epoch_done, resumed_best_cer = C.restore_state(state, C.load_state(resume))
+        start_epoch = epoch_done + 1
+        logging.info(f"Resumed from {resume} at epoch {start_epoch}"
+                     + (f" (best_val_cer so far {resumed_best_cer:.4f})"
+                        if resumed_best_cer != float("inf") else ""))
+
+    data_cfg = cfg.data
+    tokenizer = pipeline.tokenizer
+
+    def make_ds(path):
+        if not path or not os.path.exists(path):
+            return None
+        return ManifestDataset(path, tokenizer, max_len=data_cfg.get("max_len", 128),
+                               pad_id=pad_id, bos_id=data_cfg.get("bos_id"),
+                               eos_id=data_cfg.get("eos_id"),
+                               max_audio_seconds=data_cfg.get("max_seconds", 20),
+                               sample_rate=data_cfg.get("sample_rate", 16000))
+
+    train_manifest = data_cfg.get("train_json",
+                                  data_cfg.get("manifest_train", "data/processed/train.json"))
+    train_ds = make_ds(train_manifest)
+    val_ds = make_ds(data_cfg.get("val_json", data_cfg.get(
+        "manifest_dev", "data/processed/validation.json")))
+    test_ds = make_ds(data_cfg.get("test_json", data_cfg.get(
+        "manifest_test", "data/processed/test.json")))
+    if train_ds is None or len(train_ds) == 0:
+        raise FileNotFoundError("no training manifest found / empty dataset")
+
+    batch_size = int(cfg.optim.get("batch_size", 4))
+    lfd_cfg = cfg.get("lfd", Config())
+    n_step_fd = int(lfd_cfg.get("n_step_fd", 4))
+    lfd_enabled = bool(lfd_cfg.get("enabled", True)) and float(lfd_cfg.get("tau", 1.0)) != 0.0
+    if not lfd_enabled:
+        logging.info("L_fd disabled (lfd.enabled/tau): pure-KL training")
+    log_every = int(log_cfg.get("log_every", 50))
+    num_epochs = int(cfg.optim.get("num_epochs", 10))
+    # model.encoder.condition_mask: mask padded audio frames out of the
+    # decoder's cross-attention in training too (reference parity: off)
+    condition_mask = bool(enc_cfg.get("condition_mask", False))
+    if condition_mask:
+        logging.info("condition_mask: cross-attention masks padded frames "
+                     "(deviation from reference parity)")
+    # optim.collapse_restore: true (defaults) or {factor, margin, max_restores}
+    collapse_cfg = cfg.optim.get("collapse_restore")
+    collapse_cfg = {} if collapse_cfg is True else (collapse_cfg or None)
+    snapshot, collapse_best, collapse_restores = None, float("inf"), 0
+    if collapse_cfg is not None:
+        logging.info("collapse_restore armed: snapshot-on-best, restore on epoch-loss spikes")
+    if eval_every is None:
+        eval_every = int(log_cfg.get("eval_every", 1))
+    host_rng = np.random.default_rng(seed)
+    pin = dev.type == "cuda"
+
+    # the frozen-encoder feature cache: c computed once, the WavLM forward
+    # skipped in every step; device-resident (rows gathered on the device)
+    # when data.cache_device is true, or auto and it holds at most 2 GiB
+    feat_cache = feats_dev = None
+    cache_dir = data_cfg.get("cache_features")
+    if cache_dir and train_encoder:
+        raise ValueError("data.cache_features requires a frozen encoder "
+                         "(model.encoder.freeze: true): a fine-tuned encoder changes its "
+                         "features every step")
+    if cache_dir:
+        t0 = time.time()
+        feat_cache, built = _ensure_feature_cache(pipeline, train_ds, cache_dir, "train",
+                                                  batch_size, train_manifest)
+        cache_s = time.time() - t0
+        step_fn = make_train_step(pipeline, cfg, cached_features=True)
+        cache_device = data_cfg.get("cache_device", "auto")
+        upload_s = None
+        if cache_device is True or (cache_device == "auto" and feat_cache.nbytes <= 2 * 1024 ** 3):
+            t0 = time.time()
+            feats_dev = feat_cache.rows(np.arange(feat_cache.shape[0])).to(dev)
+            upload_s = time.time() - t0
+            logging.info(f"feature cache device-resident: {feat_cache.shape[0]} rows, "
+                         f"{feat_cache.nbytes / 1e6:.0f} MB on {dev}")
+        emit_metrics(kind="feature_cache", built=built, seconds=cache_s,
+                     bytes=feat_cache.nbytes, shape=list(feat_cache.shape),
+                     device_resident=feats_dev is not None, upload_seconds=upload_s)
+        frames = feat_cache.shape[1]
+    else:
+        step_fn = make_train_step(pipeline, cfg, train_encoder=train_encoder)
+
+    # eval batches are the same every eval epoch: made once, their waves on
+    # the device (log.cache_eval_waves, up to 512 MiB)
+    def eval_batches(ds, limit=None):
+        if ds is None or len(ds) == 0:
+            return None
+        batches = []
+        it = make_batches(ds, batch_size, drop_last=False)
+        try:
+            for b in it:
+                batches.append(b)
+                if limit and len(batches) >= limit:
+                    break
+        finally:
+            it.close()
+        if (log_cfg.get("cache_eval_waves", True)
+                and sum(b.wave.nbytes for b in batches) <= 512 * 1024 ** 2):
+            batches = [dataclasses.replace(b, wave=torch.from_numpy(b.wave).to(dev))
+                       for b in batches]
+        return batches
+
+    val_batches = eval_batches(val_ds)
+    test_batches = eval_batches(test_ds)
+    # log.train_cer_batches: N train batches decoded at every eval epoch
+    # (train CER -> 0 with val CER flat is memorization)
+    train_cer_batches = int(log_cfg.get("train_cer_batches", 0) or 0)
+    train_eval_batches = eval_batches(train_ds, train_cer_batches) if train_cer_batches else None
+
+    # survives --resume: a post-resume epoch replaces best_model only if better
+    best_val_cer, best_epoch = resumed_best_cer, 0
+    early_stop_patience = int(cfg.optim.get("early_stop_patience", 0) or 0)
+    ckpt_every = int(log_cfg.get("ckpt_every", 1) or 1)
+    evals_since_best = 0
+    global_step = state.step + 1
+    summary: Dict[str, Any] = {}
+    timer = StepTimer(skip=2, device=dev)
+    generator = torch.Generator(device=dev)
+
+    for epoch in range(start_epoch, num_epochs + 1):
+        logging.info(f"Epoch {epoch}")
+        t0 = time.time()
+        loss_sum, step_cnt = None, 0
+        batches = make_batches(train_ds, batch_size, shuffle=True, seed=seed, epoch=epoch,
+                               pin_memory=pin)
+        try:
+            for bi, batch in enumerate(batches):
+                if max_steps_per_epoch and bi >= max_steps_per_epoch:
+                    break
+                apply_lfd = lfd_enabled and global_step % n_step_fd == 0
+                generator.manual_seed(int(host_rng.integers(2 ** 63)))
+                with annotate("host_to_device"):
+                    x0 = torch.from_numpy(batch.tokens).to(dev, non_blocking=True)
+                    if feat_cache is not None:
+                        if feats_dev is not None:
+                            c = feats_dev.index_select(
+                                0, torch.from_numpy(batch.indices).to(dev, non_blocking=True))
+                        else:
+                            c = feat_cache.rows(batch.indices).to(dev, non_blocking=True)
+                        c_mask = None
+                        if condition_mask:  # the encoder's ceil(len / 320) frame count
+                            fl = np.minimum(frame_length_estimate(batch.wave_lengths), frames)
+                            c_mask = torch.from_numpy(
+                                np.arange(frames)[None, :] < fl[:, None]).to(dev)
+                    else:
+                        wave = torch.as_tensor(batch.wave).to(dev, non_blocking=True)
+                        lengths = (torch.from_numpy(batch.wave_lengths).to(dev)
+                                   if condition_mask else None)
+                if feat_cache is not None:
+                    metrics = step_fn(state, c, x0, apply_lfd, c_mask=c_mask,
+                                      generator=generator)
+                else:
+                    metrics = step_fn(state, wave, x0, apply_lfd, lengths=lengths,
+                                      generator=generator)
+                guard.check(metrics["total_loss"], global_step)
+                timer.tick()
+                # summed on the device: a float() here would wait for it every step
+                loss_sum = (metrics["total_loss"] if loss_sum is None
+                            else loss_sum + metrics["total_loss"])
+                step_cnt += 1
+                if global_step % log_every == 0:
+                    lead = timer.host_lead_s()
+                    record = {"total_loss": float(metrics["total_loss"]),
+                              "loss_diff": float(metrics["loss_diff"])}
+                    if "loss_fd" in metrics:
+                        record.update(loss_fd=float(metrics["loss_fd"]),
+                                      w_t=float(metrics["w_t"]))
+                    record["grad_norm"] = float(metrics["grad_norm"])
+                    if timer.seconds_per_step:
+                        record["examples_per_s"] = timer.throughput(batch_size)
+                    parts = [f"step={global_step}", f"loss_diff={record['loss_diff']:.4f}"]
+                    if "loss_fd" in record:
+                        parts += [f"loss_fd={record['loss_fd']:.4f}", f"w_t={record['w_t']:.4f}"]
+                    parts += [f"total_loss={record['total_loss']:.4f}",
+                              f"grad_norm={record['grad_norm']:.3f}"]
+                    if "examples_per_s" in record:
+                        parts.append(f"examples_per_s={record['examples_per_s']:.1f}")
+                    if lead is not None:
+                        parts.append(f"host_lead_ms={lead * 1e3:.1f}")
+                    logging.info(" ".join(parts))
+                    emit_metrics(kind="step", step=global_step, epoch=epoch, **record)
+                global_step += 1
+        finally:
+            batches.close()
+        timer.pause()
+        train_loss = float(loss_sum) / step_cnt if step_cnt else 0.0
+        logging.info(f"[Summary] Epoch {epoch} Avg Train Loss: {train_loss:.4f}")
+
+        # optim.collapse_restore: an epoch loss factor x + margin above the
+        # best epoch's puts back the best epoch's state (the step generator's
+        # stream keeps going, so the replay draws anew)
+        if collapse_cfg is not None and step_cnt:
+            c_factor = float(collapse_cfg.get("factor", 2.0))
+            c_margin = float(collapse_cfg.get("margin", 0.3))
+            c_max = int(collapse_cfg.get("max_restores", 8))
+            if (snapshot is not None and collapse_restores < c_max
+                    and train_loss > c_factor * collapse_best + c_margin):
+                snapshot.restore(state)
+                collapse_restores += 1
+                logging.warning(f"collapse detected (epoch {epoch} train_loss {train_loss:.4f} "
+                                f"vs best {collapse_best:.4f}): restored best snapshot "
+                                f"(restore {collapse_restores}/{c_max})")
+                emit_metrics(kind="collapse_restore", epoch=epoch, train_loss=train_loss,
+                             best=collapse_best, restores=collapse_restores)
+            elif train_loss < collapse_best:
+                collapse_best = train_loss
+                snapshot = _Snapshot(state)
+
+        do_eval = epoch % max(1, eval_every) == 0 or epoch == num_epochs
+        val_loss = val_cer = test_cer = val_kl = train_cer = None
+        if do_eval:
+            t_eval = time.time()
+            # ema_eval: evaluate the EMA weights, the ones the checkpoints export
+            with _evaluating(pipeline, state, ema_eval):
+                if val_batches is not None:
+                    val_cer = E.evaluate_cer_with_jumpy_sampling(pipeline, val_batches, cfg)
+                    if bool(log_cfg.get("val_loss", True)):
+                        val_loss = E.evaluate_validation_loss(pipeline, val_batches)
+                    if log_cfg.get("val_kl") == "sampled":
+                        val_kl = E.evaluate_validation_kl_sampled(
+                            pipeline, val_batches,
+                            mask_pad_loss=bool(cfg.optim.get("mask_pad_loss", True)))
+                if test_batches is not None:
+                    test_cer = E.evaluate_cer_with_jumpy_sampling(pipeline, test_batches, cfg)
+                if train_eval_batches:
+                    train_cer = E.evaluate_cer_with_jumpy_sampling(pipeline, train_eval_batches,
+                                                                   cfg)
+            emit_metrics(kind="eval", epoch=epoch, seconds=time.time() - t_eval)
+        if val_cer is not None and val_cer < best_val_cer:
+            best_val_cer, best_epoch = val_cer, epoch
+            save("best_model", epoch, best_val_cer)
+            best_art = "best_model.pt" if export_pt else "best_model.state.pt"
+            suffix = (" (+ best_model.encoder.pt, the fine-tuned encoder)"
+                      if train_encoder else "")
+            logging.info(f"Saved BEST model (epoch {best_epoch}, val_cer {best_val_cer:.4f}) "
+                         f"→ {os.path.join(ckpt_dir, best_art)}{suffix}")
+
+        # the train/eval mode gap: a train-mode loss far under the
+        # deterministic val_kl is a fit that needs dropout noise
+        if (val_kl is not None and train_loss > 0.0
+                and float(cfg.model.get("dropout", 0.1)) > 0.0 and train_loss < 0.5 * val_kl):
+            logging.warning(f"train-mode loss ({train_loss:.3f}) << deterministic val_kl "
+                            f"({val_kl:.3f}): possible dropout-mode-dependent fit; verify "
+                            "decode quality; consider model.dropout: 0.0")
+
+        msg = f"[Epoch {epoch} Summary] train_loss={train_loss:.4f}"
+        for name, value in (("train_cer", train_cer), ("val_loss", val_loss),
+                            ("val_kl", val_kl), ("val_cer", val_cer), ("test_cer", test_cer)):
+            if value is not None:
+                msg += f" | {name}={value:.4f}"
+        logging.info(msg)
+
+        # optim.early_stop_patience: stop after N evals without a new best
+        # (decided before the periodic checkpoint, so the last state is saved)
+        stop_early = False
+        if val_cer is not None:
+            evals_since_best = 0 if epoch == best_epoch else evals_since_best + 1
+            stop_early = 0 < early_stop_patience <= evals_since_best
+        if epoch % ckpt_every == 0 or epoch == num_epochs or stop_early:
+            save(f"ep{epoch:03d}", epoch,
+                 best_val_cer if best_val_cer != float("inf") else None)
+        summary = {"epoch": epoch, "train_loss": train_loss, "val_loss": val_loss,
+                   "val_cer": val_cer, "test_cer": test_cer, "best_val_cer": best_val_cer,
+                   "best_epoch": best_epoch, "epoch_seconds": time.time() - t0}
+        if val_kl is not None:
+            summary["val_kl"] = val_kl
+        if train_cer is not None:
+            summary["train_cer"] = train_cer
+        if stop_early:
+            summary["early_stopped"] = True
+        emit_metrics(kind="epoch", **{k: (None if v is None or v == float("inf") else v)
+                                      for k, v in summary.items()})
+        if stop_early:
+            logging.info(f"Early stopping at epoch {epoch}: no val CER improvement in "
+                         f"{evals_since_best} evals (best {best_val_cer:.4f} @ epoch "
+                         f"{best_epoch})")
+            break
+
+    logging.info("=" * 50)
+    logging.info("TRAINING COMPLETED!")
+    logging.info(f"Best validation CER: {best_val_cer:.4f} (Epoch {best_epoch})")
+    logging.info("Best model saved at: " + os.path.join(
+        ckpt_dir, "best_model.pt" if export_pt else "best_model.state.pt"))
+    logging.info("=" * 50)
+    return summary
+
+
+def _ensure_feature_cache(pipeline, train_ds, cache_dir: str, split: str, batch_size: int,
+                          manifest_path: str):
+    """(the feature cache, whether it was built now): opened, after one
+    encoder sweep over the manifest in order when absent; refused when
+    stale or of another width."""
+    from fddm_asr_tpu_torch.data import feature_cache as FC
+
+    checksum = FC.param_checksum(pipeline.encoder.state_dict())
+    masked = bool(pipeline.use_condition_mask)
+    fp = FC.fingerprint(manifest_path, len(train_ds), checksum, masked=masked)
+    built = not FC.cache_exists(cache_dir, split)
+    if built:
+        logging.info(f"building feature cache under {cache_dir}/{split} …")
+
+        def encode(waves, lengths=None):
+            return pipeline.encode_waveform(waves, lengths)[0]
+
+        FC.build_cache(cache_dir, split, train_ds, encode, batch_size=batch_size,
+                       manifest_path=manifest_path, checksum=checksum, log_every=10,
+                       masked=masked)
+    cache = FC.FeatureCache(cache_dir, split, expect_fingerprint=fp)
+    # the sampled checksum can miss a changed projection width; the width is
+    # cheap to check exactly
+    enc = pipeline.encoder
+    d_expect = enc.proj.out_features if hasattr(enc, "proj") else enc.config.hidden_size
+    if cache.shape[-1] != d_expect:
+        raise ValueError(f"feature cache at {cache_dir}/{split} has width {cache.shape[-1]} but "
+                         f"this encoder outputs {d_expect}: the cache belongs to a different "
+                         "model geometry; delete it or point data.cache_features elsewhere")
+    return cache, built

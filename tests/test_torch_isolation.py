@@ -15,7 +15,7 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "fddm_asr_tpu_torch")
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "fddm_asr_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "ml_dtypes", "fddm_asr_tpu"}
 
 
 def _port_files():
@@ -103,6 +103,36 @@ def test_fresh_interpreter_loads_no_jax():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in {'jax', 'flax', 'yaml', "
         "'fddm_asr_tpu', 'serve', 'inference'})\n"
         "print(bad); sys.exit(1 if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code, ROOT], capture_output=True, text=True,
+                          cwd=ROOT, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_walk_covers_the_training_modules():
+    walked = {os.path.relpath(p, PORT) for p in _port_files()}
+    for module in ("train.py", "train_lib.py", "data/dataset.py", "data/feature_cache.py",
+                   "checkpoint.py", "profiling.py", "tokenizer/spm.py"):
+        assert module in walked
+
+
+def test_train_help_in_a_fresh_interpreter_loads_no_jax():
+    """`python -m fddm_asr_tpu_torch.train --help` and an import of every
+    training module load neither JAX nor ml_dtypes nor orbax."""
+    proc = subprocess.run([sys.executable, "-m", "fddm_asr_tpu_torch.train", "--help"],
+                          capture_output=True, text=True, cwd=ROOT, timeout=120)
+    assert proc.returncode == 0 and "--resume" in proc.stdout, proc.stderr
+    code = (
+        "import sys, runpy; sys.path.insert(0, sys.argv[1]); sys.argv = ['train', '--help']\n"
+        "import fddm_asr_tpu_torch.train_lib, fddm_asr_tpu_torch.checkpoint\n"
+        "import fddm_asr_tpu_torch.profiling, fddm_asr_tpu_torch.data.dataset\n"
+        "import fddm_asr_tpu_torch.data.feature_cache\n"
+        "try:\n"
+        "    runpy.run_module('fddm_asr_tpu_torch.train', run_name='__main__')\n"
+        "except SystemExit:\n"
+        "    pass\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in {'jax', 'jaxlib', "
+        "'ml_dtypes', 'orbax', 'flax', 'fddm_asr_tpu'})\n"
+        "print(bad, file=sys.stderr); sys.exit(1 if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code, ROOT], capture_output=True, text=True,
                           cwd=ROOT, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
