@@ -16,7 +16,8 @@ Phases, each fatal on failure:
 
   1. the card's name and power limit (nvidia-smi); build every kernel
      from `fddm_asr_tpu_torch/csrc/` with nvcc (one process per source, in
-     parallel), timed;
+     parallel), timed; the float32 forward's SASS (`cuobjdump -sass`) must
+     hold tf32 HGMMA (it runs 3xTF32 on the tensor cores);
   2. kernel vs plain version at B=8, H=16, dh=64 on both sides of the TPU
      kernels' 4096-frame split (L=1024, 4224), float32 and bfloat16, with
      ragged key masks and one all-masked row, and at phase 15 (c)'s
@@ -27,10 +28,12 @@ Phases, each fatal on failure:
      (the two round one f32 value to bf16, an ulp apart at worst, and an
      ulp is 0.03125 where outputs reach 4); the kernel's time
      beside the plain version's, one `scaled_dot_product_attention` call's (a yardstick
-     the port never calls) and the card's least possible time (bound);
-     then, untimed, at the edges of the bf16 kernel's 128-query blocks and
-     64-key steps and at L=203 (bias rows not 16-byte aligned), with lse,
-     under the same bounds;
+     the port never calls, with the name of the device kernel it ran) and
+     the card's least possible time (bound; in float32 also `bound_tc_ms`,
+     the products three times over at the dense tf32 rate); then, untimed,
+     at the edges of both kernels' 128-query blocks and 64-key steps (each
+     +-1) and at L whose bias rows are not 16-byte aligned, with lse, under
+     the same bounds;
   3. a small float32 pipeline (64-wide WavLM heads) transcribes the same
      batch and x_T on the card and on the CPU from the same weights: the
      token ids must be identical; the same with the batch as int16 pcm16
@@ -46,7 +49,10 @@ Phases, each fatal on failure:
      seq_len=64) with the kernel's launch count checked at 24 per encode;
      the encoder's output with the kernel held against the same encoder
      with the plain attention; one more transcribe under torch.profiler
-     for the device time by kernel and the device's idle share;
+     for the device time by kernel and the device's idle share; then the
+     same transcribe at model.dtype float32 (`transcribe_f32`: B1 in f32
+     24 times, wall, busy time, the f32 kernel's device time, its ids
+     beside the bf16 run's);
   5. the training kernels (B3 forward + logsumexp, B4 dq/dgate, B5
      dk/dv/dbias) against their plain versions and against autograd of the
      plain forward: first at the shape phase 7 gives them (B=32, H=16,
@@ -215,7 +221,7 @@ Phases, each fatal on failure:
      on a pipeline carrying the EMA weights of `best_model.state.pt`.
 
 Phases 4 and 7 run at full depth with as many timed runs as before; the
-whole took 708 s of its 1200 s limit on an NVIDIA H100 80GB HBM3 at 700 W
+whole took 736 s of its 1200 s limit on an NVIDIA H100 80GB HBM3 at 700 W
 with phase 18 (about 90 s of it), past the half it aims at: phases 15-17's
 processes take most of the time, and would be cut in depth first.
 
@@ -224,13 +230,15 @@ Prints the kernels' JSON line, then the card line, then as the last line
 
     python3 chip_smoke.py --b7-times DIR
     python3 chip_smoke.py --b8-times DIR
+    python3 chip_smoke.py --b1-f32-times DIR
 
 time only the fused int8 kernel (at phase 8's bfloat16 shapes: CUDA events
-over back-to-back calls, device time per launch, host time a call), or only
+over back-to-back calls, device time per launch, host time a call), only
 the fused conv layer (its kernel and the layer's weight handling, at phase
 9's six bfloat16 layer shapes: CUDA events, device time, host time a call),
-of the port checked out at DIR, to compare two trees on one card; they
-print no result line.
+or only the float32 gated-attention forward (at phase 2's float32 shapes
+and a transcribe's: CUDA events), of the port checked out at DIR, to
+compare two trees on one card; they print no result line.
 """
 from __future__ import annotations
 
@@ -252,6 +260,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12                                 # H100 SXM
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}  # dense bf16 / f32 (no TF32)
+TF32_PEAK_FLOPS = 495e12  # dense tf32: the f32 forward runs 3xTF32 on the tensor cores
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}          # unit-scale inputs
 ENCODER_REL_L2_TOL = 5e-2  # bf16 P rounding differs (kernel: before the 1/l, plain: after), 24 layers
 # backward kernels, as a fraction of the reference's max-abs: against the
@@ -260,7 +269,11 @@ ENCODER_REL_L2_TOL = 5e-2  # bf16 P rounding differs (kernel: before the 1/l, pl
 BWD_REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 AUTOGRAD_REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 LSE_TOL = 1e-3             # the row logsumexp, f32 in both
-EDGE_LENGTHS = (65, 128, 129, 203, 1000)  # phase 2's untimed block-edge lengths
+# phase 2's untimed lengths: both forward kernels' 128-query blocks and
+# 64-key steps, each +-1 (63, 64, 65, 127, 128, 129), bias rows no TMA can
+# address (L % 4 != 0 in f32, L % 8 != 0 in bf16: 63, 65, 127, 129, 203),
+# and a ragged last step (1000)
+EDGE_LENGTHS = (63, 64, 65, 127, 128, 129, 203, 1000)
 # phase 5's: the edges of B4's and B5's 128-query, 128-key and 64-row tiles,
 # and bias rows that are not 16-byte aligned (127, 129, 203)
 B4_B5_EDGE_LENGTHS = (65, 127, 128, 129, 203, 1000, 1024)
@@ -367,19 +380,42 @@ def attention_inputs(B, L, H, dtype, gen, ragged=True, valid=None):
     return q, k, v, bias, gate, mask
 
 
-def attention_bound_ms(q, bias, gate, mask, H) -> tuple:
+def attention_bound_ms(q, bias, gate, mask, H, tf32x3: bool = False) -> tuple:
     """The least time on the card: each input read once and the output
     written once over HBM, or the products the inputs need (a row with
     kept keys needs q.k and p.v over them; an all-masked row only the mean
-    of v, once) at the dense peak of q's type; the larger of the two."""
+    of v, once) at the dense peak of q's type; the larger of the two.
+    `tf32x3`: the products three times over at the dense tf32 peak (the
+    float32 kernel's own arithmetic: each product as three tf32 ones)."""
     B, L, HD = q.shape
     es = q.element_size()
     nbytes = 4 * B * L * HD * es + bias.numel() * es + gate.numel() * 4 + mask.numel()
     kept = mask.sum(dim=1).tolist()
     ops = sum(4 * H * L * 64 * n if n else L * HD for n in kept)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_FLOPS[q.dtype] * 1e3
+    t_ops = (3 * ops / TF32_PEAK_FLOPS if tf32x3 else ops / PEAK_FLOPS[q.dtype]) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def main_device_kernel(fn) -> str:
+    """The name of the device kernel that takes most of one profiled call
+    of `fn`: what a library yardstick ran.  A window in which the profiler
+    recorded no device time is profiled again, three at most (see
+    `device_ms`)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        times = [(getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0),
+                  e.key) for e in prof.key_averages()]
+        times = [t for t in times if t[0] > 0]
+        if times:
+            return max(times)[1]
+    return "not recorded"
 
 
 def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
@@ -423,11 +459,15 @@ def kernel_vs_plain(FA, L: int, dtype, gen, B: int = 8, valid=None) -> dict:
     float_mask = (gate[..., None] * bias[None].float()).masked_fill(
         ~mask[:, None, None, :], torch.finfo(torch.float32).min).to(dtype)
     heads = [x.view(B, L, H, 64).transpose(1, 2) for x in (q, k, v)]
-    row["library_ms"] = time_ms(
-        lambda: torch.nn.functional.scaled_dot_product_attention(*heads, attn_mask=float_mask),
-        max(2, reps // 4), 1)
-    del float_mask
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+        *heads, attn_mask=float_mask)
+    row["library_ms"] = time_ms(sdpa, max(2, reps // 4), 1)
+    row["library_kernel"] = main_device_kernel(sdpa)[:120]
+    del float_mask, sdpa
     row["bound_ms"], row["bound_by"] = attention_bound_ms(q, bias, gate, mask, H)
+    if dtype == torch.float32:  # beside the f32-FMA bound, comparable with earlier rows
+        row["bound_tc_ms"], row["bound_tc_by"] = attention_bound_ms(q, bias, gate, mask, H,
+                                                                    tf32x3=True)
     print(json.dumps({"kernel_vs_plain": row}), flush=True)
     if not row["max_err_over_tol"] <= 1.0:
         fail(f"kernel disagrees with its plain version at B={B} L={L} {dtype}: {row}")
@@ -463,10 +503,10 @@ def served_valid_frames() -> dict:
 
 
 def edge_lengths_match_plain(FA, gen) -> list:
-    """Phase 2, untimed: the forward kernel at the edges of the bf16 kernel's
-    128-query blocks and 64-key steps (65, 128, 129, 1000) and at an L whose
-    bias rows are not 16-byte aligned (203), B=3 (a ragged, a full and an
-    all-masked row), both types: out within TOL (or, in bfloat16, one bf16
+    """Phase 2, untimed: the forward kernels at the edges of their 128-query
+    blocks and 64-key steps and at L whose bias rows are not 16-byte
+    aligned (EDGE_LENGTHS), B=3 (a ragged, a full and an all-masked row),
+    both types: out within TOL (or, in bfloat16, one bf16
     ulp of the plain value), lse within LSE_TOL and
     exactly f32-min at the all-masked row, and the inference launch's output
     bit-identical to the lse launch's."""
@@ -505,16 +545,17 @@ def synthetic_tokenizer(directory: str, vocab_size: int) -> str:
     return path
 
 
-def flagship_config(tokenizer_path: str, wavlm_config: dict = None):
+def flagship_config(tokenizer_path: str, wavlm_config: dict = None, dtype: str = "bfloat16"):
     """configs/fddm_zhTW_base.yaml's model, data and diffusion blocks, in
-    code; `wavlm_config` goes under encoder.wavlm_config."""
+    code; `wavlm_config` goes under encoder.wavlm_config, `dtype` is
+    model.dtype."""
     from fddm_asr_tpu_torch.config import Config
 
     cfg = Config({
         "seed": 1337,
         "data": {"vocab_size": 8000, "pad_id": 0, "tokenizer_path": tokenizer_path},
         "model": {"d_model": 768, "nhead": 12, "num_layers": 6, "dim_ff": 2048,
-                  "dtype": "bfloat16",
+                  "dtype": dtype,
                   "encoder": {"wavlm_name": "microsoft/wavlm-large", "freeze": True,
                               "proj": "linear", "pooling": "none"}},
         "diffusion": {"T": 200, "beta_max": 0.2},
@@ -838,6 +879,78 @@ def transcribe_full_width(FA, tokenizer_dir: str, card: str, name: str = "transc
     }
     print(json.dumps({name: result}, ensure_ascii=False), flush=True)
     result["feats"] = feats
+    result["ids"] = [r[1] for r in rows]
+    return result
+
+
+def transcribe_f32_full_width(tokenizer_dir: str, card: str, bf16: dict) -> dict:
+    """Phase 4's transcribe at model.dtype float32 (`transcribe_f32`): the
+    same config, seed (so the same float32 parameters), batch and sampling,
+    as `inference.py --dtype float32` and the server run it.  B1 in float32
+    24 times a transcribe (checked) and no other kernel; wall median of
+    REPEATS, RTFx, busy ms and the f32 kernel's device ms from one profiled
+    run; the ids beside phase 4's bfloat16 ones (a count, not a check: the
+    two encoders round apart)."""
+    from fddm_asr_tpu_torch.pipeline import FDDMPipeline
+    from fddm_asr_tpu_torch.tokenizer import load_tokenizer
+
+    B, seconds = 8, 20.0
+    cfg = flagship_config(synthetic_tokenizer(tokenizer_dir, 8000), dtype="float32")
+    t0 = time.time()
+    pipe = FDDMPipeline.from_config(cfg, tokenizer=load_tokenizer(cfg.data.tokenizer_path))
+    torch.cuda.synchronize()
+    build_s = time.time() - t0
+    wav = synthetic_audio(B, seconds, seed=0)
+    sampling = dict(T_infer=20, r=5, greedy=True, posterior_mode="map", sampling_mode="exact")
+
+    def run():
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        rows = pipe.transcribe_with_ids(wav, seq_len=64, generator=gen, with_confidence=True,
+                                        **sampling)
+        torch.cuda.synchronize()
+        return rows
+
+    gc.collect()
+    run()
+    torch.cuda.reset_peak_memory_stats()
+    wrappers = port_kernel_wrappers()
+    _reset(wrappers)
+    rows = run()
+    counts = _counts_since_reset(wrappers)
+    want = {k: 0 for k in wrappers}
+    want["fwd"] = pipe.encoder.config.num_hidden_layers
+    if counts != want:
+        fail(f"kernel launches in one float32 transcribe {counts}, expected {want}")
+    peak_mem_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    ids = [r[1] for r in rows]
+    if len(rows) != B or any(len(r) != 64 or not all(0 <= i < 8000 for i in r) for r in ids):
+        fail("float32 transcripts are not 8 rows of 64 ids in range")
+    step_samples = seconds_of(run, REPEATS)
+    step_s = statistics.median(step_samples)
+    breakdown = device_time_breakdown(run, step_s)
+    f32_kernel = [t for t in breakdown["all"] if "gated_attention_tf32x3_kernel" in t["name"]]
+    if not f32_kernel:
+        fail("the profiled float32 transcribe shows no gated_attention_tf32x3_kernel")
+    del breakdown["all"]
+    same = sum(a == b for ra, rb in zip(ids, bf16["ids"]) for a, b in zip(ra, rb))
+    result = {
+        "card": card, "dtype": "float32", "audio_s": B * seconds, "step_s": step_s,
+        "rtfx": B * seconds / step_s, "step_s_samples": step_samples,
+        "pipeline_build_s": build_s, "launches": {k: n for k, n in counts.items() if n},
+        "peak_mem_gb": peak_mem_gb, "device_busy_ms": breakdown["device_busy_ms"],
+        "idle_share": breakdown["idle_share"],
+        "b1_f32_device_ms": f32_kernel[0]["ms"],
+        "b1_f32_device_ms_per_launch": f32_kernel[0]["ms"] / want["fwd"],
+        "top": breakdown["top"][:6],
+        "bf16_transcribe": {"step_s": bf16["step_s"], "device_busy_ms": bf16["device_busy_ms"],
+                            "b1_device_ms": bf16["port_kernels_ms"]["fwd"]},
+        "ids_equal_to_bf16": {"tokens": same, "of": B * 64,
+                              "rows": sum(a == b for a, b in zip(ids, bf16["ids"]))},
+    }
+    print(json.dumps({"transcribe_f32": result}, ensure_ascii=False), flush=True)
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
     return result
 
 
@@ -3132,6 +3245,52 @@ def b8_times(root: str) -> int:
     return 0
 
 
+def b1_f32_times(root: str) -> int:
+    """`--b1-f32-times ROOT`: the float32 forward of the port in the checkout
+    at ROOT (this one or another, to compare two trees on one card), timed
+    alone at phase 2's float32 shapes (B=8, L=1024 and 4224 with ragged
+    masks; B=1, L=5120, 4999 valid keys; phase 16's two served batches) and
+    at a transcribe's (B=8, L=1024, 999 valid keys in every row),
+    inputs from a seeded generator, the same in every tree: CUDA events
+    over back-to-back calls (five runs, each and their median), one JSON
+    line a shape, then the card line."""
+    sys.path.insert(0, os.path.abspath(root))
+    from fddm_asr_tpu_torch.ops import _build
+    from fddm_asr_tpu_torch.ops import flash_attention as FA
+
+    _build.build_libraries()
+    shapes = [(8, 1024, None), (8, 4224, None), (1, WHOLE_FILE_L, WHOLE_FILE_FRAMES),
+              (8, 1024, 999)]  # the last: phase 4's transcribe (8 x 20 s, 999 frames)
+    shapes += [(B, L, valid) for (B, L), valid in served_valid_frames().items()]
+    for B, L, valid in shapes:
+        gen = torch.Generator(device="cuda").manual_seed(L + B)
+        q, k, v, bias, gate, mask = attention_inputs(B, L, 16, torch.float32, gen, valid=valid)
+        call = lambda: FA.wavlm_gated_attention_cuda(q, k, v, bias, gate, mask, 16)  # noqa: E731
+        reps = 20 if L <= 1024 else 5
+        runs = [time_ms(call, reps) for _ in range(5)]
+        print(json.dumps({"b1_f32_times": {"root": root, "B": B, "L": L, "valid": valid,
+                                           "ms": statistics.median(runs), "ms_runs": runs}}),
+              flush=True)
+        del q, k, v, bias, gate, mask
+        torch.cuda.empty_cache()
+    print(card_line())
+    return 0
+
+
+def sass_hgmma(lib: str, kernel: str) -> dict:
+    """The HGMMA instructions of `kernel` in the library's SASS
+    (`cuobjdump -sass`): their count, how many name TF32, one example."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    body = [f for f in sass.split("Function : ") if kernel in f.splitlines()[0]]
+    lines = [ln.strip() for f in body for ln in f.splitlines() if "HGMMA" in ln]
+    return {"kernel": kernel, "functions": len(body), "hgmma": len(lines),
+            "hgmma_tf32": sum("TF32" in ln for ln in lines),
+            "example": lines[0][:160] if lines else None}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3140,6 +3299,8 @@ def main() -> int:
         return b7_times(sys.argv[2])
     if len(sys.argv) == 3 and sys.argv[1] == "--b8-times":
         return b8_times(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == "--b1-f32-times":
+        return b1_f32_times(sys.argv[2])
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from fddm_asr_tpu_torch.ops import _build
     from fddm_asr_tpu_torch.ops import conv_frontend as CF
@@ -3153,6 +3314,11 @@ def main() -> int:
     libs = _build.build_libraries(verbose=True)
     print(json.dumps({"build": {"libraries": [os.path.relpath(p) for p in libs.values()],
                                 "seconds": time.time() - t0}}), flush=True)
+    # the float32 forward is on the tensor cores: tf32 HGMMA in its SASS
+    sass = sass_hgmma(libs["gated_attention"], "gated_attention_tf32x3_kernel")
+    print(json.dumps({"sass_f32_forward": sass}), flush=True)
+    if not (sass["functions"] == 1 and sass["hgmma"] > 0 and sass["hgmma_tf32"] == sass["hgmma"]):
+        fail(f"the float32 forward's SASS holds no tf32 HGMMA: {sass}")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3178,6 +3344,8 @@ def main() -> int:
         small_pipeline_matches_cpu(FA, tmp)
     with tempfile.TemporaryDirectory() as tmp:
         result = transcribe_full_width(FA, tmp, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        transcribe_f32 = transcribe_f32_full_width(tmp, card, result)
 
     # the shape phase 7's fine-tune gives the training kernels: B=32
     # utterances of 20 s, 999 frames each, padded to a multiple of 128
@@ -3187,9 +3355,12 @@ def main() -> int:
     step_L = -(-frames // 128) * 128
     step_row = training_kernels_vs_plain(FA, step_L, torch.bfloat16, gen, timed=True,
                                          B=FINETUNE_B, valid=frames)
+    f32_train_rows = {}
     for L in (1024, 384, 203):
         for dtype in (torch.float32, torch.bfloat16):
-            training_kernels_vs_plain(FA, L, dtype, gen, timed=L == 1024)
+            row = training_kernels_vs_plain(FA, L, dtype, gen, timed=L == 1024)
+            if L == 1024 and dtype == torch.float32:
+                f32_train_rows = row
     for L in B4_B5_EDGE_LENGTHS:  # untimed: B4's and B5's tile edges, one batch row and three
         training_kernels_vs_plain(FA, L, torch.bfloat16, gen, timed=False, B=1, valid=L - 3)
         training_kernels_vs_plain(FA, L, torch.bfloat16, gen, timed=False, B=3)
@@ -3275,10 +3446,21 @@ def main() -> int:
                 "attention_L", "gated_attention_device_ms", "gated_attention_ms_per_launch")},
             **{k: rows[(WHOLE_FILE_L, torch.bfloat16)][k] for k in (
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}},
-        "serve_batches": [{k: rows[("serve", B, L, dtype)][k] for k in (
+        "serve_batches": [{k: rows[("serve", B, L, dtype)].get(k) for k in (
             "B", "L", "valid", "dtype", "max_abs_err", "tol", "ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms")}
+            "bound_by", "bound_tc_ms", "library_ms")}
             for B, L in serve_valid for dtype in (torch.float32, torch.bfloat16)],
+        # the float32 kernel (3xTF32 on wgmma): phase 2's shapes, and a
+        # float32 transcribe (launches and device time)
+        "float32": {
+            "kernel": "gated_attention_tf32x3_kernel",
+            "launches_transcribe_f32": transcribe_f32["launches"]["fwd"],
+            "transcribe_f32_device_ms": transcribe_f32["b1_f32_device_ms"],
+            "by_shape": [{k: rows[key][k] for k in (
+                "B", "L", "valid", "max_abs_err", "ms", "plain_ms", "library_ms",
+                "library_kernel", "bound_ms", "bound_by", "bound_tc_ms", "bound_tc_by")}
+                for key in ((1024, torch.float32), (4224, torch.float32),
+                            (WHOLE_FILE_L, torch.float32))]},
     }]
     for key, kernel, source, replaces in (
             ("fwd_lse", "wavlm_gated_attention_fwd_lse", "gated_attention.cu",
@@ -3299,6 +3481,9 @@ def main() -> int:
             "launches_by_path": {"finetune_step": finetune["kernel_launches_per_step"][key],
                                  "train_loop_step": trained["b"]["kernel_launches_per_step"][key],
                                  "train_loop": trained["b"]["launches"][key]},
+            # phase 5's float32 row at B=8, L=1024, ragged masks
+            "float32_L1024": {k: f32_train_rows[key].get(k) for k in (
+                "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
             **({"plain_and_library_cover": "B4+B5"} if key != "fwd_lse" else {}),
         })
     bhld = bhld_rows[torch.bfloat16]

@@ -57,10 +57,41 @@
 //     each score is one FFMA and each exponential one ex2.approx.  Keep flags
 //     come from a ballot over the mask bytes; a step whose keys are all kept
 //     skips the masking.
-//   * float32: exact f32, so no tensor cores: 64-query blocks of 256
-//     threads, each a 4x4 register micro-tile of scalar FMAs, synchronous
-//     loads.
+//
+// float32 (full precision: inference.py --dtype float32, the server, a
+// float32 fine-tune as B3), 3xTF32 on the tensor cores:
+//   * each f32 operand x is split into tf32 hi = rna(x) and lo = rna(x - hi);
+//     a product is hi.hi + hi.lo + lo.hi with f32 sums (the lo.lo term is
+//     below 2^-22 of it), so S = Q K^T and O = P V keep f32 accuracy; the
+//     row max, the exponentials and the running sums are f32 as in bf16.
+//   * tf32 wgmma (m64n64k8) reads only K-major operands: fine for K in
+//     S = Q K^T, but O = P V needs V^T with keys contiguous, and TMA cannot
+//     transpose.  So a block is three warpgroups: two consumers of 64 query
+//     rows (Q's hi and lo as register A fragments; P's hi and lo from S's
+//     accumulator) and a producer whose lane 0 of warp 8 loads K, V and the
+//     bias by TMA while warps 9-11 split K in place and write V^T's hi and lo
+//     with each group of 8 keys permuted (0 2 4 6 1 3 5 7), so that S's
+//     accumulator is P.V's A fragment without a shuffle.  setmaxnreg gives
+//     the consumers 232 registers, the producer 40.
+//   * f32 doubles every tile: a stage of 64 keys holds K, K lo, V, V^T hi,
+//     V^T lo (16 KB each) and the [128 queries][64 keys] bias (32 KB), 112
+//     KB, so the ring has two stages (224 KB of the 227 KB a block may use),
+//     one block an SM.  A stage is freed when P.V is waited for, at the end
+//     of its step, so the producer always has a whole step to fill the other.
+//     Rows of 32 f32 are 128 bytes: each tile is two swizzle columns, TMA
+//     boxes 32 wide.  Bias rows TMA cannot address (L % 4 != 0) are written
+//     by the split warps elementwise.
+//   * the block lists the key steps of its batch row that hold a kept key
+//     and walks only those (exact: a masked key weighs 0 once a row has a
+//     kept key; a row with none walks every step).
+//   What bounds it at B=8, L=1024 with phase 2's ragged masks: three times
+//   the products, 64.5 GFLOP on 495 TFLOP/s of dense tf32, 0.130 ms, over
+//   ~201 MB of q/k/v/out and bias (0.060 ms).  The split costs shared-memory
+//   bandwidth rather than tensor time: per step some 96 KB of split traffic
+//   beside the 192 KB that the wgmmas read, on the same 128 bytes a clock.
 // Their measured times, and the designs tried and dropped, stand in PERF.md.
+
+#include <cstdio>
 
 #include "gated_attention.cuh"
 
@@ -68,180 +99,406 @@ namespace {
 
 using namespace fddm;
 
-// Shared memory (floats): Qt [DH][PAD], Kt [DH][PAD], V [BK][DH],
-// BP [BQ][PAD] (bias tile, then reused for P^T [BK][PAD]), keep [BK].
-constexpr int F32_SMEM_FLOATS = DH * PAD + DH * PAD + BK * DH + BQ * PAD + BK;
-constexpr size_t F32_SMEM_BYTES = F32_SMEM_FLOATS * sizeof(float);
+// ------------------------------------------------------------------ float32
+//
+// 3xTF32 on wgmma.  Each f32 operand x is split into two tf32 values, hi =
+// rna(x) and lo = rna(x - hi), and each product is hi.hi + hi.lo + lo.hi in
+// f32 (the dropped lo.lo is below 2^-22 of it).  tf32 wgmma (m64nNk8) reads
+// only K-major operands, and TMA cannot transpose; so one warpgroup of the
+// block prepares every key step's operands in shared memory while the other
+// two run the products and the softmax.
 
-__global__ void __launch_bounds__(F32_THREADS, 2)
-gated_attention_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                           const float* __restrict__ v, const float* __restrict__ bias,
-                           const float* __restrict__ gate,
-                           const uint8_t* __restrict__ mask, float* __restrict__ out,
-                           float* __restrict__ lse, int L, int H, float scale) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* Qt = smem;                // [DH][PAD]   Qt[d][r]
-  float* Kt = Qt + DH * PAD;       // [DH][PAD]   Kt[d][c]
-  float* Vs = Kt + DH * PAD;       // [BK][DH]    Vs[c][d]
-  float* BP = Vs + BK * DH;        // [BQ][PAD]   bias[r][c], then P^T[c][r]
-  float* keep = BP + BQ * PAD;     // [BK]        1 keep, 0 masked, -1 beyond L
+constexpr int TF_BQ = 128;                 // queries per block: two warpgroups of 64 rows
+constexpr int TF_CONSUMER_WARPS = 8;       // warps 0-7; warps 8-11 are the producer's
+constexpr int TF_THREADS = (TF_CONSUMER_WARPS + 4) * 32;
+constexpr int TF_SPLIT_THREADS = 96;       // warps 9-11 split and transpose; warp 8 loads
+constexpr int TF_STAGES = 2;
+constexpr int TF_HALF = BK * 128;          // [64 rows][32 f32]: one 128-byte swizzle column
+constexpr int TF_TILE = 2 * TF_HALF;       // a [64][64] f32 tile as two 32-column halves
+constexpr int TF_BIAS_HALF = TF_BQ * 128;  // the bias [128 queries][32 keys]
+// A stage: K (TMA, then its hi in place), K lo, V as TMA lands it, V^T hi,
+// V^T lo, the bias [128 queries][64 keys] as two 32-key halves.
+constexpr int TF_K = 0, TF_KLO = TF_TILE, TF_V = 2 * TF_TILE, TF_VTHI = 3 * TF_TILE,
+              TF_VTLO = 4 * TF_TILE, TF_BIAS = 5 * TF_TILE;
+constexpr int TF_STAGE_BYTES = 5 * TF_TILE + 2 * TF_BIAS_HALF;  // 112 KB
+constexpr int TF_LIST_MAX = 640;  // key steps a block lists (L <= 40960); past that it walks all
+// setmaxnreg: __launch_bounds__(TF_THREADS, 1) gives each thread at most
+// 168 registers; the producer's warpgroup frees 128 x (168 - 40), which the
+// consumers' increase takes whole (an increase the pool cannot cover never
+// returns, so the launcher refuses a build of another register count).
+constexpr int TF_LAUNCH_REGS = 65536 / TF_THREADS / 8 * 8;
+constexpr int TF_PRODUCER_REGS = 40;
+constexpr int TF_CONSUMER_REGS = 232;
+static_assert(128 * TF_PRODUCER_REGS + TF_CONSUMER_WARPS * 32 * TF_CONSUMER_REGS ==
+                  TF_LAUNCH_REGS * TF_THREADS,
+              "the consumers take exactly what the producer frees");
+static_assert(TF_STAGE_BYTES % 1024 == 0, "stages keep the 1024-byte swizzle alignment");
 
-  const int b = blockIdx.x;        // batch fastest: bias tiles reused from L2
+// The ring, 3 x TF_STAGES mbarriers, the count (16 bytes), list (uint16) and
+// flags (a byte each) of the key steps walked, and slack to align the ring.
+inline size_t tf_smem_bytes(int listed_steps) {
+  return (size_t)TF_STAGES * TF_STAGE_BYTES + 3 * TF_STAGES * 8 + 16 +
+         (size_t)listed_steps * 3 + 1024;
+}
+
+// tf32 of x, rounded to nearest with ties away from zero (cvt.rna): the 13
+// low mantissa bits cleared.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+__device__ __forceinline__ void tf32_split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// d[64 x 64] (+)= a[64 x 8] (registers, tf32) . B[8 x 64] (descriptor, K-major
+// tf32).  The register A fragment of 16 rows x 8 columns: a0 (row g, col t),
+// a1 (row g + 8, col t), a2 (row g, col t + 4), a3 (row g + 8, col t + 4).
+__device__ __forceinline__ void wgmma_m64n64k8_tf32(float d[8][4], const uint32_t a[4],
+                                                    uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// Descriptor offset (16-byte units) of k-slice ks (8 columns, 32 bytes) of
+// a tile stored as two 32-column swizzle halves.
+__device__ __forceinline__ uint32_t tf_slice(int ks) {
+  return (uint32_t)(((ks >> 2) * TF_HALF + (ks & 3) * 32) >> 4);
+}
+
+// Byte offset of element (row r, column c < 32) in a 128-byte-swizzled
+// [rows][32 f32] half: the 16-byte chunk c / 4 of row r sits at chunk
+// (c / 4) ^ (r % 8).
+__device__ __forceinline__ int tf_sw(int r, int c) {
+  return r * 128 + ((((c >> 2) ^ r) & 7) << 4) + (c & 3) * 4;
+}
+
+// The producer's split warps prepare a landed stage: K's hi in place and its
+// lo beside it (an elementwise map, so the swizzled layout carries over);
+// V^T hi and lo from V, [64 dims][64 key positions] K-major, with the keys
+// of each group of 8 stored in the order 0 2 4 6 1 3 5 7, so that P.V's A
+// fragment is S's accumulator as it stands (a0..a3 = s0, s2, s1, s3: the
+// thread holds keys 2t and 2t + 1 of a group, which A reads as columns t and
+// t + 4); and, where TMA cannot address the bias rows (L % 4 != 0), the bias
+// by elements.  `tid` 0..95, `wl` the warp 0..2.
+__device__ __forceinline__ void tf_prepare(uint8_t* stage, int tid, int wl, int lane,
+                                           const float* bias_q, bool bias_tma, int L, int q0,
+                                           int k0) {
+  float4* kh = reinterpret_cast<float4*>(stage + TF_K);
+  uint4* kl = reinterpret_cast<uint4*>(stage + TF_KLO);
+  for (int c = tid; c < TF_TILE / 16; c += TF_SPLIT_THREADS) {
+    const float4 x = kh[c];
+    uint4 hi, lo;
+    tf32_split(x.x, hi.x, lo.x);
+    tf32_split(x.y, hi.y, lo.y);
+    tf32_split(x.z, hi.z, lo.z);
+    tf32_split(x.w, hi.w, lo.w);
+    reinterpret_cast<uint4*>(kh)[c] = hi;
+    kl[c] = lo;
+  }
+  // a warp takes a (32 keys, 4 dims) unit: conflict-free 16-byte reads along keys,
+  // and each dim's 32 keys one 128-byte row of V^T
+  for (int it = wl; it < 32; it += 3) {
+    const int r = (it & 1) * 32 + lane;  // key
+    const int cd = it >> 1;              // dims 4 cd .. 4 cd + 3
+    const float4 x = *reinterpret_cast<const float4*>(stage + TF_V + (cd >> 3) * TF_HALF +
+                                                      tf_sw(r, (cd & 7) * 4));
+    const int p = (r & ~7) | ((r >> 1) & 3) | ((r & 1) << 2);  // the key's position
+    const int base = (p >> 5) * TF_HALF;
+    const float xs[4] = {x.x, x.y, x.z, x.w};
+    #pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int off = base + tf_sw(4 * cd + e, p & 31);
+      uint32_t hi, lo;
+      tf32_split(xs[e], hi, lo);
+      *reinterpret_cast<uint32_t*>(stage + TF_VTHI + off) = hi;
+      *reinterpret_cast<uint32_t*>(stage + TF_VTLO + off) = lo;
+    }
+  }
+  if (!bias_tma) {
+    for (int i = tid; i < TF_BQ * BK; i += TF_SPLIT_THREADS) {
+      const int r = i >> 6, c = i & 63;
+      *reinterpret_cast<float*>(stage + TF_BIAS + (c >> 5) * TF_BIAS_HALF + tf_sw(r, c & 31)) =
+          (q0 + r < L && k0 + c < L) ? bias_q[(size_t)r * L + k0 + c] : 0.f;
+    }
+  }
+}
+
+// Scores of one 64-key step in the log2 domain, in place, as fwd_scores
+// below but with the f32 bias: bias_r0/r1 the thread's two bias rows in the
+// stage (row % 8 = g), each key half a [128][32] swizzled block.
+template <bool kFull>
+__device__ __forceinline__ void tf_scores(float s[8][4], const uint8_t* bias_r0,
+                                          const uint8_t* bias_r1, int g, int t, float sl2,
+                                          const float gl[2], uint64_t kept, int nvalid,
+                                          float rmax[2]) {
+  #pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    // key columns 8j + 2t, 8j + 2t + 1: chunk 2 (j % 4) + t / 2 of half j / 4
+    const int off = (j >> 2) * TF_BIAS_HALF + ((((j & 3) * 2 + (t >> 1)) ^ g) << 4) + (t & 1) * 8;
+    const float2 b0 = *reinterpret_cast<const float2*>(bias_r0 + off);
+    const float2 b1 = *reinterpret_cast<const float2*>(bias_r1 + off);
+    const float bv[4] = {b0.x, b0.y, b1.x, b1.y};
+    #pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float sv = fmaf(s[j][e], sl2, gl[e >> 1] * bv[e]);
+      if (!kFull) {
+        const bool keep = (kept >> (8 * j + (e & 1))) & 1;
+        sv = keep ? sv : (8 * j + 2 * t + (e & 1) < nvalid ? NEG : -INFINITY);
+      }
+      s[j][e] = sv;
+      rmax[e >> 1] = fmaxf(rmax[e >> 1], sv);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(TF_THREADS, 1)
+gated_attention_tf32x3_kernel(const __grid_constant__ CUtensorMap tm_k,
+                              const __grid_constant__ CUtensorMap tm_v,
+                              const __grid_constant__ CUtensorMap tm_bias,
+                              const float* __restrict__ q, const float* __restrict__ bias,
+                              const float* __restrict__ gate, const uint8_t* __restrict__ mask,
+                              float* __restrict__ out, float* __restrict__ lse, int L, int H,
+                              float scale, int bias_tma) {
+  extern __shared__ uint8_t tf_smem_raw[];
+  uint8_t* smem = tf_smem_raw + ((1024 - (smem_addr(tf_smem_raw) & 1023)) & 1023);
+  uint64_t* landed = reinterpret_cast<uint64_t*>(smem + TF_STAGES * TF_STAGE_BYTES);
+  uint64_t* ready = landed + TF_STAGES;  // landed: the TMA bytes; ready: split warps done
+  uint64_t* empty = ready + TF_STAGES;   // empty: the consumer warps are done with it
+  int* nlive_s = reinterpret_cast<int*>(empty + TF_STAGES);
+  uint16_t* live = reinterpret_cast<uint16_t*>(nlive_s + 4);  // the key steps walked, in order
+
+  const int b = blockIdx.x;  // batch fastest: bias tiles reused from L2
   const int h = blockIdx.y;
-  const int q0 = blockIdx.z * BQ;
-  const int tid = threadIdx.x;
-  const int rg = tid >> 4;         // rows 4rg..4rg+3 of the tile
-  const int cg = tid & 15;         // score cols / output dims 4cg..4cg+3
+  const int q0 = blockIdx.z * TF_BQ;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const size_t HD = (size_t)H * DH;
+  const uint8_t* mask_b = mask == nullptr ? nullptr : mask + (size_t)b * L;
+  const int nsteps = (L + BK - 1) / BK;
+  const bool listed = mask_b != nullptr && nsteps <= TF_LIST_MAX;
 
-  // Q tile -> Qt (zero rows beyond L; they are never stored)
-  for (int i = tid; i < BQ * DH; i += F32_THREADS) {
-    const int r = i / DH, d = i % DH;
-    const int qi = q0 + r;
-    Qt[d * PAD + r] = qi < L ? q[((size_t)b * L + qi) * HD + h * DH + d] : 0.f;
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < TF_STAGES; ++st) {
+      mbar_init(&landed[st], 1);                // the loader's arrive + the bytes
+      mbar_init(&ready[st], TF_SPLIT_THREADS);  // every split thread
+      mbar_init(&empty[st], TF_CONSUMER_WARPS);  // one arrive per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-
-  float gate_r[4];
-  #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + 4 * rg + i;
-    gate_r[i] = qi < L ? gate[((size_t)b * H + h) * L + qi] : 0.f;
+  if (listed) {
+    // The key steps of this batch row that hold a kept key.  A masked key
+    // weighs exactly 0 once the row has a kept key, so skipping the others
+    // is exact; a row with none walks every step.
+    list_live_tiles<TF_THREADS>(mask_b, L, nsteps, reinterpret_cast<uint8_t*>(live + nsteps),
+                                live, nlive_s);
   }
+  __syncthreads();
+  const int nlive = listed ? *nlive_s : 0;
+  const bool use_list = nlive > 0;
+  const int nvisit = use_list ? nlive : nsteps;
 
-  float m[4], l[4], acc[4][4];
-  #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG;
-    l[i] = 0.f;
-    #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  }
-
-  const float* bias_h = bias + (size_t)h * L * L;
-
-  for (int k0 = 0; k0 < L; k0 += BK) {
-    __syncthreads();  // previous step's readers of Kt/Vs/BP are done
-    for (int i = tid; i < BK * DH; i += F32_THREADS) {
-      const int c = i / DH, d = i % DH;
-      const int kj = k0 + c;
-      float kv = 0.f, vv = 0.f;
-      if (kj < L) {
-        const size_t off = ((size_t)b * L + kj) * HD + h * DH + d;
-        kv = k[off];
-        vv = v[off];
+  if (warp >= TF_CONSUMER_WARPS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(TF_PRODUCER_REGS));
+    if (warp == TF_CONSUMER_WARPS) {
+      // one lane loads: K and V [64 keys][64 dims] and the bias [128 queries]
+      // [64 keys] of a step, each as two 32-column halves (a 128-byte
+      // swizzled box is 32 f32 wide), a stage as soon as the consumers free it
+      if (lane == 0) {
+        for (int i = 0; i < nvisit; ++i) {
+          const int st = i % TF_STAGES;
+          if (i >= TF_STAGES) mbar_wait(&empty[st], (i / TF_STAGES - 1) & 1);
+          uint8_t* stage = smem + st * TF_STAGE_BYTES;
+          const int k0 = (use_list ? live[i] : i) * BK;
+          mbar_arrive_expect_tx(&landed[st], bias_tma ? 2 * TF_TILE + 2 * TF_BIAS_HALF
+                                                      : 2 * TF_TILE);
+          #pragma unroll
+          for (int a = 0; a < 2; ++a) {
+            tma_load_3d(stage + TF_K + a * TF_HALF, &tm_k, &landed[st], h * DH + 32 * a, k0, b);
+            tma_load_3d(stage + TF_V + a * TF_HALF, &tm_v, &landed[st], h * DH + 32 * a, k0, b);
+            if (bias_tma)
+              tma_load_3d(stage + TF_BIAS + a * TF_BIAS_HALF, &tm_bias, &landed[st],
+                          k0 + 32 * a, q0, h);
+          }
+        }
       }
-      Kt[d * PAD + c] = kv;
-      Vs[c * DH + d] = vv;
-    }
-    for (int i = tid; i < BQ * BK; i += F32_THREADS) {
-      const int r = i / BK, c = i % BK;
-      const int qi = q0 + r, kj = k0 + c;
-      BP[r * PAD + c] = (qi < L && kj < L) ? bias_h[(size_t)qi * L + kj] : 0.f;
-    }
-    if (tid < BK) {
-      const int kj = k0 + tid;
-      keep[tid] = kj >= L ? -1.f : (mask == nullptr || mask[(size_t)b * L + kj]) ? 1.f : 0.f;
-    }
-    __syncthreads();
-
-    // S = Q K^T on the thread's 4x4 micro-tile
-    float s[4][4];
-    #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < DH; ++d) {
-      const float4 qa = *reinterpret_cast<const float4*>(&Qt[d * PAD + 4 * rg]);
-      const float4 kb = *reinterpret_cast<const float4*>(&Kt[d * PAD + 4 * cg]);
-      const float qv[4] = {qa.x, qa.y, qa.z, qa.w};
-      const float kvv[4] = {kb.x, kb.y, kb.z, kb.w};
-      #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kvv[j], s[i][j]);
-    }
-
-    // scale + gated bias + mask; out-of-range keys are excluded outright
-    float rmax[4];
-    #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      rmax[i] = -INFINITY;
-      #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = 4 * cg + j;
-        const float kp = keep[c];
-        float sv = s[i][j] * scale + gate_r[i] * BP[(4 * rg + i) * PAD + c];
-        sv = kp > 0.f ? sv : (kp == 0.f ? NEG : -INFINITY);
-        s[i][j] = sv;
-        rmax[i] = fmaxf(rmax[i], sv);
+    } else {
+      const int wl = warp - TF_CONSUMER_WARPS - 1;
+      const int tid = wl * 32 + lane;
+      const float* bias_q = bias + ((size_t)h * L + q0) * L;
+      for (int i = 0; i < nvisit; ++i) {
+        const int st = i % TF_STAGES;
+        mbar_wait(&landed[st], (i / TF_STAGES) & 1);
+        tf_prepare(smem + st * TF_STAGE_BYTES, tid, wl, lane, bias_q, bias_tma, L, q0,
+                   (use_list ? live[i] : i) * BK);
+        // the generic stores above are read by wgmma (the async proxy)
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        mbar_arrive(&ready[st]);
       }
     }
-    // the 16 threads sharing a row group are one half-warp
-    #pragma unroll
-    for (int off = 8; off > 0; off >>= 1)
-      #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        rmax[i] = fmaxf(rmax[i], __shfl_xor_sync(0xffffffffu, rmax[i], off));
+    return;
+  }
 
-    float p[4][4], rsum[4], corr[4];
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(TF_CONSUMER_REGS));
+  const int g = lane >> 2, t = lane & 3;  // fragment row group / column
+  const int lr0 = warp * 16 + g, lr1 = lr0 + 8;  // the thread's two rows in the block
+  const int r0 = q0 + lr0, r1 = q0 + lr1;
+
+  // Q as tf32 hi and lo A fragments, 8 slices of 8 head dims, kept in registers
+  uint32_t qh[8][4], ql[8][4];
+  {
+    const float* q0p = q + ((size_t)b * L + r0) * HD + h * DH;
+    const float* q1p = q + ((size_t)b * L + r1) * HD + h * DH;
     #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float m_new = fmaxf(m[i], rmax[i]);
-      corr[i] = expf(m[i] - m_new);
-      rsum[i] = 0.f;
+    for (int ks = 0; ks < 8; ++ks) {
+      const int c = 8 * ks + t;
+      tf32_split(r0 < L ? q0p[c] : 0.f, qh[ks][0], ql[ks][0]);
+      tf32_split(r1 < L ? q1p[c] : 0.f, qh[ks][1], ql[ks][1]);
+      tf32_split(r0 < L ? q0p[c + 4] : 0.f, qh[ks][2], ql[ks][2]);
+      tf32_split(r1 < L ? q1p[c + 4] : 0.f, qh[ks][3], ql[ks][3]);
+    }
+  }
+  // log2 domain: exp(x) = 2^(x log2 e), so scale and gates carry log2 e
+  const float sl2 = scale * LOG2E;
+  const float gl[2] = {r0 < L ? gate[((size_t)b * H + h) * L + r0] * LOG2E : 0.f,
+                       r1 < L ? gate[((size_t)b * H + h) * L + r1] * LOG2E : 0.f};
+
+  float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};  // running max (log2 units) and sum
+  float o[8][4];   // O: 8 tiles of 8 head dims, accumulator layout
+  float pv[8][4];  // a step's P V, the same layout
+  float s[8][4];   // S, then P: 8 tiles of 8 keys
+  #pragma unroll
+  for (int n = 0; n < 8; ++n)
+    #pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = pv[n][e] = s[n][e] = 0.f;
+
+  for (int i = 0; i < nvisit; ++i) {
+    const int st = i % TF_STAGES;
+    const uint8_t* stage = smem + st * TF_STAGE_BYTES;
+    const int k0 = (use_list ? live[i] : i) * BK;
+    // keep flags of the step's 64 keys (read before the product, used after)
+    const bool keep_lo = k0 + lane < L && (mask_b == nullptr || mask_b[k0 + lane]);
+    const bool keep_hi = k0 + 32 + lane < L && (mask_b == nullptr || mask_b[k0 + 32 + lane]);
+
+    mbar_wait(&landed[st], (i / TF_STAGES) & 1);
+    mbar_wait(&ready[st], (i / TF_STAGES) & 1);
+    // S = Q K^T in 3xTF32; K [key][d] is K-major
+    const uint64_t dkh = sw128_desc(stage + TF_K, 16), dkl = sw128_desc(stage + TF_KLO, 16);
+    reg_fence(s);
+    wgmma_fence();
+    #pragma unroll
+    for (int ks = 0; ks < 8; ++ks) {
+      wgmma_m64n64k8_tf32(s, ql[ks], dkh + tf_slice(ks), ks > 0);
+      wgmma_m64n64k8_tf32(s, qh[ks], dkl + tf_slice(ks), 1);
+      wgmma_m64n64k8_tf32(s, qh[ks], dkh + tf_slice(ks), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(s);
+
+    const uint32_t lo = __ballot_sync(0xffffffffu, keep_lo);
+    const uint32_t hi = __ballot_sync(0xffffffffu, keep_hi);
+    float rmax[2] = {-INFINITY, -INFINITY};
+    const uint8_t* bias_r0 = stage + TF_BIAS + lr0 * 128;
+    const uint8_t* bias_r1 = stage + TF_BIAS + lr1 * 128;
+    if ((lo & hi) == 0xffffffffu) {  // every key kept (and so below L)
+      tf_scores<true>(s, bias_r0, bias_r1, g, t, sl2, gl, 0, BK, rmax);
+    } else {
+      const uint64_t kept = ((uint64_t)hi << 32 | lo) >> (2 * t);
+      tf_scores<false>(s, bias_r0, bias_r1, g, t, sl2, gl, kept, L - k0, rmax);
+    }
+    // the 4 threads of a row group hold one row between them
+    #pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      rmax[r] = fmaxf(rmax[r], __shfl_xor_sync(0xffffffffu, rmax[r], 1));
+      rmax[r] = fmaxf(rmax[r], __shfl_xor_sync(0xffffffffu, rmax[r], 2));
+    }
+    // m starts at NEG, not -inf, so the first correction 2^(NEG - m_new) is
+    // exactly 0 (or 1 while every key so far is masked) and never NaN
+    float m_new[2], corr[2], rsum[2] = {0.f, 0.f};
+    #pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      m_new[r] = fmaxf(m[r], rmax[r]);
+      corr[r] = ex2(m[r] - m_new[r]);
+      m[r] = m_new[r];
+    }
+    // P, and its hi and lo as P.V's A fragments (see tf_prepare for the order)
+    uint32_t ph[8][4], pl[8][4];
+    #pragma unroll
+    for (int j = 0; j < 8; ++j) {
       #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        p[i][j] = expf(s[i][j] - m_new);  // exp(-inf) = 0 beyond L
-        rsum[i] += p[i][j];
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = ex2(s[j][e] - m_new[e >> 1]);  // 2^-inf = 0 past L
+        rsum[e >> 1] += s[j][e];
       }
-      m[i] = m_new;
+      tf32_split(s[j][0], ph[j][0], pl[j][0]);
+      tf32_split(s[j][2], ph[j][1], pl[j][1]);
+      tf32_split(s[j][1], ph[j][2], pl[j][2]);
+      tf32_split(s[j][3], ph[j][3], pl[j][3]);
     }
     #pragma unroll
-    for (int off = 8; off > 0; off >>= 1)
-      #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        rsum[i] += __shfl_xor_sync(0xffffffffu, rsum[i], off);
-    #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      l[i] = l[i] * corr[i] + rsum[i];
-      #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] *= corr[i];
+    for (int r = 0; r < 2; ++r) {
+      rsum[r] += __shfl_xor_sync(0xffffffffu, rsum[r], 1);
+      rsum[r] += __shfl_xor_sync(0xffffffffu, rsum[r], 2);
+      l[r] = l[r] * corr[r] + rsum[r];
     }
 
-    __syncthreads();  // every thread has read its bias values
+    // P V of this step in 3xTF32 (V^T [d][key position] is K-major), in an
+    // accumulator of its own: the tensor cores' f32 sums truncate, so a sum
+    // carried over every step would lose more the longer L (5e-5 at L =
+    // 4224 on an H100); O takes each step's sum by a rounded f32 FMA.
+    const uint64_t dvh = sw128_desc(stage + TF_VTHI, 16), dvl = sw128_desc(stage + TF_VTLO, 16);
+    reg_fence(pv);
+    wgmma_fence();
     #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      #pragma unroll
-      for (int j = 0; j < 4; ++j)  // P stored transposed
-        BP[(4 * cg + j) * PAD + 4 * rg + i] = p[i][j];
-    __syncthreads();
-
-    // acc += P V
-#pragma unroll 8
-    for (int c = 0; c < BK; ++c) {
-      const float4 pa = *reinterpret_cast<const float4*>(&BP[c * PAD + 4 * rg]);
-      const float4 vb = *reinterpret_cast<const float4*>(&Vs[c * DH + 4 * cg]);
-      const float pv[4] = {pa.x, pa.y, pa.z, pa.w};
-      const float vvv[4] = {vb.x, vb.y, vb.z, vb.w};
-      #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(pv[i], vvv[j], acc[i][j]);
+    for (int j = 0; j < 8; ++j) {
+      wgmma_m64n64k8_tf32(pv, pl[j], dvh + tf_slice(j), j > 0);
+      wgmma_m64n64k8_tf32(pv, ph[j], dvl + tf_slice(j), 1);
+      wgmma_m64n64k8_tf32(pv, ph[j], dvh + tf_slice(j), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(pv);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);  // this warp is done with the stage
+    #pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      o[n][0] = fmaf(o[n][0], corr[0], pv[n][0]);
+      o[n][1] = fmaf(o[n][1], corr[0], pv[n][1]);
+      o[n][2] = fmaf(o[n][2], corr[1], pv[n][2]);
+      o[n][3] = fmaf(o[n][3], corr[1], pv[n][3]);
     }
   }
 
+  const float inv0 = 1.f / fmaxf(l[0], 1e-30f);
+  const float inv1 = 1.f / fmaxf(l[1], 1e-30f);
+  if (lse != nullptr && t == 0) {  // the 4 threads of a row group hold the same m, l
+    // natural-log units; exactly NEG at a row whose keys are all masked
+    float* lse_bh = lse + ((size_t)b * H + h) * L;
+    if (r0 < L) lse_bh[r0] = m[0] == NEG ? NEG : fmaf(m[0], LN2, logf(fmaxf(l[0], 1e-30f)));
+    if (r1 < L) lse_bh[r1] = m[1] == NEG ? NEG : fmaf(m[1], LN2, logf(fmaxf(l[1], 1e-30f)));
+  }
   #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + 4 * rg + i;
-    if (qi >= L) continue;
-    const float inv = 1.f / fmaxf(l[i], 1e-30f);
-    float* o = out + ((size_t)b * L + qi) * HD + h * DH + 4 * cg;
-    #pragma unroll
-    for (int j = 0; j < 4; ++j) o[j] = acc[i][j] * inv;
-    if (lse != nullptr && cg == 0)  // the 16 threads of a row group hold the same m, l
-      lse[((size_t)b * H + h) * L + qi] = m[i] + logf(fmaxf(l[i], 1e-30f));
+  for (int n = 0; n < 8; ++n) {
+    const int c = h * DH + n * 8 + 2 * t;
+    if (r0 < L)
+      *reinterpret_cast<float2*>(out + ((size_t)b * L + r0) * HD + c) =
+          make_float2(o[n][0] * inv0, o[n][1] * inv0);
+    if (r1 < L)
+      *reinterpret_cast<float2*>(out + ((size_t)b * L + r1) * HD + c) =
+          make_float2(o[n][2] * inv1, o[n][3] * inv1);
   }
 }
 
@@ -502,19 +759,44 @@ int fddm_gated_attention(const void* q, const void* k, const void* v,
   if (B <= 0 || L <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
   if ((L + BQ - 1) / BQ > 65535 || H > 65535) return (int)cudaErrorInvalidConfiguration;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(B, H, (L + BQ - 1) / BQ);
   const float scale = 0.125f;  // 1 / sqrt(64)
   const uint8_t* m = static_cast<const uint8_t*>(mask);
   if (dtype == 0) {
-    cudaError_t err = cudaFuncSetAttribute(gated_attention_f32_kernel,
+    // K and V as [B][L][H*64] f32, the bias as [H][L][L], in 32-column
+    // boxes; the bias only when its rows are 16-byte aligned (L % 4 == 0)
+    CUtensorMap tm_k, tm_v, tm_bias = {};
+    const uint64_t HD = (uint64_t)H * DH;
+    const bool bias_tma = (L & 3) == 0;
+    const CUtensorMapDataType f32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+    if (!encode_3d(&tm_k, k, HD, L, B, HD * 4, 32, BK, f32) ||
+        !encode_3d(&tm_v, v, HD, L, B, HD * 4, 32, BK, f32) ||
+        (bias_tma && !encode_3d(&tm_bias, bias, L, L, H, (uint64_t)L * 4, 32, TF_BQ, f32)))
+      return (int)cudaErrorInvalidValue;
+    static bool checked = false;  // the register count, once a process
+    if (!checked) {
+      cudaFuncAttributes attr;
+      cudaError_t err = cudaFuncGetAttributes(&attr, gated_attention_tf32x3_kernel);
+      if (err != cudaSuccess) return (int)err;
+      if (attr.numRegs != TF_LAUNCH_REGS) {
+        fprintf(stderr,
+                "gated_attention_tf32x3_kernel was built with %d registers a thread; its "
+                "setmaxnreg budgets (%d / %d) need %d\n",
+                attr.numRegs, TF_PRODUCER_REGS, TF_CONSUMER_REGS, TF_LAUNCH_REGS);
+        return (int)cudaErrorLaunchOutOfResources;
+      }
+      checked = true;
+    }
+    const int nsteps = (L + BK - 1) / BK;
+    const size_t smem = tf_smem_bytes(m != nullptr && nsteps <= TF_LIST_MAX ? nsteps : 0);
+    cudaError_t err = cudaFuncSetAttribute(gated_attention_tf32x3_kernel,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)F32_SMEM_BYTES);
+                                           (int)smem);
     if (err != cudaSuccess) return (int)err;
-    gated_attention_f32_kernel<<<grid, F32_THREADS, F32_SMEM_BYTES, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(bias),
-        static_cast<const float*>(gate), m, static_cast<float*>(out),
-        static_cast<float*>(lse), L, H, scale);
+    const dim3 tf_grid(B, H, (L + TF_BQ - 1) / TF_BQ);
+    gated_attention_tf32x3_kernel<<<tf_grid, TF_THREADS, smem, s>>>(
+        tm_k, tm_v, tm_bias, static_cast<const float*>(q), static_cast<const float*>(bias),
+        static_cast<const float*>(gate), m, static_cast<float*>(out), static_cast<float*>(lse),
+        L, H, scale, bias_tma);
   } else if (dtype == 1) {
     // K and V as [B][L][H*64], the bias as [H][L][L]; the bias only when its
     // rows are 16-byte aligned (the kernel loads it elementwise otherwise)

@@ -1,6 +1,7 @@
 // Shared pieces of the gated-attention kernels (gated_attention.cu, the
 // forward; gated_attention_bwd.cu, the backward): tile sizes, the masked-key
-// score, the float32 tile loads, the bf16 tensor-core helpers (A fragments,
+// score, the float32 tile loads, the list of a batch row's key tiles that
+// hold a kept key, the bf16 tensor-core helpers (A fragments,
 // wgmma), the 128-byte swizzled tile layout, mbarriers, TMA and its tensor
 // maps.  The fused int8 matmul (int8_matmul_fused.cu) and the fused conv
 // (conv_ln_gelu.cu) take the Hopper part: mbarriers, TMA, the swizzled
@@ -79,6 +80,40 @@ __device__ __forceinline__ void load_tile_f32(float* dst, const float* __restric
 // keep flag of key kj of batch row b: 1 kept, 0 masked, -1 beyond L
 __device__ __forceinline__ float keep_flag(const uint8_t* mask, int b, int kj, int L) {
   return kj >= L ? -1.f : (mask == nullptr || mask[(size_t)b * L + kj]) ? 1.f : 0.f;
+}
+
+// The key tiles (64 keys) of a batch row that hold a kept key: a flag byte
+// a tile in any_kept[nsteps], then the tiles in order in live[0..n) and n in
+// *nlive (warp 0 writes those).  Every one of the block's kThreads threads
+// calls it, 16 threads a tile; read the list after a __syncthreads().
+template <int kThreads>
+__device__ __forceinline__ void list_live_tiles(const uint8_t* mask_b, int L, int nsteps,
+                                                uint8_t* any_kept, uint16_t* live,
+                                                int* nlive) {
+  const int lane = threadIdx.x & 31;
+  for (int base = 0; base < nsteps * 16; base += kThreads) {
+    const int i = base + threadIdx.x;
+    const int c0 = (i >> 4) * BK + (i & 15) * 4;
+    bool any = false;
+    if (i < nsteps * 16) {
+      #pragma unroll
+      for (int e = 0; e < 4; ++e) any |= c0 + e < L && mask_b[c0 + e] != 0;
+    }
+    const uint32_t vote = __ballot_sync(0xffffffffu, any);
+    if ((lane & 15) == 0 && i < nsteps * 16)
+      any_kept[i >> 4] = ((vote >> (lane & 16)) & 0xffffu) != 0;
+  }
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    int n = 0;
+    for (int base = 0; base < nsteps; base += 32) {
+      const bool kept = base + lane < nsteps && any_kept[base + lane];
+      const uint32_t vote = __ballot_sync(0xffffffffu, kept);
+      if (kept) live[n + __popc(vote & ((1u << lane) - 1))] = (uint16_t)(base + lane);
+      n += __popc(vote);
+    }
+    if (lane == 0) *nlive = n;
+  }
 }
 
 // ------------------------------------------------------------------ Hopper
@@ -320,17 +355,19 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A tensor map over a bf16 [d2][d1][d0] tensor (d0 contiguous, rows of
-// row_bytes) in boxes of box0 x box1 x 1, 128-byte swizzled, zero outside.
+// A tensor map over a bf16 (or `type`) [d2][d1][d0] tensor (d0 contiguous,
+// rows of row_bytes) in boxes of box0 x box1 x 1, 128-byte swizzled (box0
+// elements at most 128 bytes), zero outside.
 inline bool encode_3d(CUtensorMap* map, const void* base, uint64_t d0, uint64_t d1, uint64_t d2,
-               uint64_t row_bytes, uint32_t box0, uint32_t box1) {
+               uint64_t row_bytes, uint32_t box0, uint32_t box1,
+               CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[3] = {d0, d1, d2};
   const cuuint64_t strides[2] = {row_bytes, row_bytes * d1};
   const cuuint32_t box[3] = {box0, box1, 1};
   const cuuint32_t unit[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
+  return fn(map, type, 3, const_cast<void*>(base), dims, strides,
             box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
          CUDA_SUCCESS;

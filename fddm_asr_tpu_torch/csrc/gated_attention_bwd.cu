@@ -590,31 +590,9 @@ bwd_dq_bf16_kernel(const __grid_constant__ DqMaps tm, const bf16* __restrict__ q
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   if (mask_b != nullptr) {
-    // the key tiles of this batch row that hold a kept key, 16 threads a
-    // tile: the others are skipped, which is exact (dS = 0 on all their keys)
-    for (int base = 0; base < nsteps * 16; base += DQ_THREADS) {
-      const int i = base + threadIdx.x;
-      const int c0 = (i >> 4) * BK + (i & 15) * 4;
-      bool any = false;
-      if (i < nsteps * 16) {
-        #pragma unroll
-        for (int e = 0; e < 4; ++e) any |= c0 + e < L && mask_b[c0 + e] != 0;
-      }
-      const uint32_t vote = __ballot_sync(0xffffffffu, any);
-      if ((lane & 15) == 0 && i < nsteps * 16)
-        any_kept[i >> 4] = ((vote >> (lane & 16)) & 0xffffu) != 0;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      int n = 0;
-      for (int base = 0; base < nsteps; base += 32) {
-        const bool kept = base + lane < nsteps && any_kept[base + lane];
-        const uint32_t vote = __ballot_sync(0xffffffffu, kept);
-        if (kept) live[n + __popc(vote & ((1u << lane) - 1))] = (uint16_t)(base + lane);
-        n += __popc(vote);
-      }
-      if (lane == 0) *nlive_s = n;
-    }
+    // the key tiles of this batch row that hold a kept key: the others are
+    // skipped, which is exact (dS = 0 on all their keys)
+    list_live_tiles<DQ_THREADS>(mask_b, L, nsteps, any_kept, live, nlive_s);
   }
   __syncthreads();
   const int nlive = mask_b == nullptr ? nsteps : *nlive_s;

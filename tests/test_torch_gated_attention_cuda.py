@@ -27,7 +27,7 @@ def cuda_device():
                          ids=["f32", "bf16"])
 def test_kernel_matches_plain_on_card(cuda_device, L, dtype, atol):
     """Ragged masks plus one all-masked row, on both sides of the TPU
-    kernels' 4096 split, at the edges of the bf16 kernel's 128-query blocks
+    kernels' 4096 split, at the edges of both kernels' 128-query blocks
     and 64-key steps (65, 128, 129, 1000), and at an L that is no multiple
     of 8 (tails of every tile, bias rows not 16-byte aligned); the
     tolerances are those of unit-scale inputs."""
@@ -53,6 +53,20 @@ def test_kernel_matches_plain_on_card(cuda_device, L, dtype, atol):
     torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=0)
 
 
+def _inputs(device, B, L, H, dtype, seed, valid):
+    """Unit-scale operands, gates in [1, 2), row b keeping its first valid[b] keys."""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, device=device, generator=g).to(dtype)
+
+    q, k, v = randn(B, L, H * 64), randn(B, L, H * 64), randn(B, L, H * 64)
+    bias = randn(H, L, L)
+    gate = torch.rand(B, H, L, device=device, generator=g) + 1.0
+    mask = torch.arange(L, device=device)[None, :] < torch.tensor(valid, device=device)[:, None]
+    return q, k, v, bias, gate, mask
+
+
 # (L, each row's valid keys) of the model paths' long and mixed shapes: a
 # 100 s recording transcribed whole (4999 frames padded to 5120, the CLI's
 # longest single-file shape, past the TPU kernels' 4096 split); a served
@@ -75,21 +89,65 @@ def test_kernel_matches_plain_at_path_shapes(cuda_device, case, dtype, atol):
     tolerances as above."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    g = torch.Generator(device=cuda_device).manual_seed(1)
     L, valid = PATH_SHAPES[case]
-    B, H = len(valid), 16
-
-    def randn(*shape):
-        return torch.randn(*shape, device=cuda_device, generator=g).to(dtype)
-
-    q, k, v = randn(B, L, H * 64), randn(B, L, H * 64), randn(B, L, H * 64)
-    bias = randn(H, L, L)
-    gate = torch.rand(B, H, L, device=cuda_device, generator=g) + 1.0
-    mask = (torch.arange(L, device=cuda_device)[None, :]
-            < torch.tensor(valid, device=cuda_device)[:, None])
+    H = 16
+    q, k, v, bias, gate, mask = _inputs(cuda_device, len(valid), L, H, dtype, 1, valid)
     out = FA.wavlm_gated_attention_heads_packed(q, k, v, bias, gate, mask, num_heads=H)
     ref = FA.wavlm_gated_attention_plain(q, k, v, bias, gate, mask, num_heads=H)
     torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [63, 64, 65, 127, 128, 129])
+def test_f32_kernel_at_its_tile_edges(cuda_device, L):
+    """The float32 kernel (3xTF32) at the edges of its 128-query blocks and
+    64-key steps, each +-1 (odd L: bias rows TMA cannot address), three rows
+    (every key kept, a ragged one, none kept) through the lse launch: out
+    within 1e-4 of the plain version, lse within 1e-3 and exactly f32-min at
+    the all-masked row, and the inference launch's output equal to it bit
+    for bit."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    H = 16
+    q, k, v, bias, gate, mask = _inputs(cuda_device, 3, L, H, torch.float32, L,
+                                        [L, L // 2 + 1, 0])
+    out, lse = FA.wavlm_gated_attention_fwd_lse_cuda(q, k, v, bias, gate, mask, num_heads=H)
+    same = FA.wavlm_gated_attention_cuda(q, k, v, bias, gate, mask, num_heads=H)
+    torch.cuda.synchronize()
+    ref, ref_lse = FA.wavlm_gated_attention_fwd_lse_plain(q, k, v, bias, gate, mask, num_heads=H)
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=0)
+    assert bool((lse[2] == torch.finfo(torch.float32).min).all())
+    assert torch.equal(same, out)
+
+
+@pytest.mark.cuda
+def test_f32_kernel_two_long_rows_past_4096(cuda_device):
+    """B = 2 past the TPU kernels' 4096 split, both rows with kept keys (one
+    ragged inside a 64-key step), float32 within 1e-4 of the plain version."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    L, H = 4224, 16
+    q, k, v, bias, gate, mask = _inputs(cuda_device, 2, L, H, torch.float32, 2, [L, 4100])
+    out = FA.wavlm_gated_attention_heads_packed(q, k, v, bias, gate, mask, num_heads=H)
+    ref = FA.wavlm_gated_attention_plain(q, k, v, bias, gate, mask, num_heads=H)
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [203, 1024])
+def test_f32_kernel_all_masked_row_lse_is_f32_min(cuda_device, L):
+    """A row whose keys are all masked, beside a full row: its output is the
+    mean of v over the L real keys (as the plain version) and its lse
+    exactly f32-min, which the backward relies on."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    H = 16
+    q, k, v, bias, gate, mask = _inputs(cuda_device, 2, L, H, torch.float32, 3, [0, L])
+    out, lse = FA.wavlm_gated_attention_fwd_lse_cuda(q, k, v, bias, gate, mask, num_heads=H)
+    torch.cuda.synchronize()
+    assert bool((lse[0] == torch.finfo(torch.float32).min).all())
+    mean_v = v[0].view(L, H, 64).mean(0).reshape(1, H * 64).expand(L, -1)
+    torch.testing.assert_close(out[0], mean_v, atol=1e-4, rtol=0)
+    ref = FA.wavlm_gated_attention_plain(q, k, v, bias, gate, mask, num_heads=H)
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
 
 
 @pytest.mark.cuda
