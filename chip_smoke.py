@@ -16,8 +16,9 @@ Phases, each fatal on failure:
 
   1. the card's name and power limit (nvidia-smi); build every kernel
      from `fddm_asr_tpu_torch/csrc/` with nvcc (one process per source, in
-     parallel), timed; the float32 forward's SASS (`cuobjdump -sass`) must
-     hold tf32 HGMMA (it runs 3xTF32 on the tensor cores);
+     parallel), timed; the SASS (`cuobjdump -sass`) of the float32 forward
+     and of float32 B5's two kernels must hold tf32 HGMMA and no other (they
+     run 3xTF32 on the tensor cores);
   2. kernel vs plain version at B=8, H=16, dh=64 on both sides of the TPU
      kernels' 4096-frame split (L=1024, 4224), float32 and bfloat16, with
      ragged key masks and one all-masked row, and at phase 15 (c)'s
@@ -59,9 +60,9 @@ Phases, each fatal on failure:
      dh=64, L=1024 with 999 valid keys in every row, bfloat16), then at
      B=8, L=1024, 384, 203, float32 and bfloat16, ragged key masks and one
      all-masked row, then untimed at the edges of B4's and B5's tiles (L =
-     65, 127, 128, 129, 203, 1000, 1024; B=1 and B=3, bfloat16); B4 and B5
-     are each called twice each time and their outputs must agree bit for
-     bit; at L=1024 each kernel's time beside the plain version's, a
+     65, 127, 128, 129, 203, 1000, 1024; B=1 and B=3, bfloat16 and
+     float32); B4 and B5 are each called twice each time and their
+     outputs must agree bit for bit; at L=1024 each kernel's time beside the plain version's, a
      library yardstick (one `scaled_dot_product_attention` call, and
      autograd of it for the backward pair; the port calls neither) and the
      bound; the kernels line takes the B=32 numbers;
@@ -231,14 +232,17 @@ Prints the kernels' JSON line, then the card line, then as the last line
     python3 chip_smoke.py --b7-times DIR
     python3 chip_smoke.py --b8-times DIR
     python3 chip_smoke.py --b1-f32-times DIR
+    python3 chip_smoke.py --b5-f32-times DIR
 
 time only the fused int8 kernel (at phase 8's bfloat16 shapes: CUDA events
 over back-to-back calls, device time per launch, host time a call), only
 the fused conv layer (its kernel and the layer's weight handling, at phase
 9's six bfloat16 layer shapes: CUDA events, device time, host time a call),
-or only the float32 gated-attention forward (at phase 2's float32 shapes
-and a transcribe's: CUDA events), of the port checked out at DIR, to
-compare two trees on one card; they print no result line.
+only the float32 gated-attention forward (at phase 2's float32 shapes and a
+transcribe's: CUDA events), or only float32 B5 (at phase 5's float32 shape,
+the fine-tune's and B=3, L=203: CUDA events, each kernel's device time), of
+the port checked out at DIR, to compare two trees on one card; they print
+no result line.
 """
 from __future__ import annotations
 
@@ -248,6 +252,7 @@ import io
 import json
 import logging
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -274,8 +279,9 @@ LSE_TOL = 1e-3             # the row logsumexp, f32 in both
 # address (L % 4 != 0 in f32, L % 8 != 0 in bf16: 63, 65, 127, 129, 203),
 # and a ragged last step (1000)
 EDGE_LENGTHS = (63, 64, 65, 127, 128, 129, 203, 1000)
-# phase 5's: the edges of B4's and B5's 128-query, 128-key and 64-row tiles,
-# and bias rows that are not 16-byte aligned (127, 129, 203)
+# phase 5's: the edges of B4's and B5's 128-query, 128-key and 64-row tiles
+# (float32 B5: 64-key and 64-query blocks, 32-query steps), and bias rows
+# that are not 16-byte aligned (127, 129, 203; in float32 65 too)
 B4_B5_EDGE_LENGTHS = (65, 127, 128, 129, 203, 1000, 1024)
 SMALL_STEP_REL_TOL = 1e-4  # f32 fine-tune step, card vs CPU, of the largest gradient
 FINETUNE_B, FINETUNE_SECONDS, FINETUNE_TOKENS = 32, 20.0, 128
@@ -395,6 +401,30 @@ def attention_bound_ms(q, bias, gate, mask, H, tf32x3: bool = False) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = (3 * ops / TF32_PEAK_FLOPS if tf32x3 else ops / PEAK_FLOPS[q.dtype]) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def device_ms_by_kernel(fn, reps: int, name: str) -> dict:
+    """Device time a call of `fn` by torch.profiler, of each kernel whose
+    name holds `name`, keyed by the kernel's own name (as `device_ms`, a
+    window with no such event is profiled again, three at most; {} if none)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.key_averages():
+            total = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+            if name in e.key and total > 0:
+                short = re.search(r"\w*" + name + r"\w*", e.key).group(0)
+                out[short] = out.get(short, 0.0) + total / reps / 1e3
+        if out:
+            return out
+    return {}
 
 
 def main_device_kernel(fn) -> str:
@@ -976,7 +1006,9 @@ def training_bounds(q, bias, gate, mask, H) -> dict:
     the data needs (per (query, kept key) pair and head: B3 4*64 for q.k
     and p.v, B4 6*64 for q.k, dO.v and dS.k, B5 8*64 for q.k, dO.v, P^T.dO
     and dS^T.q; a row whose keys are all masked needs no product but B5's
-    column sum of dO) at the dense peak of q's type; the larger of the two."""
+    column sum of dO) at the dense peak of q's type; the larger of the two.
+    In float32 each kernel also gets `bound_tc_ms` / `bound_tc_by`: the
+    products three times over at the dense tf32 peak, as 3xTF32 runs them."""
     B, L, HD = q.shape
     es = q.element_size()
     act = B * L * HD * es                       # one of q, k, v, dO, out, dq, dk, dv
@@ -993,7 +1025,12 @@ def training_bounds(q, bias, gate, mask, H) -> dict:
     for key, (nbytes, ops) in work.items():
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / PEAK_FLOPS[q.dtype] * 1e3
-        out[key] = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+        out[key] = {"bound_ms": max(t_bytes, t_ops),
+                    "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        if q.dtype == torch.float32:
+            t_tc = 3 * ops / TF32_PEAK_FLOPS * 1e3
+            out[key].update(bound_tc_ms=max(t_bytes, t_tc),
+                            bound_tc_by="bytes" if t_bytes >= t_tc else "operations")
     return out
 
 
@@ -1087,8 +1124,8 @@ def training_kernels_vs_plain(FA, L: int, dtype, gen, timed: bool, B: int = 8,
             bwd_lib_ms = None
         row["bwd_dq"]["library_ms"] = row["bwd_dkv"]["library_ms"] = bwd_lib_ms
         del float_mask, heads, lib_leaves
-        for key, (bound, by) in training_bounds(q, bias, gate, mask, H).items():
-            row[key]["bound_ms"], row[key]["bound_by"] = bound, by
+        for key, bounds in training_bounds(q, bias, gate, mask, H).items():
+            row[key].update(bounds)
     print(json.dumps({"training_kernels_vs_plain": row}), flush=True)
     if failures:
         fail(f"training kernels disagree at B={B} L={L} {dtype}: {failures}")
@@ -3277,6 +3314,42 @@ def b1_f32_times(root: str) -> int:
     return 0
 
 
+def b5_f32_times(root: str) -> int:
+    """`--b5-f32-times ROOT`: float32 B5 (dk, dv, dbias) of the port in the
+    checkout at ROOT (this one or another, to compare two trees on one
+    card), timed alone at phase 5's float32 shape (B=8, L=1024, ragged
+    masks), the fine-tune's (B=32, L=1024, 999 valid keys in every row) and
+    B=3, L=203 (ragged), on lse from the tree's own B3 and the plain delta;
+    inputs from a seeded generator, the same in every tree: CUDA events over
+    back-to-back calls (five runs, each and their median) and each kernel's
+    device time a call (torch.profiler), one JSON line a shape, then the
+    card line."""
+    sys.path.insert(0, os.path.abspath(root))
+    from fddm_asr_tpu_torch.ops import _build
+    from fddm_asr_tpu_torch.ops import flash_attention as FA
+
+    _build.build_libraries()
+    H = 16
+    for B, L, valid in ((8, 1024, None), (FINETUNE_B, 1024, 999), (3, 203, None)):
+        gen = torch.Generator(device="cuda").manual_seed(L + B)
+        q, k, v, bias, gate, mask = attention_inputs(B, L, H, torch.float32, gen, valid=valid)
+        dout = torch.randn(B, L, H * 64, device="cuda", generator=gen)
+        out, lse = FA.wavlm_gated_attention_fwd_lse_cuda(q, k, v, bias, gate, mask, H)
+        delta = (dout * out).view(B, L, H, 64).sum(-1).transpose(1, 2).contiguous()
+        call = lambda: FA.wavlm_gated_attention_bwd_dkv_cuda(  # noqa: E731
+            q, k, v, bias, gate, mask, lse, delta, dout, H)
+        reps = 20 if B * L <= 8 * 1024 else 5
+        runs = [time_ms(call, reps) for _ in range(5)]
+        print(json.dumps({"b5_f32_times": {"root": root, "B": B, "L": L, "valid": valid,
+                                           "ms": statistics.median(runs), "ms_runs": runs,
+                                           "device_ms_by_kernel": device_ms_by_kernel(
+                                               call, reps, "bwd_d")}}), flush=True)
+        del q, k, v, bias, gate, mask, dout, out, lse, delta
+        torch.cuda.empty_cache()
+    print(card_line())
+    return 0
+
+
 def sass_hgmma(lib: str, kernel: str) -> dict:
     """The HGMMA instructions of `kernel` in the library's SASS
     (`cuobjdump -sass`): their count, how many name TF32, one example."""
@@ -3301,6 +3374,8 @@ def main() -> int:
         return b8_times(sys.argv[2])
     if len(sys.argv) == 3 and sys.argv[1] == "--b1-f32-times":
         return b1_f32_times(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == "--b5-f32-times":
+        return b5_f32_times(sys.argv[2])
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from fddm_asr_tpu_torch.ops import _build
     from fddm_asr_tpu_torch.ops import conv_frontend as CF
@@ -3319,6 +3394,14 @@ def main() -> int:
     print(json.dumps({"sass_f32_forward": sass}), flush=True)
     if not (sass["functions"] == 1 and sass["hgmma"] > 0 and sass["hgmma_tf32"] == sass["hgmma"]):
         fail(f"the float32 forward's SASS holds no tf32 HGMMA: {sass}")
+    # so is float32 B5, as two kernels: (a) dk/dv, (b) dbias
+    sass_b5 = [sass_hgmma(libs["gated_attention_bwd"], kernel)
+               for kernel in ("bwd_dkv_tf32x3_kernel", "bwd_dbias_tf32x3_kernel")]
+    print(json.dumps({"sass_f32_b5": sass_b5}), flush=True)
+    for sass in sass_b5:
+        if not (sass["functions"] == 1 and sass["hgmma"] > 0
+                and sass["hgmma_tf32"] == sass["hgmma"]):
+            fail(f"float32 B5's SASS holds no tf32 HGMMA only: {sass}")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3362,8 +3445,9 @@ def main() -> int:
             if L == 1024 and dtype == torch.float32:
                 f32_train_rows = row
     for L in B4_B5_EDGE_LENGTHS:  # untimed: B4's and B5's tile edges, one batch row and three
-        training_kernels_vs_plain(FA, L, torch.bfloat16, gen, timed=False, B=1, valid=L - 3)
-        training_kernels_vs_plain(FA, L, torch.bfloat16, gen, timed=False, B=3)
+        for dtype in (torch.bfloat16, torch.float32):
+            training_kernels_vs_plain(FA, L, dtype, gen, timed=False, B=1, valid=L - 3)
+            training_kernels_vs_plain(FA, L, dtype, gen, timed=False, B=3)
     with tempfile.TemporaryDirectory() as tmp:
         small_finetune_step_matches_cpu(FA, tmp)
     with tempfile.TemporaryDirectory() as tmp:
@@ -3483,7 +3567,8 @@ def main() -> int:
                                  "train_loop": trained["b"]["launches"][key]},
             # phase 5's float32 row at B=8, L=1024, ragged masks
             "float32_L1024": {k: f32_train_rows[key].get(k) for k in (
-                "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+                "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                "bound_tc_ms", "bound_tc_by")},
             **({"plain_and_library_cover": "B4+B5"} if key != "fwd_lse" else {}),
         })
     bhld = bhld_rows[torch.bfloat16]

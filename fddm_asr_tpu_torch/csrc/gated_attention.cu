@@ -91,8 +91,6 @@
 //   beside the 192 KB that the wgmmas read, on the same 128 bytes a clock.
 // Their measured times, and the designs tried and dropped, stand in PERF.md.
 
-#include <cstdio>
-
 #include "gated_attention.cuh"
 
 namespace {
@@ -101,20 +99,13 @@ using namespace fddm;
 
 // ------------------------------------------------------------------ float32
 //
-// 3xTF32 on wgmma.  Each f32 operand x is split into two tf32 values, hi =
-// rna(x) and lo = rna(x - hi), and each product is hi.hi + hi.lo + lo.hi in
-// f32 (the dropped lo.lo is below 2^-22 of it).  tf32 wgmma (m64nNk8) reads
-// only K-major operands, and TMA cannot transpose; so one warpgroup of the
-// block prepares every key step's operands in shared memory while the other
-// two run the products and the softmax.
+// 3xTF32 on wgmma (the split, the warpgroup roles and setmaxnreg: see
+// gated_attention.cuh).  One warpgroup of the block prepares every key
+// step's operands in shared memory while the other two run the products and
+// the softmax.
 
 constexpr int TF_BQ = 128;                 // queries per block: two warpgroups of 64 rows
-constexpr int TF_CONSUMER_WARPS = 8;       // warps 0-7; warps 8-11 are the producer's
-constexpr int TF_THREADS = (TF_CONSUMER_WARPS + 4) * 32;
-constexpr int TF_SPLIT_THREADS = 96;       // warps 9-11 split and transpose; warp 8 loads
 constexpr int TF_STAGES = 2;
-constexpr int TF_HALF = BK * 128;          // [64 rows][32 f32]: one 128-byte swizzle column
-constexpr int TF_TILE = 2 * TF_HALF;       // a [64][64] f32 tile as two 32-column halves
 constexpr int TF_BIAS_HALF = TF_BQ * 128;  // the bias [128 queries][32 keys]
 // A stage: K (TMA, then its hi in place), K lo, V as TMA lands it, V^T hi,
 // V^T lo, the bias [128 queries][64 keys] as two 32-key halves.
@@ -122,16 +113,6 @@ constexpr int TF_K = 0, TF_KLO = TF_TILE, TF_V = 2 * TF_TILE, TF_VTHI = 3 * TF_T
               TF_VTLO = 4 * TF_TILE, TF_BIAS = 5 * TF_TILE;
 constexpr int TF_STAGE_BYTES = 5 * TF_TILE + 2 * TF_BIAS_HALF;  // 112 KB
 constexpr int TF_LIST_MAX = 640;  // key steps a block lists (L <= 40960); past that it walks all
-// setmaxnreg: __launch_bounds__(TF_THREADS, 1) gives each thread at most
-// 168 registers; the producer's warpgroup frees 128 x (168 - 40), which the
-// consumers' increase takes whole (an increase the pool cannot cover never
-// returns, so the launcher refuses a build of another register count).
-constexpr int TF_LAUNCH_REGS = 65536 / TF_THREADS / 8 * 8;
-constexpr int TF_PRODUCER_REGS = 40;
-constexpr int TF_CONSUMER_REGS = 232;
-static_assert(128 * TF_PRODUCER_REGS + TF_CONSUMER_WARPS * 32 * TF_CONSUMER_REGS ==
-                  TF_LAUNCH_REGS * TF_THREADS,
-              "the consumers take exactly what the producer frees");
 static_assert(TF_STAGE_BYTES % 1024 == 0, "stages keep the 1024-byte swizzle alignment");
 
 // The ring, 3 x TF_STAGES mbarriers, the count (16 bytes), list (uint16) and
@@ -139,51 +120,6 @@ static_assert(TF_STAGE_BYTES % 1024 == 0, "stages keep the 1024-byte swizzle ali
 inline size_t tf_smem_bytes(int listed_steps) {
   return (size_t)TF_STAGES * TF_STAGE_BYTES + 3 * TF_STAGES * 8 + 16 +
          (size_t)listed_steps * 3 + 1024;
-}
-
-// tf32 of x, rounded to nearest with ties away from zero (cvt.rna): the 13
-// low mantissa bits cleared.
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-__device__ __forceinline__ void tf32_split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32_rna(x);
-  lo = tf32_rna(x - __uint_as_float(hi));
-}
-
-// d[64 x 64] (+)= a[64 x 8] (registers, tf32) . B[8 x 64] (descriptor, K-major
-// tf32).  The register A fragment of 16 rows x 8 columns: a0 (row g, col t),
-// a1 (row g + 8, col t), a2 (row g, col t + 4), a3 (row g + 8, col t + 4).
-__device__ __forceinline__ void wgmma_m64n64k8_tf32(float d[8][4], const uint32_t a[4],
-                                                    uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
-}
-
-// Descriptor offset (16-byte units) of k-slice ks (8 columns, 32 bytes) of
-// a tile stored as two 32-column swizzle halves.
-__device__ __forceinline__ uint32_t tf_slice(int ks) {
-  return (uint32_t)(((ks >> 2) * TF_HALF + (ks & 3) * 32) >> 4);
-}
-
-// Byte offset of element (row r, column c < 32) in a 128-byte-swizzled
-// [rows][32 f32] half: the 16-byte chunk c / 4 of row r sits at chunk
-// (c / 4) ^ (r % 8).
-__device__ __forceinline__ int tf_sw(int r, int c) {
-  return r * 128 + ((((c >> 2) ^ r) & 7) << 4) + (c & 3) * 4;
 }
 
 // The producer's split warps prepare a landed stage: K's hi in place and its
@@ -197,18 +133,7 @@ __device__ __forceinline__ int tf_sw(int r, int c) {
 __device__ __forceinline__ void tf_prepare(uint8_t* stage, int tid, int wl, int lane,
                                            const float* bias_q, bool bias_tma, int L, int q0,
                                            int k0) {
-  float4* kh = reinterpret_cast<float4*>(stage + TF_K);
-  uint4* kl = reinterpret_cast<uint4*>(stage + TF_KLO);
-  for (int c = tid; c < TF_TILE / 16; c += TF_SPLIT_THREADS) {
-    const float4 x = kh[c];
-    uint4 hi, lo;
-    tf32_split(x.x, hi.x, lo.x);
-    tf32_split(x.y, hi.y, lo.y);
-    tf32_split(x.z, hi.z, lo.z);
-    tf32_split(x.w, hi.w, lo.w);
-    reinterpret_cast<uint4*>(kh)[c] = hi;
-    kl[c] = lo;
-  }
+  tf_split_tile(stage + TF_K, TF_KLO - TF_K, tid, TF_SPLIT_THREADS);
   // a warp takes a (32 keys, 4 dims) unit: conflict-free 16-byte reads along keys,
   // and each dim's 32 keys one 128-byte row of V^T
   for (int it = wl; it < 32; it += 3) {
@@ -216,7 +141,7 @@ __device__ __forceinline__ void tf_prepare(uint8_t* stage, int tid, int wl, int 
     const int cd = it >> 1;              // dims 4 cd .. 4 cd + 3
     const float4 x = *reinterpret_cast<const float4*>(stage + TF_V + (cd >> 3) * TF_HALF +
                                                       tf_sw(r, (cd & 7) * 4));
-    const int p = (r & ~7) | ((r >> 1) & 3) | ((r & 1) << 2);  // the key's position
+    const int p = tf_pos(r);  // the key's position
     const int base = (p >> 5) * TF_HALF;
     const float xs[4] = {x.x, x.y, x.z, x.w};
     #pragma unroll
@@ -443,10 +368,7 @@ gated_attention_tf32x3_kernel(const __grid_constant__ CUtensorMap tm_k,
         s[j][e] = ex2(s[j][e] - m_new[e >> 1]);  // 2^-inf = 0 past L
         rsum[e >> 1] += s[j][e];
       }
-      tf32_split(s[j][0], ph[j][0], pl[j][0]);
-      tf32_split(s[j][2], ph[j][1], pl[j][1]);
-      tf32_split(s[j][1], ph[j][2], pl[j][2]);
-      tf32_split(s[j][3], ph[j][3], pl[j][3]);
+      tf_fragments(s[j], ph[j], pl[j]);
     }
     #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -773,22 +695,12 @@ int fddm_gated_attention(const void* q, const void* k, const void* v,
         (bias_tma && !encode_3d(&tm_bias, bias, L, L, H, (uint64_t)L * 4, 32, TF_BQ, f32)))
       return (int)cudaErrorInvalidValue;
     static bool checked = false;  // the register count, once a process
-    if (!checked) {
-      cudaFuncAttributes attr;
-      cudaError_t err = cudaFuncGetAttributes(&attr, gated_attention_tf32x3_kernel);
-      if (err != cudaSuccess) return (int)err;
-      if (attr.numRegs != TF_LAUNCH_REGS) {
-        fprintf(stderr,
-                "gated_attention_tf32x3_kernel was built with %d registers a thread; its "
-                "setmaxnreg budgets (%d / %d) need %d\n",
-                attr.numRegs, TF_PRODUCER_REGS, TF_CONSUMER_REGS, TF_LAUNCH_REGS);
-        return (int)cudaErrorLaunchOutOfResources;
-      }
-      checked = true;
-    }
+    cudaError_t err = tf_check_regs(gated_attention_tf32x3_kernel,
+                                    "gated_attention_tf32x3_kernel", &checked);
+    if (err != cudaSuccess) return (int)err;
     const int nsteps = (L + BK - 1) / BK;
     const size_t smem = tf_smem_bytes(m != nullptr && nsteps <= TF_LIST_MAX ? nsteps : 0);
-    cudaError_t err = cudaFuncSetAttribute(gated_attention_tf32x3_kernel,
+    err = cudaFuncSetAttribute(gated_attention_tf32x3_kernel,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)smem);
     if (err != cudaSuccess) return (int)err;

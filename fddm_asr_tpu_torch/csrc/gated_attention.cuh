@@ -3,9 +3,12 @@
 // score, the float32 tile loads, the list of a batch row's key tiles that
 // hold a kept key, the bf16 tensor-core helpers (A fragments,
 // wgmma), the 128-byte swizzled tile layout, mbarriers, TMA and its tensor
-// maps.  The fused int8 matmul (int8_matmul_fused.cu) and the fused conv
-// (conv_ln_gelu.cu) take the Hopper part: mbarriers, TMA, the swizzled
-// descriptors and the s8 and bf16 m64n256 wgmma.
+// maps, and the 3xTF32 pieces of the float32 kernels (the split, tf32
+// wgmma, the swizzled f32 layout, the fragment permutation, the warpgroup
+// roles and their setmaxnreg budgets).  The fused int8 matmul
+// (int8_matmul_fused.cu) and the fused conv (conv_ln_gelu.cu) take the
+// Hopper part: mbarriers, TMA, the swizzled descriptors and the s8 and bf16
+// m64n256 wgmma.
 //
 // Fragment layouts of mma.m16n8k16, which are wgmma's per warp (below)
 // (g = lane / 4, t = lane % 4):
@@ -23,6 +26,7 @@
 #include <cuda_bf16.h>
 #include <cfloat>
 #include <cstdint>
+#include <cstdio>
 
 namespace fddm {
 
@@ -82,6 +86,21 @@ __device__ __forceinline__ float keep_flag(const uint8_t* mask, int b, int kj, i
   return kj >= L ? -1.f : (mask == nullptr || mask[(size_t)b * L + kj]) ? 1.f : 0.f;
 }
 
+// Warp 0: the indices i < n whose flags[i] is set, in order, into list[0..m)
+// and m into *n_out.
+__device__ __forceinline__ void compact_flags(const uint8_t* flags, int n, uint16_t* list,
+                                              int* n_out) {
+  const int lane = threadIdx.x & 31;
+  int m = 0;
+  for (int base = 0; base < n; base += 32) {
+    const bool set = base + lane < n && flags[base + lane];
+    const uint32_t vote = __ballot_sync(0xffffffffu, set);
+    if (set) list[m + __popc(vote & ((1u << lane) - 1))] = (uint16_t)(base + lane);
+    m += __popc(vote);
+  }
+  if (lane == 0) *n_out = m;
+}
+
 // The key tiles (64 keys) of a batch row that hold a kept key: a flag byte
 // a tile in any_kept[nsteps], then the tiles in order in live[0..n) and n in
 // *nlive (warp 0 writes those).  Every one of the block's kThreads threads
@@ -104,16 +123,7 @@ __device__ __forceinline__ void list_live_tiles(const uint8_t* mask_b, int L, in
       any_kept[i >> 4] = ((vote >> (lane & 16)) & 0xffffu) != 0;
   }
   __syncthreads();
-  if (threadIdx.x < 32) {
-    int n = 0;
-    for (int base = 0; base < nsteps; base += 32) {
-      const bool kept = base + lane < nsteps && any_kept[base + lane];
-      const uint32_t vote = __ballot_sync(0xffffffffu, kept);
-      if (kept) live[n + __popc(vote & ((1u << lane) - 1))] = (uint16_t)(base + lane);
-      n += __popc(vote);
-    }
-    if (lane == 0) *nlive = n;
-  }
+  if (threadIdx.x < 32) compact_flags(any_kept, nsteps, live, nlive);
 }
 
 // ------------------------------------------------------------------ Hopper
@@ -328,6 +338,131 @@ __device__ __forceinline__ void reg_fence(int d[32][4]) {
   for (int j = 0; j < 32; ++j)
     #pragma unroll
     for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(d[j][e])::"memory");
+}
+
+// ------------------------------------------------------- float32: 3xTF32
+// The float32 kernels (the forward's gated_attention_tf32x3_kernel, the
+// backward's bwd_dkv_tf32x3_kernel and bwd_dbias_tf32x3_kernel) run 3xTF32
+// on wgmma.  Each f32 operand x is split into two tf32 values, hi = rna(x)
+// and lo = rna(x - hi), and each product is hi.hi + hi.lo + lo.hi in f32
+// (the dropped lo.lo is below 2^-22 of it).  tf32 wgmma (m64nNk8) reads
+// only K-major operands, and TMA cannot transpose; so a block is three
+// warpgroups: two consumers run the products and the softmax, and a
+// producer (lane 0 of warp 8 issuing TMA, warps 9-11 splitting and
+// transposing) prepares every step's operands in shared memory.
+
+constexpr int TF_HALF = BK * 128;    // [64 rows][32 f32]: one 128-byte swizzle column
+constexpr int TF_TILE = 2 * TF_HALF;  // a [64][64] f32 tile as two 32-column halves
+constexpr int TF_CONSUMER_WARPS = 8;  // warps 0-7; warps 8-11 are the producer's
+constexpr int TF_THREADS = (TF_CONSUMER_WARPS + 4) * 32;
+constexpr int TF_SPLIT_THREADS = 96;  // warps 9-11 split and transpose; warp 8 loads
+// setmaxnreg: __launch_bounds__(TF_THREADS, 1) gives each thread at most
+// 168 registers; the producer's warpgroup frees 128 x (168 - 40), which the
+// consumers' increase takes whole (an increase the pool cannot cover never
+// returns, so the launchers refuse a build of another register count).
+constexpr int TF_LAUNCH_REGS = 65536 / TF_THREADS / 8 * 8;
+constexpr int TF_PRODUCER_REGS = 40;
+constexpr int TF_CONSUMER_REGS = 232;
+static_assert(128 * TF_PRODUCER_REGS + TF_CONSUMER_WARPS * 32 * TF_CONSUMER_REGS ==
+                  TF_LAUNCH_REGS * TF_THREADS,
+              "the consumers take exactly what the producer frees");
+
+// tf32 of x, rounded to nearest with ties away from zero (cvt.rna): the 13
+// low mantissa bits cleared.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+__device__ __forceinline__ void tf32_split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// d[64 x 64] (+)= a[64 x 8] (registers, tf32) . B[8 x 64] (descriptor, K-major
+// tf32).  The register A fragment of 16 rows x 8 columns: a0 (row g, col t),
+// a1 (row g + 8, col t), a2 (row g, col t + 4), a3 (row g + 8, col t + 4).
+__device__ __forceinline__ void wgmma_m64n64k8_tf32(float d[8][4], const uint32_t a[4],
+                                                    uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// Descriptor offset (16-byte units) of k-slice ks (8 columns, 32 bytes) of
+// a tile stored as 32-column swizzle halves of kHalf bytes each.
+template <int kHalf = TF_HALF>
+__device__ __forceinline__ uint32_t tf_slice(int ks) {
+  return (uint32_t)(((ks >> 2) * kHalf + (ks & 3) * 32) >> 4);
+}
+
+// Byte offset of element (row r, column c < 32) in a 128-byte-swizzled
+// [rows][32 f32] half: the 16-byte chunk c / 4 of row r sits at chunk
+// (c / 4) ^ (r % 8).
+__device__ __forceinline__ int tf_sw(int r, int c) {
+  return r * 128 + ((((c >> 2) ^ r) & 7) << 4) + (c & 3) * 4;
+}
+
+// Split a landed [64 x 64] f32 tile (two swizzled 32-column halves) in
+// place: hi over the f32 values, lo `lo_off` bytes further on.  An
+// elementwise map, so the swizzled layout carries over.
+__device__ __forceinline__ void tf_split_tile(uint8_t* tile, int lo_off, int tid, int nthreads) {
+  #pragma unroll 2
+  for (int c = tid; c < TF_TILE / 16; c += nthreads) {
+    const float4 x = reinterpret_cast<const float4*>(tile)[c];
+    uint4 hi, lo;
+    tf32_split(x.x, hi.x, lo.x);
+    tf32_split(x.y, hi.y, lo.y);
+    tf32_split(x.z, hi.z, lo.z);
+    tf32_split(x.w, hi.w, lo.w);
+    reinterpret_cast<uint4*>(tile)[c] = hi;
+    reinterpret_cast<uint4*>(tile + lo_off)[c] = lo;
+  }
+}
+
+// An accumulator's columns are the next product's reduction (k) index.  The
+// thread holds columns 2t and 2t + 1 of each group of 8 (d[j][0..1] row g,
+// d[j][2..3] row g + 8), which an A fragment reads as columns t and t + 4;
+// so the producer stores the k index of that product's B operand with each
+// group of 8 in the order 0 2 4 6 1 3 5 7 (`tf_pos`: index -> position), and
+// column tile j of the accumulator is then, as it stands, the hi and lo A
+// fragments of k-slice j (a0..a3 = d0, d2, d1, d3).
+__device__ __forceinline__ int tf_pos(int r) {
+  return (r & ~7) | ((r >> 1) & 3) | ((r & 1) << 2);
+}
+__device__ __forceinline__ void tf_fragments(const float d[4], uint32_t hi[4], uint32_t lo[4]) {
+  tf32_split(d[0], hi[0], lo[0]);
+  tf32_split(d[2], hi[1], lo[1]);
+  tf32_split(d[1], hi[2], lo[2]);
+  tf32_split(d[3], hi[3], lo[3]);
+}
+
+// The launchers' check, once a process per kernel: setmaxnreg's budgets
+// balance only at TF_LAUNCH_REGS registers a thread.  cudaSuccess, or the
+// error to return (a line on stderr says why).
+template <typename Kernel>
+inline cudaError_t tf_check_regs(Kernel kernel, const char* name, bool* checked) {
+  if (*checked) return cudaSuccess;
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  if (attr.numRegs != TF_LAUNCH_REGS) {
+    fprintf(stderr, "%s was built with %d registers a thread; its setmaxnreg budgets (%d / %d) "
+            "need %d\n", name, attr.numRegs, TF_PRODUCER_REGS, TF_CONSUMER_REGS, TF_LAUNCH_REGS);
+    return cudaErrorLaunchOutOfResources;
+  }
+  *checked = true;
+  return cudaSuccess;
 }
 
 // cuTensorMapEncodeTiled, a driver function, through the runtime's entry

@@ -12,17 +12,16 @@
 //   * `_kernel_packed_bwd_dq`   -> kernel A, one block per (batch row,
 //     head, query tile) that walks the keys, as the forward does (bfloat16:
 //     128-query tiles and only the 64-key tiles holding a kept key);
-//   * `_kernel_packed_bwd_dkv`  -> kernel B, which for bfloat16 is two
-//     kernels launched back to back by one call:
-//       (a) dK, dV: one block per (128-key tile, head, batch row) that walks
+//   * `_kernel_packed_bwd_dkv`  -> kernel B, two kernels launched back to
+//     back by one call:
+//       (a) dK, dV: one block per (key tile, head, batch row) that walks
 //           the query tiles and writes each dK/dV element once;
-//       (b) dbias: one block per (64-key tile, 128-query tile, head) whose
+//       (b) dbias: one block per (key tile, query tile, head) whose
 //           innermost loop is the batch; it recomputes S and dP for each
 //           batch row and sums dS * gate in f32 registers, then writes each
 //           dbias element once.
-//     (float32: one kernel per (64-key tile, head) walking batch rows and
-//     query tiles, which reads, adds to and writes back its f32 dbias
-//     columns in device memory for each (batch row, query tile).)
+//     (bfloat16: 128-key tiles in (a), 128 x 128 in (b); float32, 3xTF32:
+//     64-key tiles and 32-query steps in (a), 64 x 64 in (b).)
 //
 // The TPU kernel B accumulates dbias across the batch in an output block
 // that stays resident over an innermost sequential batch grid axis.  Hopper
@@ -49,7 +48,11 @@
 //     and f32 accumulate.  dS and P are rounded to bf16 as the A operands of
 //     the second products, as the TPU kernels round them; delta, dgate and
 //     dbias stay f32.
-//   * float32: exact f32 FMAs, 256 threads of 4x4 register micro-tiles.
+//   * float32: kernel A in exact f32 FMAs, 256 threads of 4x4 register
+//     micro-tiles; kernel B in 3xTF32 on the tensor cores (each operand
+//     split into tf32 hi and lo, each product hi.hi + hi.lo + lo.hi with f32
+//     sums; P, dS, delta and the gate f32), its design below the bfloat16
+//     kernels.
 //
 // What bounds it, at the fine-tune shape (B=32, L=1024, H=16, bf16, 999 of
 // 1024 keys kept): kernel A moves ~380 MB (0.11 ms) and does 6*64 flops per
@@ -265,174 +268,6 @@ bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     #pragma unroll
     for (int j = 0; j < 4; ++j) o[j] = acc[i][j] * scale;
     if (cg == 0) dgate[((size_t)b * H + h) * L + qi] = dg[i];
-  }
-}
-
-// kernel B: Kt, Vt, Qt, Dt [DH][PAD] ([d][row]); Qs, Ds [BQ][DH]; Pm, Sm
-// [BQ][PAD] ([query][key]: the bias tile, then P; dS); lse, delta, gate
-// [BQ]; keep [BK]
-constexpr int DKV_F32_SMEM_FLOATS = 4 * DH * PAD + 2 * BQ * DH + 2 * BQ * PAD + 3 * BQ + BK;
-constexpr size_t DKV_F32_SMEM_BYTES = DKV_F32_SMEM_FLOATS * sizeof(float);
-
-__global__ void __launch_bounds__(F32_THREADS)
-bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                   const float* __restrict__ v, const float* __restrict__ bias,
-                   const float* __restrict__ gate, const uint8_t* __restrict__ mask,
-                   const float* __restrict__ lse, const float* __restrict__ delta,
-                   const float* __restrict__ dout, float* __restrict__ dk,
-                   float* __restrict__ dv, float* __restrict__ dbias, int B, int L, int H,
-                   float scale, float inv_L) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* Kt = smem;
-  float* Vt = Kt + DH * PAD;
-  float* Qt = Vt + DH * PAD;
-  float* Dt = Qt + DH * PAD;
-  float* Qs = Dt + DH * PAD;
-  float* Ds = Qs + BQ * DH;
-  float* Pm = Ds + BQ * DH;
-  float* Sm = Pm + BQ * PAD;
-  float* lse_s = Sm + BQ * PAD;
-  float* delta_s = lse_s + BQ;
-  float* gate_s = delta_s + BQ;
-  float* keep = gate_s + BQ;
-
-  const int k0 = blockIdx.x * BK;
-  const int h = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int rg = tid >> 4;   // keys 4rg..4rg+3
-  const int cg = tid & 15;   // queries / head dims 4cg..4cg+3
-  const size_t HD = (size_t)H * DH;
-  const float* bias_h = bias + (size_t)h * L * L;
-
-  for (int b = 0; b < B; ++b) {
-    __syncthreads();  // the previous batch row's readers are done
-    const size_t krow = ((size_t)b * L + k0) * HD + h * DH;
-    load_tile_f32(Kt, k + krow, HD, L - k0, true, 0);
-    load_tile_f32(Vt, v + krow, HD, L - k0, true, 0);
-    if (tid < BK) keep[tid] = keep_flag(mask, b, k0 + tid, L);
-    float gk[4][4], gv[4][4];  // dK, dV accumulators (key 4rg+i, dim 4cg+j)
-    #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      #pragma unroll
-      for (int j = 0; j < 4; ++j) gk[i][j] = gv[i][j] = 0.f;
-
-    for (int q0 = 0; q0 < L; q0 += BQ) {
-      __syncthreads();  // previous step's readers are done
-      const size_t qrow = ((size_t)b * L + q0) * HD + h * DH;
-      load_tile_f32(Qt, q + qrow, HD, L - q0, true, 0);
-      load_tile_f32(Dt, dout + qrow, HD, L - q0, true, 0);
-      load_tile_f32(Qs, q + qrow, HD, L - q0, false, DH);
-      load_tile_f32(Ds, dout + qrow, HD, L - q0, false, DH);
-      for (int i = tid; i < BQ * BK; i += F32_THREADS) {
-        const int r = i / BK, c = i % BK;
-        const int qi = q0 + r, kj = k0 + c;
-        Pm[r * PAD + c] = (qi < L && kj < L) ? bias_h[(size_t)qi * L + kj] : 0.f;
-      }
-      if (tid < BQ) {
-        const int qi = q0 + tid;
-        const size_t idx = ((size_t)b * H + h) * L + qi;
-        lse_s[tid] = qi < L ? lse[idx] : INFINITY;  // rows past L: P = 0
-        delta_s[tid] = qi < L ? delta[idx] : 0.f;
-        gate_s[tid] = qi < L ? gate[idx] : 0.f;
-      }
-      __syncthreads();
-
-      // S^T = K Q^T and dP^T = V dO^T (key 4rg+i, query 4cg+j)
-      float s[4][4], dp[4][4];
-      #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-      for (int d = 0; d < DH; ++d) {
-        const float4 ka = *reinterpret_cast<const float4*>(&Kt[d * PAD + 4 * rg]);
-        const float4 va = *reinterpret_cast<const float4*>(&Vt[d * PAD + 4 * rg]);
-        const float4 qb = *reinterpret_cast<const float4*>(&Qt[d * PAD + 4 * cg]);
-        const float4 db = *reinterpret_cast<const float4*>(&Dt[d * PAD + 4 * cg]);
-        const float kv[4] = {ka.x, ka.y, ka.z, ka.w}, vv[4] = {va.x, va.y, va.z, va.w};
-        const float qv[4] = {qb.x, qb.y, qb.z, qb.w}, dv_[4] = {db.x, db.y, db.z, db.w};
-        #pragma unroll
-        for (int i = 0; i < 4; ++i)
-          #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            s[i][j] = fmaf(kv[i], qv[j], s[i][j]);
-            dp[i][j] = fmaf(vv[i], dv_[j], dp[i][j]);
-          }
-      }
-
-      #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float kp = keep[4 * rg + i];
-        #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int r = 4 * cg + j;
-          const float bv = Pm[r * PAD + 4 * rg + i];
-          float p = 0.f, ds = 0.f;
-          if (kp > 0.f) {
-            const float sv = s[i][j] * scale + gate_s[r] * bv;
-            p = expf(sv - lse_s[r]);
-            ds = p * (dp[i][j] - delta_s[r]);
-          } else if (kp == 0.f) {
-            p = expf(NEG - lse_s[r]) * inv_L;  // 1/L at an all-masked row, else 0
-          }
-          s[i][j] = p;
-          dp[i][j] = ds;
-        }
-      }
-      // dbias[h, q, k] (+)= dS * gate: this block alone owns these columns
-      #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = 4 * cg + j;
-        if (q0 + r >= L) continue;
-        float* dst = dbias + ((size_t)h * L + q0 + r) * L + k0 + 4 * rg;
-        #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          if (k0 + 4 * rg + i >= L) continue;
-          const float val = dp[i][j] * gate_s[r];
-          dst[i] = b == 0 ? val : dst[i] + val;
-        }
-      }
-      __syncthreads();  // every thread has read its bias values
-      #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          Pm[(4 * cg + j) * PAD + 4 * rg + i] = s[i][j];
-          Sm[(4 * cg + j) * PAD + 4 * rg + i] = dp[i][j];
-        }
-      __syncthreads();
-
-      // dV += P^T dO, dK += dS^T Q
-#pragma unroll 4
-      for (int r = 0; r < BQ; ++r) {
-        const float4 pa = *reinterpret_cast<const float4*>(&Pm[r * PAD + 4 * rg]);
-        const float4 sa = *reinterpret_cast<const float4*>(&Sm[r * PAD + 4 * rg]);
-        const float4 db = *reinterpret_cast<const float4*>(&Ds[r * DH + 4 * cg]);
-        const float4 qb = *reinterpret_cast<const float4*>(&Qs[r * DH + 4 * cg]);
-        const float pv[4] = {pa.x, pa.y, pa.z, pa.w}, sv[4] = {sa.x, sa.y, sa.z, sa.w};
-        const float dv_[4] = {db.x, db.y, db.z, db.w}, qv[4] = {qb.x, qb.y, qb.z, qb.w};
-        #pragma unroll
-        for (int i = 0; i < 4; ++i)
-          #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            gv[i][j] = fmaf(pv[i], dv_[j], gv[i][j]);
-            gk[i][j] = fmaf(sv[i], qv[j], gk[i][j]);
-          }
-      }
-    }
-
-    #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int kj = k0 + 4 * rg + i;
-      if (kj >= L) continue;
-      const size_t off = ((size_t)b * L + kj) * HD + h * DH + 4 * cg;
-      #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        dk[off + j] = gk[i][j] * scale;
-        dv[off + j] = gv[i][j];
-      }
-    }
   }
 }
 
@@ -1245,6 +1080,716 @@ bwd_dbias_bf16_kernel(const __grid_constant__ DbiasMaps tm, const bf16* __restri
   }
 }
 
+// ------------------------------------------------------ float32 kernel B (B5)
+// 3xTF32 on wgmma (the split, the warpgroup roles and setmaxnreg: see
+// gated_attention.cuh), two kernels launched back to back by one call, as
+// in bfloat16: (a) dK and dV, (b) dbias.  In both, consumer warpgroup w
+// takes the block's steps i = w mod 2, each in a stage of its own (stage w),
+// and keeps its own f32 sums; at the end consumer 1 hands its sums to
+// consumer 0 through shared memory, which adds them and writes each output
+// element once: a fixed order, no atomics.
+//
+// What bounds it, at B=8, L=1024, H=16 with ragged masks: the four products
+// are 43 GFLOP over the kept (query, key) pairs, 129 GFLOP as 3xTF32, 0.26
+// ms at 495 TFLOP/s of dense tf32; (b)'s recomputation of S and dP adds
+// half as much again (0.39 ms in all); the bytes, q, k, v, dO, dk, dv and
+// the f32 bias and dbias once each, ~330 MB, 0.10 ms.
+
+// d[64 x 32] (+)= A[64 x 8] . B[8 x 32], tf32, both K-major from descriptors.
+__device__ __forceinline__ void wgmma_m64n32k8_tf32_ss(float d[4][4], uint64_t desc_a,
+                                                       uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void reg_fence_n32(float d[4][4]) {
+  #pragma unroll
+  for (int j = 0; j < 4; ++j)
+    #pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[j][e])::"memory");
+}
+
+// The consumer warps' end: consumer 1 stores its sums (n floats a thread)
+// into `xfer`, consumer 0 waits for them (a named barrier of the 256
+// consumer threads) and adds them to its own.  Returns false in consumer 1.
+template <int N>
+__device__ __forceinline__ bool tf_combine(float* sums, float* xfer, int w, int tw) {
+  if (w == 1) {
+    #pragma unroll
+    for (int i = 0; i < N; ++i) xfer[i * 128 + tw] = sums[i];
+  }
+  asm volatile("bar.sync 1, %0;\n" ::"n"(TF_CONSUMER_WARPS * 32) : "memory");
+  if (w == 1) return false;
+  #pragma unroll
+  for (int i = 0; i < N; ++i) sums[i] += xfer[i * 128 + tw];
+  return true;
+}
+
+// ---- (a) dK, dV
+//
+// One block per (64-key tile, head, batch row): the grid grows with the
+// batch.  K and V of the tile stay in shared memory for the block (hi and
+// lo, the A operands of the first two products); the block walks the
+// queries in steps of 32.  Four products a step, transposed so that the
+// accumulators are rows of keys: S^T = K Q^T and dP^T = V dO^T (Q and dO as
+// stored, K-major along the head dim: m64n32k8 with both operands in shared
+// memory), then dV += P^T dO and dK += dS^T Q with P^T and dS^T split from
+// the accumulators into register A fragments (m64n64k8); their B operands
+// must be K-major along the queries, which tf32 wgmma cannot read by a
+// transpose bit, so the producer's split warps write each step's dO^T and
+// Q^T, hi and lo, with the queries of each group of 8 permuted (tf_pos).
+// Each step's dV and dK products go to an accumulator of their own, added
+// to the running sums by f32 adds: the tensor cores' f32 sums truncate, so
+// one carried over every step would lose more the longer L.
+//
+// Shared memory: the resident K, K lo, V, V lo (64 KB), and two stages of
+// 73 KB, each Q and dO [32 queries][64 dims] (TMA, split in place) and their
+// lo, Q^T and dO^T hi and lo [64 dims][32 query positions], the bias [32
+// queries][64 keys] (TMA, or elementwise where its rows are not 16-byte
+// aligned, L % 4 != 0), lse, delta and gate of the 32 queries: 210 KB, one
+// block an SM.  32-query steps, because a 64-query stage (145 KB) would
+// leave room for one.  Registers: dK and dV 64 a thread, S^T and dP^T 32,
+// the step's accumulator 32 and its A fragments 32.  Per step, shared
+// memory carries ~190 KB of wgmma operand reads (the first two products
+// read K and V from it at m64n32) and ~80 KB of the split's traffic, some
+// 2100 clocks at 128 bytes a clock, beside 72 tf32 wgmma instructions'
+// 1536 tensor clocks: what bounds it is shared memory bandwidth, with both
+// consumers' steps in turn on the tensor cores.
+//
+// A tile of 64 keys with no kept key in a row that keeps some has dK = dV =
+// 0 and writes zeros without a product.  An all-masked row takes the full
+// path, with P = 1/L on every key below L and dS = 0.
+
+constexpr int KV_TF_BQ = 32;                    // queries a step
+constexpr int KV_TF_QHALF = KV_TF_BQ * 128;     // [32 queries][32 f32]: 4 KB
+// the resident tiles, each [64 keys][64 dims] as two 8 KB halves
+constexpr int KV_TF_K = 0, KV_TF_KLO = TF_TILE, KV_TF_V = 2 * TF_TILE, KV_TF_VLO = 3 * TF_TILE;
+constexpr int KV_TF_RESIDENT = 4 * TF_TILE;     // 64 KB
+// a stage: Q and dO as two 4 KB halves each (hi in place) and their lo; Q^T
+// and dO^T hi and lo, 8 KB each; the bias as two 4 KB halves; the vectors
+constexpr int KS_Q = 0, KS_DO = 16384, KS_QT = 32768, KS_DOT = 49152, KS_BIAS = 65536,
+              KS_VEC = 73728;
+constexpr int KS_LO = 8192;                      // a tile's lo, after its hi
+constexpr int KV_TF_STAGE = KS_VEC + 1024;       // 73 KB
+constexpr size_t KV_TF_SMEM = KV_TF_RESIDENT + 2 * KV_TF_STAGE + 8 * 8 + 1024;
+static_assert(KV_TF_STAGE % 1024 == 0, "stages keep the 1024-byte swizzle alignment");
+
+struct KvTfMaps {  // (a)'s tensor maps; the bias only when L % 4 == 0
+  CUtensorMap k, v, q, dout, bias;
+};
+
+// Lane 0 of warp 8 loads query step i into a stage: Q and dO rows
+// q0..q0+31 of (b, h) as two 32-dim halves, and where its rows are 16-byte
+// aligned the bias [q0.., k0..k0+63] as two 32-key halves (a half wholly
+// past L is skipped: its keys are never kept); zeros past L.
+__device__ __forceinline__ void kv_tf_load(uint8_t* stage, uint64_t* landed, int i,
+                                           const KvTfMaps& tm, bool bias_tma, int L, int k0,
+                                           int h, int b) {
+  const int q0 = i * KV_TF_BQ;
+  const int bias_halves = bias_tma ? (k0 + 32 < L ? 2 : 1) : 0;
+  mbar_arrive_expect_tx(landed, (4 + bias_halves) * KV_TF_QHALF);
+  #pragma unroll
+  for (int a = 0; a < 2; ++a) {
+    tma_load_3d(stage + KS_Q + a * KV_TF_QHALF, &tm.q, landed, h * DH + 32 * a, q0, b);
+    tma_load_3d(stage + KS_DO + a * KV_TF_QHALF, &tm.dout, landed, h * DH + 32 * a, q0, b);
+    if (a < bias_halves)
+      tma_load_3d(stage + KS_BIAS + a * KV_TF_QHALF, &tm.bias, landed, k0 + 32 * a, q0, h);
+  }
+}
+
+// The split warps prepare a landed stage: Q and dO split in place (hi) and
+// beside (lo), and from them Q^T and dO^T hi and lo [64 dims][32 query
+// positions] (tf_pos); the bias elementwise where TMA could not load it.  A
+// warp takes a unit of 32 queries x 4 dims: 16-byte reads along the
+// queries, and each dim's 32 queries one 128-byte row of the transpose.
+__device__ __forceinline__ void kv_tf_prepare(uint8_t* stage, int tid, int wl, int lane,
+                                              const float* bias_h, bool bias_tma, int L, int q0,
+                                              int k0) {
+  for (int u = wl; u < 32; u += 3) {
+    uint8_t* x = stage + (u < 16 ? KS_Q : KS_DO);
+    uint8_t* xt = stage + (u < 16 ? KS_QT : KS_DOT);
+    const int cd = u & 15;  // dims 4 cd .. 4 cd + 3
+    const int off = (cd >> 3) * KV_TF_QHALF + tf_sw(lane, (cd & 7) * 4);
+    const float4 v = *reinterpret_cast<const float4*>(x + off);
+    uint32_t hi[4], lo[4];
+    tf32_split(v.x, hi[0], lo[0]);
+    tf32_split(v.y, hi[1], lo[1]);
+    tf32_split(v.z, hi[2], lo[2]);
+    tf32_split(v.w, hi[3], lo[3]);
+    *reinterpret_cast<uint4*>(x + off) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+    *reinterpret_cast<uint4*>(x + KS_LO + off) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    const int p = tf_pos(lane);  // the query's position
+    #pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int offt = tf_sw(4 * cd + e, p);
+      *reinterpret_cast<uint32_t*>(xt + offt) = hi[e];
+      *reinterpret_cast<uint32_t*>(xt + KS_LO + offt) = lo[e];
+    }
+  }
+  if (!bias_tma) {
+    for (int i = tid; i < KV_TF_BQ * BK; i += TF_SPLIT_THREADS) {
+      const int r = i >> 6, c = i & 63;
+      *reinterpret_cast<float*>(stage + KS_BIAS + (c >> 5) * KV_TF_QHALF + tf_sw(r, c & 31)) =
+          (q0 + r < L && k0 + c < L) ? bias_h[(size_t)(q0 + r) * L + k0 + c] : 0.f;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(TF_THREADS, 1)
+bwd_dkv_tf32x3_kernel(const __grid_constant__ KvTfMaps tm, const float* __restrict__ bias,
+                      const float* __restrict__ gate, const uint8_t* __restrict__ mask,
+                      const float* __restrict__ lse, const float* __restrict__ delta,
+                      float* __restrict__ dk, float* __restrict__ dv, int L, int H,
+                      float scale, float inv_L, int bias_tma) {
+  extern __shared__ uint8_t kvtf_smem_raw[];
+  uint8_t* smem = align1024(kvtf_smem_raw);
+  uint8_t* stages = smem + KV_TF_RESIDENT;
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(stages + 2 * KV_TF_STAGE);
+  uint64_t* landed = kv_full + 1;  // landed: the TMA bytes; ready: the split warps done;
+  uint64_t* ready = landed + 2;    // empty: the stage's consumer done with it
+  uint64_t* empty = ready + 2;
+
+  const int k0 = blockIdx.x * BK;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const size_t HD = (size_t)H * DH;
+  const uint8_t* mask_b = mask == nullptr ? nullptr : mask + (size_t)b * L;
+  const int nsteps = (L + KV_TF_BQ - 1) / KV_TF_BQ;
+
+  // A tile with no kept key, in a row that keeps some: P = dS = 0 on it
+  int tile_kept = 1, row_kept = 1;
+  if (mask_b != nullptr) {
+    tile_kept = row_kept = 0;
+    for (int i = threadIdx.x; i < L; i += TF_THREADS) {
+      const int m = mask_b[i] != 0;
+      row_kept |= m;
+      tile_kept |= m & (i >= k0 && i < k0 + BK);
+    }
+    row_kept = __syncthreads_or(row_kept);
+    tile_kept = __syncthreads_or(tile_kept);
+  }
+  if (!tile_kept && row_kept) {
+    for (int i = threadIdx.x; i < BK * DH / 4; i += TF_THREADS) {
+      const int r = i >> 4, c = (i & 15) * 4;
+      if (k0 + r < L) {
+        const size_t off = ((size_t)b * L + k0 + r) * HD + h * DH + c;
+        *reinterpret_cast<float4*>(dk + off) = make_float4(0.f, 0.f, 0.f, 0.f);
+        *reinterpret_cast<float4*>(dv + off) = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+    return;
+  }
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int st = 0; st < 2; ++st) {
+      mbar_init(&landed[st], 1);                 // the loader's arrive + the bytes
+      mbar_init(&ready[st], TF_SPLIT_THREADS);   // every split thread
+      mbar_init(&empty[st], 4);                  // one arrive per warp of its consumer
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (warp == TF_CONSUMER_WARPS && lane == 0) {
+    // K and V [64 keys][64 dims], then the first step of each stage
+    mbar_arrive_expect_tx(kv_full, 2 * TF_TILE);
+    #pragma unroll
+    for (int a = 0; a < 2; ++a) {
+      tma_load_3d(smem + KV_TF_K + a * TF_HALF, &tm.k, kv_full, h * DH + 32 * a, k0, b);
+      tma_load_3d(smem + KV_TF_V + a * TF_HALF, &tm.v, kv_full, h * DH + 32 * a, k0, b);
+    }
+    for (int i = 0; i < 2 && i < nsteps; ++i)
+      kv_tf_load(stages + i * KV_TF_STAGE, &landed[i], i, tm, bias_tma, L, k0, h, b);
+  }
+  // every thread takes part in splitting K and V in place
+  mbar_wait(kv_full, 0);
+  tf_split_tile(smem + KV_TF_K, TF_TILE, threadIdx.x, TF_THREADS);
+  tf_split_tile(smem + KV_TF_V, TF_TILE, threadIdx.x, TF_THREADS);
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // read by wgmma
+  __syncthreads();
+
+  if (warp >= TF_CONSUMER_WARPS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(TF_PRODUCER_REGS));
+    if (warp == TF_CONSUMER_WARPS) {
+      if (lane == 0) {
+        for (int i = 2; i < nsteps; ++i) {  // a stage as soon as its consumer frees it
+          const int st = i & 1;
+          mbar_wait(&empty[st], ((i >> 1) - 1) & 1);
+          kv_tf_load(stages + st * KV_TF_STAGE, &landed[st], i, tm, bias_tma, L, k0, h, b);
+        }
+      }
+    } else {
+      const int wl = warp - TF_CONSUMER_WARPS - 1;
+      const size_t bh = ((size_t)b * H + h) * L;
+      const float* bias_h = bias + (size_t)h * L * L;
+      const int tid = wl * 32 + lane;
+      const float* src = (tid < 32 ? lse : tid < 64 ? delta : gate) + bh;
+      for (int i = 0; i < nsteps; ++i) {
+        const int st = i & 1, q0 = i * KV_TF_BQ;
+        // lse, delta or gate of one of the step's queries (TF_SPLIT_THREADS =
+        // 3 x 32), fetched while the stage lands; lse +inf past L, so P = 0
+        const int q = q0 + lane;
+        const float x = q < L ? src[q] : (tid < 32 ? INFINITY : 0.f);
+        mbar_wait(&landed[st], (i >> 1) & 1);
+        uint8_t* stage = stages + st * KV_TF_STAGE;
+        kv_tf_prepare(stage, tid, wl, lane, bias_h, bias_tma, L, q0, k0);
+        reinterpret_cast<float*>(stage + KS_VEC)[tid] = x;
+        // the generic stores above are read by wgmma (the async proxy)
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        mbar_arrive(&ready[st]);
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(TF_CONSUMER_REGS));
+  const int w = warp >> 2, wl = warp & 3;  // the consumer warpgroup, its warp
+  const int g = lane >> 2, t = lane & 3;   // fragment row group / column
+  const int lk0 = wl * 16 + g, lk1 = lk0 + 8;  // the thread's two keys in the tile
+  const int kr0 = k0 + lk0, kr1 = k0 + lk1;
+  const float keep_r[2] = {keep_flag(mask, b, kr0, L), keep_flag(mask, b, kr1, L)};
+  const float sl2 = scale * LOG2E;
+  uint8_t* stage = stages + w * KV_TF_STAGE;
+  const float* vec = reinterpret_cast<const float*>(stage + KS_VEC);
+  const uint64_t dkh = sw128_desc(smem + KV_TF_K, 16), dkl = sw128_desc(smem + KV_TF_KLO, 16);
+  const uint64_t dvh = sw128_desc(smem + KV_TF_V, 16), dvl = sw128_desc(smem + KV_TF_VLO, 16);
+  const uint64_t dqh = sw128_desc(stage + KS_Q, 16), dql = sw128_desc(stage + KS_Q + KS_LO, 16);
+  const uint64_t ddh = sw128_desc(stage + KS_DO, 16), ddl = sw128_desc(stage + KS_DO + KS_LO, 16);
+  const uint64_t dqth = sw128_desc(stage + KS_QT, 16);
+  const uint64_t dqtl = sw128_desc(stage + KS_QT + KS_LO, 16);
+  const uint64_t ddth = sw128_desc(stage + KS_DOT, 16);
+  const uint64_t ddtl = sw128_desc(stage + KS_DOT + KS_LO, 16);
+
+  float sums[2][8][4];  // dK, dV: 8 tiles of 8 head dims, accumulator layout
+  float acc[8][4];      // a step's dV, then dK
+  float s[4][4], dp[4][4];  // S^T then P^T, dP^T then dS^T: 4 tiles of 8 queries
+  #pragma unroll
+  for (int n = 0; n < 8; ++n)
+    #pragma unroll
+    for (int e = 0; e < 4; ++e) sums[0][n][e] = sums[1][n][e] = acc[n][e] = 0.f;
+  #pragma unroll
+  for (int j = 0; j < 4; ++j)
+    #pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+
+  for (int i = w; i < nsteps; i += 2) {
+    const uint32_t parity = (i >> 1) & 1;
+    mbar_wait(&landed[w], parity);
+    mbar_wait(&ready[w], parity);
+    // S^T = K Q^T and dP^T = V dO^T in 3xTF32, two commit groups
+    reg_fence_n32(s);
+    reg_fence_n32(dp);
+    wgmma_fence();
+    #pragma unroll
+    for (int ks = 0; ks < 8; ++ks) {
+      const uint32_t ka = tf_slice(ks), qb = tf_slice<KV_TF_QHALF>(ks);
+      wgmma_m64n32k8_tf32_ss(s, dkh + ka, dql + qb, ks > 0);
+      wgmma_m64n32k8_tf32_ss(s, dkl + ka, dqh + qb, 1);
+      wgmma_m64n32k8_tf32_ss(s, dkh + ka, dqh + qb, 1);
+    }
+    wgmma_commit();
+    #pragma unroll
+    for (int ks = 0; ks < 8; ++ks) {
+      const uint32_t ka = tf_slice(ks), qb = tf_slice<KV_TF_QHALF>(ks);
+      wgmma_m64n32k8_tf32_ss(dp, dvh + ka, ddl + qb, ks > 0);
+      wgmma_m64n32k8_tf32_ss(dp, dvl + ka, ddh + qb, 1);
+      wgmma_m64n32k8_tf32_ss(dp, dvh + ka, ddh + qb, 1);
+    }
+    wgmma_commit();
+    // while they run: the bias at the thread's (key, query) pairs (key lk0:
+    // e = 0, 1; lk1: e = 2, 3; query 8j + 2t + (e & 1)) and the queries'
+    // lse, delta, gate
+    float bv[4][4];
+    float2 ls[4], de[4], ga[4];
+    #pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int qc = 8 * j + 2 * t;
+      #pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int lk = e < 2 ? lk0 : lk1;
+        bv[j][e] = *reinterpret_cast<const float*>(stage + KS_BIAS + (lk >> 5) * KV_TF_QHALF +
+                                                   tf_sw(qc + (e & 1), lk & 31));
+      }
+      ls[j] = *reinterpret_cast<const float2*>(vec + qc);
+      de[j] = *reinterpret_cast<const float2*>(vec + KV_TF_BQ + qc);
+      ga[j] = *reinterpret_cast<const float2*>(vec + 2 * KV_TF_BQ + qc);
+    }
+    wgmma_wait<1>();  // S^T
+    reg_fence_n32(s);
+    // P^T in place, in the log2 domain: P = 2^(S scale log2e + gate log2e
+    // bias - lse log2e); 0 at masked keys and keys past L, 1/L at an
+    // all-masked row (lse = f32-min); 0 at queries past L (lse = +inf)
+    #pragma unroll
+    for (int j = 0; j < 4; ++j)
+      #pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float l = e & 1 ? ls[j].y : ls[j].x;
+        const float gl = (e & 1 ? ga[j].y : ga[j].x) * LOG2E;
+        const float kp = keep_r[e >> 1];
+        float p = ex2(fmaf(s[j][e], sl2, fmaf(gl, bv[j][e], -l * LOG2E)));
+        if (kp <= 0.f) p = kp == 0.f && l == NEG ? inv_L : 0.f;
+        s[j][e] = p;
+      }
+    wgmma_wait<0>();  // dP^T
+    reg_fence_n32(dp);
+    // dS^T = P^T (dP^T - delta) at kept keys, in place
+    #pragma unroll
+    for (int j = 0; j < 4; ++j)
+      #pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dp[j][e] = keep_r[e >> 1] > 0.f ? s[j][e] * (dp[j][e] - (e & 1 ? de[j].y : de[j].x))
+                                        : 0.f;
+    // dV += P^T dO: P^T's hi and lo from its accumulator (tf_fragments), dO^T
+    // [d][query position] K-major; the step's sum in an accumulator of its own
+    uint32_t fh[4][4], fl[4][4];
+    #pragma unroll
+    for (int j = 0; j < 4; ++j) tf_fragments(s[j], fh[j], fl[j]);
+    reg_fence(acc);
+    wgmma_fence();
+    #pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      wgmma_m64n64k8_tf32(acc, fl[j], ddth + tf_slice(j), j > 0);
+      wgmma_m64n64k8_tf32(acc, fh[j], ddtl + tf_slice(j), 1);
+      wgmma_m64n64k8_tf32(acc, fh[j], ddth + tf_slice(j), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(acc);
+    #pragma unroll
+    for (int n = 0; n < 8; ++n)
+      #pragma unroll
+      for (int e = 0; e < 4; ++e) sums[1][n][e] += acc[n][e];
+    // dK += dS^T Q, likewise with Q^T
+    #pragma unroll
+    for (int j = 0; j < 4; ++j) tf_fragments(dp[j], fh[j], fl[j]);
+    reg_fence(acc);
+    wgmma_fence();
+    #pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      wgmma_m64n64k8_tf32(acc, fl[j], dqth + tf_slice(j), j > 0);
+      wgmma_m64n64k8_tf32(acc, fh[j], dqtl + tf_slice(j), 1);
+      wgmma_m64n64k8_tf32(acc, fh[j], dqth + tf_slice(j), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(acc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[w]);  // this warp is done with the stage
+    #pragma unroll
+    for (int n = 0; n < 8; ++n)
+      #pragma unroll
+      for (int e = 0; e < 4; ++e) sums[0][n][e] += acc[n][e];
+  }
+
+  // consumer 1's sums through its own stage: every load into it has been read
+  if (!tf_combine<64>(&sums[0][0][0], reinterpret_cast<float*>(stages + KV_TF_STAGE), w,
+                      wl * 32 + lane))
+    return;
+  #pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    const int c = h * DH + n * 8 + 2 * t;
+    if (kr0 < L) {
+      const size_t off = ((size_t)b * L + kr0) * HD + c;
+      *reinterpret_cast<float2*>(dk + off) =
+          make_float2(sums[0][n][0] * scale, sums[0][n][1] * scale);
+      *reinterpret_cast<float2*>(dv + off) = make_float2(sums[1][n][0], sums[1][n][1]);
+    }
+    if (kr1 < L) {
+      const size_t off = ((size_t)b * L + kr1) * HD + c;
+      *reinterpret_cast<float2*>(dk + off) =
+          make_float2(sums[0][n][2] * scale, sums[0][n][3] * scale);
+      *reinterpret_cast<float2*>(dv + off) = make_float2(sums[1][n][2], sums[1][n][3]);
+    }
+  }
+}
+
+// ---- (b) dbias
+//
+// One block per (64-key tile, 64-query tile, head) whose loop is the batch:
+// only the rows that keep a key of the tile (the others add dS = 0), listed
+// in the block's prologue.  Per row it recomputes S = Q K^T and dP = dO V^T
+// (m64n64k8, both operands in TMA's layout, no transpose), and sums dS gate
+// = P (dP gate - delta gate) in f32 registers; each dbias element is written
+// once.  Q and dO land as f32 and each consumer splits its A fragments in
+// registers (64 a thread); K and V are split in place by the producer.
+//
+// Shared memory: the block's bias [64 queries][64 keys] (16 KB), two stages
+// of 97 KB (Q, dO, K, K lo, V, V lo and the 64 queries' lse, delta, gate
+// and the 64 keys' keep bytes) and the row list: 216 KB at B = 2048, one
+// block an SM.  Per row 48 tf32 wgmma instructions (1536 tensor clocks)
+// read 96 KB of B operands and 64 KB of A fragments from shared memory.
+
+constexpr int DS_Q = 0, DS_DO = TF_TILE, DS_K = 2 * TF_TILE, DS_V = 4 * TF_TILE,
+              DS_VEC = 6 * TF_TILE;  // K's and V's lo TF_TILE after their hi
+constexpr int DB_TF_STAGE = DS_VEC + 1024;  // 97 KB
+constexpr int DB_TF_LIST_MAX = 2048;        // batch rows a block lists; past that it walks all
+static_assert(DB_TF_STAGE % 1024 == 0, "stages keep the 1024-byte swizzle alignment");
+
+// the bias, two stages, 8 mbarriers, the list's count (16 bytes), the list
+// (uint16) and a flag byte a row, and slack to align to 1024 bytes
+inline size_t db_tf_smem_bytes(int listed_rows) {
+  return (size_t)TF_TILE + 2 * DB_TF_STAGE + 8 * 8 + 16 + (size_t)listed_rows * 3 + 1024;
+}
+
+struct DbTfMaps {  // (b)'s tensor maps, 64-row boxes; the bias only when L % 4 == 0
+  CUtensorMap q, dout, k, v, bias;
+};
+
+// The rows of a [B][L] mask whose keys k0..k0+63 hold a kept one (a batch
+// row contributes nothing to those keys' dbias otherwise): a flag byte a row
+// in flags[B], then the rows in order in list[0..n) and n in *n_out (warp 0
+// writes those).  Every one of the block's kThreads threads calls it, a
+// warp a row at a time; read the list after a __syncthreads().
+template <int kThreads>
+__device__ __forceinline__ void list_kept_rows(const uint8_t* mask, int B, int L, int k0,
+                                               uint8_t* flags, uint16_t* list, int* n_out) {
+  const int lane = threadIdx.x & 31;
+  for (int b = threadIdx.x >> 5; b < B; b += kThreads / 32) {
+    const uint8_t* m = mask + (size_t)b * L;
+    const int c = k0 + 2 * lane;
+    const bool any = (c < L && m[c] != 0) || (c + 1 < L && m[c + 1] != 0);
+    const bool row = __any_sync(0xffffffffu, any);
+    if (lane == 0) flags[b] = row;
+  }
+  __syncthreads();
+  if (threadIdx.x < 32) compact_flags(flags, B, list, n_out);
+}
+
+// A consumer warp's A fragments of 16 rows (r0, r0 + 8 the thread's) x 64
+// dims, split into tf32 hi and lo, from a landed f32 [64 rows][64] tile (two
+// swizzled 32-column halves); k-slice ks is dims 8 ks .. 8 ks + 7.
+__device__ __forceinline__ void tf_a_fragments(uint32_t hi[8][4], uint32_t lo[8][4],
+                                               const uint8_t* tile, int r0, int t) {
+  #pragma unroll
+  for (int ks = 0; ks < 8; ++ks) {
+    const uint8_t* half = tile + (ks >> 2) * TF_HALF;
+    const int c = (ks & 3) * 8 + t;
+    tf32_split(*reinterpret_cast<const float*>(half + tf_sw(r0, c)), hi[ks][0], lo[ks][0]);
+    tf32_split(*reinterpret_cast<const float*>(half + tf_sw(r0 + 8, c)), hi[ks][1], lo[ks][1]);
+    tf32_split(*reinterpret_cast<const float*>(half + tf_sw(r0, c + 4)), hi[ks][2], lo[ks][2]);
+    tf32_split(*reinterpret_cast<const float*>(half + tf_sw(r0 + 8, c + 4)), hi[ks][3],
+               lo[ks][3]);
+  }
+}
+
+__global__ void __launch_bounds__(TF_THREADS, 1)
+bwd_dbias_tf32x3_kernel(const __grid_constant__ DbTfMaps tm, const float* __restrict__ bias,
+                        const float* __restrict__ gate, const uint8_t* __restrict__ mask,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        float* __restrict__ dbias, int B, int L, int H, float scale,
+                        int bias_tma) {
+  extern __shared__ uint8_t dbtf_smem_raw[];
+  uint8_t* smem = align1024(dbtf_smem_raw);  // the bias [64 queries][64 keys] first
+  uint8_t* stages = smem + TF_TILE;
+  uint64_t* bias_full = reinterpret_cast<uint64_t*>(stages + 2 * DB_TF_STAGE);
+  uint64_t* landed = bias_full + 1;
+  uint64_t* ready = landed + 2;
+  uint64_t* empty = ready + 2;
+  int* nlist_s = reinterpret_cast<int*>(empty + 2);
+  uint16_t* list = reinterpret_cast<uint16_t*>(nlist_s + 4);  // the batch rows walked
+
+  const int k0 = blockIdx.x * BK;
+  const int q0 = blockIdx.y * BQ;
+  const int h = blockIdx.z;  // slowest: the blocks running together share a head's tiles in L2
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bool listed = mask != nullptr && B <= DB_TF_LIST_MAX;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bias_full, bias_tma ? 1 : TF_SPLIT_THREADS);
+    for (int st = 0; st < 2; ++st) {
+      mbar_init(&landed[st], 1);
+      mbar_init(&ready[st], TF_SPLIT_THREADS);
+      mbar_init(&empty[st], 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (listed) list_kept_rows<TF_THREADS>(mask, B, L, k0, reinterpret_cast<uint8_t*>(list + B),
+                                         list, nlist_s);
+  __syncthreads();
+  const int nrows = listed ? *nlist_s : B;
+
+  if (warp >= TF_CONSUMER_WARPS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(TF_PRODUCER_REGS));
+    if (warp == TF_CONSUMER_WARPS) {
+      if (lane == 0) {
+        if (bias_tma) {  // the block's bias: [64 queries][32 keys] halves, one wholly past L skipped
+          const int halves = k0 + 32 < L ? 2 : 1;
+          mbar_arrive_expect_tx(bias_full, halves * TF_HALF);
+          for (int a = 0; a < halves; ++a)
+            tma_load_3d(smem + a * TF_HALF, &tm.bias, bias_full, k0 + 32 * a, q0, h);
+        }
+        for (int i = 0; i < nrows; ++i) {  // a stage as soon as its consumer frees it
+          const int st = i & 1, b = listed ? list[i] : i;
+          if (i >= 2) mbar_wait(&empty[st], ((i >> 1) - 1) & 1);
+          uint8_t* stage = stages + st * DB_TF_STAGE;
+          mbar_arrive_expect_tx(&landed[st], 4 * TF_TILE);
+          #pragma unroll
+          for (int a = 0; a < 2; ++a) {
+            tma_load_3d(stage + DS_Q + a * TF_HALF, &tm.q, &landed[st], h * DH + 32 * a, q0, b);
+            tma_load_3d(stage + DS_DO + a * TF_HALF, &tm.dout, &landed[st], h * DH + 32 * a, q0,
+                        b);
+            tma_load_3d(stage + DS_K + a * TF_HALF, &tm.k, &landed[st], h * DH + 32 * a, k0, b);
+            tma_load_3d(stage + DS_V + a * TF_HALF, &tm.v, &landed[st], h * DH + 32 * a, k0, b);
+          }
+        }
+      }
+    } else {
+      const int tid = (warp - TF_CONSUMER_WARPS - 1) * 32 + lane;
+      if (!bias_tma) {
+        const float* bias_h = bias + (size_t)h * L * L;
+        for (int i = tid; i < BQ * BK; i += TF_SPLIT_THREADS) {
+          const int r = i >> 6, c = i & 63;
+          *reinterpret_cast<float*>(smem + (c >> 5) * TF_HALF + tf_sw(r, c & 31)) =
+              (q0 + r < L && k0 + c < L) ? bias_h[(size_t)(q0 + r) * L + k0 + c] : 0.f;
+        }
+        mbar_arrive(bias_full);
+      }
+      for (int i = 0; i < nrows; ++i) {
+        const int st = i & 1, b = listed ? list[i] : i;
+        uint8_t* stage = stages + st * DB_TF_STAGE;
+        // fetched while the stage lands: lse (+inf past L, so P = 0 there),
+        // delta, gate of the 64 queries, two values a thread (3 x 64 =
+        // 2 x TF_SPLIT_THREADS), and the keep byte of each of the 64 keys
+        // (0 past L)
+        const size_t bh = ((size_t)b * H + h) * L;
+        float x[2];
+        #pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int j = tid + u * TF_SPLIT_THREADS, which = j >> 6, q = q0 + (j & 63);
+          const float* src = which == 0 ? lse : which == 1 ? delta : gate;
+          x[u] = q < L ? src[bh + q] : (which == 0 ? INFINITY : 0.f);
+        }
+        const int kj = k0 + tid;
+        const bool kept = tid < BK && kj < L && (mask == nullptr || mask[(size_t)b * L + kj] != 0);
+        mbar_wait(&landed[st], (i >> 1) & 1);
+        tf_split_tile(stage + DS_K, TF_TILE, tid, TF_SPLIT_THREADS);
+        tf_split_tile(stage + DS_V, TF_TILE, tid, TF_SPLIT_THREADS);
+        float* vec = reinterpret_cast<float*>(stage + DS_VEC);
+        vec[tid] = x[0];
+        vec[tid + TF_SPLIT_THREADS] = x[1];
+        if (tid < BK) reinterpret_cast<uint8_t*>(vec + 3 * BQ)[tid] = kept;
+        // the generic stores above are read by wgmma (the async proxy)
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        mbar_arrive(&ready[st]);
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(TF_CONSUMER_REGS));
+  const int w = warp >> 2, wl = warp & 3;
+  const int g = lane >> 2, t = lane & 3;
+  const int lr0 = wl * 16 + g, lr1 = lr0 + 8;  // the thread's two queries in the tile
+  const float sl2 = scale * LOG2E;
+  uint8_t* stage = stages + w * DB_TF_STAGE;
+  const float* vec = reinterpret_cast<const float*>(stage + DS_VEC);
+  const uint8_t* keep = reinterpret_cast<const uint8_t*>(vec + 3 * BQ);
+  const uint64_t dkh = sw128_desc(stage + DS_K, 16), dkl = sw128_desc(stage + DS_K + TF_TILE, 16);
+  const uint64_t dvh = sw128_desc(stage + DS_V, 16), dvl = sw128_desc(stage + DS_V + TF_TILE, 16);
+
+  float acc[8][4];          // dbias of (query lr0: e = 0, 1; lr1: e = 2, 3; key 8j + 2t + (e & 1))
+  float s[8][4], dp[8][4];  // S then P, dP
+  uint32_t ah[8][4], al[8][4];  // Q's, then dO's A fragments
+  #pragma unroll
+  for (int j = 0; j < 8; ++j)
+    #pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = s[j][e] = dp[j][e] = 0.f;
+  mbar_wait(bias_full, 0);
+
+  for (int i = w; i < nrows; i += 2) {
+    const uint32_t parity = (i >> 1) & 1;
+    mbar_wait(&landed[w], parity);
+    mbar_wait(&ready[w], parity);
+    // S = Q K^T in 3xTF32, Q's fragments split in registers
+    tf_a_fragments(ah, al, stage + DS_Q, lr0, t);
+    reg_fence(s);
+    wgmma_fence();
+    #pragma unroll
+    for (int ks = 0; ks < 8; ++ks) {
+      wgmma_m64n64k8_tf32(s, al[ks], dkh + tf_slice(ks), ks > 0);
+      wgmma_m64n64k8_tf32(s, ah[ks], dkl + tf_slice(ks), 1);
+      wgmma_m64n64k8_tf32(s, ah[ks], dkh + tf_slice(ks), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(s);
+    // dP = dO V^T, and P while it runs
+    tf_a_fragments(ah, al, stage + DS_DO, lr0, t);
+    reg_fence(dp);
+    wgmma_fence();
+    #pragma unroll
+    for (int ks = 0; ks < 8; ++ks) {
+      wgmma_m64n64k8_tf32(dp, al[ks], dvh + tf_slice(ks), ks > 0);
+      wgmma_m64n64k8_tf32(dp, ah[ks], dvl + tf_slice(ks), 1);
+      wgmma_m64n64k8_tf32(dp, ah[ks], dvh + tf_slice(ks), 1);
+    }
+    wgmma_commit();
+    const float ll[2] = {vec[lr0] * LOG2E, vec[lr1] * LOG2E};
+    const float de[2] = {vec[BQ + lr0], vec[BQ + lr1]};
+    const float ga[2] = {vec[2 * BQ + lr0], vec[2 * BQ + lr1]};
+    const float gl[2] = {ga[0] * LOG2E, ga[1] * LOG2E};
+    // keep bits: bit 8 (j % 4) + c of kept[j / 4] is key 8j + 2t + c
+    const uint32_t lo = __ballot_sync(0xffffffffu, keep[lane] != 0);
+    const uint32_t hi = __ballot_sync(0xffffffffu, keep[32 + lane] != 0);
+    const uint32_t kept[2] = {lo >> (2 * t), hi >> (2 * t)};
+    // P in place, in the log2 domain; 0 where the key is not kept
+    #pragma unroll
+    for (int j = 0; j < 8; ++j)
+      #pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const float bv = *reinterpret_cast<const float*>(
+            smem + (j >> 2) * TF_HALF + tf_sw(r ? lr1 : lr0, ((8 * j + 2 * t) & 31) + (e & 1)));
+        const float p = ex2(fmaf(s[j][e], sl2, fmaf(gl[r], bv, -ll[r])));
+        s[j][e] = (kept[j >> 2] >> (8 * (j & 3) + (e & 1))) & 1 ? p : 0.f;
+      }
+    wgmma_wait<0>();  // dP
+    reg_fence(dp);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[w]);  // this warp is done with the stage
+    // dbias += dS gate = P (dP gate - delta gate)
+    #pragma unroll
+    for (int j = 0; j < 8; ++j)
+      #pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        acc[j][e] = fmaf(s[j][e], fmaf(dp[j][e], ga[r], -de[r] * ga[r]), acc[j][e]);
+      }
+  }
+
+  // consumer 1's sums through its own stage: every load into it has been read
+  if (!tf_combine<32>(&acc[0][0], reinterpret_cast<float*>(stages + DB_TF_STAGE), w,
+                      wl * 32 + lane))
+    return;
+  float* dbias_h = dbias + (size_t)h * L * L;
+  const bool pair_ok = (L & 1) == 0;  // 8-byte aligned pairs
+  #pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int c = k0 + j * 8 + 2 * t;
+    #pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int q = q0 + (r ? lr1 : lr0);
+      if (q >= L || c >= L) continue;
+      float* dst = dbias_h + (size_t)q * L + c;
+      if (pair_ok) {
+        *reinterpret_cast<float2*>(dst) = make_float2(acc[j][2 * r], acc[j][2 * r + 1]);
+      } else {
+        dst[0] = acc[j][2 * r];
+        if (c + 1 < L) dst[1] = acc[j][2 * r + 1];
+      }
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -1306,7 +1851,7 @@ int fddm_gated_attention_bwd_dq(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
-// dbias is written whole (no zeroing needed) in float32.
+// dbias is written whole (no zeroing needed), f32 in both types.
 int fddm_gated_attention_bwd_dkv(const void* q, const void* k, const void* v,
                                  const void* bias, const void* gate, const void* mask,
                                  const void* lse, const void* delta, const void* dout,
@@ -1315,7 +1860,6 @@ int fddm_gated_attention_bwd_dkv(const void* q, const void* k, const void* v,
   if (B <= 0 || L <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
   if ((L + BK - 1) / BK > 65535 || H > 65535) return (int)cudaErrorInvalidConfiguration;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((L + BK - 1) / BK, H);
   const float scale = 0.125f;
   const float inv_L = 1.f / (float)L;
   const uint8_t* m = static_cast<const uint8_t*>(mask);
@@ -1324,15 +1868,49 @@ int fddm_gated_attention_bwd_dkv(const void* q, const void* k, const void* v,
   const float* dl = static_cast<const float*>(delta);
   float* db = static_cast<float*>(dbias);
   if (dtype == 0) {
-    cudaError_t err = cudaFuncSetAttribute(bwd_dkv_f32_kernel,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)DKV_F32_SMEM_BYTES);
+    if (B > 65535) return (int)cudaErrorInvalidConfiguration;
+    // q, k, v, dout as [B][L][H*64] f32 in boxes 32 dims wide: 64 rows ((a)'s
+    // K and V, (b)'s four) or 32 ((a)'s Q and dO); the bias [H][L][L] in
+    // boxes of 32 keys x 32 queries ((a)) or 64 ((b)) where its rows are
+    // 16-byte aligned, L % 4 == 0 (the kernels load it elementwise otherwise)
+    const uint64_t HD = (uint64_t)H * DH;
+    const bool bias_tma = (L & 3) == 0;
+    const CUtensorMapDataType f32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+    KvTfMaps ma = {};
+    DbTfMaps mb = {};
+    bool ok = encode_3d(&ma.k, k, HD, L, B, HD * 4, 32, BK, f32) &&
+              encode_3d(&ma.v, v, HD, L, B, HD * 4, 32, BK, f32) &&
+              encode_3d(&ma.q, q, HD, L, B, HD * 4, 32, KV_TF_BQ, f32) &&
+              encode_3d(&ma.dout, dout, HD, L, B, HD * 4, 32, KV_TF_BQ, f32) &&
+              encode_3d(&mb.q, q, HD, L, B, HD * 4, 32, BQ, f32) &&
+              encode_3d(&mb.dout, dout, HD, L, B, HD * 4, 32, BQ, f32);
+    if (ok && bias_tma)
+      ok = encode_3d(&ma.bias, bias, L, L, H, (uint64_t)L * 4, 32, KV_TF_BQ, f32) &&
+           encode_3d(&mb.bias, bias, L, L, H, (uint64_t)L * 4, 32, BQ, f32);
+    if (!ok) return (int)cudaErrorInvalidValue;
+    mb.k = ma.k;
+    mb.v = ma.v;
+    static bool checked_a = false, checked_b = false;  // the register counts, once a process
+    cudaError_t err = tf_check_regs(bwd_dkv_tf32x3_kernel, "bwd_dkv_tf32x3_kernel", &checked_a);
+    if (err == cudaSuccess)
+      err = tf_check_regs(bwd_dbias_tf32x3_kernel, "bwd_dbias_tf32x3_kernel", &checked_b);
+    const size_t smem_b = db_tf_smem_bytes(m != nullptr && B <= DB_TF_LIST_MAX ? B : 0);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(bwd_dkv_tf32x3_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)KV_TF_SMEM);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(bwd_dbias_tf32x3_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_b);
     if (err != cudaSuccess) return (int)err;
-    bwd_dkv_f32_kernel<<<grid, F32_THREADS, DKV_F32_SMEM_BYTES, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(bias), g, m, ls, dl,
-        static_cast<const float*>(dout), static_cast<float*>(dk), static_cast<float*>(dv), db,
-        B, L, H, scale, inv_L);
+    const dim3 grid_a((L + BK - 1) / BK, H, B);
+    bwd_dkv_tf32x3_kernel<<<grid_a, TF_THREADS, KV_TF_SMEM, s>>>(
+        ma, static_cast<const float*>(bias), g, m, ls, dl, static_cast<float*>(dk),
+        static_cast<float*>(dv), L, H, scale, inv_L, bias_tma);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid_b((L + BK - 1) / BK, (L + BQ - 1) / BQ, H);
+    bwd_dbias_tf32x3_kernel<<<grid_b, TF_THREADS, smem_b, s>>>(
+        mb, static_cast<const float*>(bias), g, m, ls, dl, db, B, L, H, scale, bias_tma);
   } else if (dtype == 1) {
     if ((L + DKV_KEYS - 1) / DKV_KEYS > 65535 || B > 65535)
       return (int)cudaErrorInvalidConfiguration;

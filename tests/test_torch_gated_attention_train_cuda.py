@@ -12,10 +12,11 @@ Inputs are unit-scale with ragged key masks and one all-masked row, at an L
 that is no multiple of 8 (203), the tail-block length of the TPU kernels'
 fault (384) and the training length (1024); B4 (dq/dgate: 128-query blocks
 walking 64-key tiles, those without a kept key skipped) and B5 (dk/dv/dbias,
-two kernels: 128-key blocks for dk/dv, 128-query x 128-key blocks looping
-over the batch for dbias) also at the edges of those tiles (65, 127, 128,
-129, 1000), with one and three batch rows and with the fine-tune's 32, and
-twice in a row, where their outputs must agree bit for bit.  Tolerances,
+two kernels: key blocks for dk/dv, query x key blocks looping over the batch
+for dbias; 128 wide in bf16, 64 in f32) also at the edges of those tiles
+(65, 127, 128, 129, 1000), with one and three batch rows and with the
+fine-tune's 32, and twice in a row, where their outputs must agree bit for
+bit (B5 in f32 too).  Tolerances,
 each a fraction of the reference's largest magnitude: float32 1e-4
 (summation order only); bfloat16 2e-2 against the plain versions, which
 round P and dS where the kernels do, and 5e-2 against autograd of the plain
@@ -170,37 +171,40 @@ def _dq(q, k, v, bias, gate, mask, dout):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("L", [65, 127, 128, 129, 203, 1000, 1024])
-def test_dkv_kernel_at_its_tile_edges(cuda_device, L):
-    """bf16 B5 against the plain backward at the edges of its 128-key and
-    128-query blocks and 64-row tiles; bias rows not 16-byte aligned at 127,
-    129 and 203 (loaded elementwise, not by TMA)."""
-    q, k, v, bias, gate, mask, dout = _inputs(cuda_device, L, torch.bfloat16, seed=2)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_dkv_kernel_at_its_tile_edges(cuda_device, L, dtype):
+    """B5 against the plain backward at the edges of its blocks (bf16:
+    128-key and 128-query blocks and 64-row tiles; f32: 64-key and 64-query
+    blocks and 32-query steps); bias rows not 16-byte aligned at 127, 129
+    and 203 (f32 also 65: loaded elementwise, not by TMA)."""
+    q, k, v, bias, gate, mask, dout = _inputs(cuda_device, L, dtype, seed=2)
     (dk, dv, dbias), want, _ = _dkv(q, k, v, bias, gate, mask, dout)
     for name, a, b in zip(("dk", "dv", "dbias"), (dk, dv, dbias), want):
         assert torch.isfinite(a).all(), name
-        _assert_rel(name, a, b, REL_TOL[torch.bfloat16])
+        _assert_rel(name, a, b, REL_TOL[dtype])
     assert dk[1].abs().max().item() == 0  # the all-masked row
     _assert_rel("dv all-masked", dv[1], (dout[1].float().sum(0) / L).expand(L, -1),
-                REL_TOL[torch.bfloat16])
+                REL_TOL[dtype])
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("batch", [1, 32])
-def test_dkv_kernel_batch_rows(cuda_device, batch):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_dkv_kernel_batch_rows(cuda_device, batch, dtype):
     """dbias sums over the batch inside one block: one row, and the
     fine-tune's 32 (ragged rows and an all-masked one) at L = 1024."""
-    q, k, v, bias, gate, mask, dout = _inputs(cuda_device, 1024, torch.bfloat16, seed=3,
-                                              batch=batch)
+    q, k, v, bias, gate, mask, dout = _inputs(cuda_device, 1024, dtype, seed=3, batch=batch)
     (dk, dv, dbias), want, _ = _dkv(q, k, v, bias, gate, mask, dout)
     for name, a, b in zip(("dk", "dv", "dbias"), (dk, dv, dbias), want):
         assert torch.isfinite(a).all(), name
-        _assert_rel(name, a, b, REL_TOL[torch.bfloat16])
+        _assert_rel(name, a, b, REL_TOL[dtype])
 
 
 @pytest.mark.cuda
-def test_dkv_kernel_is_deterministic(cuda_device):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_dkv_kernel_is_deterministic(cuda_device, dtype):
     """No atomics: two calls on the same inputs agree bit for bit."""
-    q, k, v, bias, gate, mask, dout = _inputs(cuda_device, 1024, torch.bfloat16, seed=4, batch=8)
+    q, k, v, bias, gate, mask, dout = _inputs(cuda_device, 1024, dtype, seed=4, batch=8)
     first, _, (lse, delta) = _dkv(q, k, v, bias, gate, mask, dout)
     again = FA.wavlm_gated_attention_bwd_dkv_cuda(q, k, v, bias, gate, mask, lse, delta, dout, H)
     for name, a, b in zip(("dk", "dv", "dbias"), first, again):
