@@ -16,9 +16,9 @@ Phases, each fatal on failure:
 
   1. the card's name and power limit (nvidia-smi); build every kernel
      from `fddm_asr_tpu_torch/csrc/` with nvcc (one process per source, in
-     parallel), timed; the SASS (`cuobjdump -sass`) of the float32 forward
-     and of float32 B5's two kernels must hold tf32 HGMMA and no other (they
-     run 3xTF32 on the tensor cores);
+     parallel), timed; the SASS (`cuobjdump -sass`) of the float32 forward,
+     of float32 B4 and of float32 B5's two kernels must hold tf32 HGMMA and
+     no other (they run 3xTF32 on the tensor cores);
   2. kernel vs plain version at B=8, H=16, dh=64 on both sides of the TPU
      kernels' 4096-frame split (L=1024, 4224), float32 and bfloat16, with
      ragged key masks and one all-masked row, and at phase 15 (c)'s
@@ -60,8 +60,8 @@ Phases, each fatal on failure:
      dh=64, L=1024 with 999 valid keys in every row, bfloat16), then at
      B=8, L=1024, 384, 203, float32 and bfloat16, ragged key masks and one
      all-masked row, then untimed at the edges of B4's and B5's tiles (L =
-     65, 127, 128, 129, 203, 1000, 1024; B=1 and B=3, bfloat16 and
-     float32); B4 and B5 are each called twice each time and their
+     31, 32, 33, 63, 64, 65, 127, 128, 129, 203, 1000, 1024; B=1 and B=3,
+     bfloat16 and float32); B4 and B5 are each called twice each time and their
      outputs must agree bit for bit; at L=1024 each kernel's time beside the plain version's, a
      library yardstick (one `scaled_dot_product_attention` call, and
      autograd of it for the backward pair; the port calls neither) and the
@@ -195,8 +195,10 @@ Phases, each fatal on failure:
      144 and B8 6; (e) `serve --exported` in this process under phase 16
      (c)'s load (256 untraced, 64 traced uploads), every served batch's ids
      equal to the live pipeline's at the artifact's bucket and the
-     engine's counter, beside phase 16's numbers, and `python3 -m
-     fddm_asr_tpu_torch.serve --exported` in a subprocess as in 16 (e);
+     engine's counter, beside phase 16's numbers, and its `/healthz`
+     naming every bucket as a graph; (c) and (e) share that one load, and
+     the `python3 -m` entry point is phase 16 (e)'s (a process of its own
+     here would add a fourth load, ~75 s);
  18. `train`: the training entry point on 64 train, 16 validation and 16
      test clips of 20 s (`synthetic_audio`, written with `save_wav`; texts
      of the 8000-piece tokenizer's pieces, 40-120 ids each) and phase 15's
@@ -222,8 +224,8 @@ Phases, each fatal on failure:
      on a pipeline carrying the EMA weights of `best_model.state.pt`.
 
 Phases 4 and 7 run at full depth with as many timed runs as before; the
-whole took 736 s of its 1200 s limit on an NVIDIA H100 80GB HBM3 at 700 W
-with phase 18 (about 90 s of it), past the half it aims at: phases 15-17's
+whole took 656 s of its 1200 s limit on an NVIDIA H100 80GB HBM3 at 700 W,
+the kernels' build included, past the half it aims at: phases 15-17's
 processes take most of the time, and would be cut in depth first.
 
 Prints the kernels' JSON line, then the card line, then as the last line
@@ -233,15 +235,16 @@ Prints the kernels' JSON line, then the card line, then as the last line
     python3 chip_smoke.py --b8-times DIR
     python3 chip_smoke.py --b1-f32-times DIR
     python3 chip_smoke.py --b5-f32-times DIR
+    python3 chip_smoke.py --b4-f32-times DIR
 
 time only the fused int8 kernel (at phase 8's bfloat16 shapes: CUDA events
 over back-to-back calls, device time per launch, host time a call), only
 the fused conv layer (its kernel and the layer's weight handling, at phase
 9's six bfloat16 layer shapes: CUDA events, device time, host time a call),
 only the float32 gated-attention forward (at phase 2's float32 shapes and a
-transcribe's: CUDA events), or only float32 B5 (at phase 5's float32 shape,
-the fine-tune's and B=3, L=203: CUDA events, each kernel's device time), of
-the port checked out at DIR, to compare two trees on one card; they print
+transcribe's: CUDA events), or only float32 B5 or only float32 B4 (at
+phase 5's float32 shape, the fine-tune's and B=3, L=203: CUDA events, each
+kernel's device time), of the port checked out at DIR, to compare two trees on one card; they print
 no result line.
 """
 from __future__ import annotations
@@ -280,9 +283,14 @@ LSE_TOL = 1e-3             # the row logsumexp, f32 in both
 # and a ragged last step (1000)
 EDGE_LENGTHS = (63, 64, 65, 127, 128, 129, 203, 1000)
 # phase 5's: the edges of B4's and B5's 128-query, 128-key and 64-row tiles
-# (float32 B5: 64-key and 64-query blocks, 32-query steps), and bias rows
-# that are not 16-byte aligned (127, 129, 203; in float32 65 too)
-B4_B5_EDGE_LENGTHS = (65, 127, 128, 129, 203, 1000, 1024)
+# (float32 B5: 64-key and 64-query blocks, 32-query steps; float32 B4:
+# 128-query blocks, 32-key steps), and bias rows that are not 16-byte
+# aligned (127, 129, 203; in float32 31, 33, 63 and 65 too)
+B4_B5_EDGE_LENGTHS = (31, 32, 33, 63, 64, 65, 127, 128, 129, 203, 1000, 1024)
+# the device kernels of each training wrapper in float32, all 3xTF32 on wgmma
+F32_TRAINING_KERNELS = {"fwd_lse": ["gated_attention_tf32x3_kernel"],
+                        "bwd_dq": ["bwd_dq_tf32x3_kernel"],
+                        "bwd_dkv": ["bwd_dkv_tf32x3_kernel", "bwd_dbias_tf32x3_kernel"]}
 SMALL_STEP_REL_TOL = 1e-4  # f32 fine-tune step, card vs CPU, of the largest gradient
 FINETUNE_B, FINETUNE_SECONDS, FINETUNE_TOKENS = 32, 20.0, 128
 TIMED_STEPS = 4            # one L_fd period
@@ -2678,8 +2686,8 @@ def exported_full_width(d: str, card: str, served: dict) -> dict:
     process; (d) a second artifact under phase 12's wavlm_config, one
     bucket, ids against the live pipeline, B1/B7/B8 in a profiled replay;
     (e) `serve --exported` under phase 16 (c)'s load, every batch
-    recomputed by the live pipeline, beside phase 16's numbers, and the
-    `python3 -m` process; (d) runs last."""
+    recomputed by the live pipeline, beside phase 16's numbers, and its
+    `/healthz`; (d) runs last."""
     import threading
 
     from fddm_asr_tpu_torch import aot
@@ -2842,6 +2850,8 @@ def exported_full_width(d: str, card: str, served: dict) -> dict:
         serving["idle_dispatch"] = {"batch": [16, 160000],
                                     "dispatch_ms": statistics.median(dispatch_ms),
                                     "wait_ms": statistics.median(wait_ms)}
+        status_h, raw_h = _http(base, "GET", "/healthz")
+        serving["healthz"] = json.loads(raw_h)
     finally:
         srv.shutdown()
         srv.server_close()
@@ -2856,10 +2866,9 @@ def exported_full_width(d: str, card: str, served: dict) -> dict:
         "traced": {k: served["load"]["traced_window"][k] for k in (
             "requests_per_s", "device_busy_ms", "idle_share", "device_events_per_batch")},
         "idle_dispatch": served["load"]["idle_dispatch"]}
-    serving["process"] = _serve_process(["--exported", art], d, "serve_exported", 900)
-    if len(serving["process"]["healthz"].get("native_buckets", [])) != len(buckets):
-        fail(f"(e) the process replays {serving['process']['healthz'].get('native_buckets')} "
-             f"as graphs, exported {buckets}")
+    if status_h != 200 or len(serving["healthz"].get("native_buckets", [])) != len(buckets):
+        fail(f"(e) /healthz {status_h} names {serving['healthz'].get('native_buckets')} as "
+             f"graphs, exported {buckets}")
     result["serve"] = serving
     print(json.dumps({"exported_e": serving}, ensure_ascii=False), flush=True)
 
@@ -3314,36 +3323,38 @@ def b1_f32_times(root: str) -> int:
     return 0
 
 
-def b5_f32_times(root: str) -> int:
-    """`--b5-f32-times ROOT`: float32 B5 (dk, dv, dbias) of the port in the
-    checkout at ROOT (this one or another, to compare two trees on one
-    card), timed alone at phase 5's float32 shape (B=8, L=1024, ragged
-    masks), the fine-tune's (B=32, L=1024, 999 valid keys in every row) and
-    B=3, L=203 (ragged), on lse from the tree's own B3 and the plain delta;
-    inputs from a seeded generator, the same in every tree: CUDA events over
-    back-to-back calls (five runs, each and their median) and each kernel's
-    device time a call (torch.profiler), one JSON line a shape, then the
-    card line."""
+def backward_f32_times(root: str, which: str) -> int:
+    """`--b5-f32-times ROOT` (`which` "bwd_dkv": dk, dv, dbias) and
+    `--b4-f32-times ROOT` ("bwd_dq": dq, dgate): that float32 backward
+    kernel of the port in the checkout at ROOT (this one or another, to
+    compare two trees on one card), timed alone at phase 5's float32 shape
+    (B=8, L=1024, ragged masks), the fine-tune's (B=32, L=1024, 999 valid
+    keys in every row) and B=3, L=203 (ragged), on lse from the tree's own
+    B3 and the plain delta; inputs from a seeded generator, the same in
+    every tree: CUDA events over back-to-back calls (five runs, each and
+    their median) and each kernel's device time a call (torch.profiler),
+    one JSON line a shape, then the card line."""
     sys.path.insert(0, os.path.abspath(root))
     from fddm_asr_tpu_torch.ops import _build
     from fddm_asr_tpu_torch.ops import flash_attention as FA
 
     _build.build_libraries()
     H = 16
+    kernel = getattr(FA, f"wavlm_gated_attention_{which}_cuda")
+    tag, name = {"bwd_dkv": ("b5_f32_times", "bwd_d"), "bwd_dq": ("b4_f32_times", "bwd_dq")}[which]
     for B, L, valid in ((8, 1024, None), (FINETUNE_B, 1024, 999), (3, 203, None)):
         gen = torch.Generator(device="cuda").manual_seed(L + B)
         q, k, v, bias, gate, mask = attention_inputs(B, L, H, torch.float32, gen, valid=valid)
         dout = torch.randn(B, L, H * 64, device="cuda", generator=gen)
         out, lse = FA.wavlm_gated_attention_fwd_lse_cuda(q, k, v, bias, gate, mask, H)
         delta = (dout * out).view(B, L, H, 64).sum(-1).transpose(1, 2).contiguous()
-        call = lambda: FA.wavlm_gated_attention_bwd_dkv_cuda(  # noqa: E731
-            q, k, v, bias, gate, mask, lse, delta, dout, H)
+        call = lambda: kernel(q, k, v, bias, gate, mask, lse, delta, dout, H)  # noqa: E731
         reps = 20 if B * L <= 8 * 1024 else 5
         runs = [time_ms(call, reps) for _ in range(5)]
-        print(json.dumps({"b5_f32_times": {"root": root, "B": B, "L": L, "valid": valid,
-                                           "ms": statistics.median(runs), "ms_runs": runs,
-                                           "device_ms_by_kernel": device_ms_by_kernel(
-                                               call, reps, "bwd_d")}}), flush=True)
+        print(json.dumps({tag: {"root": root, "B": B, "L": L, "valid": valid,
+                                "ms": statistics.median(runs), "ms_runs": runs,
+                                "device_ms_by_kernel": device_ms_by_kernel(call, reps, name)}}),
+              flush=True)
         del q, k, v, bias, gate, mask, dout, out, lse, delta
         torch.cuda.empty_cache()
     print(card_line())
@@ -3375,7 +3386,9 @@ def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--b1-f32-times":
         return b1_f32_times(sys.argv[2])
     if len(sys.argv) == 3 and sys.argv[1] == "--b5-f32-times":
-        return b5_f32_times(sys.argv[2])
+        return backward_f32_times(sys.argv[2], "bwd_dkv")
+    if len(sys.argv) == 3 and sys.argv[1] == "--b4-f32-times":
+        return backward_f32_times(sys.argv[2], "bwd_dq")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from fddm_asr_tpu_torch.ops import _build
     from fddm_asr_tpu_torch.ops import conv_frontend as CF
@@ -3394,7 +3407,13 @@ def main() -> int:
     print(json.dumps({"sass_f32_forward": sass}), flush=True)
     if not (sass["functions"] == 1 and sass["hgmma"] > 0 and sass["hgmma_tf32"] == sass["hgmma"]):
         fail(f"the float32 forward's SASS holds no tf32 HGMMA: {sass}")
-    # so is float32 B5, as two kernels: (a) dk/dv, (b) dbias
+    # so is float32 B4
+    sass_b4 = sass_hgmma(libs["gated_attention_bwd"], "bwd_dq_tf32x3_kernel")
+    print(json.dumps({"sass_f32_b4": sass_b4}), flush=True)
+    if not (sass_b4["functions"] == 1 and sass_b4["hgmma"] > 0
+            and sass_b4["hgmma_tf32"] == sass_b4["hgmma"]):
+        fail(f"float32 B4's SASS holds no tf32 HGMMA only: {sass_b4}")
+    # and float32 B5, as two kernels: (a) dk/dv, (b) dbias
     sass_b5 = [sass_hgmma(libs["gated_attention_bwd"], kernel)
                for kernel in ("bwd_dkv_tf32x3_kernel", "bwd_dbias_tf32x3_kernel")]
     print(json.dumps({"sass_f32_b5": sass_b5}), flush=True)
@@ -3566,9 +3585,10 @@ def main() -> int:
                                  "train_loop_step": trained["b"]["kernel_launches_per_step"][key],
                                  "train_loop": trained["b"]["launches"][key]},
             # phase 5's float32 row at B=8, L=1024, ragged masks
-            "float32_L1024": {k: f32_train_rows[key].get(k) for k in (
-                "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-                "bound_tc_ms", "bound_tc_by")},
+            "float32_L1024": {"kernels": F32_TRAINING_KERNELS[key], **{
+                k: f32_train_rows[key].get(k) for k in (
+                    "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                    "bound_tc_ms", "bound_tc_by")}},
             **({"plain_and_library_cover": "B4+B5"} if key != "fwd_lse" else {}),
         })
     bhld = bhld_rows[torch.bfloat16]

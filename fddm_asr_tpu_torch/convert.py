@@ -25,7 +25,7 @@ from __future__ import annotations
 import json
 import os
 import struct
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -213,6 +213,47 @@ def load_pretrained_wavlm(path: str) -> Tuple[WavLMConfig, StateDict]:
     if any(k.startswith("wavlm.") for k in sd):
         sd = {k[len("wavlm."):]: v for k, v in sd.items() if k.startswith("wavlm.")}
     return config, wavlm_state_dict_from_hf(sd)
+
+
+def load_wavlm(path: str) -> StateDict:
+    """The WavLM state_dict of a local Hugging Face directory.  The JAX
+    CLI's other source, an orbax checkpoint, needs JAX to read: there the
+    encoder crosses over as a state_dict (scripts/export_torch_encoder.py,
+    then --encoder-ckpt)."""
+    if not os.path.isfile(os.path.join(path, "config.json")):
+        raise NotImplementedError(
+            f"--wavlm-ckpt {path}: not a Hugging Face WavLM directory (config.json with "
+            "model.safetensors or pytorch_model.bin); an orbax checkpoint needs JAX to "
+            "read: write the encoder with scripts/export_torch_encoder.py where JAX is "
+            "and pass it as --encoder-ckpt")
+    return load_pretrained_wavlm(path)[1]
+
+
+def add_encoder_weight_args(parser) -> None:
+    """`--encoder-ckpt` and `--wavlm-ckpt`, as the inference, export and
+    serving CLIs take them (read by `load_encoder_weights`)."""
+    parser.add_argument(
+        "--encoder-ckpt", type=str, default=None,
+        help=".pt of the port's AcousticEncoder state_dict (backbone and proj), "
+             "e.g. from scripts/export_torch_encoder.py; applied after --wavlm-ckpt")
+    parser.add_argument(
+        "--wavlm-ckpt", type=str, default=None,
+        help="local Hugging Face WavLM directory (config.json with "
+             "model.safetensors or pytorch_model.bin); default: random from "
+             "the config's seed")
+
+
+def load_encoder_weights(wavlm_ckpt: Optional[str], encoder_ckpt: Optional[str]
+                         ) -> Tuple[Optional[StateDict], Optional[StateDict]]:
+    """(wavlm_state_dict, encoder_state_dict) for `FDDMPipeline.from_config`
+    from the `--wavlm-ckpt` directory and the `--encoder-ckpt` file, None for
+    a flag not given.  A missing or unreadable file raises here, one whose
+    tensors do not fit the config's encoder in `from_config`: never the
+    seed's encoder in its place."""
+    wavlm_sd = load_wavlm(wavlm_ckpt) if wavlm_ckpt else None
+    encoder_sd = (torch.load(encoder_ckpt, map_location="cpu", weights_only=True)
+                  if encoder_ckpt else None)
+    return wavlm_sd, encoder_sd
 
 
 # ----------------------------------------------------------------- decoder

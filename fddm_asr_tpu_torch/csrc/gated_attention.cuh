@@ -1,14 +1,13 @@
 // Shared pieces of the gated-attention kernels (gated_attention.cu, the
 // forward; gated_attention_bwd.cu, the backward): tile sizes, the masked-key
-// score, the float32 tile loads, the list of a batch row's key tiles that
-// hold a kept key, the bf16 tensor-core helpers (A fragments,
-// wgmma), the 128-byte swizzled tile layout, mbarriers, TMA and its tensor
-// maps, and the 3xTF32 pieces of the float32 kernels (the split, tf32
-// wgmma, the swizzled f32 layout, the fragment permutation, the warpgroup
-// roles and their setmaxnreg budgets).  The fused int8 matmul
-// (int8_matmul_fused.cu) and the fused conv (conv_ln_gelu.cu) take the
-// Hopper part: mbarriers, TMA, the swizzled descriptors and the s8 and bf16
-// m64n256 wgmma.
+// score, the list of a batch row's key tiles that hold a kept key, the bf16
+// tensor-core helpers (A fragments, wgmma), the 128-byte swizzled tile
+// layout, mbarriers, TMA and its tensor maps, and the 3xTF32 pieces of the
+// float32 kernels (the split, tf32 wgmma, the swizzled f32 layout, the
+// fragment permutation, the warpgroup roles and their setmaxnreg budgets).
+// The fused int8 matmul (int8_matmul_fused.cu) and the fused conv
+// (conv_ln_gelu.cu) take the Hopper part: mbarriers, TMA, the swizzled
+// descriptors and the s8 and bf16 m64n256 wgmma.
 //
 // Fragment layouts of mma.m16n8k16, which are wgmma's per warp (below)
 // (g = lane / 4, t = lane % 4):
@@ -34,10 +33,6 @@ constexpr int DH = 64;   // head dim (the only one WavLM uses)
 constexpr int BQ = 64;   // queries per tile
 constexpr int BK = 64;   // keys per tile
 constexpr float NEG = -FLT_MAX;  // the masked-key score (f32-min)
-
-// float32 kernels: 256 threads, each a 4x4 register micro-tile
-constexpr int F32_THREADS = 256;
-constexpr int PAD = 68;  // smem row stride (floats): 16-byte aligned, fewer bank conflicts
 
 typedef __nv_bfloat16 bf16;
 
@@ -65,19 +60,6 @@ __device__ __forceinline__ void load_a_fragments(uint32_t a[4][4], const bf16* r
     a[ks][1] = load_pair(row1 + c, valid1);
     a[ks][2] = load_pair(row0 + c + 8, valid0);
     a[ks][3] = load_pair(row1 + c + 8, valid1);
-  }
-}
-
-// A [64 x 64] tile of a row-major f32 matrix into smem, transposed or not:
-// dst[c * PAD + r] (transposed) or dst[r * stride + c]; zero past rows_valid.
-__device__ __forceinline__ void load_tile_f32(float* dst, const float* __restrict__ src,
-                                              size_t ld, int rows_valid, bool transpose,
-                                              int stride) {
-  for (int i = threadIdx.x; i < 64 * 64; i += F32_THREADS) {
-    const int r = i / 64, c = i % 64;
-    const float x = r < rows_valid ? src[(size_t)r * ld + c] : 0.f;
-    if (transpose) dst[c * PAD + r] = x;
-    else dst[r * stride + c] = x;
   }
 }
 
@@ -342,13 +324,13 @@ __device__ __forceinline__ void reg_fence(int d[32][4]) {
 
 // ------------------------------------------------------- float32: 3xTF32
 // The float32 kernels (the forward's gated_attention_tf32x3_kernel, the
-// backward's bwd_dkv_tf32x3_kernel and bwd_dbias_tf32x3_kernel) run 3xTF32
-// on wgmma.  Each f32 operand x is split into two tf32 values, hi = rna(x)
-// and lo = rna(x - hi), and each product is hi.hi + hi.lo + lo.hi in f32
-// (the dropped lo.lo is below 2^-22 of it).  tf32 wgmma (m64nNk8) reads
-// only K-major operands, and TMA cannot transpose; so a block is three
-// warpgroups: two consumers run the products and the softmax, and a
-// producer (lane 0 of warp 8 issuing TMA, warps 9-11 splitting and
+// backward's bwd_dq_tf32x3_kernel, bwd_dkv_tf32x3_kernel and
+// bwd_dbias_tf32x3_kernel) run 3xTF32 on wgmma.  Each f32 operand x is split
+// into two tf32 values, hi = rna(x) and lo = rna(x - hi), and each product is
+// hi.hi + hi.lo + lo.hi in f32 (the dropped lo.lo is below 2^-22 of it).  tf32
+// wgmma (m64nNk8) reads only K-major operands, and TMA cannot transpose; so a
+// block is three warpgroups: two consumers run the products and the softmax,
+// and a producer (lane 0 of warp 8 issuing TMA, warps 9-11 splitting and
 // transposing) prepares every step's operands in shared memory.
 
 constexpr int TF_HALF = BK * 128;    // [64 rows][32 f32]: one 128-byte swizzle column
@@ -413,12 +395,13 @@ __device__ __forceinline__ int tf_sw(int r, int c) {
   return r * 128 + ((((c >> 2) ^ r) & 7) << 4) + (c & 3) * 4;
 }
 
-// Split a landed [64 x 64] f32 tile (two swizzled 32-column halves) in
-// place: hi over the f32 values, lo `lo_off` bytes further on.  An
-// elementwise map, so the swizzled layout carries over.
+// Split a landed f32 tile of kBytes (by default [64 x 64], two swizzled
+// 32-column halves) in place: hi over the f32 values, lo `lo_off` bytes
+// further on.  An elementwise map, so the swizzled layout carries over.
+template <int kBytes = TF_TILE>
 __device__ __forceinline__ void tf_split_tile(uint8_t* tile, int lo_off, int tid, int nthreads) {
   #pragma unroll 2
-  for (int c = tid; c < TF_TILE / 16; c += nthreads) {
+  for (int c = tid; c < kBytes / 16; c += nthreads) {
     const float4 x = reinterpret_cast<const float4*>(tile)[c];
     uint4 hi, lo;
     tf32_split(x.x, hi.x, lo.x);

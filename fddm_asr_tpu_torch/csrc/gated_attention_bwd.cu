@@ -10,8 +10,9 @@
 //
 // Replaces the two backward TPU kernels of fddm_asr_tpu/ops/flash_attention.py:
 //   * `_kernel_packed_bwd_dq`   -> kernel A, one block per (batch row,
-//     head, query tile) that walks the keys, as the forward does (bfloat16:
-//     128-query tiles and only the 64-key tiles holding a kept key);
+//     head, 128-query tile) that walks the keys, as the forward does, only
+//     the 64-key tiles holding a kept key (bfloat16: 64 keys a step;
+//     float32, 3xTF32: 32);
 //   * `_kernel_packed_bwd_dkv`  -> kernel B, two kernels launched back to
 //     back by one call:
 //       (a) dK, dV: one block per (key tile, head, batch row) that walks
@@ -48,11 +49,11 @@
 //     and f32 accumulate.  dS and P are rounded to bf16 as the A operands of
 //     the second products, as the TPU kernels round them; delta, dgate and
 //     dbias stay f32.
-//   * float32: kernel A in exact f32 FMAs, 256 threads of 4x4 register
-//     micro-tiles; kernel B in 3xTF32 on the tensor cores (each operand
-//     split into tf32 hi and lo, each product hi.hi + hi.lo + lo.hi with f32
-//     sums; P, dS, delta and the gate f32), its design below the bfloat16
-//     kernels.
+//   * float32: kernels A and B in 3xTF32 on the tensor cores (each
+//     operand split into tf32 hi and lo, each product hi.hi + hi.lo + lo.hi
+//     with f32 sums; P, dS, delta and the gate f32), their designs below the
+//     bfloat16 kernels.  Kernel A is bound by its tensor work: 3 x 6 x 64
+//     flops per kept (query, key) pair and head on 495 TFLOP/s of tf32.
 //
 // What bounds it, at the fine-tune shape (B=32, L=1024, H=16, bf16, 999 of
 // 1024 keys kept): kernel A moves ~380 MB (0.11 ms) and does 6*64 flops per
@@ -128,148 +129,6 @@
 namespace {
 
 using namespace fddm;
-
-// ---------------------------------------------------------------- float32
-
-// kernel A: Qt, Dt (dO^T), Kt, Vt [DH][PAD] ([d][row]); Ks [BK][DH];
-// BP [BQ][PAD] (bias tile, then dS^T); keep [BK]
-constexpr int DQ_F32_SMEM_FLOATS = 4 * DH * PAD + BK * DH + BQ * PAD + BK;
-constexpr size_t DQ_F32_SMEM_BYTES = DQ_F32_SMEM_FLOATS * sizeof(float);
-
-__global__ void __launch_bounds__(F32_THREADS)
-bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, const float* __restrict__ bias,
-                  const float* __restrict__ gate, const uint8_t* __restrict__ mask,
-                  const float* __restrict__ lse, const float* __restrict__ delta,
-                  const float* __restrict__ dout, float* __restrict__ dq,
-                  float* __restrict__ dgate, int L, int H, float scale) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* Qt = smem;
-  float* Dt = Qt + DH * PAD;
-  float* Kt = Dt + DH * PAD;
-  float* Vt = Kt + DH * PAD;
-  float* Ks = Vt + DH * PAD;
-  float* BP = Ks + BK * DH;
-  float* keep = BP + BQ * PAD;
-
-  const int b = blockIdx.x;  // batch fastest: bias tiles reused from L2
-  const int h = blockIdx.y;
-  const int q0 = blockIdx.z * BQ;
-  const int tid = threadIdx.x;
-  const int rg = tid >> 4;   // query rows 4rg..4rg+3
-  const int cg = tid & 15;   // key cols / head dims 4cg..4cg+3
-  const size_t HD = (size_t)H * DH;
-  const size_t qrow = ((size_t)b * L + q0) * HD + h * DH;
-
-  load_tile_f32(Qt, q + qrow, HD, L - q0, true, 0);
-  load_tile_f32(Dt, dout + qrow, HD, L - q0, true, 0);
-  float gate_r[4], lse_r[4], delta_r[4];
-  #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + 4 * rg + i;
-    const size_t idx = ((size_t)b * H + h) * L + qi;
-    gate_r[i] = qi < L ? gate[idx] : 0.f;
-    lse_r[i] = qi < L ? lse[idx] : 0.f;
-    delta_r[i] = qi < L ? delta[idx] : 0.f;
-  }
-
-  float acc[4][4], dg[4];
-  #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    dg[i] = 0.f;
-    #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  }
-  const float* bias_h = bias + (size_t)h * L * L;
-
-  for (int k0 = 0; k0 < L; k0 += BK) {
-    __syncthreads();  // previous step's readers are done
-    const size_t krow = ((size_t)b * L + k0) * HD + h * DH;
-    load_tile_f32(Kt, k + krow, HD, L - k0, true, 0);
-    load_tile_f32(Vt, v + krow, HD, L - k0, true, 0);
-    load_tile_f32(Ks, k + krow, HD, L - k0, false, DH);
-    for (int i = tid; i < BQ * BK; i += F32_THREADS) {
-      const int r = i / BK, c = i % BK;
-      const int qi = q0 + r, kj = k0 + c;
-      BP[r * PAD + c] = (qi < L && kj < L) ? bias_h[(size_t)qi * L + kj] : 0.f;
-    }
-    if (tid < BK) keep[tid] = keep_flag(mask, b, k0 + tid, L);
-    __syncthreads();
-
-    // S = Q K^T and dP = dO V^T on the thread's 4x4 micro-tile
-    float s[4][4], dp[4][4];
-    #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < DH; ++d) {
-      const float4 qa = *reinterpret_cast<const float4*>(&Qt[d * PAD + 4 * rg]);
-      const float4 da = *reinterpret_cast<const float4*>(&Dt[d * PAD + 4 * rg]);
-      const float4 kb = *reinterpret_cast<const float4*>(&Kt[d * PAD + 4 * cg]);
-      const float4 vb = *reinterpret_cast<const float4*>(&Vt[d * PAD + 4 * cg]);
-      const float qv[4] = {qa.x, qa.y, qa.z, qa.w}, dv[4] = {da.x, da.y, da.z, da.w};
-      const float kv[4] = {kb.x, kb.y, kb.z, kb.w}, vv[4] = {vb.x, vb.y, vb.z, vb.w};
-      #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-          dp[i][j] = fmaf(dv[i], vv[j], dp[i][j]);
-        }
-    }
-
-    // dS = P (dP - delta) at kept keys, 0 elsewhere; dgate += dS * bias
-    #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = 4 * cg + j;
-        const float bv = BP[(4 * rg + i) * PAD + c];
-        float ds = 0.f;
-        if (keep[c] > 0.f) {
-          const float sv = s[i][j] * scale + gate_r[i] * bv;
-          ds = expf(sv - lse_r[i]) * (dp[i][j] - delta_r[i]);
-        }
-        dg[i] = fmaf(ds, bv, dg[i]);
-        s[i][j] = ds;
-      }
-    __syncthreads();  // every thread has read its bias values
-    #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      #pragma unroll
-      for (int j = 0; j < 4; ++j) BP[(4 * cg + j) * PAD + 4 * rg + i] = s[i][j];  // dS^T
-    __syncthreads();
-
-    // dQ += dS K
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      const float4 sa = *reinterpret_cast<const float4*>(&BP[c * PAD + 4 * rg]);
-      const float4 kb = *reinterpret_cast<const float4*>(&Ks[c * DH + 4 * cg]);
-      const float sv[4] = {sa.x, sa.y, sa.z, sa.w}, kv[4] = {kb.x, kb.y, kb.z, kb.w};
-      #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(sv[i], kv[j], acc[i][j]);
-    }
-  }
-
-  // the 16 threads sharing a row group are one half-warp
-  #pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    #pragma unroll
-    for (int i = 0; i < 4; ++i) dg[i] += __shfl_xor_sync(0xffffffffu, dg[i], off);
-  #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + 4 * rg + i;
-    if (qi >= L) continue;
-    float* o = dq + ((size_t)b * L + qi) * HD + h * DH + 4 * cg;
-    #pragma unroll
-    for (int j = 0; j < 4; ++j) o[j] = acc[i][j] * scale;
-    if (cg == 0) dgate[((size_t)b * H + h) * L + qi] = dg[i];
-  }
-}
 
 // ---------------------------------------------------------------- bfloat16
 // Shared by the bf16 kernels A and B.
@@ -1110,6 +969,22 @@ __device__ __forceinline__ void wgmma_m64n32k8_tf32_ss(float d[4][4], uint64_t d
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
+// d[64 x 32] (+)= a[64 x 8] (registers, tf32; the fragment of
+// wgmma_m64n64k8_tf32) . B[8 x 32] (descriptor, K-major tf32).
+__device__ __forceinline__ void wgmma_m64n32k8_tf32(float d[4][4], const uint32_t a[4],
+                                                    uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
 __device__ __forceinline__ void reg_fence_n32(float d[4][4]) {
   #pragma unroll
   for (int j = 0; j < 4; ++j)
@@ -1790,6 +1665,373 @@ bwd_dbias_tf32x3_kernel(const __grid_constant__ DbTfMaps tm, const float* __rest
   }
 }
 
+// ------------------------------------------------------ float32 kernel A (B4)
+// 3xTF32 on wgmma (the split, the warpgroup roles and setmaxnreg: see
+// gated_attention.cuh), built as the forward's gated_attention_tf32x3_kernel
+// is: one block per (batch row, head, 128-query tile), batch fastest, two
+// consumer warpgroups of 64 queries and a producer warpgroup.  The block
+// lists its batch row's 64-key tiles that hold a kept key and walks each as
+// two 32-key steps (exact: dS = 0 at every masked key; a row with no kept
+// key walks none, and its dq and dgate are 0).  Three products a step:
+//   S = Q K^T and dP = dO V^T on m64n32k8, A from registers (Q's and dO's
+//     hi and lo, resident), B K and V as TMA lands them (K-major along the
+//     head dim), split in place;
+//   P = 2^(S scale log2e + gate log2e bias - lse log2e), one ex2; dS = P
+//     (dP - delta) at kept keys, 0 elsewhere by a select; dgate += dS bias;
+//   dQ += dS K: dS's hi and lo A fragments straight from its accumulator
+//     (tf_fragments), B K^T hi and lo [64 dims][32 key positions], which the
+//     producer's split warps write with each group of 8 keys permuted
+//     (tf_pos), as the forward writes V^T.  The step's product goes to an
+//     accumulator of its own, in two 32-dim halves (m64n32k8), each added to
+//     the running dQ by f32 adds: the tensor cores' f32 sums truncate.
+// dQ scale and dgate (summed across the quad by shuffles) are stored once
+// at the end: no atomics, a fixed order of sums.
+//
+// The budget.  Shared memory: a stage holds K, K lo, V, V lo ([32 keys]
+// [64], 8 KB each), K^T hi and lo (8 KB each) and the bias [128 queries][32
+// keys] (16 KB): 64 KB, three stages (192 KB), one block an SM.  A 64-key
+// stage (128 KB) would leave room for one.  Registers, of the consumers'
+// 232: Q and dO hi and lo 128, S and dP 16 each, the running dQ 32, dS's
+// fragments 32 (over S and dP, which are dead by then), the step's dQ half
+// 16, the bias values 16 and some 15 scalars: ~210-225 at the peak.  A
+// whole 64-dim step accumulator (32) passes 232: built, it spilled 200 bytes
+// and ran 5 % slower.  As built, ptxas reports 168 registers (the launch
+// count setmaxnreg needs), 24 bytes of spill stores and 40 of loads, and
+// the SASS holds 72 HGMMA.64x32x8.F32.TF32 and no other HGMMA.
+//
+// What bounds it, at B=8, L=1024, H=16 with phase 5's ragged masks: the
+// three products are 6 x 64 flops per (query, key) pair over the kept
+// pairs, ~0.0973 TFLOP as 3xTF32 = 0.1956 ms at 495 TFLOP/s of dense tf32;
+// the bytes (q, k, v, dO, dq once each and the f32 bias) ~200 MB, 0.06 ms.
+// Per 32-key step a block issues 144 m64n32k8 (2 x 1152 tensor clocks at
+// 16 a wgmma) and reads ~144 KB of B operands from shared memory, beside the
+// split's ~56 KB and TMA's 32 KB (~1800 clocks at 128 bytes a clock).
+// Measured times stand in PERF.md.
+
+constexpr int DQ_TF_BQ = 128;                // queries a block: two consumer warpgroups of 64
+constexpr int DQ_TF_BK = 32;                 // keys a step
+constexpr int DQ_TF_STAGES = 3;
+constexpr int DQ_TF_KHALF = DQ_TF_BK * 128;  // [32 keys][32 f32]: 4 KB
+// a stage: K and V [32 keys][64 dims] as two 4 KB halves each (TMA, then
+// their hi in place) with their lo DQS_LO further on; K^T hi, then lo, [64
+// dims][32 key positions]; the bias [128 queries][32 keys]
+constexpr int DQS_K = 0, DQS_V = 16384, DQS_KT = 32768, DQS_BIAS = 49152;
+constexpr int DQS_LO = 8192;
+constexpr int DQ_TF_STAGE = DQS_BIAS + DQ_TF_BQ * 128;  // 64 KB
+constexpr int DQ_TF_LIST_MAX = 2048;  // 64-key tiles a block lists (L <= 131072); else it walks all
+static_assert(DQ_TF_STAGE % 1024 == 0, "stages keep the 1024-byte swizzle alignment");
+
+// The ring, 3 x DQ_TF_STAGES mbarriers, the count (16 bytes), list (uint16)
+// and flags (a byte each) of the 64-key tiles listed, and slack to align.
+inline size_t dq_tf_smem_bytes(int listed_tiles) {
+  return (size_t)DQ_TF_STAGES * DQ_TF_STAGE + 3 * DQ_TF_STAGES * 8 + 16 +
+         (size_t)listed_tiles * 3 + 1024;
+}
+
+struct DqTfMaps {  // kernel A's tensor maps; the bias only when L % 4 == 0
+  CUtensorMap k, v, bias;
+};
+
+// The first key of step i: half i % 2 of the 64-key tile live[i / 2] (or of
+// tile i / 2 when the block walks every step).
+__device__ __forceinline__ int dq_tf_k0(int i, bool use_list, const uint16_t* live) {
+  return (use_list ? live[i >> 1] : i >> 1) * BK + (i & 1) * DQ_TF_BK;
+}
+
+// The split warps prepare a landed stage: K's hi in place, its lo beside,
+// and both into K^T [64 dims][32 key positions] (tf_pos), a warp a unit of
+// 32 keys x 4 dims (conflict-free 16-byte reads along the keys, and each
+// dim's 32 keys one 128-byte row of K^T); V's hi in place and lo beside; the
+// bias by elements where TMA cannot address its rows (L % 4 != 0).
+__device__ __forceinline__ void dq_tf_prepare(uint8_t* stage, int tid, int wl, int lane,
+                                              const float* bias_q, bool bias_tma, int L, int q0,
+                                              int k0) {
+  const int p = tf_pos(lane);  // the key's position
+  for (int u = wl; u < 16; u += 3) {  // dims 4 u .. 4 u + 3
+    const int off = (u >> 3) * DQ_TF_KHALF + tf_sw(lane, (u & 7) * 4);
+    const float4 x = *reinterpret_cast<const float4*>(stage + DQS_K + off);
+    uint32_t hi[4], lo[4];
+    tf32_split(x.x, hi[0], lo[0]);
+    tf32_split(x.y, hi[1], lo[1]);
+    tf32_split(x.z, hi[2], lo[2]);
+    tf32_split(x.w, hi[3], lo[3]);
+    *reinterpret_cast<uint4*>(stage + DQS_K + off) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+    *reinterpret_cast<uint4*>(stage + DQS_K + DQS_LO + off) =
+        make_uint4(lo[0], lo[1], lo[2], lo[3]);
+    #pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int offt = tf_sw(4 * u + e, p);
+      *reinterpret_cast<uint32_t*>(stage + DQS_KT + offt) = hi[e];
+      *reinterpret_cast<uint32_t*>(stage + DQS_KT + DQS_LO + offt) = lo[e];
+    }
+  }
+  tf_split_tile<2 * DQ_TF_KHALF>(stage + DQS_V, DQS_LO, tid, TF_SPLIT_THREADS);
+  if (!bias_tma) {
+    for (int i = tid; i < DQ_TF_BQ * DQ_TF_BK; i += TF_SPLIT_THREADS) {
+      const int r = i >> 5, c = i & 31;
+      *reinterpret_cast<float*>(stage + DQS_BIAS + tf_sw(r, c)) =
+          (q0 + r < L && k0 + c < L) ? bias_q[(size_t)r * L + k0 + c] : 0.f;
+    }
+  }
+}
+
+// A consumer thread's tf32 hi and lo A fragments of its two rows' 64 head
+// dims (8 slices of 8), from a head-packed f32 matrix; zeros past L.
+__device__ __forceinline__ void tf_row_fragments(uint32_t hi[8][4], uint32_t lo[8][4],
+                                                 const float* row0, const float* row1,
+                                                 bool valid0, bool valid1, int t) {
+  #pragma unroll
+  for (int ks = 0; ks < 8; ++ks) {
+    const int c = 8 * ks + t;
+    tf32_split(valid0 ? row0[c] : 0.f, hi[ks][0], lo[ks][0]);
+    tf32_split(valid1 ? row1[c] : 0.f, hi[ks][1], lo[ks][1]);
+    tf32_split(valid0 ? row0[c + 4] : 0.f, hi[ks][2], lo[ks][2]);
+    tf32_split(valid1 ? row1[c + 4] : 0.f, hi[ks][3], lo[ks][3]);
+  }
+}
+
+__global__ void __launch_bounds__(TF_THREADS, 1)
+bwd_dq_tf32x3_kernel(const __grid_constant__ DqTfMaps tm, const float* __restrict__ q,
+                     const float* __restrict__ bias, const float* __restrict__ gate,
+                     const uint8_t* __restrict__ mask, const float* __restrict__ lse,
+                     const float* __restrict__ delta, const float* __restrict__ dout,
+                     float* __restrict__ dq, float* __restrict__ dgate, int L, int H,
+                     float scale, int bias_tma) {
+  extern __shared__ uint8_t dqtf_smem_raw[];
+  uint8_t* smem = align1024(dqtf_smem_raw);
+  uint64_t* landed = reinterpret_cast<uint64_t*>(smem + DQ_TF_STAGES * DQ_TF_STAGE);
+  uint64_t* ready = landed + DQ_TF_STAGES;  // landed: the TMA bytes; ready: split warps done
+  uint64_t* empty = ready + DQ_TF_STAGES;   // empty: the consumer warps are done with it
+  int* nlive_s = reinterpret_cast<int*>(empty + DQ_TF_STAGES);
+  uint16_t* live = reinterpret_cast<uint16_t*>(nlive_s + 4);  // the 64-key tiles walked
+
+  const int b = blockIdx.x;  // batch fastest: bias tiles reused from L2
+  const int h = blockIdx.y;
+  const int q0 = blockIdx.z * DQ_TF_BQ;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const size_t HD = (size_t)H * DH;
+  const uint8_t* mask_b = mask == nullptr ? nullptr : mask + (size_t)b * L;
+  const int ntiles = (L + BK - 1) / BK;
+  const bool listed = mask_b != nullptr && ntiles <= DQ_TF_LIST_MAX;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < DQ_TF_STAGES; ++st) {
+      mbar_init(&landed[st], 1);                 // the loader's arrive + the bytes
+      mbar_init(&ready[st], TF_SPLIT_THREADS);   // every split thread
+      mbar_init(&empty[st], TF_CONSUMER_WARPS);  // one arrive per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (listed)
+    list_live_tiles<TF_THREADS>(mask_b, L, ntiles, reinterpret_cast<uint8_t*>(live + ntiles),
+                                live, nlive_s);
+  __syncthreads();
+  // the 32-key steps walked: both halves of each listed tile but a half
+  // wholly past L (only the last tile can have one), or every step
+  int nvisit = (L + DQ_TF_BK - 1) / DQ_TF_BK;
+  if (listed) {
+    const int nlive = *nlive_s;
+    nvisit = 2 * nlive - (nlive > 0 && live[nlive - 1] * BK + DQ_TF_BK >= L ? 1 : 0);
+  }
+
+  if (warp >= TF_CONSUMER_WARPS) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(TF_PRODUCER_REGS));
+    if (warp == TF_CONSUMER_WARPS) {
+      // one lane loads: K and V [32 keys][64 dims] as two 32-dim halves and
+      // the bias [128 queries][32 keys], a stage as soon as the consumers free it
+      if (lane == 0) {
+        for (int i = 0; i < nvisit; ++i) {
+          const int st = i % DQ_TF_STAGES;
+          if (i >= DQ_TF_STAGES) mbar_wait(&empty[st], (i / DQ_TF_STAGES - 1) & 1);
+          uint8_t* stage = smem + st * DQ_TF_STAGE;
+          const int k0 = dq_tf_k0(i, listed, live);
+          mbar_arrive_expect_tx(&landed[st],
+                                4 * DQ_TF_KHALF + (bias_tma ? DQ_TF_BQ * 128 : 0));
+          #pragma unroll
+          for (int a = 0; a < 2; ++a) {
+            tma_load_3d(stage + DQS_K + a * DQ_TF_KHALF, &tm.k, &landed[st], h * DH + 32 * a,
+                        k0, b);
+            tma_load_3d(stage + DQS_V + a * DQ_TF_KHALF, &tm.v, &landed[st], h * DH + 32 * a,
+                        k0, b);
+          }
+          if (bias_tma) tma_load_3d(stage + DQS_BIAS, &tm.bias, &landed[st], k0, q0, h);
+        }
+      }
+    } else {
+      const int wl = warp - TF_CONSUMER_WARPS - 1;
+      const int tid = wl * 32 + lane;
+      const float* bias_q = bias + ((size_t)h * L + q0) * L;
+      for (int i = 0; i < nvisit; ++i) {
+        const int st = i % DQ_TF_STAGES;
+        mbar_wait(&landed[st], (i / DQ_TF_STAGES) & 1);
+        dq_tf_prepare(smem + st * DQ_TF_STAGE, tid, wl, lane, bias_q, bias_tma, L, q0,
+                      dq_tf_k0(i, listed, live));
+        // the generic stores above are read by wgmma (the async proxy)
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        mbar_arrive(&ready[st]);
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(TF_CONSUMER_REGS));
+  const int g = lane >> 2, t = lane & 3;  // fragment row group / column
+  const int lr0 = warp * 16 + g, lr1 = lr0 + 8;  // the thread's two rows in the block
+  const int r0 = q0 + lr0, r1 = q0 + lr1;
+
+  // Q and dO as tf32 hi and lo A fragments, kept in registers
+  uint32_t qh[8][4], ql[8][4], oh[8][4], ol[8][4];
+  tf_row_fragments(qh, ql, q + ((size_t)b * L + r0) * HD + h * DH,
+                   q + ((size_t)b * L + r1) * HD + h * DH, r0 < L, r1 < L, t);
+  tf_row_fragments(oh, ol, dout + ((size_t)b * L + r0) * HD + h * DH,
+                   dout + ((size_t)b * L + r1) * HD + h * DH, r0 < L, r1 < L, t);
+  // per row, log2 e folded in: gate log2e, -lse log2e; and delta.  Rows
+  // past L: zeros, so P = 1 meets dP = delta = 0 there (and is never stored).
+  const size_t bh = ((size_t)b * H + h) * L;
+  const float sl2 = scale * LOG2E;
+  float gl[2], nll[2], de[2];
+  #pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = i ? r1 : r0;
+    gl[i] = r < L ? gate[bh + r] * LOG2E : 0.f;
+    nll[i] = r < L ? -lse[bh + r] * LOG2E : 0.f;
+    de[i] = r < L ? delta[bh + r] : 0.f;
+  }
+
+  float acc[8][4];  // dQ: 8 tiles of 8 head dims, accumulator layout
+  float s[4][4], dp[4][4];  // S, then P, then dS; dP: 4 tiles of 8 keys
+  float part[4][4];  // a step's dQ, 32 dims at a time
+  #pragma unroll
+  for (int n = 0; n < 8; ++n)
+    #pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  #pragma unroll
+  for (int j = 0; j < 4; ++j)
+    #pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = part[j][e] = 0.f;
+  float dg[2] = {0.f, 0.f};  // dgate of rows r0, r1 (this thread's key columns)
+
+  for (int i = 0; i < nvisit; ++i) {
+    const int st = i % DQ_TF_STAGES;
+    const uint8_t* stage = smem + st * DQ_TF_STAGE;
+    const int k0 = dq_tf_k0(i, listed, live);
+    // keep flag of the step's key k0 + lane (read before the products, used after)
+    const bool keep = k0 + lane < L && (mask_b == nullptr || mask_b[k0 + lane]);
+    mbar_wait(&landed[st], (i / DQ_TF_STAGES) & 1);
+    mbar_wait(&ready[st], (i / DQ_TF_STAGES) & 1);
+
+    // S = Q K^T and dP = dO V^T in 3xTF32, two commit groups; K and V [key][d]
+    // are K-major
+    const uint64_t dkh = sw128_desc(stage + DQS_K, 16);
+    const uint64_t dkl = sw128_desc(stage + DQS_K + DQS_LO, 16);
+    const uint64_t dvh = sw128_desc(stage + DQS_V, 16);
+    const uint64_t dvl = sw128_desc(stage + DQS_V + DQS_LO, 16);
+    reg_fence_n32(s);
+    reg_fence_n32(dp);
+    wgmma_fence();
+    #pragma unroll
+    for (int ks = 0; ks < 8; ++ks) {
+      const uint32_t kb = tf_slice<DQ_TF_KHALF>(ks);
+      wgmma_m64n32k8_tf32(s, ql[ks], dkh + kb, ks > 0);
+      wgmma_m64n32k8_tf32(s, qh[ks], dkl + kb, 1);
+      wgmma_m64n32k8_tf32(s, qh[ks], dkh + kb, 1);
+    }
+    wgmma_commit();
+    #pragma unroll
+    for (int ks = 0; ks < 8; ++ks) {
+      const uint32_t kb = tf_slice<DQ_TF_KHALF>(ks);
+      wgmma_m64n32k8_tf32(dp, ol[ks], dvh + kb, ks > 0);
+      wgmma_m64n32k8_tf32(dp, oh[ks], dvl + kb, 1);
+      wgmma_m64n32k8_tf32(dp, oh[ks], dvh + kb, 1);
+    }
+    wgmma_commit();
+    // while they run: the bias at the thread's (row, key) pairs (rows lr0:
+    // e = 0, 1; lr1: e = 2, 3; key 8j + 2t + (e & 1), chunk 2j + t / 2 of
+    // the swizzled row) and the keep bits (bit 8j + (e & 1) of `kept`)
+    float bv[4][4];
+    #pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int off = DQS_BIAS + ((((2 * j + (t >> 1)) ^ g) & 7) << 4) + (t & 1) * 8;
+      const float2 b0 = *reinterpret_cast<const float2*>(stage + off + lr0 * 128);
+      const float2 b1 = *reinterpret_cast<const float2*>(stage + off + lr1 * 128);
+      bv[j][0] = b0.x;
+      bv[j][1] = b0.y;
+      bv[j][2] = b1.x;
+      bv[j][3] = b1.y;
+    }
+    const uint32_t kept = __ballot_sync(0xffffffffu, keep) >> (2 * t);
+    wgmma_wait<1>();  // S
+    reg_fence_n32(s);
+    // P in place, in the log2 domain
+    #pragma unroll
+    for (int j = 0; j < 4; ++j)
+      #pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[j][e] = ex2(fmaf(s[j][e], sl2, fmaf(gl[e >> 1], bv[j][e], nll[e >> 1])));
+    wgmma_wait<0>();  // dP
+    reg_fence_n32(dp);
+    // dS = P (dP - delta) at kept keys, 0 elsewhere by a select (P is inf at
+    // a row whose keys are all masked, lse = f32-min, when the block walks
+    // every step); dgate += dS bias; dS's hi and lo as the next A fragments
+    uint32_t fh[4][4], fl[4][4];
+    #pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      #pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float ds = (kept >> (8 * j + (e & 1))) & 1 ? s[j][e] * (dp[j][e] - de[e >> 1])
+                                                         : 0.f;
+        dg[e >> 1] = fmaf(ds, bv[j][e], dg[e >> 1]);
+        s[j][e] = ds;
+      }
+      tf_fragments(s[j], fh[j], fl[j]);
+    }
+    // dQ += dS K: K^T [d][key position] is K-major; the step's product in an
+    // accumulator of its own, 32 dims at a time, added by f32 adds
+    #pragma unroll
+    for (int hd = 0; hd < 2; ++hd) {
+      const uint64_t dth = sw128_desc(stage + DQS_KT + hd * 32 * 128, 16);
+      const uint64_t dtl = sw128_desc(stage + DQS_KT + DQS_LO + hd * 32 * 128, 16);
+      reg_fence_n32(part);
+      wgmma_fence();
+      #pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        wgmma_m64n32k8_tf32(part, fl[j], dth + tf_slice(j), j > 0);
+        wgmma_m64n32k8_tf32(part, fh[j], dtl + tf_slice(j), 1);
+        wgmma_m64n32k8_tf32(part, fh[j], dth + tf_slice(j), 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence_n32(part);
+      #pragma unroll
+      for (int n = 0; n < 4; ++n)
+        #pragma unroll
+        for (int e = 0; e < 4; ++e) acc[4 * hd + n][e] += part[n][e];
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);  // this warp is done with the stage
+  }
+
+  #pragma unroll
+  for (int i = 0; i < 2; ++i) {  // the 4 threads of a row group share a row
+    dg[i] += __shfl_xor_sync(0xffffffffu, dg[i], 1);
+    dg[i] += __shfl_xor_sync(0xffffffffu, dg[i], 2);
+  }
+  #pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    const int c = h * DH + n * 8 + 2 * t;
+    if (r0 < L)
+      *reinterpret_cast<float2*>(dq + ((size_t)b * L + r0) * HD + c) =
+          make_float2(acc[n][0] * scale, acc[n][1] * scale);
+    if (r1 < L)
+      *reinterpret_cast<float2*>(dq + ((size_t)b * L + r1) * HD + c) =
+          make_float2(acc[n][2] * scale, acc[n][3] * scale);
+  }
+  if (t == 0) {
+    if (r0 < L) dgate[bh + r0] = dg[0];
+    if (r1 < L) dgate[bh + r1] = dg[1];
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -1806,22 +2048,37 @@ int fddm_gated_attention_bwd_dq(const void* q, const void* k, const void* v,
   if (B <= 0 || L <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
   if ((L + BQ - 1) / BQ > 65535 || H > 65535) return (int)cudaErrorInvalidConfiguration;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(B, H, (L + BQ - 1) / BQ);
   const float scale = 0.125f;  // 1 / sqrt(64)
   const uint8_t* m = static_cast<const uint8_t*>(mask);
   const float* g = static_cast<const float*>(gate);
   const float* ls = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
   if (dtype == 0) {
-    cudaError_t err = cudaFuncSetAttribute(bwd_dq_f32_kernel,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           (int)DQ_F32_SMEM_BYTES);
+    // K and V as [B][L][H*64] f32 in boxes of 32 dims x 32 keys; the bias
+    // [H][L][L] in boxes of 32 keys x 128 queries where its rows are 16-byte
+    // aligned, L % 4 == 0 (the kernel loads it elementwise otherwise)
+    const uint64_t HD = (uint64_t)H * DH;
+    const bool bias_tma = (L & 3) == 0;
+    const CUtensorMapDataType f32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+    DqTfMaps tm = {};
+    bool ok = encode_3d(&tm.k, k, HD, L, B, HD * 4, 32, DQ_TF_BK, f32) &&
+              encode_3d(&tm.v, v, HD, L, B, HD * 4, 32, DQ_TF_BK, f32);
+    if (ok && bias_tma)
+      ok = encode_3d(&tm.bias, bias, L, L, H, (uint64_t)L * 4, 32, DQ_TF_BQ, f32);
+    if (!ok) return (int)cudaErrorInvalidValue;
+    static bool checked = false;  // the register count, once a process
+    cudaError_t err = tf_check_regs(bwd_dq_tf32x3_kernel, "bwd_dq_tf32x3_kernel", &checked);
+    const int ntiles = (L + BK - 1) / BK;
+    const size_t smem = dq_tf_smem_bytes(m != nullptr && ntiles <= DQ_TF_LIST_MAX ? ntiles : 0);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(bwd_dq_tf32x3_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    bwd_dq_f32_kernel<<<grid, F32_THREADS, DQ_F32_SMEM_BYTES, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(bias), g, m, ls, dl,
-        static_cast<const float*>(dout), static_cast<float*>(dq), static_cast<float*>(dgate),
-        L, H, scale);
+    const dim3 tf_grid(B, H, (L + DQ_TF_BQ - 1) / DQ_TF_BQ);
+    bwd_dq_tf32x3_kernel<<<tf_grid, TF_THREADS, smem, s>>>(
+        tm, static_cast<const float*>(q), static_cast<const float*>(bias), g, m, ls, dl,
+        static_cast<const float*>(dout), static_cast<float*>(dq), static_cast<float*>(dgate), L,
+        H, scale, bias_tma);
   } else if (dtype == 1) {
     // K and V as [B][L][H*64] in 64-key tiles; the bias [H][L][L] in tiles of
     // 128 queries x 64 keys where its rows are 16-byte aligned (L % 8 == 0)

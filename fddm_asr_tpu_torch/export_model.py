@@ -37,13 +37,13 @@ import json
 import os
 import sys
 
+from fddm_asr_tpu_torch.convert import add_encoder_weight_args
+
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="FDDM-ASR AOT export on PyTorch")
     p.add_argument("--ckpt", type=str, required=True, help="reference-format .pt checkpoint")
-    p.add_argument("--encoder-ckpt", type=str, default=None,
-                   help=".pt of the port's AcousticEncoder state_dict (backbone and proj), "
-                        "e.g. from scripts/export_torch_encoder.py; applied after --wavlm-ckpt")
+    add_encoder_weight_args(p)
     p.add_argument("--main-config", type=str, required=True)
     p.add_argument("--diffusion-config", type=str, required=True)
     p.add_argument("--tokenizer", type=str, required=True)
@@ -72,9 +72,6 @@ def parse_args(argv=None):
                         "--device's")
     p.add_argument("--device", type=str, default=None,
                    help="cuda (default; raises without a GPU) or cpu")
-    p.add_argument("--wavlm-ckpt", type=str, default=None,
-                   help="local Hugging Face WavLM directory; default: random from the "
-                        "config's seed")
     p.add_argument("--dtype", choices=["config", "bfloat16", "float32"], default="config",
                    help="compute dtype baked into the programs; config honours the YAML's "
                         "model.dtype")

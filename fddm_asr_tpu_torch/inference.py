@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from fddm_asr_tpu_torch import CONV_RECEPTIVE_FIELD
+from fddm_asr_tpu_torch.convert import add_encoder_weight_args, load_encoder_weights
 
 
 def parse_args(argv=None):
@@ -43,13 +44,7 @@ def parse_args(argv=None):
     src.add_argument("--csv", type=str, help="batch CSV with a `path` column")
     p.add_argument("--ckpt", type=str, required=True,
                    help="reference-format .pt decoder checkpoint")
-    p.add_argument("--encoder-ckpt", type=str, default=None,
-                   help=".pt of the port's AcousticEncoder state_dict (backbone and proj), "
-                        "e.g. from scripts/export_torch_encoder.py; applied after --wavlm-ckpt")
-    p.add_argument("--wavlm-ckpt", type=str, default=None,
-                   help="local Hugging Face WavLM directory (config.json with "
-                        "model.safetensors or pytorch_model.bin); default: random from "
-                        "the config's seed")
+    add_encoder_weight_args(p)
     p.add_argument("--main-config", type=str, required=True)
     p.add_argument("--diffusion-config", type=str, required=True)
     p.add_argument("--tokenizer", type=str, required=True,
@@ -116,32 +111,11 @@ def build_pipeline(args):
         "T": diff.get("T", main_cfg.diffusion["T"]),
         "beta_max": diff.get("beta_max", main_cfg.diffusion.get("beta_max", 0.2)),
     }})
-    wavlm_sd = None
-    if args.wavlm_ckpt:
-        wavlm_sd = load_wavlm(args.wavlm_ckpt)
-    encoder_sd = None
-    if args.encoder_ckpt:
-        encoder_sd = torch.load(args.encoder_ckpt, map_location="cpu", weights_only=True)
+    wavlm_sd, encoder_sd = load_encoder_weights(args.wavlm_ckpt, args.encoder_ckpt)
     return FDDMPipeline.from_config(
         cfg, ckpt_path=args.ckpt, wavlm_state_dict=wavlm_sd, encoder_state_dict=encoder_sd,
         tokenizer=load_tokenizer(args.tokenizer), device=args.device,
         dtype=None if args.dtype == "config" else args.dtype)
-
-
-def load_wavlm(path: str):
-    """The WavLM state_dict of a local Hugging Face directory.  The JAX
-    CLI's other source, an orbax checkpoint, needs JAX to read: there the
-    encoder crosses over as a state_dict (scripts/export_torch_encoder.py,
-    then --encoder-ckpt)."""
-    from fddm_asr_tpu_torch.convert import load_pretrained_wavlm
-
-    if not os.path.isfile(os.path.join(path, "config.json")):
-        raise NotImplementedError(
-            f"--wavlm-ckpt {path}: not a Hugging Face WavLM directory (config.json with "
-            "model.safetensors or pytorch_model.bin); an orbax checkpoint needs JAX to "
-            "read: write the encoder with scripts/export_torch_encoder.py where JAX is "
-            "and pass it as --encoder-ckpt")
-    return load_pretrained_wavlm(path)[1]
 
 
 def sampling_kwargs(args) -> Dict[str, Any]:

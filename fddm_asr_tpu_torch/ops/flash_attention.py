@@ -25,8 +25,8 @@ Routing is by the device of the tensors and nothing else: a CPU tensor takes
 the plain version; a CUDA tensor launches the kernel or raises.  The kernels
 are compiled with nvcc on first use (`ops/_build.py`).  bfloat16 runs on the tensor cores
 (wgmma in the forward and in the backward); the float32 forward and the
-float32 dk/dv/dbias kernels run 3xTF32 on wgmma (each operand split into
-tf32 hi and lo, three products), the float32 dq/dgate kernel exact f32 FMAs.
+float32 backward kernels run 3xTF32 on wgmma (each operand split into tf32
+hi and lo, three products).
 
 Training goes through `wavlm_gated_attention_heads_packed_trainable`: on the
 CPU the plain version, which autograd differentiates; on CUDA the autograd

@@ -3,6 +3,7 @@
 
     python -m fddm_asr_tpu_torch.serve --config configs/fddm_zhTW_base.yaml \
         --ckpt ckpts/best_model.pt --tokenizer spm.model \
+        [--encoder-ckpt ckpts/best_model.encoder.pt] [--wavlm-ckpt DIR] \
         [--port 8080] [--max-batch 16] [--max-wait-ms 20] [--device cpu]
 
 Counterpart of the repository's `serve.py` (its live-pipeline half): the
@@ -35,8 +36,11 @@ from pinned host buffers with non-blocking copies, so dispatching batch
 n + 1 does not wait for batch n.  Runs on CUDA; without a GPU it raises
 unless `--device cpu` is given.  `--exported DIR` serves an AOT artifact
 (`aot.py`, from `python -m fddm_asr_tpu_torch.export_model`) instead of the
-live pipeline: its buckets, sampling and wire dtype come from the artifact,
-and on CUDA every bucket is a CUDA graph replay.  Not ported:
+live pipeline: its buckets, sampling, wire dtype and weights come from the
+artifact (so `--wavlm-ckpt` / `--encoder-ckpt` beside it raise), and on CUDA
+every bucket is a CUDA graph replay.  The live pipeline's encoder weights
+load as the inference CLI loads them (`convert.load_encoder_weights`): a
+fine-tuned model is `{prefix}.pt` with `--encoder-ckpt {prefix}.encoder.pt`.  Not ported:
 `--mesh`/`--seq-parallel` (ROADMAP A7) raise.
 """
 from __future__ import annotations
@@ -56,6 +60,7 @@ import numpy as np
 import torch
 
 from fddm_asr_tpu_torch import CONV_RECEPTIVE_FIELD
+from fddm_asr_tpu_torch.convert import add_encoder_weight_args
 from fddm_asr_tpu_torch.data.audio_io import (load_audio, load_wav, plan_silence_chunks,
                                               resample, silence_cut)
 from fddm_asr_tpu_torch.data.wire import encode_wire, silence_value, wire_dtype
@@ -795,24 +800,32 @@ def _build_exported_server(args) -> ThreadingHTTPServer:
 
 
 def build_server(args) -> ThreadingHTTPServer:
-    """The pipeline from --config/--ckpt (or the artifact --exported) on
+    """The pipeline from --config/--ckpt and the encoder weights of
+    --wavlm-ckpt/--encoder-ckpt (or the artifact --exported) on
     --device, its engine and the HTTP server bound to --host/--port (not yet
     serving), warmed up when --warmup-seconds is given."""
     if args.mesh or args.seq_parallel:
         raise SystemExit("--mesh / --seq-parallel: multi-device serving is not ported yet "
                          "(ROADMAP A7)")
     if args.exported:
+        if args.wavlm_ckpt or args.encoder_ckpt:
+            raise SystemExit("--wavlm-ckpt / --encoder-ckpt with --exported: an artifact "
+                             "carries its own weights; pass them to python -m "
+                             "fddm_asr_tpu_torch.export_model instead")
         return _build_exported_server(args)
     if not (args.config and args.ckpt):
         raise SystemExit("either --exported or both --config and --ckpt are required")
     from fddm_asr_tpu_torch.config import load_config
+    from fddm_asr_tpu_torch.convert import load_encoder_weights
     from fddm_asr_tpu_torch.pipeline import FDDMPipeline
     from fddm_asr_tpu_torch.tokenizer import load_tokenizer
 
     cfg = load_config(args.config)
     tokenizer = load_tokenizer(args.tokenizer or cfg.data.tokenizer_path)
+    wavlm_sd, encoder_sd = load_encoder_weights(args.wavlm_ckpt, args.encoder_ckpt)
     pipeline = FDDMPipeline.from_config(
-        cfg, ckpt_path=args.ckpt, tokenizer=tokenizer, device=args.device,
+        cfg, ckpt_path=args.ckpt, wavlm_state_dict=wavlm_sd, encoder_state_dict=encoder_sd,
+        tokenizer=tokenizer, device=args.device,
         use_condition_mask=True,  # bucket padding must not alter transcripts
         dtype=None if args.dtype == "config" else args.dtype)
     pipeline.input_encoding = args.wire_dtype
@@ -878,6 +891,7 @@ def parse_args(argv=None):
     ap = argparse.ArgumentParser(description="FDDM-ASR inference server on PyTorch")
     ap.add_argument("--config", default=None, help="the model's YAML config")
     ap.add_argument("--ckpt", default=None, help="reference-format .pt decoder checkpoint")
+    add_encoder_weight_args(ap)
     ap.add_argument("--exported", default=None,
                     help="serve an AOT artifact directory (python -m "
                          "fddm_asr_tpu_torch.export_model) instead of --config/--ckpt")

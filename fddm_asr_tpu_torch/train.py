@@ -53,7 +53,7 @@ def main(argv=None):
         raise NotImplementedError("--mesh / --coordinator / --num-processes / --process-id: "
                                   "multi-device training is not ported yet (ROADMAP A7)")
     from fddm_asr_tpu_torch.config import load_config, load_yaml
-    from fddm_asr_tpu_torch.inference import load_wavlm
+    from fddm_asr_tpu_torch.convert import load_wavlm
     from fddm_asr_tpu_torch.train_lib import run_training, setup_logging
 
     setup_logging()

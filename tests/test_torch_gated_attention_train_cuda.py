@@ -11,12 +11,13 @@ it also runs on the GPU machine (see test_torch_gated_attention_cuda.py):
 Inputs are unit-scale with ragged key masks and one all-masked row, at an L
 that is no multiple of 8 (203), the tail-block length of the TPU kernels'
 fault (384) and the training length (1024); B4 (dq/dgate: 128-query blocks
-walking 64-key tiles, those without a kept key skipped) and B5 (dk/dv/dbias,
-two kernels: key blocks for dk/dv, query x key blocks looping over the batch
-for dbias; 128 wide in bf16, 64 in f32) also at the edges of those tiles
-(65, 127, 128, 129, 1000), with one and three batch rows and with the
+walking key steps, 64 keys in bf16 and 32 in f32, those of 64-key tiles
+without a kept key skipped) and B5 (dk/dv/dbias, two kernels: key blocks for
+dk/dv, query x key blocks looping over the batch for dbias; 128 wide in
+bf16, 64 in f32) also at the edges of those tiles (65, 127, 128, 129, 1000;
+B4 also 31, 32, 33, 63, 64), with one and three batch rows and with the
 fine-tune's 32, and twice in a row, where their outputs must agree bit for
-bit (B5 in f32 too).  Tolerances,
+bit (in f32 too).  Tolerances,
 each a fraction of the reference's largest magnitude: float32 1e-4
 (summation order only); bfloat16 2e-2 against the plain versions, which
 round P and dS where the kernels do, and 5e-2 against autograd of the plain
@@ -212,41 +213,44 @@ def test_dkv_kernel_is_deterministic(cuda_device, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("batch", [1, 3])
-@pytest.mark.parametrize("L", [65, 127, 128, 129, 203, 1000, 1024])
-def test_dq_kernel_at_its_tile_edges(cuda_device, L, batch):
-    """bf16 B4 against the plain backward at the edges of its 128-query
-    blocks and 64-key tiles; bias rows not 16-byte aligned at 127, 129 and
-    203 (loaded elementwise, not by TMA), and mask rows neither where
-    L % 16 != 0.  With three rows the last one is all masked: no key tile
-    is visited, and its dq and dgate are exactly 0."""
-    q, k, v, bias, gate, mask, dout = _inputs(cuda_device, L, torch.bfloat16, seed=5,
-                                              batch=batch)
+@pytest.mark.parametrize("L", [31, 32, 33, 63, 64, 65, 127, 128, 129, 203, 1000, 1024])
+def test_dq_kernel_at_its_tile_edges(cuda_device, L, batch, dtype):
+    """B4 against the plain backward at the edges of its 128-query blocks
+    and its key steps (bf16: 64-key tiles; f32: 32-key steps, both halves of
+    each 64-key tile holding a kept key); bias rows not 16-byte aligned at
+    127, 129 and 203 (f32 also 31, 33, 63 and 65: loaded elementwise, not by
+    TMA), and in bf16 mask rows neither where L % 16 != 0.  With three rows
+    the last one is all masked: no key step is visited, and its dq and
+    dgate are exactly 0."""
+    q, k, v, bias, gate, mask, dout = _inputs(cuda_device, L, dtype, seed=5, batch=batch)
     (dq, dgate), want, _ = _dq(q, k, v, bias, gate, mask, dout)
     for name, a, b in zip(("dq", "dgate"), (dq, dgate), want):
         assert torch.isfinite(a).all(), name
-        _assert_rel(name, a, b, REL_TOL[torch.bfloat16])
+        _assert_rel(name, a, b, REL_TOL[dtype])
     if batch > 1:
         assert dq[-1].abs().max().item() == 0 and dgate[-1].abs().max().item() == 0
 
 
 @pytest.mark.cuda
-def test_dq_kernel_at_the_fine_tune_batch(cuda_device):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_dq_kernel_at_the_fine_tune_batch(cuda_device, dtype):
     """B = 32 at L = 1024 with ragged rows (whole 64-key tiles masked, which
     B4 skips) and one all-masked row, whose dq and dgate are exactly 0."""
-    q, k, v, bias, gate, mask, dout = _inputs(cuda_device, 1024, torch.bfloat16, seed=6,
-                                              batch=32)
+    q, k, v, bias, gate, mask, dout = _inputs(cuda_device, 1024, dtype, seed=6, batch=32)
     (dq, dgate), want, _ = _dq(q, k, v, bias, gate, mask, dout)
     for name, a, b in zip(("dq", "dgate"), (dq, dgate), want):
         assert torch.isfinite(a).all(), name
-        _assert_rel(name, a, b, REL_TOL[torch.bfloat16])
+        _assert_rel(name, a, b, REL_TOL[dtype])
     assert dq[31].abs().max().item() == 0 and dgate[31].abs().max().item() == 0
 
 
 @pytest.mark.cuda
-def test_dq_kernel_is_deterministic(cuda_device):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_dq_kernel_is_deterministic(cuda_device, dtype):
     """No atomics: two calls on the same inputs agree bit for bit."""
-    q, k, v, bias, gate, mask, dout = _inputs(cuda_device, 1024, torch.bfloat16, seed=7, batch=8)
+    q, k, v, bias, gate, mask, dout = _inputs(cuda_device, 1024, dtype, seed=7, batch=8)
     first, _, (lse, delta) = _dq(q, k, v, bias, gate, mask, dout)
     again = FA.wavlm_gated_attention_bwd_dq_cuda(q, k, v, bias, gate, mask, lse, delta, dout, H)
     for name, a, b in zip(("dq", "dgate"), first, again):

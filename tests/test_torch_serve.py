@@ -9,7 +9,9 @@
    `stats_snapshot` likewise.
 2. The port's own server at a tiny model with `--device cpu`, one case for
    each live case of `tests/test_serve.py`, and served ids equal to
-   `transcribe_with_ids` at the engine's generator seed.
+   `transcribe_with_ids` at the engine's generator seed; with
+   `--encoder-ckpt` or `--wavlm-ckpt`, the ids of the inference CLI's
+   pipeline built from the same files (C8).
 3. What the server needs below it: the C4 refusal of a batch under one conv
    receptive field, `model.init_scheme` (C5), the wire encoders, MP3
    decoding and the flags that are not ported."""
@@ -379,6 +381,78 @@ def test_served_ids_equal_the_pipeline_at_the_engine_seed(server, files):
         generator=torch.Generator().manual_seed(eng._rng_counter), **eng.sampling)
     assert obj["ids"] == ids and obj["text"] == text
     assert obj["confidence"] == round(conf, 6)
+
+
+@pytest.fixture(scope="module")
+def encoder_files(files):
+    """Encoder weights that are not the seed's, one file for each flag: an
+    `AcousticEncoder` state_dict drawn from another seed (`--encoder-ckpt`,
+    what a fine-tune's `{prefix}.encoder.pt` holds) and a Hugging Face WavLM
+    directory written as tests/test_torch_wavlm_hf.py writes one
+    (`--wavlm-ckpt`)."""
+    from transformers import WavLMConfig as HFConfig
+    from transformers import WavLMModel as HFModel
+
+    tmp = files["dir"]
+    tuned = FDDMPipeline.from_config(Config(SERVE_CFG), tokenizer=object(), device="cpu", seed=11)
+    torch.save(tuned.encoder.state_dict(), str(tmp / "tuned.encoder.pt"))
+    torch.manual_seed(0)
+    hf = HFModel(HFConfig(
+        hidden_size=32, num_hidden_layers=2, num_attention_heads=4, intermediate_size=64,
+        conv_dim=[16] * 7, conv_kernel=[10, 3, 3, 3, 3, 2, 2], conv_stride=[5, 2, 2, 2, 2, 2, 2],
+        conv_bias=True, feat_extract_norm="layer", do_stable_layer_norm=True, num_buckets=32,
+        max_bucket_distance=80, num_conv_pos_embeddings=16, num_conv_pos_embedding_groups=4))
+    with torch.no_grad():  # move norms and biases off their init
+        for p in hf.parameters():
+            p.add_(0.05 * torch.randn_like(p))
+    hf.save_pretrained(str(tmp / "hf"))
+    return {"--encoder-ckpt": str(tmp / "tuned.encoder.pt"), "--wavlm-ckpt": str(tmp / "hf")}
+
+
+@pytest.mark.parametrize("flag", ["--encoder-ckpt", "--wavlm-ckpt"])
+def test_served_encoder_weights_are_the_clis(server, files, encoder_files, flag):
+    """C8: a server given encoder weights serves, for one upload at the
+    engine's seed, the ids of the inference CLI's pipeline built from the
+    same files (`inference.build_pipeline`, through the loader both share),
+    and not those of the seed's encoder."""
+    from fddm_asr_tpu_torch import inference as cli
+
+    srv = S.build_server(_args(files, flag, encoder_files[flag]))
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    try:
+        body = open(files["clips"][2], "rb").read()
+        code, obj = _post(f"http://127.0.0.1:{srv.server_address[1]}/v1/transcribe", body,
+                          "audio/wav")
+        seed = srv.engine._rng_counter
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        srv.engine.shutdown()
+    assert code == 200, obj
+    pipe = cli.build_pipeline(cli.parse_args(
+        ["--wav", files["clips"][2], "--ckpt", files["ckpt"], "--main-config", files["config"],
+         "--diffusion-config", files["config"], "--tokenizer", files["vocab"],
+         "--device", "cpu", flag, encoder_files[flag]]))
+    pipe.use_condition_mask = True  # as the server pads: bucket padding stays out
+    wave = S._decode_wav_bytes(body)
+    batch = np.zeros((1, SR), np.float32)
+    batch[0, :len(wave)] = wave
+
+    def served(p):
+        return p.transcribe_with_ids(
+            batch, np.array([len(wave)]), seq_len=srv.engine.seq_len, with_confidence=True,
+            generator=torch.Generator().manual_seed(seed), **srv.engine.sampling)[0]
+
+    text, ids, conf = served(pipe)
+    assert obj["ids"] == ids and obj["text"] == text and obj["confidence"] == round(conf, 6)
+    assert obj["ids"] != served(server[1].engine.pipeline)[1]
+
+
+@pytest.mark.parametrize("flag", ["--encoder-ckpt", "--wavlm-ckpt"])
+def test_encoder_weights_beside_an_artifact_raise(files, flag):
+    """An artifact carries its own weights: the flags name the export CLI."""
+    with pytest.raises(SystemExit, match="export_model"):
+        S.build_server(_args(files, "--exported", "artifact", flag, "w"))
 
 
 def test_long_audio_windows_and_joins(server, files):

@@ -1,7 +1,15 @@
 # -*- coding: utf-8 -*-
-"""The float32 dK/dV/dbias kernels' arithmetic (B5 in f32), emulated on the CPU.
+"""The float32 backward kernels' arithmetic (B4 and B5 in f32), emulated on the CPU.
 
-`csrc/gated_attention_bwd.cu` runs float32 B5 as two 3xTF32 kernels:
+`csrc/gated_attention_bwd.cu` runs float32 B4 as one 3xTF32 kernel,
+`bwd_dq_tf32x3_kernel`: one block per (batch row, head, 128 queries) that
+walks 32-key steps, both halves of each 64-key tile holding a kept key (a
+half wholly past L excepted): S = Q K^T and dP = dO V^T, P in the log2
+domain, dS = P (dP - delta) at kept keys and 0 elsewhere by a select,
+dgate += dS bias (each thread's keys 8j + 2t, 8j + 2t + 1 of a step in
+order, then the quad's four sums by shuffles), and each step's dQ = dS K in
+an accumulator of its own, added to a running f32 sum.  It runs float32 B5
+as two 3xTF32 kernels:
 (a) `bwd_dkv_tf32x3_kernel`, one block per (64-key tile, head, batch row)
 walking the queries in steps of 32: S^T = K Q^T and dP^T = V dO^T, P^T and
 dS^T in the log2 domain, then each step's dV = P^T dO and dK = dS^T Q in an
@@ -18,8 +26,9 @@ Here that arithmetic, in torch on the CPU, is held against the JAX
 package's `_train_backward` in float32 (Pallas interpret mode) on a ragged
 and a full row, and against jax.grad of `wavlm_gated_attention_xla` with an
 all-masked row as well (where the TPU kernels differ from the exact
-gradient), at L = 203, within 1e-5 of each reference's largest magnitude;
-and plain 1xTF32 (hi.hi alone) misses that tolerance.
+gradient; there dq = dgate = 0), at L = 203, within 1e-5 of each
+reference's largest magnitude; and plain 1xTF32 (hi.hi alone) misses that
+tolerance.
 """
 import jax
 import jax.numpy as jnp
@@ -40,6 +49,40 @@ TOL = 1e-5
 NEG = torch.finfo(torch.float32).min
 LOG2E = 1.4426950408889634
 KEY_TILE, QUERY_STEP = 64, 32
+DQ_KEY_STEP = 32  # B4's keys a step
+
+
+def emulated_dq(q, k, v, bias, gate, mask, lse, delta, dout, terms):
+    """Kernel A (B4) on [B, H, L, dh] operands: dq [B, H, L, dh], dgate [B, H, L]."""
+    n = q.shape[2]
+    sl2 = 0.125 * LOG2E
+    dq = torch.zeros_like(q)
+    dgate = torch.zeros(gate.shape)
+    for b in range(q.shape[0]):
+        steps = [k0 + half for k0 in range(0, n, KEY_TILE) if bool(mask[b, k0:k0 + KEY_TILE].any())
+                 for half in (0, DQ_KEY_STEP) if k0 + half < n]
+        acc = torch.zeros_like(q[b])
+        partial = torch.zeros(4, *gate.shape[1:], dtype=torch.float64)  # a sum per thread t
+        for k0 in steps:
+            ks = slice(k0, k0 + DQ_KEY_STEP)
+            s = product(q[b], k[b, :, ks].transpose(-1, -2), terms)   # [H, query, key]
+            dp = product(dout[b], v[b, :, ks].transpose(-1, -2), terms)
+            p = torch.exp2(s * sl2 + (gate[b, :, :, None] * LOG2E) * bias[:, :, ks]
+                           - (lse[b, :, :, None] * LOG2E))
+            ds = torch.where(mask[b, None, None, ks], p * (dp - delta[b, :, :, None]),
+                             torch.zeros(()))
+            acc = acc + product(ds, k[b, :, ks], terms)  # the step's own accumulator
+            # thread t holds keys 8j + 2t and 8j + 2t + 1, j = 0 .. 3: fmaf, in order
+            dsb = ds.double() * bias[:, :, ks].double()
+            for j in range(4):
+                for t in range(4):
+                    for x in range(2):
+                        c = 8 * j + 2 * t + x
+                        if c < dsb.shape[-1]:
+                            partial[t] = (partial[t] + dsb[..., c]).float().double()
+        dq[b] = acc * 0.125
+        dgate[b] = ((partial[0] + partial[1]).float() + (partial[2] + partial[3]).float())
+    return dq, dgate
 
 
 def emulated_dkv(q, k, v, bias, gate, mask, lse, delta, dout, terms):
@@ -89,8 +132,9 @@ def emulated_dbias(q, k, v, bias, gate, mask, lse, delta, dout, terms):
 
 
 def emulated(q, k, v, bias, gate, mask, dout, terms):
-    """(dk, dv, dbias) of the two kernels from numpy [B, L, H*dh] inputs;
-    lse and delta from the port's plain forward, as the kernels get them."""
+    """(dq, dk, dv, dbias, dgate) of the three kernels from numpy [B, L,
+    H*dh] inputs; lse and delta from the port's plain forward, as the
+    kernels get them."""
     t = [torch.from_numpy(x) for x in (q, k, v, bias, gate, mask, dout)]
     qt, kt, vt, bt, gt, mt, dot = t
     out, lse = FA.wavlm_gated_attention_fwd_lse_plain(qt, kt, vt, bt, gt, mt, num_heads=H)
@@ -101,10 +145,11 @@ def emulated(q, k, v, bias, gate, mask, dout, terms):
         return x.reshape(b, L, H, DH).transpose(1, 2)
 
     args = (heads(qt), heads(kt), heads(vt), bt, gt, mt, lse, delta, heads(dot))
+    dq, dgate = emulated_dq(*args, terms)
     dk, dv = emulated_dkv(*args, terms)
     dbias = emulated_dbias(*args, terms)
-    packed = [x.transpose(1, 2).reshape(b, L, H * DH).numpy() for x in (dk, dv)]
-    return (*packed, dbias.numpy())
+    packed = [x.transpose(1, 2).reshape(b, L, H * DH).numpy() for x in (dq, dk, dv)]
+    return (*packed, dbias.numpy(), dgate.numpy())
 
 
 def _inputs():
@@ -125,13 +170,13 @@ def _max_rel(got, want) -> float:
 
 @pytest.fixture(scope="module")
 def references():
-    """{name: ((dk, dv, dbias) of the reference, the rows it takes)}."""
+    """{name: ((dq, dk, dv, dbias, dgate) of the reference, the rows it takes)}."""
     q, k, v, bias, gate, mask, dout = _inputs()
     two = [x[:2] for x in (q, k, v)] + [bias, gate[:2], mask[:2]]
     jargs = [jnp.asarray(x) for x in two]
     _, out_p, lse_p = _train_forward(*jargs, num_heads=H, block_q=128, interpret=True)
-    _, dk, dv, dbias, _ = _train_backward(*jargs, out_p, lse_p, jnp.asarray(dout[:2]),
-                                          num_heads=H, block_q=128, block_k=128, interpret=True)
+    pallas = _train_backward(*jargs, out_p, lse_p, jnp.asarray(dout[:2]), num_heads=H,
+                             block_q=128, block_k=128, interpret=True)
 
     def loss(q, k, v, b, g):
         def heads(x):
@@ -139,25 +184,46 @@ def references():
         out = wavlm_gated_attention_xla(heads(q), heads(k), heads(v), b, g, jnp.asarray(mask))
         return jnp.sum(out.reshape(dout.shape) * dout)
 
-    _, xdk, xdv, xdbias, _ = jax.jit(jax.grad(loss, argnums=(0, 1, 2, 3, 4)))(
+    xla = jax.jit(jax.grad(loss, argnums=(0, 1, 2, 3, 4)))(
         *(jnp.asarray(x) for x in (q, k, v, bias, gate)))
-    return {"pallas_train_backward": ((dk, dv, dbias), 2),
-            "xla_grad": ((xdk, xdv, xdbias), 3)}
+    return {"pallas_train_backward": (pallas, 2), "xla_grad": (xla, 3)}
 
 
-@pytest.mark.parametrize("reference", ["pallas_train_backward", "xla_grad"])
-def test_tf32x3_backward_matches_jax_float32(references, reference):
+def _errors(reference, references, names):
+    """{terms: {name: largest error / largest magnitude}} of the emulation
+    against the reference, for 3xTF32 and 1xTF32."""
     want, rows = references[reference]
     inputs = _inputs()
     args = [x[:rows] if x.ndim and x.shape[0] == 3 else x for x in inputs]
     errors = {}
     for terms in (3, 1):
-        got = emulated(*args, terms=terms)
-        errors[terms] = {name: _max_rel(g, w) for name, g, w in zip(("dk", "dv", "dbias"),
-                                                                    got, want)}
+        got = dict(zip(("dq", "dk", "dv", "dbias", "dgate"), emulated(*args, terms=terms)))
+        ref = dict(zip(("dq", "dk", "dv", "dbias", "dgate"), want))
+        errors[terms] = {name: _max_rel(got[name], ref[name]) for name in names}
     print(f"{reference}: largest error / largest magnitude, 3xTF32 {errors[3]}, "
           f"1xTF32 {errors[1]}")
+    return errors
+
+
+@pytest.mark.parametrize("reference", ["pallas_train_backward", "xla_grad"])
+def test_tf32x3_backward_matches_jax_float32(references, reference):
+    errors = _errors(reference, references, ("dk", "dv", "dbias"))
     for name, err in errors[3].items():
         assert np.isfinite(err) and err <= TOL, (name, err)
     # the cross terms are what keep float32 accuracy: 1xTF32 alone misses it
     assert max(errors[1].values()) > TOL
+
+
+@pytest.mark.parametrize("reference", ["pallas_train_backward", "xla_grad"])
+def test_tf32x3_dq_matches_jax_float32(references, reference):
+    """B4: dq and dgate, on a ragged row (a 64-key tile with no kept key is
+    skipped, and the second half of the last tile lies past L), a full row
+    and (xla_grad) an all-masked row, which walks no step."""
+    errors = _errors(reference, references, ("dq", "dgate"))
+    for name, err in errors[3].items():
+        assert np.isfinite(err) and err <= TOL, (name, err)
+    assert max(errors[1].values()) > TOL
+    if reference == "xla_grad":
+        dq, dgate = (references[reference][0][i] for i in (0, 4))
+        assert float(np.abs(np.asarray(dq)[2]).max()) == 0.0
+        assert float(np.abs(np.asarray(dgate)[2]).max()) == 0.0

@@ -20,9 +20,8 @@ import torch
 
 from fddm_asr_tpu.convert.wavlm_convert import load_pretrained_wavlm as jax_load_pretrained
 from fddm_asr_tpu.models.wavlm import WavLMModel as JaxWavLMModel
-from fddm_asr_tpu_torch import inference as cli
 from fddm_asr_tpu_torch.config import Config
-from fddm_asr_tpu_torch.convert import (load_pretrained_wavlm, read_safetensors,
+from fddm_asr_tpu_torch.convert import (load_pretrained_wavlm, load_wavlm, read_safetensors,
                                         wavlm_state_dict_from_hf)
 from fddm_asr_tpu_torch.models.wavlm import WavLMConfig
 from fddm_asr_tpu_torch.pipeline import FDDMPipeline
@@ -113,7 +112,7 @@ def test_pipeline_encoder_on_hf_weights_matches_jax(hf_dirs, rng):
     ref = np.asarray(jax.jit(JaxWavLMModel(jcfg).apply)({"params": jparams}, jnp.asarray(wav)))
     for safe in (True, False):
         tp = FDDMPipeline.from_config(Config(CFG), tokenizer=object(), device="cpu",
-                                      wavlm_state_dict=cli.load_wavlm(dirs[safe]))
+                                      wavlm_state_dict=load_wavlm(dirs[safe]))
         feats, _ = tp.encode_waveform(wav)
         assert feats.shape == ref.shape
         np.testing.assert_allclose(feats.numpy(), ref, atol=1e-5, rtol=0)
@@ -126,10 +125,10 @@ def test_geometry_from_the_yaml_that_disagrees_raises(hf_dirs):
     with pytest.raises(ValueError, match=r"config hidden 64, 2 layers, ff 128.*"
                                          r"weights hidden 32, 2 layers, ff 64"):
         FDDMPipeline.from_config(cfg, tokenizer=object(), device="cpu",
-                                 wavlm_state_dict=cli.load_wavlm(dirs[False]))
+                                 wavlm_state_dict=load_wavlm(dirs[False]))
 
 
 def test_a_directory_that_is_not_hf_raises_naming_the_export(tmp_path):
     (tmp_path / "checkpoint_0").mkdir()
     with pytest.raises(NotImplementedError, match="scripts/export_torch_encoder.py"):
-        cli.load_wavlm(str(tmp_path))
+        load_wavlm(str(tmp_path))
