@@ -221,7 +221,25 @@ Phases, each fatal on failure:
      seconds of each checkpoint file; (c) `python3 -m fddm_asr_tpu_torch.inference --ckpt
      best_model.pt --encoder-ckpt best_model.encoder.pt` on 8 validation
      clips, whose ids equal those of the CLI's `transcribe` in this process
-     on a pipeline carrying the EMA weights of `best_model.state.pt`.
+     on a pipeline carrying the EMA weights of `best_model.state.pt`; (b)'s
+     optimizer and EMA bytes are kept for phase 19;
+ 19. `train_recipe`: the rest of the training recipe in this process, on
+     phase 18's corpus and phase 15's tokenizer and HF WavLM-large: (a)
+     `train.main` from configs/fddm_zhTW_finetune.yaml with LoRA (rank 8,
+     alpha 16), grad_accum_steps 2, bfloat16 adam_mu_dtype and ema_dtype
+     and log.async_checkpoint, 12 micro-steps of 32 x 20 s (phase 18 (b)'s
+     windows): B3, B4 and B5 per micro-step equal to phase 7's, the adapter
+     count that of the targeted layers' shapes, the optimizer and EMA bytes
+     and peak memory beside phase 18 (b)'s full fine-tune, examples/s over
+     micro-steps 3-8 and micro-steps 9-12 under the profiler (busy, idle
+     share) beside (b)'s, each checkpoint's blocked seconds beside its
+     files' write seconds and bytes; (b) `inference.main --encoder-ckpt best_model.encoder.pt
+     --wavlm-ckpt ...` in this process on phase 18 (c)'s 8 validation clips, whose
+     ids equal a pipeline's with the EMA adapters of best_model.state.pt
+     merged by hand; (c) one step of phase 7's configuration under
+     remat_policy full and under dots (step time, peak memory, launches),
+     and one step of phase 6's small model with attention_dropout 0.1: a
+     finite loss and no kernel launched (the plain path).
 
 Phases 4 and 7 run at full depth with as many timed runs as before; the
 whole took 656 s of its 1200 s limit on an NVIDIA H100 80GB HBM3 at 700 W,
@@ -244,12 +262,13 @@ the fused conv layer (its kernel and the layer's weight handling, at phase
 only the float32 gated-attention forward (at phase 2's float32 shapes and a
 transcribe's: CUDA events), or only float32 B5 or only float32 B4 (at
 phase 5's float32 shape, the fine-tune's and B=3, L=203: CUDA events, each
-kernel's device time), of the port checked out at DIR, to compare two trees on one card; they print
-no result line.
+kernel's device time), of the port checked out at DIR, to compare two trees on one card;
+they print no result line.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import io
 import json
@@ -3055,6 +3074,8 @@ def train_full_width(d: str, card: str, phase7: dict) -> dict:
 
         def run(*args, **kw):
             i = len(per_step) + 1
+            if i == 1:  # the full fine-tune's optimizer and EMA, for phase 19
+                window["state_bytes"] = state_bytes(args[0])
             if i == TRAIN_B_PROFILED[0]:  # from the end of step 8's record to step 12's end
                 torch.cuda.synchronize()
                 window["prof"] = profile(activities=[ProfilerActivity.CPU,
@@ -3150,6 +3171,7 @@ def train_full_width(d: str, card: str, phase7: dict) -> dict:
     eps = timed[0]["examples_per_s"]
     result["b"] = {
         "process_s": b_s, "peak_mem_gb": peak_gb, "steps": TRAIN_B_STEPS,
+        "state_bytes": window["state_bytes"],
         "examples_per_s_steps_3_to_8": eps, "phase7_examples_per_s": phase7["examples_per_s"],
         "loop_over_bare_step": eps / phase7["examples_per_s"],
         "kernel_launches_per_step": per_step[0], "lfd_steps": lfd_steps,
@@ -3208,6 +3230,262 @@ def train_full_width(d: str, card: str, phase7: dict) -> dict:
              "built from best_model.state.pt's EMA")
     print(json.dumps({"train": {"card": card, "corpus_write_s": result["corpus_write_s"],
                                 "loader": result["loader"]}}), flush=True)
+    result["corpus"], result["data"] = corpus, data
+    return result
+
+
+def state_bytes(state) -> dict:
+    """The bytes a TrainState keeps beside the model: trained parameters (or
+    adapters), AdamW's two moments, the accumulated gradients, the EMA."""
+    opt = state.optimizer
+
+    def nbytes(tensors):
+        return sum(t.numel() * t.element_size() for t in tensors or [])
+
+    return {"trained_params": nbytes(opt.params), "adam_mu": nbytes(opt.mu),
+            "adam_nu": nbytes(opt.nu), "accumulated_grads": nbytes(opt.acc),
+            "ema": nbytes(state.ema),
+            "optimizer_and_ema": nbytes(opt.mu) + nbytes(opt.nu) + nbytes(opt.acc)
+            + nbytes(state.ema)}
+
+
+# ------------------------------------------------ phase 19: the training recipe
+# (a): LoRA r = 8, alpha 16, grad_accum_steps 2, bf16 mu and EMA, async
+# checkpoints; phase 18 (b)'s 12 steps of 32 x 20 s as micro-steps (6
+# updates), timed over 3-8 and profiled over 9-12 as phase 18 (b) is, so
+# the two loops compare window for window
+RECIPE_RANK, RECIPE_ALPHA = 8, 16
+
+
+def train_recipe_full_width(d: str, card: str, phase7: dict, phase18: dict) -> dict:
+    """Phase 19 (module docstring): (a) the LoRA recipe through `train.main`,
+    (b) its adapter checkpoint through the inference CLI beside a pipeline
+    with the EMA adapters merged by hand, (c) one full-width step of phase
+    7's config under remat_policy full and dots, and one step of phase 6's
+    small model with attention_dropout 0.1."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from fddm_asr_tpu_torch import inference as cli
+    from fddm_asr_tpu_torch import train as train_cli
+    from fddm_asr_tpu_torch import train_lib as TL
+    from fddm_asr_tpu_torch.models import lora as LO
+
+    t_phase = time.time()
+    root = os.path.dirname(os.path.abspath(__file__))
+    vocab = os.path.join(d, "spm_synth.vocab")
+    manifests = phase18["corpus"]["manifests"]
+    wrappers = port_kernel_wrappers()
+    result = {"card": card}
+
+    # (a) the LoRA recipe in this process
+    r_dir = os.path.join(d, "ckpt_recipe")
+    cfg_path = _train_config(os.path.join(d, "recipe.yaml"),
+                             os.path.join(root, "configs", "fddm_zhTW_finetune.yaml"), {
+        "data": {**phase18["data"], "train_json": manifests["train_x6"]},
+        "model": {"encoder": {"lora_rank": RECIPE_RANK, "lora_alpha": RECIPE_ALPHA}},
+        "optim": {"num_epochs": 1, "grad_accum_steps": 2, "adam_mu_dtype": "bfloat16",
+                  "ema_dtype": "bfloat16"},
+        "log": {"log_every": 4, "metrics_jsonl": True, "ckpt_dir": r_dir,
+                "async_checkpoint": True}})
+    per_step, seen, window = [], {}, {}
+    make_step = TL.make_train_step
+
+    def counted_step(*a, **k):
+        step = make_step(*a, **k)
+
+        def run(*args, **kw):
+            i = len(per_step) + 1
+            if i == TRAIN_B_PROFILED[0]:  # after micro-step 8's record, as phase 18 (b)
+                torch.cuda.synchronize()
+                window["prof"] = profile(activities=[ProfilerActivity.CPU,
+                                                     ProfilerActivity.CUDA])
+                window["prof"].__enter__()
+                window["t0"] = time.time()
+            if not per_step:
+                state = args[0]
+                seen["state_bytes"] = state_bytes(state)
+                seen["adapters"] = LO.lora_param_count(state.lora)
+                seen["expected"] = sum(
+                    RECIPE_RANK * (lin.in_features + lin.out_features)
+                    for _, lin in LO.targeted_linears(a[0].encoder))
+                seen["adapted_layers"] = len(state.lora)
+            before = {n: w.launches for n, w in wrappers.items()}
+            metrics = step(*args, **kw)
+            per_step.append({n: w.launches - before[n] for n, w in wrappers.items()})
+            if i == TRAIN_B_PROFILED[1]:
+                torch.cuda.synchronize()
+                window["ms"] = (time.time() - window["t0"]) * 1e3
+                window["prof"].__exit__(None, None, None)
+            return metrics
+
+        run.forward, run.merged = step.forward, step.merged
+        return run
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _reset(wrappers)
+    TL.make_train_step = counted_step
+    t0 = time.time()
+    try:
+        summary = train_cli.main(["--config", cfg_path,
+                                  "--wavlm-ckpt", os.path.join(d, "wavlm-large"),
+                                  "--max-steps-per-epoch", str(TRAIN_B_STEPS)])
+        torch.cuda.synchronize()
+    finally:
+        TL.make_train_step = make_step
+        logging.getLogger().handlers.clear()
+    a_s = time.time() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = _counts_since_reset(wrappers)
+    records = _metrics(r_dir)
+    want = phase7["kernel_launches_per_step"]
+    if len(per_step) != TRAIN_B_STEPS or any(
+            {k: c[k] for k in want} != want or any(c[k] for k in c if k not in want)
+            for c in per_step):
+        fail(f"19 (a) kernel launches per micro-step {per_step}, expected phase 7's {want}")
+    if seen["adapters"] != seen["expected"]:
+        fail(f"19 (a) {seen['adapters']} adapter parameters, init_lora's shapes give "
+             f"{seen['expected']}")
+    steps = [r for r in records if r["kind"] == "step"]
+    if not all(np.isfinite(r["total_loss"]) for r in steps) or not np.isfinite(
+            summary["train_loss"]):
+        fail(f"19 (a) a training loss is not finite: {steps}")
+    saves = [r for r in records if r["kind"] == "checkpoint"]
+    if [r["name"] for r in saves] != ["best_model", "ep001"] or not all(
+            r["asynchronous"] for r in saves):
+        fail(f"19 (a) the asynchronous checkpoints: {saves}")
+    adapters = torch.load(os.path.join(r_dir, "best_model.encoder.pt"), weights_only=True)
+    with open(os.path.join(r_dir, "best_model.meta.json"), encoding="utf-8") as f:
+        meta = json.load(f)
+    if not LO.is_adapter_dict(adapters) or meta.get("lora_rank") != RECIPE_RANK or meta.get(
+            "lora_alpha") != float(RECIPE_ALPHA):
+        fail(f"19 (a) best_model.encoder.pt is not the adapters, or the sidecar lacks "
+             f"rank / alpha: {meta}")
+    timed = [r for r in steps if r["step"] == TRAIN_B_TIMED_TO and "examples_per_s" in r]
+    breakdown = profile_breakdown(window["prof"], window["ms"], window["ms"],
+                                  ranges=("host_to_device",))
+    h2d = breakdown.pop("ranges")["host_to_device"]
+    del breakdown["all"]
+    result["a"] = {
+        "process_s": a_s, "micro_steps": TRAIN_B_STEPS, "grad_accum_steps": 2,
+        "batch": FINETUNE_B, "peak_mem_gb": peak_gb,
+        "full_finetune_peak_mem_gb": phase18["b"]["peak_mem_gb"],
+        "state_bytes": seen["state_bytes"],
+        "full_finetune_state_bytes": phase18["b"]["state_bytes"],
+        "adapter_params": seen["adapters"], "adapted_layers": seen["adapted_layers"],
+        "examples_per_s_steps_3_to_8": timed[0]["examples_per_s"] if timed else None,
+        "full_finetune_examples_per_s_steps_3_to_8":
+            phase18["b"]["examples_per_s_steps_3_to_8"],
+        "micro_steps_9_to_12_profiled": {"wall_ms": window["ms"],
+                                         "device_busy_ms": breakdown["device_busy_ms"],
+                                         "idle_share": breakdown["idle_share"],
+                                         "host_to_device": h2d, "top": breakdown["top"][:6]},
+        "full_finetune_steps_9_to_12_profiled": phase18["b"]["steps_9_to_12_profiled"],
+        "kernel_launches_per_micro_step": per_step[0], "launches": launches,
+        "checkpoints": [{"name": r["name"], "blocked_seconds": r["blocked_seconds"],
+                         "files": r["files"]} for r in saves],
+        "full_finetune_checkpoints": phase18["b"]["checkpoints"],
+        "losses": [r["total_loss"] for r in steps]}
+    print(json.dumps({"train_recipe_a": result["a"]}), flush=True)
+
+    # (b) the adapter checkpoint through the CLI, beside the EMA adapters
+    # of best_model.state.pt merged by hand into the --wavlm-ckpt encoder
+    csv_path = os.path.join(d, "val8.csv")
+    out_json = os.path.join(d, "recipe_cli.json")
+    base_args = ["--csv", csv_path, "--ckpt", os.path.join(r_dir, "best_model.pt"),
+                 "--wavlm-ckpt", os.path.join(d, "wavlm-large"), "--main-config", cfg_path,
+                 "--diffusion-config", os.path.join(root, "configs", "diffusion.yaml"),
+                 "--tokenizer", vocab, "--batch-size", str(TRAIN_C_CLIPS), "--greedy",
+                 "--seq-len", str(FINETUNE_TOKENS)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli.main(base_args + ["--encoder-ckpt", os.path.join(r_dir, "best_model.encoder.pt"),
+                              "--out-json", out_json])
+    b_s = time.time() - t0
+    with open(out_json, encoding="utf-8") as f:
+        cli_ids = [r["ids"] for r in json.load(f)]
+    run_args = cli.parse_args(base_args)
+    pipe = cli.build_pipeline(run_args)
+    blob = torch.load(os.path.join(r_dir, "best_model.state.pt"), map_location="cpu",
+                      weights_only=True)
+    names = [(n, ab) for n, ad in blob["lora"].items() for ab in ad]
+    ema = dict(zip(names, blob["ema"][-len(names):]))
+    modules = dict(pipe.encoder.named_modules())
+    scale = RECIPE_ALPHA / RECIPE_RANK
+    with torch.no_grad():
+        for n in blob["lora"]:
+            a, b = (ema[(n, ab)].float().cuda() for ab in ("a", "b"))
+            modules[n].weight += scale * (a @ b).t()
+    del blob
+    hand_ids = [x["ids"] for x in cli.transcribe(pipe, run_args)]
+    del pipe
+    result["b"] = {"cli_s": b_s, "rows": len(cli_ids), "ids_equal_hand_merged": cli_ids == hand_ids}
+    print(json.dumps({"train_recipe_b": result["b"]}), flush=True)
+    if len(cli_ids) != TRAIN_C_CLIPS or cli_ids != hand_ids:
+        fail("19 (b) the CLI's ids from the adapter checkpoint differ from a pipeline with "
+             "the EMA adapters merged by hand")
+
+    # (c) phase 7's step under remat_policy full and dots; phase 6's small
+    # model with attention dropout
+    from fddm_asr_tpu_torch.pipeline import FDDMPipeline
+    from fddm_asr_tpu_torch.tokenizer import load_tokenizer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = finetune_config(synthetic_tokenizer(d, 8000))
+    pipe = FDDMPipeline.from_config(cfg, tokenizer=load_tokenizer(cfg.data.tokenizer_path))
+    state = TL.init_train_state(pipe, cfg, generator=torch.Generator(device="cuda").manual_seed(7))
+    step = TL.make_train_step(pipe, cfg, train_encoder=True)
+    wav = synthetic_audio(FINETUNE_B, FINETUNE_SECONDS, seed=5)
+    x0 = np.random.default_rng(6).integers(4, 8000, (FINETUNE_B, FINETUNE_TOKENS))
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    encoder_module = pipe.encoder.backbone.encoder
+    remat = {}
+    for policy in ("full", "dots"):  # the layers read the policy from their Encoder's config
+        encoder_module.cfg = dataclasses.replace(encoder_module.cfg, remat_policy=policy)
+        step(state, wav, x0, False, generator=gen)  # warm: the allocator grows to this policy
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        _reset(wrappers)
+        t0 = time.time()
+        m = step(state, wav, x0, False, generator=gen)
+        torch.cuda.synchronize()
+        remat[policy] = {"step_s": time.time() - t0,
+                         "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+                         "launches": _counts_since_reset(wrappers),
+                         "loss": float(m["total_loss"])}
+        if {k: remat[policy]["launches"][k] for k in want} != want or not np.isfinite(
+                remat[policy]["loss"]):
+            fail(f"19 (c) remat_policy {policy}: {remat[policy]}, expected phase 7's {want}")
+    del pipe, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    small_dir = os.path.join(d, "small")  # phase 18's 8000-piece tokenizer stays in d
+    os.makedirs(small_dir, exist_ok=True)
+    small = finetune_config(synthetic_tokenizer(small_dir, 64), small=True).to_dict()
+    small["model"]["encoder"]["wavlm_config"]["attention_dropout"] = 0.1
+    small = type(cfg)(small)
+    pipe = FDDMPipeline.from_config(small, tokenizer=load_tokenizer(small.data.tokenizer_path))
+    state = TL.init_train_state(pipe, small, generator=torch.Generator(device="cuda").manual_seed(5))
+    step = TL.make_train_step(pipe, small, train_encoder=True)
+    _reset(wrappers)
+    m = step(state, synthetic_audio(3, 1.0, seed=3), np.random.default_rng(4).integers(4, 64, (3, 16)),
+             True, generator=torch.Generator(device="cuda").manual_seed(1))
+    torch.cuda.synchronize()
+    dropout = {"loss": float(m["total_loss"]), "launches": _counts_since_reset(wrappers)}
+    del pipe, state, step
+    if not np.isfinite(dropout["loss"]) or any(dropout["launches"].values()):
+        fail(f"19 (c) attention dropout: {dropout} (a finite loss, no kernel launch)")
+    result["c"] = {"remat": remat, "dots_over_full_step": remat["dots"]["step_s"]
+                   / remat["full"]["step_s"],
+                   "attention_dropout_small_step": dropout}
+    result["seconds"] = time.time() - t_phase
+    print(json.dumps({"train_recipe_c": result["c"]}), flush=True)
+    print(json.dumps({"train_recipe": {"card": card, "seconds": result["seconds"]}}), flush=True)
     return result
 
 
@@ -3517,6 +3795,8 @@ def main() -> int:
         exported = exported_full_width(tmp, card, served)
         # phase 18: the training entry point, on phase 15's tokenizer and HF WavLM
         trained = train_full_width(tmp, card, finetune)
+        # phase 19: the rest of the recipe, on phase 18's corpus
+        recipe = train_recipe_full_width(tmp, card, finetune, trained)
 
     main_row = rows[(1024, torch.bfloat16)]  # the transcribe's shape and type
     kernels = [{
@@ -3542,6 +3822,7 @@ def main() -> int:
             "exported_serve_load": exported["serve"]["launches"]["fwd"],
             "exported_serve_per_batch": exported["serve"]["launches_per_batch"],
             "train_finetune_loop": trained["b"]["launches"]["fwd"],
+            "train_lora_recipe_loop": recipe["a"]["launches"]["fwd"],
             "train_eval_per_decode_batch": [e["fwd"] // e["batches"]
                                             for e in trained["b"]["eval"]]},
         "cli_c_100s_whole_file_L5120": {
@@ -3583,7 +3864,11 @@ def main() -> int:
             "shape": f"B={FINETUNE_B} L={step_L} H=16 bf16, {frames} valid keys per row",
             "launches_by_path": {"finetune_step": finetune["kernel_launches_per_step"][key],
                                  "train_loop_step": trained["b"]["kernel_launches_per_step"][key],
-                                 "train_loop": trained["b"]["launches"][key]},
+                                 "train_loop": trained["b"]["launches"][key],
+                                 "lora_recipe_micro_step":
+                                     recipe["a"]["kernel_launches_per_micro_step"][key],
+                                 "lora_recipe_loop": recipe["a"]["launches"][key],
+                                 "remat_dots_step": recipe["c"]["remat"]["dots"]["launches"][key]},
             # phase 5's float32 row at B=8, L=1024, ragged masks
             "float32_L1024": {"kernels": F32_TRAINING_KERNELS[key], **{
                 k: f32_train_rows[key].get(k) for k in (

@@ -13,14 +13,26 @@ Counterpart of `fddm_asr_tpu/checkpoint.py` (sidecar, `.pt` export), of
                        A learned-position decoder keeps `pos_emb.weight`
                        (the JAX writer drops it);
   {prefix}.state.pt    what `--resume` reads: the trained modules'
-                       state_dicts, each AdamW group's moments and count,
-                       the EMA, step, epoch and best_val_cer;
+                       state_dicts (and a LoRA run's adapters), each AdamW
+                       group's moments and count, the gradients a
+                       grad_accum_steps run has gathered, the EMA, step,
+                       epoch and best_val_cer;
   {prefix}.meta.json   the JAX sidecar's keys (epoch, ema_eval, has_ema,
-                       train_encoder[, best_val_cer]);
+                       train_encoder[, best_val_cer][, lora_rank,
+                       lora_alpha]);
   {prefix}.encoder.pt  for a fine-tuned encoder: the `AcousticEncoder`
-                       state_dict (the EMA's when ema_eval), as the
-                       inference CLI's and the server's `--encoder-ckpt`
-                       take it.
+                       state_dict (the EMA's when ema_eval); for a LoRA run
+                       the adapters alone ({module: {"a", "b"}}, the EMA's
+                       when ema_eval), which `convert.load_encoder_weights`
+                       merges at the sidecar's lora_alpha.  The inference
+                       CLI's, the server's and the export CLI's
+                       `--encoder-ckpt` take either.
+
+Each file is written to a temporary name and renamed into place.  Given
+an `AsyncWriter`, `save_ckpt` copies the state to the host before it
+returns and the writer's background thread writes the files; the next
+save waits for it, and `AsyncWriter.wait` waits too, raising in the
+caller's thread when a write failed.
 
 `restore_state` migrates the EMA: a checkpoint without one seeds a run with
 an EMA from the restored weights, and a run without one drops the
@@ -31,6 +43,7 @@ from __future__ import annotations
 import json
 import logging
 import os
+import threading
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -38,7 +51,7 @@ import torch
 
 from fddm_asr_tpu_torch.train_lib import MODULE_KEYS, TrainState
 
-__all__ = ["module_state_dicts", "save_ckpt", "load_state", "restore_state"]
+__all__ = ["module_state_dicts", "AsyncWriter", "save_ckpt", "load_state", "restore_state"]
 
 
 def _host(t: torch.Tensor) -> torch.Tensor:
@@ -53,23 +66,82 @@ def module_state_dicts(state: TrainState, use_ema: bool) -> Dict[str, Dict[str, 
            for key, m in zip(MODULE_KEYS, state.trained_modules())}
     if use_ema and state.ema is not None:
         for (key, name), e in zip(state.param_names(), state.ema):
-            out[key][name] = _host(e)
+            if key in out:  # as float32 when the EMA is kept in bfloat16
+                out[key][name] = _host(e).to(out[key][name].dtype)
     return out
 
 
-def _timed_save(obj, path: str, files: Dict[str, Dict[str, float]]) -> None:
+def _host_adapters(adapters) -> Dict[str, Dict[str, torch.Tensor]]:
+    return {n: {ab: _host(t) for ab, t in ad.items()} for n, ad in adapters.items()}
+
+
+def _write(obj, path: str, files: Dict[str, Dict[str, float]]) -> None:
     t0 = time.time()
-    torch.save(obj, path)
+    tmp = f"{path}.tmp{os.getpid()}"
+    try:
+        torch.save(obj, tmp)
+        os.replace(tmp, path)
+    finally:  # a failed write leaves no partial file behind
+        if os.path.exists(tmp):
+            os.remove(tmp)
     files[os.path.basename(path)] = {"bytes": os.path.getsize(path),
                                      "seconds": time.time() - t0}
 
 
+def _write_all(jobs: List[Tuple[Any, str]], files: Dict[str, Dict[str, float]],
+               prefix: str) -> None:
+    for obj, path in jobs:
+        _write(obj, path, files)
+    logging.info(f"checkpoint {prefix}: " + ", ".join(
+        f"{n} {f['bytes']} B in {f['seconds']:.2f} s" for n, f in files.items()))
+
+
+class AsyncWriter:
+    """Writes the files of one save at a time in a background thread
+    (log.async_checkpoint); a failed write raises from the next `wait`, in
+    the caller's thread."""
+
+    def __init__(self):
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[Exception] = None
+        self._prefix = ""
+
+    def wait(self) -> None:
+        """Block until the save in flight (if any) has written its files."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        error, self._error = self._error, None
+        if error is not None:
+            raise RuntimeError(f"asynchronous checkpoint write failed: {self._prefix}") from error
+
+    def submit(self, jobs: List[Tuple[Any, str]], files: Dict[str, Dict[str, float]],
+               prefix: str) -> None:
+        self.wait()
+        self._prefix = prefix
+        self._thread = threading.Thread(target=self._run, args=(jobs, files, prefix),
+                                        name="checkpoint-writer")
+        self._thread.start()
+
+    def _run(self, jobs, files, prefix) -> None:
+        try:
+            _write_all(jobs, files, prefix)
+        except Exception as e:  # raised in the caller's thread by wait()
+            self._error = e
+
+
 def save_ckpt(prefix: str, state: TrainState, epoch: int, raw_cfg: Optional[dict],
               best_val_cer: Optional[float], export_pt: bool,
-              ema_export: bool = False) -> Dict[str, Dict[str, float]]:
-    """Write the files of `prefix` (module docstring); returns each file's
-    bytes and seconds by name."""
+              ema_export: bool = False, extra_meta: Optional[Dict[str, Any]] = None,
+              writer: Optional[AsyncWriter] = None) -> Dict[str, Dict[str, float]]:
+    """Write the files of `prefix` (module docstring), through `writer` in
+    its background thread when one is given; returns each file's bytes and
+    seconds by name (complete once `writer.wait()` returns).  `extra_meta`
+    joins the sidecar (a LoRA run's lora_rank and lora_alpha)."""
+    if writer is not None:
+        writer.wait()  # one save at a time, in order
     files: Dict[str, Dict[str, float]] = {}
+    jobs: List[Tuple[Any, str]] = []
     optimizer = state.optimizer
     groups, start = [], 0
     for params, _ in optimizer.groups:
@@ -79,18 +151,22 @@ def save_ckpt(prefix: str, state: TrainState, epoch: int, raw_cfg: Optional[dict
                        "count": optimizer.count})
         start = stop
     raw = module_state_dicts(state, use_ema=False)
-    _timed_save({
+    jobs.append(({
         "modules": {key: raw.get(key) for key in MODULE_KEYS},
-        "optimizer": {"groups": groups, "notfinite_count": optimizer.notfinite_count},
+        "lora": None if state.lora is None else _host_adapters(state.lora),
+        "optimizer": {"groups": groups, "notfinite_count": optimizer.notfinite_count,
+                      "mini_step": optimizer.mini_step,
+                      "acc": None if optimizer.acc is None else [_host(t) for t in optimizer.acc]},
         "ema": None if state.ema is None else [_host(e) for e in state.ema],
         "step": state.step, "epoch": epoch,
         "best_val_cer": float("inf") if best_val_cer is None else float(best_val_cer),
         "config": raw_cfg,
-    }, prefix + ".state.pt", files)
+    }, prefix + ".state.pt"))
     meta = {"epoch": epoch, "ema_eval": bool(ema_export), "has_ema": state.ema is not None,
-            "train_encoder": state.encoder is not None}
+            "train_encoder": state.encoder is not None or state.lora is not None}
     if best_val_cer is not None:
         meta["best_val_cer"] = float(best_val_cer)
+    meta.update(extra_meta or {})
     with open(prefix + ".meta.json", "w", encoding="utf-8") as f:
         json.dump(meta, f, indent=1)
     exported = module_state_dicts(state, use_ema=ema_export) if ema_export else raw
@@ -100,11 +176,17 @@ def save_ckpt(prefix: str, state: TrainState, epoch: int, raw_cfg: Optional[dict
                 "t_embed": exported["t_embed"], "t_proj": exported["t_proj"]}
         if best_val_cer is not None:
             ckpt["best_val_cer"] = float(best_val_cer)
-        _timed_save(ckpt, prefix + ".pt", files)
+        jobs.append((ckpt, prefix + ".pt"))
     if state.encoder is not None:
-        _timed_save(exported["encoder"], prefix + ".encoder.pt", files)
-    logging.info(f"checkpoint {prefix}: " + ", ".join(
-        f"{n} {f['bytes']} B in {f['seconds']:.2f} s" for n, f in files.items()))
+        jobs.append((exported["encoder"], prefix + ".encoder.pt"))
+    elif state.lora is not None:
+        adapters = state.adapters(use_ema=ema_export)
+        jobs.append(({n: {ab: _host(t).float() for ab, t in ad.items()}
+                      for n, ad in adapters.items()}, prefix + ".encoder.pt"))
+    if writer is None:
+        _write_all(jobs, files, prefix)
+    else:
+        writer.submit(jobs, files, prefix)
     return files
 
 
@@ -115,8 +197,10 @@ def load_state(path: str) -> Dict[str, Any]:
         raise NotImplementedError(
             f"--resume {path}: a directory (an orbax checkpoint of the JAX package, which needs "
             "JAX to read), not a .state.pt; the port resumes only its own runs.  Where JAX is, "
-            "scripts/export_torch_encoder.py writes the encoder for the port (ROADMAP A1 adds "
-            "the trained checkpoint); start a run from the decoder .pt with model.init_ckpt")
+            "scripts/export_torch_encoder.py --ckpt DIR --out E.pt --decoder-out D.pt writes "
+            "that run's encoder (LoRA merged, EMA under ema_eval) and decoder for the port: "
+            "start a run from D.pt with model.init_ckpt, or transcribe with --ckpt D.pt "
+            "--encoder-ckpt E.pt")
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
@@ -138,8 +222,20 @@ def restore_state(state: TrainState, blob: Dict[str, Any]) -> Tuple[int, float]:
         trained = "trains" if modules.get("encoder") is not None else "freezes"
         raise ValueError(f"the checkpoint's run {trained} the encoder and this run does not "
                          "(model.encoder.freeze)")
+    lora = blob.get("lora")
+    if (lora is None) != (state.lora is None):
+        trained = "trains" if lora is not None else "does not train"
+        raise ValueError(f"the checkpoint's run {trained} LoRA adapters and this run does not "
+                         "(model.encoder.lora_rank)")
     for key, m in zip(MODULE_KEYS, state.trained_modules()):
         m.load_state_dict(modules[key], strict=True)
+    if lora is not None:
+        if set(lora) != set(state.lora):
+            raise ValueError("the checkpoint's LoRA adapters are on other layers than this "
+                             "run's (model.encoder.lora_targets)")
+        _copy_into([t for n in state.lora for t in state.lora[n].values()],
+                   [t for n in state.lora for t in (lora[n][ab] for ab in state.lora[n])],
+                   "LoRA adapters")
     optimizer = state.optimizer
     groups = blob["optimizer"]["groups"]
     if len(groups) != len(optimizer.groups):
@@ -151,6 +247,13 @@ def restore_state(state: TrainState, blob: Dict[str, Any]) -> Tuple[int, float]:
         raise ValueError("the checkpoint's optimizer groups have different counts")
     optimizer.count = int(groups[0]["count"])
     optimizer.notfinite_count = int(blob["optimizer"]["notfinite_count"])
+    acc = blob["optimizer"].get("acc")
+    if (acc is None) != (optimizer.acc is None):
+        raise ValueError("the checkpoint's run accumulates gradients and this run does not, "
+                         "or the other way round (optim.grad_accum_steps)")
+    if acc is not None:
+        _copy_into(optimizer.acc, acc, "accumulated gradients")
+        optimizer.mini_step = int(blob["optimizer"]["mini_step"])
     state.step = int(blob["step"])
     if state.ema is not None:
         if blob["ema"] is None:  # the checkpoint ran without an EMA: seed it

@@ -24,12 +24,14 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import struct
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from fddm_asr_tpu_torch.models import lora as LO
 from fddm_asr_tpu_torch.models.wavlm import WavLMConfig
 
 StateDict = Dict[str, torch.Tensor]
@@ -136,6 +138,64 @@ def acoustic_encoder_state_dict_from_jax_params(params: Mapping[str, Any]) -> St
     return sd
 
 
+# ------------------------------------------------------------ LoRA adapters
+# a list's entry in a flax path ("layers_3") and the encoder's scanned stack
+_LIST_ENTRY = re.compile(r"^(layers|conv_layers)_(\d+)$")
+
+
+def _flat_adapters(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Dict[str, Any]]:
+    """The JAX package's flat {"path/kernel": {"a", "b"}} adapter dict from
+    itself or from its nested form (`lora.normalize_adapter_tree`: every
+    leaf path ends in "a" or "b", paired per kernel)."""
+    flat: Dict[str, Dict[str, Any]] = {}
+    for key, value in tree.items():
+        path = f"{prefix}/{key}" if prefix else str(key)
+        if isinstance(value, Mapping) and set(value) == {"a", "b"} and not any(
+                isinstance(v, Mapping) for v in value.values()):
+            flat[path] = dict(value)
+        elif isinstance(value, Mapping):
+            flat.update(_flat_adapters(value, path))
+        else:
+            raise ValueError(f"not a LoRA adapter tree: leaf {path!r} does not end in 'a' or 'b'")
+    return flat
+
+
+def lora_adapters_from_jax(adapters: Mapping[str, Any]) -> LO.Adapters:
+    """The JAX package's LoRA adapters of an `AcousticEncoder`
+    ({"params/backbone/encoder/layers_0/attention/q_proj/kernel": {"a": [d_in,
+    r], "b": [r, d_out]}}, or the nested form orbax restores without a
+    template) -> the port's {"backbone.encoder.layers.0.attention.q_proj":
+    {"a", "b"}}, same orientation.  A scanned stack (`layers_scan/layer/...`,
+    [N-1, d_in, r] and [N-1, r, d_out]) is unstacked into layers 1..N-1."""
+    out: LO.Adapters = {}
+    for path, ad in _flat_adapters(adapters).items():
+        parts = path.split("/")
+        if parts[0] == "params":
+            parts = parts[1:]
+        if parts[-1] != "kernel":
+            raise ValueError(f"LoRA adapter path {path!r} is not a kernel's")
+        parts = parts[:-1]
+        if "layers_scan" in parts:
+            i = parts.index("layers_scan")
+            if parts[i + 1:i + 2] != ["layer"]:
+                raise ValueError(f"LoRA adapter path {path!r}: expected layers_scan/layer/...")
+            a, b = np.asarray(ad["a"]), np.asarray(ad["b"])
+            for j in range(a.shape[0]):  # the scan holds layers 1..N-1
+                name = ".".join(parts[:i] + ["layers", str(1 + j)] + parts[i + 2:])
+                out[_module_name(name)] = {"a": _tensor(a[j]), "b": _tensor(b[j])}
+        else:
+            out[_module_name(".".join(parts))] = {"a": _tensor(ad["a"]), "b": _tensor(ad["b"])}
+    return out
+
+
+def _module_name(dotted: str) -> str:
+    parts = []
+    for part in dotted.split("."):
+        m = _LIST_ENTRY.match(part)
+        parts += [m.group(1), m.group(2)] if m else [part]
+    return ".".join(parts)
+
+
 def wavlm_state_dict_from_hf(sd: Mapping[str, Any]) -> StateDict:
     """A `transformers.WavLMModel` state_dict -> the port's: the positional
     conv's weight norm (g, v over dims 0 and 1) is folded into a plain
@@ -218,14 +278,14 @@ def load_pretrained_wavlm(path: str) -> Tuple[WavLMConfig, StateDict]:
 def load_wavlm(path: str) -> StateDict:
     """The WavLM state_dict of a local Hugging Face directory.  The JAX
     CLI's other source, an orbax checkpoint, needs JAX to read: there the
-    encoder crosses over as a state_dict (scripts/export_torch_encoder.py,
-    then --encoder-ckpt)."""
+    encoder crosses over as a state_dict (scripts/export_torch_encoder.py
+    --wavlm-ckpt, then --encoder-ckpt)."""
     if not os.path.isfile(os.path.join(path, "config.json")):
         raise NotImplementedError(
             f"--wavlm-ckpt {path}: not a Hugging Face WavLM directory (config.json with "
             "model.safetensors or pytorch_model.bin); an orbax checkpoint needs JAX to "
-            "read: write the encoder with scripts/export_torch_encoder.py where JAX is "
-            "and pass it as --encoder-ckpt")
+            "read: write the encoder with scripts/export_torch_encoder.py --wavlm-ckpt where "
+            "JAX is and pass it as --encoder-ckpt")
     return load_pretrained_wavlm(path)[1]
 
 
@@ -235,7 +295,9 @@ def add_encoder_weight_args(parser) -> None:
     parser.add_argument(
         "--encoder-ckpt", type=str, default=None,
         help=".pt of the port's AcousticEncoder state_dict (backbone and proj), "
-             "e.g. from scripts/export_torch_encoder.py; applied after --wavlm-ckpt")
+             "e.g. from scripts/export_torch_encoder.py, applied after --wavlm-ckpt; or "
+             "a LoRA run's adapter-only {prefix}.encoder.pt, merged into the "
+             "--wavlm-ckpt (or seed) encoder at its sidecar's lora_alpha")
     parser.add_argument(
         "--wavlm-ckpt", type=str, default=None,
         help="local Hugging Face WavLM directory (config.json with "
@@ -244,15 +306,28 @@ def add_encoder_weight_args(parser) -> None:
 
 
 def load_encoder_weights(wavlm_ckpt: Optional[str], encoder_ckpt: Optional[str]
-                         ) -> Tuple[Optional[StateDict], Optional[StateDict]]:
-    """(wavlm_state_dict, encoder_state_dict) for `FDDMPipeline.from_config`
+                         ) -> Tuple[Optional[StateDict],
+                                    Union[StateDict, LO.EncoderAdapters, None]]:
+    """(wavlm_state_dict, encoder weights) for `FDDMPipeline.from_config`
     from the `--wavlm-ckpt` directory and the `--encoder-ckpt` file, None for
-    a flag not given.  A missing or unreadable file raises here, one whose
-    tensors do not fit the config's encoder in `from_config`: never the
-    seed's encoder in its place."""
+    a flag not given.  An encoder file that holds LoRA adapters (a LoRA
+    run's `{prefix}.encoder.pt`) comes back as `lora.EncoderAdapters` with
+    the lora_alpha of its `{prefix}.meta.json` sidecar, and `from_config`
+    merges it into the encoder the WavLM weights (or the seed) make.  A
+    missing or unreadable file raises here, one whose tensors do not fit the
+    config's encoder in `from_config`: never the seed's encoder in its
+    place."""
     wavlm_sd = load_wavlm(wavlm_ckpt) if wavlm_ckpt else None
     encoder_sd = (torch.load(encoder_ckpt, map_location="cpu", weights_only=True)
                   if encoder_ckpt else None)
+    if LO.is_adapter_dict(encoder_sd):
+        alpha = None
+        if encoder_ckpt.endswith(".encoder.pt"):
+            sidecar = encoder_ckpt[:-len(".encoder.pt")] + ".meta.json"
+            if os.path.exists(sidecar):
+                with open(sidecar, encoding="utf-8") as f:
+                    alpha = json.load(f).get("lora_alpha")
+        encoder_sd = LO.EncoderAdapters(encoder_sd, alpha)
     return wavlm_sd, encoder_sd
 
 
@@ -324,9 +399,10 @@ def load_reference_checkpoint(path: str) -> Dict[str, Any]:
             f"--ckpt {path}: a directory, not a reference .pt (an orbax checkpoint needs JAX "
             "to read).  The port's own training (python -m fddm_asr_tpu_torch.train) writes "
             "{prefix}.pt and, for a fine-tuned encoder, {prefix}.encoder.pt: pass them as "
-            "--ckpt and --encoder-ckpt.  For a JAX run, where JAX is, write the decoder as a "
-            ".pt with the JAX package's export_reference_ckpt and the encoder with "
-            "scripts/export_torch_encoder.py, then pass them the same way")
+            "--ckpt and --encoder-ckpt.  For a JAX run, where JAX is, "
+            "scripts/export_torch_encoder.py --ckpt DIR --out E.pt --decoder-out D.pt writes "
+            "its encoder (LoRA merged, EMA under ema_eval) and decoder: pass them the same "
+            "way")
     raw = torch.load(path, map_location="cpu", weights_only=False)
     out: Dict[str, Any] = dict.fromkeys(
         ("s_proj", "t_embed", "t_proj", "epoch", "step", "best_val_cer", "config"))

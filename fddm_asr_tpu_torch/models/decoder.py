@@ -32,6 +32,13 @@ packed `in_proj_weight`, quantized per output channel on its own, as three
 separate denses would be.  The time MLP, `time_proj` and FiLM stay full
 precision; "int8_fused" raises, as in the JAX decoder.  Parameters and
 checkpoints are unchanged.
+
+`remat_blocks` (model.remat_blocks) recomputes each block in the backward
+of a training forward (torch.utils.checkpoint; dropout draws the same
+masks again).  As in the JAX decoder it needs `scan_blocks`, the JAX
+package's stacked-parameter layout, which the port reads for that check
+only: its blocks are separate modules either way (`convert` unstacks a
+`blocks_scan` tree).
 """
 from __future__ import annotations
 
@@ -41,6 +48,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from fddm_asr_tpu_torch.models.wavlm import _layer_norm, _linear
 from fddm_asr_tpu_torch.ops.attention import dot_product_attention
@@ -219,10 +227,14 @@ class DenoisingTransformerDecoder(nn.Module):
                  max_len: int = 2048,
                  pad_id: int = 0, pos_emb_type: str = "rope", use_film: bool = True,
                  rope_base: float = 10000.0, dtype: torch.dtype = torch.float32,
-                 quant_dense: str = "none"):
+                 quant_dense: str = "none", scan_blocks: bool = False,
+                 remat_blocks: bool = False):
         super().__init__()
         if pos_emb_type not in ("rope", "sinusoidal", "learned"):
             raise ValueError(f"unsupported pos_emb_type: {pos_emb_type}")
+        if remat_blocks and not scan_blocks:
+            raise ValueError("remat_blocks requires scan_blocks")
+        self.remat_blocks = remat_blocks
         if quant_dense not in ("none", "int8"):
             raise ValueError(f"decoder quant_dense={quant_dense!r}: expected 'none' or 'int8'")
         self.quant_dense = quant_dense
@@ -272,6 +284,11 @@ class DenoisingTransformerDecoder(nn.Module):
         # an all-pad row would softmax over nothing: let it see every position
         x_mask = x_mask | ~x_mask.any(dim=-1, keepdim=True)
 
+        remat = self.remat_blocks and self.training and torch.is_grad_enabled()
         for block in self.blocks:
-            x = block(x, cond, x_mask, c_mask, rope_cos, rope_sin, dtype)
+            if remat:
+                x = checkpoint(block, x, cond, x_mask, c_mask, rope_cos, rope_sin, dtype,
+                               use_reentrant=False)
+            else:
+                x = block(x, cond, x_mask, c_mask, rope_cos, rope_sin, dtype)
         return _linear(self.head, x.float(), torch.float32, self.quant_dense)

@@ -47,7 +47,9 @@ class AcousticEncoder(nn.Module):
     def forward(self, waveforms: torch.Tensor, lengths: Optional[torch.Tensor] = None,
                 mask_time_indices: Optional[torch.Tensor] = None,
                 mask_feature_indices: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None,
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]:
+        """`generator`: where attention dropout in training draws (WavLMModel)."""
         B, T = waveforms.shape
         attention_mask = None
         if lengths is not None:
@@ -59,7 +61,8 @@ class AcousticEncoder(nn.Module):
         with torch.no_grad() if frozen else contextlib.nullcontext():
             feats = self.backbone(waveforms, attention_mask=attention_mask,
                                   mask_time_indices=mask_time_indices,
-                                  mask_feature_indices=mask_feature_indices)
+                                  mask_feature_indices=mask_feature_indices,
+                                  generator=generator)
             if hasattr(self, "proj"):
                 feats = _linear(self.proj, feats, self.dtype)
 

@@ -26,14 +26,24 @@ Training mode (`train()`), as the JAX package's `deterministic=False`:
   * dropout at HF's places: feat_proj_dropout after the feature projection,
     hidden_dropout after the positional conv and after each attention and
     FFN output, activation_dropout inside the FFN.  Attention-weight
-    dropout (attention_dropout > 0) is not ported: the kernels compute
-    exact-softmax gradients only, and it raises;
+    dropout (attention_dropout > 0) takes the plain path
+    (`ops/flash_attention.wavlm_gated_attention_dropout`), as the JAX
+    package takes its XLA path there: the kernels compute exact-softmax
+    gradients only.  Its masks come from one seed a layer, drawn from the
+    caller's generator (or the device's default one) before the layers
+    run, so a layer recomputed in the backward draws the same mask;
   * SpecAugment: `mask_time_indices` [B, S] replaces frames by the learned
     `masked_spec_embed`, `mask_feature_indices` [B, H] zeroes hidden dims
     (`sample_time_mask` draws either);
   * `freeze_feature_extractor` runs the conv front-end under no_grad;
   * `remat_layers` recomputes layers 1..N-1 in the backward
     (torch.utils.checkpoint); layer 0, which owns `rel_attn_embed`, is kept.
+    `remat_policy` "full" keeps nothing of a layer; "dots" keeps the outputs
+    of its unbatched matmuls (the dense projections: `aten.mm` and
+    `aten.addmm`, what JAX's `dots_with_no_batch_dims_saveable` keeps) and
+    recomputes the rest, the attention forward (B3 on the card) included;
+  * LoRA (`models/lora.py`): inside a `lora.installed` block an adapted
+    layer uses its merged weight in place of its own (`_linear`).
 
 Inference options, as in the JAX package (both raise where autograd records):
   * `quant_dense` "int8" | "int8_fused" runs the q/k/v/out projections and
@@ -58,10 +68,17 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
+from fddm_asr_tpu_torch.models.lora import LORA_WEIGHT
 from fddm_asr_tpu_torch.ops.conv_frontend import conv_ln_gelu, kernel_weight
 from fddm_asr_tpu_torch.ops.flash_attention import (
+    wavlm_gated_attention_dropout,
     wavlm_gated_attention_heads_packed,
     wavlm_gated_attention_heads_packed_trainable,
 )
@@ -91,10 +108,10 @@ class WavLMConfig:
     layer_norm_eps: float = 1e-5
     feat_proj_dropout: float = 0.0
     hidden_dropout: float = 0.1
-    attention_dropout: float = 0.1  # training with it > 0 raises (not ported)
+    attention_dropout: float = 0.1  # in training > 0 takes the plain attention (no kernel)
     activation_dropout: float = 0.1
-    # recompute layers 1..N-1 in the backward ("full"; "dots", which keeps
-    # the projections' outputs, is not ported and raises)
+    # recompute layers 1..N-1 in the backward: "full", or "dots" (keep the
+    # dense projections' outputs)
     remat_layers: bool = False
     remat_policy: str = "full"
     # fine-tuning: the conv front-end stays frozen (HF freeze_feature_encoder)
@@ -172,13 +189,19 @@ def _gelu(x: torch.Tensor, tanh: bool) -> torch.Tensor:
 def _linear(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype,
             quant: str = "none") -> torch.Tensor:
     """`layer(x)` in `dtype`; with `quant` "int8" or "int8_fused" through
-    dynamic int8 (`ops/quant.py`), the quantized weight kept on the layer."""
+    dynamic int8 (`ops/quant.py`), the quantized weight kept on the layer.
+    Inside a `lora.installed` block its merged LoRA weight stands in for
+    `weight`."""
+    weight = layer.__dict__.get(LORA_WEIGHT, layer.weight)
     if quant != "none":
+        if weight is not layer.weight:
+            raise ValueError("quant_dense is for inference: a layer training LoRA adapters "
+                             "runs full precision")
         cache = layer.__dict__.setdefault("_int8_cache", {})
         return quantized_linear(quant, cache, "weight", x.to(dtype), layer.weight, layer.bias,
                                 dtype)
     bias = None if layer.bias is None else layer.bias.to(dtype)
-    return F.linear(x.to(dtype), layer.weight.to(dtype), bias)
+    return F.linear(x.to(dtype), weight.to(dtype), bias)
 
 
 def _layer_norm(ln: nn.LayerNorm, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -372,8 +395,10 @@ class GatedRelPosAttention(nn.Module):
         return values.t()[:, pos[None, :] - pos[:, None] + (L - 1)]  # [H, L, L]
 
     def forward(self, x: torch.Tensor, key_mask: Optional[torch.Tensor],
-                position_bias: Optional[torch.Tensor], dtype: torch.dtype
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+                position_bias: Optional[torch.Tensor], dtype: torch.dtype,
+                dropout_seed: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """`dropout_seed`: the seed of this layer's attention-dropout mask
+        (training with attention_dropout > 0)."""
         cfg = self.cfg
         B, L, _ = x.shape
         H = cfg.num_attention_heads
@@ -393,11 +418,14 @@ class GatedRelPosAttention(nn.Module):
         k = _linear(self.k_proj, x, dtype, cfg.quant_dense)
         v = _linear(self.v_proj, x, dtype, cfg.quant_dense)
         if self.training and cfg.attention_dropout > 0.0:
-            raise NotImplementedError(
-                "attention dropout is not ported (the gated-attention kernels compute "
-                "exact-softmax gradients); set attention_dropout: 0.0 and regularise "
-                "with SpecAugment, as configs/fddm_zhTW_finetune.yaml does")
-        if torch.is_grad_enabled():
+            generator = torch.Generator(device=q.device)
+            if dropout_seed is None:
+                generator.seed()
+            else:
+                generator.manual_seed(dropout_seed)
+            out = wavlm_gated_attention_dropout(q, k, v, position_bias, gate, key_mask, H,
+                                                cfg.attention_dropout, generator)
+        elif torch.is_grad_enabled():
             out = wavlm_gated_attention_heads_packed_trainable(
                 q, k, v, position_bias, gate, key_mask, num_heads=H)
         else:
@@ -434,14 +462,15 @@ class EncoderLayer(nn.Module):
         self.feed_forward = FeedForward(cfg)
         self.final_layer_norm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
 
-    def forward(self, x, key_mask, position_bias, dtype):
+    def forward(self, x, key_mask, position_bias, dtype, dropout_seed=None):
         if self.stable:
             h, position_bias = self.attention(
-                _layer_norm(self.layer_norm, x, dtype), key_mask, position_bias, dtype)
+                _layer_norm(self.layer_norm, x, dtype), key_mask, position_bias, dtype,
+                dropout_seed)
             x = x + F.dropout(h, self.hidden_dropout, self.training)
             x = x + self.feed_forward(_layer_norm(self.final_layer_norm, x, dtype), dtype)
             return x, position_bias
-        h, position_bias = self.attention(x, key_mask, position_bias, dtype)
+        h, position_bias = self.attention(x, key_mask, position_bias, dtype, dropout_seed)
         x = _layer_norm(self.layer_norm, x + F.dropout(h, self.hidden_dropout, self.training),
                         dtype)
         x = x + self.feed_forward(x, dtype)
@@ -459,7 +488,10 @@ class Encoder(nn.Module):
             for i in range(cfg.num_hidden_layers))
 
     def forward(self, x: torch.Tensor, key_mask: Optional[torch.Tensor],
-                dtype: torch.dtype) -> torch.Tensor:
+                dtype: torch.dtype, generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        """`generator`: where training with attention dropout draws each
+        layer's mask seed (default: the device's default generator)."""
         cfg = self.cfg
         B, S0, _ = x.shape
         pad = (-S0) % max(cfg.seq_pad_multiple, 1)
@@ -477,19 +509,41 @@ class Encoder(nn.Module):
             x = _layer_norm(self.layer_norm, x, dtype)
         x = F.dropout(x, cfg.hidden_dropout, self.training)
         remat = cfg.remat_layers and self.training and torch.is_grad_enabled()
-        if remat and cfg.remat_policy != "full":
-            raise NotImplementedError(
-                f"remat_policy {cfg.remat_policy!r} is not ported (only 'full')")
+        if remat and cfg.remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"remat_policy must be 'full' or 'dots', got {cfg.remat_policy!r}")
+        seeds = [None] * len(self.layers)
+        if self.training and cfg.attention_dropout > 0.0:
+            seeds = torch.randint(0, 2 ** 62, (len(self.layers),), generator=generator,
+                                  device=x.device if generator is None else generator.device
+                                  ).tolist()
         position_bias = None
         for i, layer in enumerate(self.layers):
             if remat and i > 0:  # layer 0 owns rel_attn_embed and is kept
-                x, position_bias = checkpoint(layer, x, key_mask, position_bias, dtype,
-                                              use_reentrant=False)
+                x, position_bias = checkpoint(layer, x, key_mask, position_bias, dtype, seeds[i],
+                                              use_reentrant=False,
+                                              context_fn=REMAT_POLICIES[cfg.remat_policy])
             else:
-                x, position_bias = layer(x, key_mask, position_bias, dtype)
+                x, position_bias = layer(x, key_mask, position_bias, dtype, seeds[i])
         if cfg.do_stable_layer_norm:
             x = _layer_norm(self.layer_norm, x, dtype)
         return x[:, :S0] if pad else x
+
+
+# unbatched matmuls: the outputs `remat_policy: dots` keeps (F.linear on a
+# [B, L, d] input runs one of these on the [B*L, d] view)
+_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default})
+
+
+def _keep_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_contexts():
+    return create_selective_checkpoint_contexts(_keep_dots)
+
+
+# remat_policy -> torch.utils.checkpoint's context_fn
+REMAT_POLICIES = {"full": noop_context_fn, "dots": _dots_contexts}
 
 
 def sample_time_mask(batch: int, seq_len: int, mask_prob: float, mask_length: int,
@@ -539,7 +593,8 @@ class WavLMModel(nn.Module):
     def forward(self, input_values: torch.Tensor,
                 attention_mask: Optional[torch.Tensor] = None,
                 mask_time_indices: Optional[torch.Tensor] = None,
-                mask_feature_indices: Optional[torch.Tensor] = None) -> torch.Tensor:
+                mask_feature_indices: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         cfg = self.cfg
         with torch.no_grad() if cfg.freeze_feature_extractor else contextlib.nullcontext():
             feats = self.feature_extractor(input_values, self.dtype)
@@ -554,4 +609,4 @@ class WavLMModel(nn.Module):
             x = torch.where(mask_time_indices[..., None], self.masked_spec_embed.to(x.dtype), x)
         if mask_feature_indices is not None:
             x = x.masked_fill(mask_feature_indices[:, None, :], 0.0)
-        return self.encoder(x, feat_mask, self.dtype)
+        return self.encoder(x, feat_mask, self.dtype, generator)

@@ -33,7 +33,10 @@ CPU the plain version, which autograd differentiates; on CUDA the autograd
 Function `GatedAttentionTrain`, whose forward saves the row logsumexp and
 whose backward runs the two backward kernels.  Its gradients are those of
 the plain forward exactly, including at rows whose keys are all masked
-(where the forward averages v over the L real keys).
+(where the forward averages v over the L real keys).  Training with
+attention-weight dropout (`wavlm_gated_attention_dropout`) runs no kernel:
+the plain forward with the dropped weights, on every device, as the JAX
+package takes its XLA path there.
 """
 from __future__ import annotations
 
@@ -113,6 +116,23 @@ def wavlm_gated_attention_fwd_lse_plain(q, k, v, pos_bias, gate, key_mask=None,
     weights = torch.softmax(scores, dim=-1).to(v.dtype)
     del scores
     return _packed(torch.matmul(weights, _heads(v, num_heads))), lse
+
+
+def wavlm_gated_attention_dropout(q, k, v, pos_bias, gate, key_mask, num_heads: int,
+                                  rate: float, generator: Optional[torch.Generator] = None
+                                  ) -> torch.Tensor:
+    """Training with attention-weight dropout: the plain forward with the
+    softmax weights kept with probability 1 - rate (uniform draws from
+    `generator` below 1 - rate) and scaled by 1 / (1 - rate), as the JAX
+    package's XLA path (`ops/attention.dot_product_attention`) does.  No
+    kernel runs, on any device (the kernels compute exact-softmax
+    gradients); autograd differentiates it."""
+    scores = _gated_scores(q, k, pos_bias, gate, key_mask, num_heads)
+    weights = torch.softmax(scores, dim=-1)
+    del scores
+    keep = torch.rand(weights.shape, generator=generator, device=weights.device) < 1.0 - rate
+    weights = torch.where(keep, weights / (1.0 - rate), 0.0).to(v.dtype)
+    return _packed(torch.matmul(weights, _heads(v, num_heads)))
 
 
 def wavlm_gated_attention_bwd_plain(q, k, v, pos_bias, gate, key_mask, out, lse, dout,

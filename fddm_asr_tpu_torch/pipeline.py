@@ -53,6 +53,7 @@ from fddm_asr_tpu_torch.convert import load_reference_checkpoint
 from fddm_asr_tpu_torch.data.wire import decode_wire
 from fddm_asr_tpu_torch.eval import batch_confidence, ids_to_text
 from fddm_asr_tpu_torch.models.decoder import DenoisingTransformerDecoder, MultiheadAttention
+from fddm_asr_tpu_torch.models import lora as LO
 from fddm_asr_tpu_torch.models.encoder import AcousticEncoder
 from fddm_asr_tpu_torch.models.wavlm import GatedRelPosAttention, WavLMConfig, WavLMModel
 from fddm_asr_tpu_torch.sampler import SamplerConfig, make_sample_fn
@@ -191,7 +192,8 @@ class FDDMPipeline:
     @classmethod
     def from_config(cls, cfg: Config, ckpt_path: Optional[str] = None,
                     wavlm_state_dict: Optional[Dict[str, torch.Tensor]] = None,
-                    encoder_state_dict: Optional[Dict[str, torch.Tensor]] = None,
+                    encoder_state_dict: Union[Dict[str, torch.Tensor], LO.EncoderAdapters,
+                                              None] = None,
                     tokenizer=None, device: Optional[str] = None,
                     dtype: Union[str, torch.dtype, None] = None,
                     seed: Optional[int] = None,
@@ -200,7 +202,9 @@ class FDDMPipeline:
         raises without a GPU unless device="cpu").  `dtype` defaults to the
         config's model.dtype; parameters stay float32.  `encoder_state_dict`
         (the port's `AcousticEncoder` keys, loaded strictly) is applied after
-        `wavlm_state_dict`."""
+        `wavlm_state_dict`; a `lora.EncoderAdapters` in its place (an
+        adapter-only checkpoint, `convert.load_encoder_weights`) is merged
+        into the encoder those weights (or the seed) make."""
         dev = resolve_device(device)
         if seed is None:
             seed = int(cfg.get("seed", 0))
@@ -228,7 +232,9 @@ class FDDMPipeline:
                 pos_emb_type=model_cfg.get("pos_emb_type", "rope"),
                 use_film=model_cfg.get("use_film", True),
                 dropout=model_cfg.get("dropout", 0.1), dtype=dtype,
-                quant_dense=model_cfg.get("quant_dense", "none"))
+                quant_dense=model_cfg.get("quant_dense", "none"),
+                scan_blocks=bool(model_cfg.get("scan_blocks", False)),
+                remat_blocks=bool(model_cfg.get("remat_blocks", False)))
             encoder = AcousticEncoder(
                 build_wavlm_config(enc_cfg), d_model=model_cfg.d_model,
                 proj=enc_cfg.get("proj", "linear"),
@@ -267,7 +273,18 @@ class FDDMPipeline:
                     "the WavLM weights do not fit the encoder model.encoder builds: config "
                     f"{_geometry(encoder.config)}, weights {_state_dict_geometry(wavlm_state_dict)}"
                     f"\n{e}") from e
-        if encoder_state_dict is not None:
+        if isinstance(encoder_state_dict, LO.EncoderAdapters):
+            # an adapter-only checkpoint: merged into the encoder built so
+            # far (the WavLM weights given, or the seed's), at the training
+            # run's alpha when its sidecar has one, else the config's
+            adapters = encoder_state_dict.adapters
+            alpha = encoder_state_dict.alpha
+            if alpha is None:
+                alpha = enc_cfg.get("lora_alpha")
+            scale = LO.resolve_scale(LO.adapter_rank(adapters), alpha)
+            encoder.load_state_dict(LO.merge_lora(encoder.state_dict(), adapters, scale),
+                                    strict=True)
+        elif encoder_state_dict is not None:
             encoder.load_state_dict(encoder_state_dict, strict=True)
         decoder.eval()
         encoder.eval()

@@ -10,18 +10,24 @@ Counterpart of `fddm_asr_tpu/train_lib.py` (`_lr_schedule`,
     tau * mean(w_t) * L_fd over the projection heads;
   * AdamW with one global-norm gradient clip over every trained parameter,
     in two groups when the encoder trains (`optim.encoder_lr`), with
-    optional 1-D decay exclusion and non-finite-update skipping;
-  * an EMA of the trained parameters (`optim.ema_decay`);
+    optional 1-D decay exclusion and non-finite-update skipping, the first
+    moment optionally stored in bfloat16 (`optim.adam_mu_dtype`), and
+    gradient accumulation (`optim.grad_accum_steps`, optax.MultiSteps);
+  * an EMA of the trained parameters (`optim.ema_decay`), optionally stored
+    in bfloat16 (`optim.ema_dtype`);
   * the fine-tune step (model.encoder.freeze: false) runs WavLM in training
-    mode with SpecAugment inside the differentiated graph; the frozen step
-    encodes under no_grad (the inference kernel on a GPU); the
-    feature-cache step takes the frozen encoder's output from
-    `data/feature_cache.py`;
+    mode with SpecAugment inside the differentiated graph; with
+    model.encoder.lora_rank r > 0 the encoder stays frozen and rank-r
+    adapters train in its place (`models/lora.py`: merged once a step,
+    differentiably); the frozen step encodes under no_grad (the inference
+    kernel on a GPU); the feature-cache step takes the frozen encoder's
+    output from `data/feature_cache.py`;
   * `run_training`: manifests through `data/dataset.py`, the feature cache
     (device-resident up to 2 GiB), the L_fd schedule over global steps,
-    evaluation with the port's `eval` (EMA weights under optim.ema_eval),
-    best-model selection, early stop, collapse_restore, checkpoints and
-    `--resume` through `checkpoint.py`.  Each step's draws come from one
+    evaluation with the port's `eval` (EMA weights under optim.ema_eval,
+    LoRA adapters merged), best-model selection, early stop,
+    collapse_restore, checkpoints (written in a background thread under
+    log.async_checkpoint) and `--resume` through `checkpoint.py`.  Each step's draws come from one
     device generator reseeded per step from np.random.default_rng(seed), as
     the JAX loop seeds its step keys, so a resumed run restarts the stream.
 
@@ -31,13 +37,26 @@ warmup the first update has lr 0); the clip scales by max/norm with no
 epsilon (`torch.nn.utils.clip_grad_norm_` adds 1e-6); decoupled weight
 decay is p -= lr * (adam + wd * p); parameters with no gradient in a step
 (the projection heads on a non-L_fd step) count as zero gradients, so their
-moments decay and weight decay still applies, as in optax.
+moments decay and weight decay still applies, as in optax.  Under
+grad_accum_steps k each micro-step's gradients go into optax.MultiSteps'
+running mean acc + (g - acc) / (n + 1); every k-th micro-step the clip,
+the non-finite check, AdamW and the schedule (which counts these updates)
+see that mean, and the other micro-steps change no parameter.  The step
+counter (the L_fd period, logging, the EMA's ramp) counts micro-steps, and
+the EMA updates on every one, as in the JAX step.  A bfloat16 first moment
+is (1 - b1) g + bf16(b1) mu in float32 (optax's weakly typed b1 meets a
+bfloat16 mu and becomes a bfloat16 constant; XLA keeps the product in
+float32), used unrounded for the update and stored rounded; a bfloat16 EMA
+is e + bf16(1 - decay) (bf16(p) - e), computed in float32 and rounded once
+to bfloat16, the dtype JAX's promotion gives that expression.
 
 RNG: `torch.Generator` and `jax.random` give different numbers, so the
 step takes a generator and also accepts the timesteps `t`, the corrupted
 tokens `xt` and the SpecAugment masks ready-made (the tests hand it the JAX
 step's own draws).  Decoder and encoder dropout draw from torch's default
-generator of the device.
+generator of the device; the encoder's attention dropout (training with
+attention_dropout > 0) takes its per-layer mask seeds from the step's
+generator (`models/wavlm.py`).
 """
 from __future__ import annotations
 
@@ -59,6 +78,7 @@ from torch import nn
 from fddm_asr_tpu_torch import diffusion as D
 from fddm_asr_tpu_torch.config import Config, resolve_special_ids
 from fddm_asr_tpu_torch.losses import align_speech_to_text, lfd_loss
+from fddm_asr_tpu_torch.models import lora as LO
 from fddm_asr_tpu_torch.models.projection import SpeechProjector, TextEmbedding, TextProjector
 from fddm_asr_tpu_torch.models.wavlm import sample_time_mask
 from fddm_asr_tpu_torch.pipeline import random_init_
@@ -106,18 +126,39 @@ def lr_schedule(optim: Config, lr: float, warmup: int) -> Schedule:
     return lambda count: warm(count) if count < warmup else decay(count - warmup)
 
 
+def _global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
+
+
+def _cast(tensors: Sequence[torch.Tensor], dtype: torch.dtype) -> List[torch.Tensor]:
+    """Copies of `tensors` in `dtype`, made by one foreach copy."""
+    out = [torch.empty_like(t, dtype=dtype) for t in tensors]
+    torch._foreach_copy_(out, tensors)
+    return out
+
+
+def bf16_constant(x: float) -> float:
+    """`x` rounded to bfloat16: a weakly typed Python float meeting a
+    bfloat16 array in JAX becomes this constant."""
+    return float(torch.tensor(x, dtype=torch.float32).to(torch.bfloat16))
+
+
 class AdamW:
     """optax.chain(clip_by_global_norm(clip), adamw per group), optionally
-    inside apply_if_finite, over parameter groups that update together.
+    inside apply_if_finite, optionally inside optax.MultiSteps (`accum_steps`
+    > 1), over parameter groups that update together.
 
-    groups: [(parameters, schedule)], one per learning-rate group.  Moments
-    are float32 like the parameters.  `step(grads)` returns the pre-clip
-    global gradient norm (a 0-d tensor) and whether the update was applied."""
+    groups: [(parameters, schedule)], one per learning-rate group.  The
+    second moment is float32 like the parameters; the first is `mu_dtype`
+    (float32, or bfloat16 as optax's mu_dtype).  `step(grads)` returns the
+    pre-clip global norm of the gradients it was given (a 0-d tensor) and
+    whether parameters were updated."""
 
     def __init__(self, groups: Sequence[Tuple[Sequence[nn.Parameter], Schedule]],
                  weight_decay: float = 0.01, decay_exclude_1d: bool = False,
                  clip: float = 5.0, skip_nonfinite: int = 0,
-                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+                 mu_dtype: torch.dtype = torch.float32, accum_steps: int = 1):
         self.groups = [(list(ps), sched) for ps, sched in groups]
         self.params: List[nn.Parameter] = [p for ps, _ in self.groups for p in ps]
         self.weight_decay = weight_decay
@@ -126,28 +167,52 @@ class AdamW:
         self.clip = clip
         self.skip_nonfinite = skip_nonfinite
         self.b1, self.b2, self.eps = b1, b2, eps
-        self.mu = [torch.zeros_like(p) for p in self.params]
+        self.mu = [torch.zeros_like(p, dtype=mu_dtype) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
         self.count = 0            # updates applied (each group's optax count)
         self.notfinite_count = 0  # consecutive non-finite steps
+        # optax.MultiSteps: the micro-steps gathered so far and their mean
+        self.accum_steps = max(1, int(accum_steps))
+        self.mini_step = 0
+        self.acc = ([torch.zeros_like(p) for p in self.params] if self.accum_steps > 1
+                    else None)
 
     @torch.no_grad()
     def step(self, grads: Sequence[Optional[torch.Tensor]]) -> Tuple[torch.Tensor, bool]:
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(self.params, grads)]
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        norm = clip_norm = _global_norm(grads)
+        if self.acc is not None:  # optax.MultiSteps' running mean
+            acc = torch._foreach_sub(grads, self.acc)
+            torch._foreach_div_(acc, self.mini_step + 1)
+            torch._foreach_add_(acc, self.acc)
+            if self.mini_step < self.accum_steps - 1:
+                self.acc, self.mini_step = acc, self.mini_step + 1
+                return norm, False
+            torch._foreach_zero_(self.acc)  # the mean so far, now in `acc`
+            self.mini_step, grads, clip_norm = 0, acc, _global_norm(acc)
+        return norm, self._update(grads, clip_norm)
+
+    def _update(self, grads: List[torch.Tensor], norm: torch.Tensor) -> bool:
         if self.skip_nonfinite > 0:
             finite = bool(torch.stack([torch.isfinite(g).all() for g in grads]).all())
             self.notfinite_count = 0 if finite else self.notfinite_count + 1
             if not finite and self.notfinite_count <= self.skip_nonfinite:
-                return norm, False
+                return False
         if not bool(norm < self.clip):  # optax: t / norm * max, no epsilon
             grads = torch._foreach_div(grads, norm)
             torch._foreach_mul_(grads, self.clip)
 
         b1, b2 = self.b1, self.b2
-        torch._foreach_mul_(self.mu, b1)
-        torch._foreach_add_(self.mu, grads, alpha=1.0 - b1)
+        if self.mu[0].dtype == torch.bfloat16:
+            # (1 - b1) g + bf16(b1) mu in float32 (module docstring); the float32
+            # mean feeds this update, rounded when stored
+            mu = torch._foreach_mul(grads, 1.0 - b1)
+            torch._foreach_add_(mu, _cast(self.mu, torch.float32), alpha=bf16_constant(b1))
+        else:
+            torch._foreach_mul_(self.mu, b1)
+            torch._foreach_add_(self.mu, grads, alpha=1.0 - b1)
+            mu = self.mu
         torch._foreach_mul_(self.nu, b2)
         torch._foreach_addcmul_(self.nu, grads, grads, value=1.0 - b2)
         del grads
@@ -155,7 +220,10 @@ class AdamW:
         update = torch._foreach_div(self.nu, 1.0 - b2 ** c)
         torch._foreach_sqrt_(update)
         torch._foreach_add_(update, self.eps)
-        mu_hat = torch._foreach_div(self.mu, 1.0 - b1 ** c)
+        mu_hat = torch._foreach_div(mu, 1.0 - b1 ** c)
+        if mu is not self.mu:
+            torch._foreach_copy_(self.mu, mu)
+        del mu
         torch._foreach_div_(mu_hat, update)
         update = mu_hat  # mu_hat / (sqrt(nu_hat) + eps)
         if self.weight_decay:
@@ -167,21 +235,22 @@ class AdamW:
             torch._foreach_add_(params, update[start:start + len(params)], alpha=-lr)
             start += len(params)
         self.count = c
-        return norm, True
+        return True
+
+
+def state_dtype(optim: Config, key: str) -> torch.dtype:
+    """optim.adam_mu_dtype / optim.ema_dtype: "bfloat16", else float32 (the
+    JAX package reads any other value as its default)."""
+    return torch.bfloat16 if optim.get(key) == "bfloat16" else torch.float32
 
 
 def make_optimizer(cfg: Config, main_params: Sequence[nn.Parameter],
                    encoder_params: Optional[Sequence[nn.Parameter]] = None) -> AdamW:
     """AdamW from cfg.optim (lr 2e-4, weight_decay 0.01, grad_clip 5.0 by
     default); a second group at optim.encoder_lr (default optim.lr) when
-    `encoder_params` is given, under the same global clip."""
+    `encoder_params` is given (the encoder, or its LoRA adapters), under the
+    same global clip; optim.adam_mu_dtype and optim.grad_accum_steps."""
     optim = cfg.optim
-    unsupported = {key: optim.get(key) for key in ("adam_mu_dtype", "ema_dtype")
-                   if optim.get(key) not in (None, "float32")}
-    if unsupported:
-        raise NotImplementedError(f"not ported yet (ROADMAP A5): optim {unsupported}")
-    if int(optim.get("grad_accum_steps", 1) or 1) > 1:
-        raise NotImplementedError("optim.grad_accum_steps > 1 is not ported yet (ROADMAP A5)")
     lr = float(optim.get("lr", 2e-4))
     warmup = int(optim.get("warmup_steps", 0) or 0)
     groups = [(list(main_params), lr_schedule(optim, lr, warmup))]
@@ -191,16 +260,20 @@ def make_optimizer(cfg: Config, main_params: Sequence[nn.Parameter],
     return AdamW(groups, weight_decay=float(optim.get("weight_decay", 0.01)),
                  decay_exclude_1d=bool(optim.get("decay_exclude_1d", False)),
                  clip=float(optim.get("grad_clip", 5.0)),
-                 skip_nonfinite=int(optim.get("skip_nonfinite_updates", 0) or 0))
+                 skip_nonfinite=int(optim.get("skip_nonfinite_updates", 0) or 0),
+                 mu_dtype=state_dtype(optim, "adam_mu_dtype"),
+                 accum_steps=int(optim.get("grad_accum_steps", 1) or 1))
 
 
 @dataclasses.dataclass
 class TrainState:
-    """The trained modules, their optimizer, the update step and the EMA.
+    """The trained modules, their optimizer, the micro-step count and the EMA.
 
     `ema` mirrors `optimizer.params` (decoder, s_proj, t_embed, t_proj,
-    then the encoder's trained parameters); None when optim.ema_decay is 0.
-    `encoder` is None for frozen-encoder training."""
+    then the encoder's trained parameters or the LoRA adapters); None when
+    optim.ema_decay is 0.  `encoder` is None for frozen-encoder and LoRA
+    training; `lora` holds the adapters ({module name: {"a", "b"}}, each an
+    nn.Parameter) and `lora_scale` their merge scale."""
 
     decoder: nn.Module
     s_proj: SpeechProjector
@@ -210,6 +283,8 @@ class TrainState:
     encoder: Optional[nn.Module] = None
     step: int = 0
     ema: Optional[List[torch.Tensor]] = None
+    lora: Optional[Dict[str, Dict[str, nn.Parameter]]] = None
+    lora_scale: float = 0.0
 
     def trained_modules(self) -> List[nn.Module]:
         mods = [self.decoder, self.s_proj, self.t_embed, self.t_proj]
@@ -223,7 +298,16 @@ class TrainState:
         if self.encoder is not None:
             names += [("encoder", n) for n, p in self.encoder.named_parameters()
                       if p.requires_grad]
+        if self.lora is not None:
+            names += [("lora", f"{n}.{ab}") for n, ad in self.lora.items() for ab in ad]
         return names
+
+    def adapters(self, use_ema: bool = False) -> LO.Adapters:
+        """The LoRA adapters, or their EMA (`use_ema` and an EMA kept)."""
+        if not use_ema or self.ema is None:
+            return self.lora
+        ema = {name: e for (key, name), e in zip(self.param_names(), self.ema) if key == "lora"}
+        return {n: {ab: ema[f"{n}.{ab}"] for ab in ad} for n, ad in self.lora.items()}
 
 
 MODULE_KEYS = ("decoder", "s_proj", "t_embed", "t_proj", "encoder")
@@ -250,31 +334,72 @@ def init_train_state(pipeline, cfg: Config, train_encoder: Optional[bool] = None
     """A fresh TrainState over the pipeline's decoder (and encoder, when it
     trains: model.encoder.freeze false) plus projection heads (`heads`, or
     new ones drawn from `generator`).  A frozen conv front-end
-    (freeze_feature_extractor) is left out of the optimizer altogether."""
+    (freeze_feature_extractor) is left out of the optimizer altogether.
+    With model.encoder.lora_rank r > 0 the encoder is frozen whole and
+    rank-r adapters on the layers model.encoder.lora_targets matches
+    (default `lora.DEFAULT_TARGETS`) train in its place: A drawn from a
+    generator seeded by the config's seed + 7 (the JAX package's key),
+    B = 0, scale lora_alpha / r."""
     enc_cfg = cfg.model.get("encoder", Config())
     if train_encoder is None:
         train_encoder = not enc_cfg.get("freeze", True)
-    if int(enc_cfg.get("lora_rank", 0) or 0) > 0:
-        raise NotImplementedError("LoRA fine-tuning (model.encoder.lora_rank) is not ported "
-                                  "yet (ROADMAP A6)")
+    lora_rank = int(enc_cfg.get("lora_rank", 0) or 0)
+    if lora_rank > 0 and not train_encoder:
+        raise ValueError(LORA_NEEDS_FINE_TUNE)
     if heads is None:
         heads = make_projection_heads(cfg, pipeline.device, pipeline.decoder.dtype, generator)
     main = [p for m in (pipeline.decoder, *heads) for p in m.parameters()]
-    encoder = None
+    encoder = adapters = None
     enc_params = None
+    lora_scale = 0.0
     if train_encoder:
         encoder = pipeline.encoder
         if encoder.freeze:
             raise ValueError("train_encoder=True needs an encoder built with "
                              "model.encoder.freeze: false")
-        encoder.backbone.feature_extractor.requires_grad_(
-            not encoder.config.freeze_feature_extractor)
-        enc_params = [p for p in encoder.parameters() if p.requires_grad]
+        if lora_rank > 0:
+            encoder.requires_grad_(False)
+            gen = torch.Generator(device=pipeline.device).manual_seed(
+                int(cfg.get("seed", 1337)) + 7)
+            adapters = {name: {k: nn.Parameter(t) for k, t in ad.items()}
+                        for name, ad in LO.init_lora(
+                            encoder, lora_rank, enc_cfg.get("lora_targets", LO.DEFAULT_TARGETS),
+                            gen).items()}
+            enc_params = [t for ad in adapters.values() for t in ad.values()]
+            lora_scale = LO.resolve_scale(lora_rank, enc_cfg.get("lora_alpha"))
+            encoder = None
+        else:
+            encoder.backbone.feature_extractor.requires_grad_(
+                not encoder.config.freeze_feature_extractor)
+            enc_params = [p for p in encoder.parameters() if p.requires_grad]
     optimizer = make_optimizer(cfg, main, enc_params)
     ema = None
     if float(cfg.optim.get("ema_decay", 0.0) or 0.0) > 0.0:
-        ema = [p.detach().clone() for p in optimizer.params]
-    return TrainState(pipeline.decoder, *heads, optimizer=optimizer, encoder=encoder, ema=ema)
+        ema_dtype = state_dtype(cfg.optim, "ema_dtype")
+        ema = [p.detach().to(ema_dtype, copy=True) for p in optimizer.params]
+    return TrainState(pipeline.decoder, *heads, optimizer=optimizer, encoder=encoder, ema=ema,
+                      lora=adapters, lora_scale=lora_scale)
+
+
+LORA_NEEDS_FINE_TUNE = ("encoder.lora_rank > 0 requires model.encoder.freeze: false (LoRA is a "
+                        "fine-tuning mode; with freeze: true it would be a silent no-op)")
+
+
+@torch.no_grad()
+def update_ema(ema: List[torch.Tensor], params: Sequence[torch.Tensor], decay_cap: float,
+               step: int) -> None:
+    """One EMA update after micro-step `step` (1-based): decay
+    min(decay_cap, (1 + step) / (10 + step)), as the JAX step computes it in
+    float32; a bfloat16 EMA in bfloat16 (module docstring)."""
+    decay = np.minimum(np.float32(decay_cap), np.float32(1 + step) / np.float32(10 + step))
+    weight = float(np.float32(1.0) - decay)
+    if ema[0].dtype == torch.bfloat16:
+        wide = _cast(ema, torch.float32)
+        diff = torch._foreach_sub(_cast(_cast(params, torch.bfloat16), torch.float32), wide)
+        torch._foreach_add_(wide, diff, alpha=bf16_constant(weight))
+        torch._foreach_copy_(ema, wide)
+    else:
+        torch._foreach_add_(ema, torch._foreach_sub(params, ema), alpha=weight)
 
 
 def make_train_step(pipeline, cfg: Config, train_encoder: bool = False,
@@ -288,8 +413,14 @@ def make_train_step(pipeline, cfg: Config, train_encoder: bool = False,
     L_fd schedule: every lfd.n_step_fd-th step (1-based), unless lfd is
     disabled.  train_encoder=True is the fine-tune step (the encoder trains,
     in training mode, with SpecAugment masks drawn unless given); False the
-    frozen step.  Metrics (0-d tensors): loss_diff, total_loss, grad_norm
-    (before the clip), and on L_fd steps loss_fd and w_t.
+    frozen step; a state with LoRA adapters (`state.lora`) runs the
+    fine-tune step with the encoder frozen and W + s (A B)^T in each
+    adapted layer, merged once a step and held across its forward and
+    backward (`step.merged(state)`, a `lora.installed` block; `step` holds
+    it itself, a caller of `step.forward` must, or `forward` raises).
+    Metrics (0-d
+    tensors): loss_diff, total_loss, grad_norm (the micro-step's, before
+    the clip), and on L_fd steps loss_fd and w_t.
 
     cached_features=True returns the feature-cache step instead,
     step(state, c, x0, apply_lfd=None, c_mask=None, generator=None, t=None,
@@ -336,8 +467,13 @@ def make_train_step(pipeline, cfg: Config, train_encoder: bool = False,
               else as_tensor(xt, torch.long))
         x_mask = x0 != pad_id
         loss_mask = x_mask if mask_pad_loss else torch.ones_like(x_mask)
+        if state.lora is not None and not train_encoder:
+            raise ValueError("a state with LoRA adapters trains through the fine-tune step "
+                             "(train_encoder=True)")
         for m in state.trained_modules():
             m.train()
+        if state.lora is not None:
+            encoder.train()
         return x0, t, xt, x_mask, loss_mask
 
     def losses(state, c, c_mask, xt, x0, t, x_mask, loss_mask, apply_lfd):
@@ -355,22 +491,21 @@ def make_train_step(pipeline, cfg: Config, train_encoder: bool = False,
         metrics["total_loss"] = loss
         return loss, metrics
 
-    def update(state: TrainState, loss: torch.Tensor,
-               metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """Backward, the optimizer step and the EMA; the detached metrics."""
-        params = state.optimizer.params
-        for p in params:
+    def backward(state: TrainState, loss: torch.Tensor) -> None:
+        for p in state.optimizer.params:
             p.grad = None
         loss.backward()
+
+    def update(state: TrainState, metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The optimizer step on the gradients `backward` left and the EMA;
+        the detached metrics."""
+        params = state.optimizer.params
         grad_norm, _ = state.optimizer.step([p.grad for p in params])
         for p in params:
             p.grad = None
         state.step += 1
         if state.ema is not None:
-            decay = min(ema_decay, (1.0 + state.step) / (10.0 + state.step))
-            with torch.no_grad():
-                diff = torch._foreach_sub(params, state.ema)
-                torch._foreach_add_(state.ema, diff, alpha=1.0 - decay)
+            update_ema(state.ema, params, ema_decay, state.step)
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["grad_norm"] = grad_norm
         return metrics
@@ -392,7 +527,8 @@ def make_train_step(pipeline, cfg: Config, train_encoder: bool = False,
                         xt=None) -> Dict[str, torch.Tensor]:
             loss, metrics = cached_forward(state, c, x0, scheduled(state, apply_lfd), c_mask,
                                            generator, t, xt)
-            return update(state, loss, metrics)
+            backward(state, loss)
+            return update(state, metrics)
 
         cached_step.forward = cached_forward
         return cached_step
@@ -412,8 +548,11 @@ def make_train_step(pipeline, cfg: Config, train_encoder: bool = False,
             if feat_mask is None and mask_feature_prob > 0.0:
                 feat_mask = sample_time_mask(B, encoder.config.hidden_size, mask_feature_prob,
                                              mask_feature_length, generator, dev)
+            if state.lora is not None and not LO.is_installed(encoder):
+                raise RuntimeError("a LoRA step's forward runs inside step.merged(state), "
+                                   "held across its backward")
             c, c_mask, _ = encoder(wave, lengths, as_tensor(time_mask, torch.bool),
-                                   as_tensor(feat_mask, torch.bool))
+                                   as_tensor(feat_mask, torch.bool), generator=generator)
         else:
             encoder.eval()
             with torch.no_grad():
@@ -423,11 +562,21 @@ def make_train_step(pipeline, cfg: Config, train_encoder: bool = False,
     def step(state: TrainState, wave, x0, apply_lfd: Optional[bool] = None, lengths=None,
              generator: Optional[torch.Generator] = None, t=None, xt=None,
              time_mask=None, feat_mask=None) -> Dict[str, torch.Tensor]:
-        loss, metrics = forward(state, wave, x0, scheduled(state, apply_lfd), lengths,
-                                generator, t, xt, time_mask, feat_mask)
-        return update(state, loss, metrics)
+        with merged(state):
+            loss, metrics = forward(state, wave, x0, scheduled(state, apply_lfd), lengths,
+                                    generator, t, xt, time_mask, feat_mask)
+            backward(state, loss)
+        return update(state, metrics)
+
+    def merged(state: TrainState):
+        """The step's LoRA merge (`lora.installed`) for a block that runs
+        `forward` and its backward; nothing without adapters."""
+        if state.lora is None:
+            return contextlib.nullcontext()
+        return LO.installed(encoder, state.lora, state.lora_scale)
 
     step.forward = forward
+    step.merged = merged
     return step
 
 
@@ -529,20 +678,33 @@ def run_training(cfg: Config, raw_cfg: Optional[dict] = None, resume: Optional[s
     None takes log.eval_every (default 1).  `--resume` takes a
     `{prefix}.state.pt`.  The profiler trace and the NaN guard wrap the
     whole run, so a run that raises still writes its trace and restores the
-    anomaly mode; the run lock is released at the end either way."""
+    anomaly mode; checkpoints still being written (log.async_checkpoint)
+    are waited for, and a failed write raises, on a run that raises too
+    (chained to its error); the run lock is released at the end either
+    way."""
+    from fddm_asr_tpu_torch import checkpoint as C
     from fddm_asr_tpu_torch.profiling import nan_guard, trace
 
+    log_cfg = cfg.get("log", Config())
     lock = None
-    if cfg.get("log", Config()).get("run_lock", True):
-        lock = RunLock(os.path.abspath(cfg.get("log", Config()).get("ckpt_dir", "ckpts/run")))
+    if log_cfg.get("run_lock", True):
+        lock = RunLock(os.path.abspath(log_cfg.get("ckpt_dir", "ckpts/run")))
         lock.acquire()
+    # log.async_checkpoint: the state is copied to the host in the loop, the
+    # files are written by the writer's background thread
+    writer = C.AsyncWriter() if log_cfg.get("async_checkpoint", False) else None
     try:
         with trace(profile_dir), nan_guard(debug_nans) as guard:
             return _run_training_impl(cfg, raw_cfg, resume, wavlm_state_dict,
-                                      max_steps_per_epoch, export_pt, eval_every, device, guard)
+                                      max_steps_per_epoch, export_pt, eval_every, device, guard,
+                                      writer)
     finally:
-        if lock is not None:
-            lock.release()
+        try:
+            if writer is not None:
+                writer.wait()
+        finally:
+            if lock is not None:
+                lock.release()
 
 
 def _clones(tensors) -> List[torch.Tensor]:
@@ -551,48 +713,53 @@ def _clones(tensors) -> List[torch.Tensor]:
 
 class _Snapshot:
     """A device copy of what collapse_restore puts back: the trained
-    parameters, the optimizer's moments and counts, the EMA and the step."""
+    parameters, the optimizer's moments, counts and accumulated gradients,
+    the EMA and the step."""
 
     def __init__(self, state: TrainState):
         opt = state.optimizer
         self.params, self.mu, self.nu = _clones(opt.params), _clones(opt.mu), _clones(opt.nu)
+        self.acc = None if opt.acc is None else _clones(opt.acc)
         self.ema = None if state.ema is None else _clones(state.ema)
-        self.count, self.notfinite_count, self.step = opt.count, opt.notfinite_count, state.step
+        self.counts = (opt.count, opt.notfinite_count, opt.mini_step, state.step)
 
     @torch.no_grad()
     def restore(self, state: TrainState) -> None:
         opt = state.optimizer
         for dst, src in ((opt.params, self.params), (opt.mu, self.mu), (opt.nu, self.nu),
-                         (state.ema, self.ema)):
+                         (opt.acc, self.acc), (state.ema, self.ema)):
             if dst is not None:
                 torch._foreach_copy_(dst, src)
-        opt.count, opt.notfinite_count, state.step = self.count, self.notfinite_count, self.step
+        opt.count, opt.notfinite_count, opt.mini_step, state.step = self.counts
 
 
 @contextlib.contextmanager
 def _evaluating(pipeline, state: TrainState, use_ema: bool):
-    """The pipeline's modules in eval mode, with the EMA swapped into the
-    trained parameters when `use_ema` (and back, bit for bit, after)."""
+    """The pipeline's modules in eval mode, with the EMA in the trained
+    parameters when `use_ema` (a bfloat16 EMA as float32 copies) and the
+    LoRA adapters (the EMA's under `use_ema`) merged into the encoder; the
+    trained parameters and the base encoder put back, bit for bit, after.
+    Raises inside a step's merge (`lora.installed`)."""
+    LO.check_not_installed(pipeline.encoder, "evaluation")
     for m in (pipeline.decoder, pipeline.encoder):
         m.eval()
-    swap = use_ema and state.ema is not None
     params = state.optimizer.params
-
-    def exchange():
-        for i, p in enumerate(params):
-            p.data, state.ema[i] = state.ema[i], p.data
-
-    if swap:
-        exchange()
+    saved = [p.data for p in params] if use_ema and state.ema is not None else None
     try:
-        yield
+        if saved is not None:
+            for p, e in zip(params, state.ema):
+                p.data = e if e.dtype == p.dtype else e.to(p.dtype)
+        with (LO.merged_into(pipeline.encoder, state.lora, state.lora_scale)
+              if state.lora is not None else contextlib.nullcontext()):
+            yield
     finally:
-        if swap:
-            exchange()
+        if saved is not None:
+            for p, data in zip(params, saved):
+                p.data = data
 
 
 def _run_training_impl(cfg: Config, raw_cfg, resume, wavlm_state_dict, max_steps_per_epoch,
-                       export_pt, eval_every, device, guard) -> Dict[str, Any]:
+                       export_pt, eval_every, device, guard, writer) -> Dict[str, Any]:
     from fddm_asr_tpu_torch import checkpoint as C
     from fddm_asr_tpu_torch import eval as E
     from fddm_asr_tpu_torch.config import resolve_device
@@ -605,12 +772,13 @@ def _run_training_impl(cfg: Config, raw_cfg, resume, wavlm_state_dict, max_steps
     log_cfg = cfg.get("log", Config())
     enc_cfg = cfg.model.get("encoder", Config())
     train_encoder = not enc_cfg.get("freeze", True)
-    if int(enc_cfg.get("lora_rank", 0) or 0) > 0:
-        raise NotImplementedError("LoRA fine-tuning (model.encoder.lora_rank) is not ported "
-                                  "yet (ROADMAP A6)")
-    if log_cfg.get("async_checkpoint", False):
-        raise NotImplementedError("log.async_checkpoint: true is not ported yet (ROADMAP A5); "
-                                  "checkpoints are written synchronously")
+    lora_rank = int(enc_cfg.get("lora_rank", 0) or 0)
+    if lora_rank > 0 and not train_encoder:  # before any model is built
+        raise ValueError(LORA_NEEDS_FINE_TUNE)
+    # the sidecar's LoRA keys: the loaders merge at the training run's alpha
+    ckpt_meta = ({"lora_rank": lora_rank,
+                  "lora_alpha": float(enc_cfg.get("lora_alpha", lora_rank))}
+                 if lora_rank > 0 else {})
     dev = resolve_device(device)
     pad_id = resolve_special_ids(cfg)["pad_id"]
     # the training compute dtype: optim.dtype over model.dtype (parameters stay float32)
@@ -644,10 +812,29 @@ def _run_training_impl(cfg: Config, raw_cfg, resume, wavlm_state_dict, max_steps
         with open(metrics_path, "a", encoding="utf-8") as f:
             f.write(json.dumps(record) + "\n")
 
+    # the "checkpoint" line of an asynchronous save waits for its files
+    writing: List[dict] = []
+
+    def flush_saves():
+        if writer is not None:
+            writer.wait()
+        for record in writing:
+            emit_metrics(**record)
+        writing.clear()
+
     def save(name: str, epoch: int, best):
+        t0 = time.time()
         files = C.save_ckpt(os.path.join(ckpt_dir, name), state, epoch, raw_cfg, best,
-                            export_pt, ema_export=ema_eval)
-        emit_metrics(kind="checkpoint", name=name, epoch=epoch, files=files)
+                            export_pt, ema_export=ema_eval, extra_meta=ckpt_meta, writer=writer)
+        # blocked_seconds: how long the loop waited (the host copy; under
+        # async_checkpoint the write before this one too)
+        record = dict(kind="checkpoint", name=name, epoch=epoch, files=files,
+                      blocked_seconds=time.time() - t0, asynchronous=writer is not None)
+        for done in writing:  # save_ckpt waited for the writes before this one
+            emit_metrics(**done)
+        writing[:] = [record]
+        if writer is None:
+            flush_saves()
 
     start_epoch, resumed_best_cer = 1, float("inf")
     if resume:
@@ -884,8 +1071,9 @@ def _run_training_impl(cfg: Config, raw_cfg, resume, wavlm_state_dict, max_steps
             best_val_cer, best_epoch = val_cer, epoch
             save("best_model", epoch, best_val_cer)
             best_art = "best_model.pt" if export_pt else "best_model.state.pt"
-            suffix = (" (+ best_model.encoder.pt, the fine-tuned encoder)"
-                      if train_encoder else "")
+            suffix = ("" if not train_encoder else
+                      " (+ best_model.encoder.pt, the LoRA adapters)" if lora_rank > 0 else
+                      " (+ best_model.encoder.pt, the fine-tuned encoder)")
             logging.info(f"Saved BEST model (epoch {best_epoch}, val_cer {best_val_cer:.4f}) "
                          f"→ {os.path.join(ckpt_dir, best_art)}{suffix}")
 
@@ -930,6 +1118,7 @@ def _run_training_impl(cfg: Config, raw_cfg, resume, wavlm_state_dict, max_steps
                          f"{best_epoch})")
             break
 
+    flush_saves()
     logging.info("=" * 50)
     logging.info("TRAINING COMPLETED!")
     logging.info(f"Best validation CER: {best_val_cer:.4f} (Epoch {best_epoch})")

@@ -23,10 +23,11 @@ manifests of clips of 0.1-0.3 s and the toy tokenizer of
 * A fine-tune run with resume (the JAX package's
   `tests/test_train_encoder.py::test_run_training_finetune_e2e_with_resume`)
   whose `.encoder.pt` the inference CLI's `--encoder-ckpt` loads.
-* Raises: the multi-process flags (A7), an orbax `--resume` (A1), LoRA
-  (A6), async checkpoints (A5), no GPU without --device cpu; and
-  `convert.load_reference_checkpoint` on a directory names the port's own
-  training output.
+* Raises: the multi-process flags (A7), an orbax `--resume` (naming the
+  export script's `--ckpt`), LoRA with a frozen encoder (as the JAX loop),
+  an asynchronous checkpoint whose write fails, no GPU without --device
+  cpu; and `convert.load_reference_checkpoint` on a directory names the
+  port's own training output.
 """
 import copy
 import json
@@ -464,16 +465,23 @@ def test_finetune_run_with_resume_and_its_encoder_in_the_cli(corpus, tmp_path):
 @pytest.mark.parametrize("flags,overrides,error,match", [
     (["--mesh", "data=2"], {}, NotImplementedError, "ROADMAP A7"),
     (["--num-processes", "2"], {}, NotImplementedError, "ROADMAP A7"),
-    (["--resume", "DIR"], {}, NotImplementedError, "export_torch_encoder.py.*ROADMAP A1"),
-    ([], {"model": "lora"}, NotImplementedError, "ROADMAP A6"),
-    ([], {"log": {"async_checkpoint": True}}, NotImplementedError, "ROADMAP A5"),
+    (["--resume", "DIR"], {}, NotImplementedError, "export_torch_encoder.py --ckpt"),
+    ([], {"model": "lora"}, ValueError, "lora_rank > 0 requires model.encoder.freeze: false"),
+    ([], {"log": {"async_checkpoint": True}}, RuntimeError,
+     "asynchronous checkpoint write failed"),
 ], ids=["mesh", "num-processes", "orbax-resume", "lora", "async-checkpoint"])
 def test_unported_options_raise(corpus, tmp_path, flags, overrides, error, match):
+    """The options this loop refuses: the multi-process flags, an orbax
+    `--resume`, LoRA on a frozen encoder; and an asynchronous checkpoint
+    whose write fails (a directory where `ep001.state.pt` goes) raises from
+    the run, not only in its writer thread."""
     if overrides.get("model") == "lora":
         model = _config(corpus, "x")["model"]
-        model["encoder"] = {**model["encoder"], "freeze": False, "lora_rank": 2}
+        model["encoder"] = {**model["encoder"], "freeze": True, "lora_rank": 2}
         overrides = {"model": model}
     cfg = _config(corpus, f"raises_{tmp_path.name}", **overrides)
+    if overrides.get("log", {}).get("async_checkpoint"):
+        os.makedirs(os.path.join(cfg["log"]["ckpt_dir"], "ep001.state.pt"))
     flags = [str(tmp_path) if f == "DIR" else f for f in flags]
     with pytest.raises(error, match=match):
         train_cli.main(["--config", _write(corpus, cfg, "raises"), "--device", "cpu", *flags])

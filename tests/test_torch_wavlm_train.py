@@ -5,8 +5,10 @@ Tiny config, float32 on the CPU (attention through the plain version, which
 autograd differentiates).  Forward outputs atol 1e-4 (test_torch_wavlm.py's
 tolerance); gradients of sum(out * cotangent) within 1e-4 of the largest
 reference gradient.  Covers the SpecAugment substitutions, the frozen conv
-front-end, layer rematerialisation and the parts that are not ported
-(attention dropout, remat_policy "dots"), which raise."""
+front-end, layer rematerialisation (remat_policy full and dots), and what
+raises: a remat_policy other than "full" and "dots".  Attention dropout,
+and what each remat_policy recomputes, are held in
+tests/test_torch_train_recipe.py."""
 import dataclasses
 
 import jax
@@ -99,13 +101,14 @@ def test_specaugment_substitutions_match_jax(jax_ref):
     assert np.abs(ref - plain).max() > 1e-2  # the masks changed the output
 
 
-@pytest.mark.parametrize("remat", [False, True], ids=["plain", "remat"])
+@pytest.mark.parametrize("remat", [None, "full", "dots"], ids=["plain", "remat", "dots"])
 def test_encoder_grads_match_jax(jax_ref, remat):
-    """The port in training mode, its layers recomputed or not, against
-    jax.grad of the JAX model's training-mode loss."""
+    """The port in training mode, its layers not recomputed, or recomputed
+    under remat_policy full or dots, against jax.grad of the JAX model's
+    training-mode loss."""
     r = jax_ref
     want = wavlm_state_dict_from_jax_params(r["grads"])
-    model = _port_model(r, remat_layers=remat).train()
+    model = _port_model(r, remat_layers=remat is not None, remat_policy=remat or "full").train()
     out = model(torch.from_numpy(r["wav"]), mask_time_indices=torch.from_numpy(r["tm"]))
     got_loss = (out * torch.from_numpy(r["cot"])).sum()
     got_loss.backward()
@@ -159,14 +162,17 @@ def test_frozen_feature_extractor_gets_no_gradient(rng):
 
 
 def test_what_is_not_ported_raises(rng):
-    wav = torch.zeros(1, N_WAVE)
+    """Attention dropout now trains (the plain path): a training forward
+    differs from the evaluation one, which never drops.  A remat_policy
+    other than "full" or "dots" raises, as in the JAX package."""
+    wav = torch.from_numpy(rng.standard_normal((1, N_WAVE)).astype(np.float32))
     model = WavLMModel(dataclasses.replace(WavLMConfig.tiny_for_tests(),
                                            hidden_dropout=0.0)).train()
-    with pytest.raises(NotImplementedError, match="attention dropout"):
-        model(wav)
+    trained = model(wav, generator=torch.Generator().manual_seed(0))
     with torch.no_grad():  # evaluation never applies dropout
-        model.eval()(wav)
-    dots = WavLMModel(dataclasses.replace(WavLMConfig.tiny_for_tests(), remat_layers=True,
-                                          remat_policy="dots", **NO_DROPOUT)).train()
-    with pytest.raises(NotImplementedError, match="remat_policy"):
-        dots(wav)
+        evaluated = model.eval()(wav)
+    assert not torch.allclose(trained, evaluated)
+    other = WavLMModel(dataclasses.replace(WavLMConfig.tiny_for_tests(), remat_layers=True,
+                                           remat_policy="offload", **NO_DROPOUT)).train()
+    with pytest.raises(ValueError, match="remat_policy must be 'full' or 'dots'"):
+        other(wav)
