@@ -182,13 +182,9 @@ Phases, each fatal on failure:
      `python3 -m fddm_asr_tpu_torch.export_model` in a subprocess from
      configs/fddm_zhTW_base.yaml, batches 1-16 x 5, 10, 20 s (one program a
      duration, its batch dynamic), seq_len 128, pcm16, condition mask on,
-     greedy: seconds a program, artifact bytes under 1.2 x the params'; (b)
-     a fresh process loads it with no model module imported (seconds to
-     warm and to capture each bucket's CUDA graph, peak memory) and
-     transcribes one batch a bucket, each batch's ids equal to the live
-     pipeline's at the same padded batch, seed and weights, and one replay
-     of 8 x 20 s under the profiler shows B1 24 times; (c) 8 x 20 s through
-     the graph beside the eager `transcribe_with_ids` in this process: wall
+     greedy: seconds a program, artifact bytes under 1.2 x the params'
+     (no fresh loading process: (c) and (e) load the artifact in this
+     process); (c) 8 x 20 s through the graph beside the eager `transcribe_with_ids` in this process: wall
      (median of 5), RTFx, busy time, idle share, host launches a call; (d)
      a second artifact under phase 12's wavlm_config, bucket 8 x 20 s: ids
      equal to the live pipeline's, a replay counting and showing B1 24, B7
@@ -239,7 +235,30 @@ Phases, each fatal on failure:
      merged by hand; (c) one step of phase 7's configuration under
      remat_policy full and under dots (step time, peak memory, launches),
      and one step of phase 6's small model with attention_dropout 0.1: a
-     finite loss and no kernel launched (the plain path).
+     finite loss and no kernel launched (the plain path);
+ 20. `parallel`: several GPUs (`parallel/`), on this one card.  The
+     one-rank reference: phase 7's fine-tune in float32 with dropout off,
+     warmup 0, on a global batch of 8 x 20 s, the first step's gradients
+     of four watched tensors, then 3 steps (L_fd on 1 and 3); (a) the same
+     steps on a data=1 mesh over NCCL at world size 1 (the gradients go
+     through the NCCL all-reduce): metrics, gradients and updated tensors
+     as the bare step's; (b) two processes (`--parallel-rank`) sharing the
+     card over gloo, CUDA tensors staged through pinned host memory: (b1)
+     the steps on data=2, 4 rows a rank: each step's metrics within rtol
+     1e-5 of the one rank's, the gradients within phase 6's tolerance and
+     the updated tensors as phase 6 checks them, B3/B4/B5 a rank a step
+     as phase 7's, each rank's peak memory and step time; (b2) the ring at
+     ring 2 on B=2, L=5120 (f32, one row 4999 keys): forward within 2e-5 of
+     the plain f32 attention and within one bf16 ulp (`within_tol`) of B2,
+     gradients within 1e-4 (of the largest) of the kernels' backward on one
+     rank, the ring's time; a float32 transcription of 2 x 102.4 s through
+     the ring with the ids of one rank's (B2) at the same x_init, and the
+     ids' agreement in bfloat16; (b3) `torchrun --nproc_per_node 2 -m
+     fddm_asr_tpu_torch.train --mesh data=2` (frozen, 2 steps of 16 on
+     phase 18's corpus, sharded evaluation; rank 0's metrics.jsonl and
+     checkpoints) and phase 18 (c)'s inference CLI run under torchrun
+     with `--mesh data=2`, its rows equal to that process's; (c) with two cards or more, (b)
+     over NCCL one card a rank, else the line says it was not run.
 
 Phases 4 and 7 run at full depth with as many timed runs as before; the
 whole took 656 s of its 1200 s limit on an NVIDIA H100 80GB HBM3 at 700 W,
@@ -255,7 +274,8 @@ Prints the kernels' JSON line, then the card line, then as the last line
     python3 chip_smoke.py --b5-f32-times DIR
     python3 chip_smoke.py --b4-f32-times DIR
 
-time only the fused int8 kernel (at phase 8's bfloat16 shapes: CUDA events
+(`--parallel-rank DIR` is one of phase 20's ranks, started by the phase.)
+These time only the fused int8 kernel (at phase 8's bfloat16 shapes: CUDA events
 over back-to-back calls, device time per launch, host time a call), only
 the fused conv layer (its kernel and the layer's weight handling, at phase
 9's six bfloat16 layer shapes: CUDA events, device time, host time a call),
@@ -2472,46 +2492,6 @@ EXPORT_BATCHES, EXPORT_SECONDS, EXPORT_SEQ_LEN = "1,2,4,8,16", "5,10,20", 128
 EXPORTED_BUCKET = (8, 320000)
 EXPORTED_SERVE_FLAGS = ["--max-batch", "16", "--max-wait-ms", "20", "--pipeline-depth", "2"]
 ARTIFACT_BYTES_LIMIT = 1.2  # of the params' bytes: the weights once, the programs beside
-# what (b)'s fresh process runs: load the artifact (no model code), one batch
-# a bucket, one replay of phase 4's bucket under the profiler
-EXPORTED_LOAD_SCRIPT = r"""
-import json, sys, time
-root, art, out = sys.argv[1:4]
-sys.path.insert(0, root)
-import numpy as np
-import torch
-import chip_smoke as C
-from fddm_asr_tpu_torch.aot import ExportedPipeline
-from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
-
-torch.cuda.reset_peak_memory_stats()
-t0 = time.time()
-ep = ExportedPipeline.load(art)
-load_s = time.time() - t0
-result = {"load_s": load_s, "warmup_s": ep.warmup_s,
-          "capture_s": {f"{b}x{n}": s for (b, n), s in ep.capture_s.items()},
-          "native_buckets": sorted(list(bn) for bn in ep.native),
-          "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
-          "reserved_gb": torch.cuda.memory_reserved() / 2 ** 30, "ids": {}}
-for b, n in ep.buckets:
-    codes, lengths = C.exported_batch(b, n)
-    result["ids"][f"{b}x{n}"] = [row[1] for row in ep.transcribe_with_ids(
-        codes, lengths, seed=C.EXPORTED_SEED)]
-codes, lengths = C.exported_batch(*C.EXPORTED_BUCKET)
-with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-    ep.transcribe_with_ids(codes, lengths, seed=C.EXPORTED_SEED)
-    torch.cuda.synchronize()
-names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
-result["profiled_replay"] = {
-    "bucket": list(C.EXPORTED_BUCKET), "device_events": len(names),
-    "b1_kernels": sum("gated_attention_bf16_kernel" in x for x in names),
-    "graph_launches": sum(e.name == "cudaGraphLaunch" for e in prof.events())}
-result["models_imported"] = sorted(m for m in sys.modules
-                                   if m.startswith("fddm_asr_tpu_torch.models"))
-with open(out, "w") as f:
-    json.dump(result, f)
-"""
 EXPORTED_SEED = 17
 
 
@@ -2697,12 +2677,9 @@ def exported_full_width(d: str, card: str, served: dict) -> dict:
     `.pt`, random HF WavLM-large and tokenizer in `d`.  (a) export
     configs/fddm_zhTW_base.yaml in a subprocess (`python3 -m
     fddm_asr_tpu_torch.export_model`, 5 x 3 buckets, pcm16, condition mask
-    on, greedy, seq_len 128); (b) load it in a fresh subprocess (no model
-    module imported; capture seconds, peak memory), one batch a bucket whose
-    ids equal the live pipeline's at the same padded batch, seed and
-    weights, and one replay under the profiler (B1 24 times); (c) phase 4's
-    shape through the graph beside the eager `transcribe_with_ids`, in this
-    process; (d) a second artifact under phase 12's wavlm_config, one
+    on, greedy, seq_len 128); (c) phase 4's shape through the graph (the
+    artifact loaded in this process, by the server of (e)) beside the eager
+    `transcribe_with_ids`; (d) a second artifact under phase 12's wavlm_config, one
     bucket, ids against the live pipeline, B1/B7/B8 in a profiled replay;
     (e) `serve --exported` under phase 16 (c)'s load, every batch
     recomputed by the live pipeline, beside phase 16's numbers, and its
@@ -2732,21 +2709,6 @@ def exported_full_width(d: str, card: str, served: dict) -> dict:
     buckets = [tuple(bn) for bn in result["export"]["summary"]["buckets"]]
     print(json.dumps({"exported_a": result["export"]}), flush=True)
 
-    # (b) a fresh process loads it and transcribes a batch a bucket
-    script = os.path.join(d, "load_exported.py")
-    with open(script, "w") as f:
-        f.write(EXPORTED_LOAD_SCRIPT)
-    out_json = os.path.join(d, "load_exported.json")
-    t0 = time.time()
-    proc = subprocess.run([sys.executable, script, root, art, out_json], cwd=root,
-                          capture_output=True, text=True, timeout=900)
-    if proc.returncode != 0:
-        fail(f"(b) the loading process exited {proc.returncode}:\n{proc.stderr[-4000:]}")
-    with open(out_json) as f:
-        loaded = json.load(f)
-    loaded["process_s"] = time.time() - t0
-    if loaded["models_imported"]:
-        fail(f"(b) loading the artifact imported model code: {loaded['models_imported']}")
     live = cli.build_pipeline(cli.parse_args(["--wav", "-", *model, "--main-config", base_cfg]))
     live.use_condition_mask = True
     with open(os.path.join(art, "meta.json")) as f:
@@ -2757,23 +2719,7 @@ def exported_full_width(d: str, card: str, served: dict) -> dict:
             codes, lengths, seq_len=EXPORT_SEQ_LEN,
             generator=torch.Generator(device="cuda").manual_seed(seed), **sampling)]
 
-    equal = {}
-    for b, n in buckets:
-        codes, lengths = exported_batch(b, n)
-        equal[f"{b}x{n}"] = loaded["ids"][f"{b}x{n}"] == live_ids(live, codes, lengths,
-                                                                   EXPORTED_SEED)
-    loaded["ids_equal_live"] = equal
     n_layers = live.encoder.config.num_hidden_layers
-    del loaded["ids"]
-    result["load"] = loaded
-    print(json.dumps({"exported_b": loaded}), flush=True)
-    if not all(equal.values()) or len(equal) != 15:
-        fail(f"(b) exported ids differ from the live pipeline's: {equal}")
-    if loaded["native_buckets"] != sorted(list(bn) for bn in buckets):
-        fail(f"(b) captured buckets {loaded['native_buckets']}, exported {buckets}")
-    if loaded["profiled_replay"]["b1_kernels"] != n_layers:
-        fail(f"(b) a profiled replay shows B1 {loaded['profiled_replay']['b1_kernels']} "
-             f"times, expected {n_layers}: {loaded['profiled_replay']}")
 
     # (c), (e): the server's artifact in this process; (c) through its pipeline first
     wrappers = port_kernel_wrappers()
@@ -3206,7 +3152,8 @@ def train_full_width(d: str, card: str, phase7: dict) -> dict:
     c_s = time.time() - t0
     if proc.returncode != 0:
         fail(f"(c) the inference CLI exited {proc.returncode}:\n{proc.stderr[-4000:]}")
-    printed = [x["ids"] for x in _cli_output(proc.stdout) if "ids" in x]
+    rows = [x for x in _cli_output(proc.stdout) if "ids" in x]
+    printed = [x["ids"] for x in rows]
     run_args = cli.parse_args(args)
     pipe = cli.build_pipeline(run_args)
     state = TL.init_train_state(pipe, pipe.cfg)  # for the names of the EMA's tensors
@@ -3231,6 +3178,7 @@ def train_full_width(d: str, card: str, phase7: dict) -> dict:
     print(json.dumps({"train": {"card": card, "corpus_write_s": result["corpus_write_s"],
                                 "loader": result["loader"]}}), flush=True)
     result["corpus"], result["data"] = corpus, data
+    result["cli_c"] = {"args": args, "rows": rows}  # phase 20 (b3) runs them under a mesh
     return result
 
 
@@ -3489,6 +3437,453 @@ def train_recipe_full_width(d: str, card: str, phase7: dict, phase18: dict) -> d
     return result
 
 
+# ---------------------------------------------------- phase 20: several GPUs
+# (b1): the fine-tune's global batch, 4 x 20 s a rank on data=2, its steps
+# and where each takes L_fd; float32, so that rtol 1e-5 on the loss reads
+# the reduction and not bfloat16 rounding in GEMMs of other row counts
+PARALLEL_B, PARALLEL_STEPS, PARALLEL_LFD = 8, 3, (True, False, True)
+PARALLEL_LOSS_RTOL = 1e-5
+# (b2): the ring at ring 2, B = 2 utterances of 5120 frames (102.4 s, the
+# kernel's side past 4096 frames), the second 4999 frames long
+RING_B, RING_L = 2, 5120
+RING_FWD_TOL, RING_GRAD_REL_TOL = 2e-5, 1e-4
+RING_SEQ_LEN = 128
+# (b3): the training entry point under torchrun, frozen, 2 steps of 16
+PARALLEL_TRAIN_B, PARALLEL_TRAIN_STEPS = 16, 2
+# the tensors whose gradients and updated values (b1) compares across processes
+PARALLEL_WATCHED = ("encoder.layers.12.attention.q_proj.weight",
+                    "encoder.layers.0.attention.rel_attn_embed.weight", "masked_spec_embed",
+                    "decoder.blocks.0.ff.0.weight")
+
+
+def parallel_config(tokenizer_path: str):
+    """Phase 7's fine-tune configuration in float32 with every dropout off
+    (dropout draws per rank), at (b1)'s global batch."""
+    from fddm_asr_tpu_torch.config import Config
+
+    cfg = finetune_config(tokenizer_path).to_dict()
+    cfg["model"].update({"dtype": "float32", "dropout": 0.0})
+    # no warmup: the first update moves the parameters (lr 0 would leave them)
+    cfg["optim"].update({"dtype": "float32", "batch_size": PARALLEL_B, "warmup_steps": 0})
+    return Config(cfg)
+
+
+def parallel_batch():
+    """(b1)'s global batch: waves [8, 20 s] and tokens [8, 128] with pad tails."""
+    wav = synthetic_audio(PARALLEL_B, FINETUNE_SECONDS, seed=55)
+    rng = np.random.default_rng(56)
+    x0 = rng.integers(4, 8000, (PARALLEL_B, FINETUNE_TOKENS))
+    for b, n in enumerate(rng.integers(FINETUNE_TOKENS // 4, FINETUNE_TOKENS + 1, PARALLEL_B)):
+        x0[b, n:] = 0
+    return wav, x0
+
+
+def parallel_steps(FA, cfg, mesh) -> dict:
+    """(b1)'s work on this process's rows of the global batch (all of them
+    without a data axis): PARALLEL_STEPS steps, each one's metrics, time
+    and kernel launches; the first step's gradients (as its optimizer got
+    them, reduced over the mesh) of the watched tensors and the watched
+    tensors after it; the peak memory."""
+    from fddm_asr_tpu_torch import train_lib as TL
+    from fddm_asr_tpu_torch.pipeline import FDDMPipeline
+    from fddm_asr_tpu_torch.tokenizer import load_tokenizer
+
+    t0 = time.time()
+    pipe = FDDMPipeline.from_config(cfg, tokenizer=load_tokenizer(cfg.data.tokenizer_path),
+                                    device=str(torch.device("cuda", torch.cuda.current_device())))
+    state = TL.init_train_state(pipe, cfg, generator=torch.Generator(device="cuda").manual_seed(7),
+                                mesh=mesh)
+    step = TL.make_train_step(pipe, cfg, train_encoder=True, mesh=mesh)
+    build_s = time.time() - t0
+    wav, x0 = parallel_batch()
+    D = mesh.shape["data"] if mesh is not None else 1
+    r = mesh.data_rank if mesh is not None else 0
+    b = PARALLEL_B // D
+    wav, x0 = wav[r * b:(r + 1) * b], x0[r * b:(r + 1) * b]
+    params = dict(pipe.encoder.backbone.named_parameters())
+    params.update({f"decoder.{n}": p for n, p in pipe.decoder.named_parameters()})
+    watched = {n: params[n] for n in PARALLEL_WATCHED}
+    out = {"build_s": build_s, "rows": b}
+    reduce = state.optimizer.reduce
+
+    def reduce_and_keep(grads):
+        """The optimizer's reduction, keeping the first step's gradients."""
+        if reduce is not None:
+            grads = reduce(grads)
+        if "grads" not in out:
+            by_id = {id(p): g for p, g in zip(state.optimizer.params, grads)}
+            out["grad_scale"] = max(float(g.abs().max()) for g in grads)
+            out["grads"] = {n: by_id[id(p)].detach().cpu().clone() for n, p in watched.items()}
+        return grads
+
+    state.optimizer.reduce = reduce_and_keep
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    metrics, step_s, launches = [], [], []
+    for i, lfd in enumerate(PARALLEL_LFD):
+        _reset_launches(FA)
+        t0 = time.time()
+        m = step(state, wav, x0, lfd, generator=gen)
+        torch.cuda.synchronize()
+        step_s.append(time.time() - t0)
+        launches.append(_launch_counts(FA))
+        metrics.append({k: float(v) for k, v in m.items()})
+        if i == 0:
+            out["params"] = {n: p.detach().cpu().clone() for n, p in watched.items()}
+    out.update(metrics=metrics, step_s=step_s, launches=launches,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+               lr=max(sched(0) for _, sched in state.optimizer.groups))
+    del pipe, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _step_agreement(got: dict, ref: dict) -> dict:
+    """(b1)'s comparison of one process's steps with the one-rank reference:
+    each step's metrics (relative), the first step's watched gradients
+    (of the reference's largest gradient) and its updated watched tensors
+    (where the gradient's sign is resolved, and anywhere), as phase 6."""
+    scale = ref["grad_scale"]
+    metric_rel = max(abs(a[k] - w[k]) / max(abs(w[k]), 1e-30)
+                     for a, w in zip(got["metrics"], ref["metrics"]) for k in w)
+    grad_err = max(float((got["grads"][n] - ref["grads"][n]).abs().max()) for n in ref["grads"])
+    param_err = resolved_err = 0.0
+    for n, want in ref["params"].items():
+        diff = (got["params"][n] - want).abs()
+        param_err = max(param_err, float(diff.max()))
+        resolved = ref["grads"][n].abs() > 2 * SMALL_STEP_REL_TOL * scale
+        if resolved.any():
+            resolved_err = max(resolved_err, float(diff[resolved].max()))
+    ok = (metric_rel <= PARALLEL_LOSS_RTOL and grad_err <= SMALL_STEP_REL_TOL * scale
+          and resolved_err <= 1e-5 and param_err <= 2.1 * ref["lr"])
+    return {"metric_max_rel_err": metric_rel, "grad_max_abs_err": grad_err,
+            "grad_tol": SMALL_STEP_REL_TOL * scale, "param_max_abs_err": param_err,
+            "resolved_param_max_abs_err": resolved_err, "ok": ok}
+
+
+def ring_checks(FA, mesh, tokenizer_path: str) -> dict:
+    """(b2) on this rank of a model=2 mesh: the ring at B=2, L=5120 against
+    the whole sequence on one rank (plain f32, B2, and the kernels'
+    backward), timed; then a float32 transcription of 2 x 102.4 s through
+    the ring against the same pipeline on one rank (B2), the ids equal, and
+    in bfloat16 their agreement."""
+    from fddm_asr_tpu_torch.ops.ring_attention import ring_gated_attention
+    from fddm_asr_tpu_torch.parallel.distributed import barrier
+    from fddm_asr_tpu_torch.pipeline import FDDMPipeline
+    from fddm_asr_tpu_torch.tokenizer import load_tokenizer
+
+    H, B, L = 16, RING_B, RING_L
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    q, k, v, bias, gate, mask = attention_inputs(B, L, H, torch.float32, gen,
+                                                 valid=[L, WHOLE_FILE_FRAMES])
+    dout = torch.randn(B, L, H * 64, device="cuda", generator=gen)
+    me = mesh.model_rank
+    n = mesh.shape["model"]
+    l = L // n
+    rows = slice(me * l, (me + 1) * l)
+    plain = FA.wavlm_gated_attention_plain(q, k, v, bias, gate, mask, num_heads=H)[:, rows]
+    b2 = FA.wavlm_gated_attention_cuda(q, k, v, bias, gate, mask, num_heads=H)[:, rows]
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v, bias, gate)]
+    ref = FA.wavlm_gated_attention_heads_packed_trainable(*leaves, mask, num_heads=H)
+    (ref * dout).sum().backward()
+    want = {"dq": leaves[0].grad[:, rows], "dk": leaves[1].grad[:, rows],
+            "dv": leaves[2].grad[:, rows], "dbias": leaves[3].grad[:, rows],
+            "dgate": leaves[4].grad[:, :, rows]}
+    del ref, leaves
+
+    def ring_call(grad: bool):
+        blk = [t[:, rows].reshape(B, l, H, 64).clone().requires_grad_(grad) for t in (q, k, v)]
+        bl = bias[:, rows].clone().requires_grad_(grad)
+        gl = gate[:, :, rows].clone().requires_grad_(grad)
+        out = ring_gated_attention(*blk, bl, gl, mask[:, rows], mesh.model_group)
+        if grad:
+            (out.reshape(B, l, H * 64) * dout[:, rows]).sum().backward()
+        return out.reshape(B, l, H * 64), blk, bl, gl
+
+    out, blk, bl, gl = ring_call(True)
+    got = {"dq": blk[0].grad.reshape(B, l, -1), "dk": blk[1].grad.reshape(B, l, -1),
+           "dv": blk[2].grad.reshape(B, l, -1), "dbias": bl.grad, "dgate": gl.grad}
+    res = {"rank_rows": [rows.start, rows.stop],
+           "fwd_max_abs_err_vs_plain_f32": float((out - plain).abs().max()),
+           "fwd_within_tol_vs_b2": float(within_tol((out - b2).abs(), b2,
+                                                    torch.bfloat16).max()),
+           "grad_rel_err": {key: float((got[key] - want[key]).abs().max()
+                                       / want[key].abs().max()) for key in want}}
+    del out, blk, bl, gl, got, want, plain, b2
+    # the ring's time on this rank, both ranks on one card (no scaling figure)
+    times = {}
+    for name, grad in (("fwd_ms", False), ("fwd_bwd_ms", True)):
+        with torch.set_grad_enabled(grad):
+            ring_call(grad)
+            barrier()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            for _ in range(2):
+                ring_call(grad)
+            torch.cuda.synchronize()
+            times[name] = (time.time() - t0) / 2 * 1e3
+    res["ring_ms"] = times
+    del q, k, v, bias, gate, mask, dout
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # a transcription through the ring against one rank's (B2 past 4096 frames)
+    wav = synthetic_audio(B, L * 320 / 16000.0, seed=201)
+    x_init = torch.randint(0, 8000, (B, RING_SEQ_LEN), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(21))
+    for dtype in ("float32", "bfloat16"):
+        cfg = flagship_config(tokenizer_path, dtype=dtype)
+        pipe = FDDMPipeline.from_config(cfg, tokenizer=load_tokenizer(tokenizer_path), seed=5)
+        ids = {}
+        for name in ("one_rank", "ring"):
+            if name == "ring":
+                pipe.apply_mesh(mesh, seq_parallel=True)
+            _reset_launches(FA)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            rows_out = pipe.transcribe_with_ids(wav, seq_len=RING_SEQ_LEN, x_init=x_init,
+                                                greedy=True)
+            res[f"transcribe_{dtype}_{name}_s"] = time.time() - t0
+            res[f"transcribe_{dtype}_{name}_launches"] = _launch_counts(FA)
+            ids[name] = [r[1] for r in rows_out]
+        agree = [a == b for x, y in zip(ids["one_rank"], ids["ring"]) for a, b in zip(x, y)]
+        res[f"ids_{dtype}_equal"] = ids["one_rank"] == ids["ring"]
+        res[f"ids_{dtype}_agreement"] = sum(agree) / len(agree)
+        del pipe
+        gc.collect()
+        torch.cuda.empty_cache()
+    return res
+
+
+def parallel_rank(d: str) -> int:
+    """`python3 chip_smoke.py --parallel-rank DIR`: one rank of phase 20
+    (b) or (c), joined from FDDM_COORDINATOR / FDDM_NUM_PROCESSES /
+    FDDM_PROCESS_ID / FDDM_BACKEND / FDDM_DEVICE (LOCAL_RANK): (b1) on a
+    data=2 mesh, then (b2) on a model=2 mesh of the same two processes;
+    writes DIR/rank<R>.pt.  Prints no result line."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from fddm_asr_tpu_torch import parallel as P
+    from fddm_asr_tpu_torch.ops import flash_attention as FA
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist_cfg = P.DistributedConfig.from_env()
+    rank, _ = P.initialize(dist_cfg)
+    try:
+        dev = dist_cfg.rank_device("cuda")
+        with open(os.path.join(d, "parallel.json")) as f:
+            spec = json.load(f)
+        t0 = time.time()
+        out = {"backend": P.DistributedConfig.from_env().resolved_backend(dev),
+               "device": str(dev)}
+        out["b1"] = parallel_steps(FA, parallel_config(spec["tokenizer"]),
+                                   P.make_mesh(P.MeshSpec(data=2, model=1), dev))
+        out["b1_s"] = time.time() - t0
+        t0 = time.time()
+        out["b2"] = ring_checks(FA, P.make_mesh(P.MeshSpec(data=1, model=2), dev),
+                                spec["tokenizer"])
+        out["b2_s"] = time.time() - t0
+        out["staging"] = P.STAGING.as_dict()
+        torch.save(out, os.path.join(d, f"rank{rank}.pt"))
+    finally:
+        P.shutdown()
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _spawn_ranks(d: str, backend: str, tag: str) -> tuple:
+    """Two `--parallel-rank` processes over `backend`: on cuda:0 both
+    (gloo), or one card each (nccl); their outputs and wall seconds."""
+    port = _free_port()
+    procs = []
+    for rank in range(2):
+        env = {**os.environ, "FDDM_COORDINATOR": f"127.0.0.1:{port}",
+               "FDDM_NUM_PROCESSES": "2", "FDDM_PROCESS_ID": str(rank),
+               "FDDM_BACKEND": backend, "LOCAL_RANK": str(rank)}
+        if backend == "gloo":
+            env["FDDM_DEVICE"] = "cuda:0"
+        log = open(os.path.join(d, f"{tag}.rank{rank}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--parallel-rank", d], env=env,
+            stdout=log, stderr=subprocess.STDOUT), log))
+    t0 = time.time()
+    try:
+        for proc, _ in procs:
+            proc.wait(timeout=600)
+    finally:
+        for proc, log in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    wall = time.time() - t0
+    for rank, (proc, _) in enumerate(procs):
+        if proc.returncode != 0:
+            with open(os.path.join(d, f"{tag}.rank{rank}.log")) as f:
+                log = f.read()
+            fail(f"({tag}) rank {rank} exited {proc.returncode}:\n{log[-4000:]}")
+    return [torch.load(os.path.join(d, f"rank{r}.pt")) for r in range(2)], wall
+
+
+def _check_ranks(tag: str, ranks: list, reference: dict, want_launches: dict) -> dict:
+    """(b1) and (b2) of two ranks against the one-rank reference."""
+    out = {}
+    for r, res in enumerate(ranks):
+        b1, b2 = res["b1"], res["b2"]
+        agreement = _step_agreement(b1, reference)
+        row = {"backend": res["backend"], "device": res["device"], "rows": b1["rows"],
+               "build_s": b1["build_s"], "step_s": b1["step_s"],
+               "peak_mem_gb": b1["peak_mem_gb"], "launches_per_step": b1["launches"][1],
+               "losses": [m["total_loss"] for m in b1["metrics"]], "vs_one_rank": agreement,
+               "b1_s": res["b1_s"], "b2_s": res["b2_s"], "staging": res["staging"],
+               "ring": b2}
+        out[f"rank{r}"] = row
+        if not agreement["ok"]:
+            fail(f"({tag}1) rank {r}'s steps disagree with one rank's: {agreement}")
+        if any({k: c[k] for k in want_launches} != want_launches for c in b1["launches"]):
+            fail(f"({tag}1) rank {r} launched {b1['launches']}, expected {want_launches} a step")
+        grad_bad = {k: e for k, e in b2["grad_rel_err"].items() if not e <= RING_GRAD_REL_TOL}
+        if (not b2["fwd_max_abs_err_vs_plain_f32"] <= RING_FWD_TOL
+                or not b2["fwd_within_tol_vs_b2"] <= 1.0 or grad_bad):
+            fail(f"({tag}2) rank {r}'s ring disagrees: {b2}")
+        if not b2["ids_float32_equal"]:
+            fail(f"({tag}2) rank {r}'s float32 ring transcription ids differ from one rank's")
+        if b2["transcribe_float32_one_rank_launches"]["fwd"] == 0:
+            fail(f"({tag}2) the one-rank transcription launched no B2: {b2}")
+    return out
+
+
+def parallel_full_width(FA, d: str, card: str, cli_c: dict) -> dict:
+    """Phase 20 (module docstring): several GPUs, on one card.  `d` holds
+    phase 15's tokenizer and phase 18's corpus; `cli_c` phase 18 (c)'s
+    inference CLI run: its arguments and printed rows."""
+    from fddm_asr_tpu_torch import parallel as P
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    tok = synthetic_tokenizer(d, 8000)
+    cfg = parallel_config(tok)
+    gc.collect()
+    torch.cuda.empty_cache()
+    result = {"card": card, "b1_global_batch": f"{PARALLEL_B} x {FINETUNE_SECONDS:g} s, "
+              f"{PARALLEL_B // 2} a rank, float32, dropout off"}
+
+    # the one-rank reference of (a) and (b1): the bare step on the global batch
+    t0 = time.time()
+    reference = parallel_steps(FA, cfg, None)
+    # (a) the same steps on a mesh over NCCL at world size 1 (the real backend path)
+    P.initialize(P.DistributedConfig(f"127.0.0.1:{_free_port()}", 1, 0, backend="nccl"))
+    try:
+        nccl = parallel_steps(FA, cfg, P.make_mesh(P.MeshSpec(data=1, model=1)))
+    finally:
+        P.shutdown()
+    a = {"vs_bare_step": _step_agreement(nccl, reference), "step_s": nccl["step_s"],
+         "bare_step_s": reference["step_s"], "peak_mem_gb": nccl["peak_mem_gb"],
+         "bare_peak_mem_gb": reference["peak_mem_gb"],
+         "losses": [m["total_loss"] for m in nccl["metrics"]],
+         "bare_losses": [m["total_loss"] for m in reference["metrics"]],
+         "launches_per_step": nccl["launches"][1], "seconds": time.time() - t0}
+    result["a"] = a
+    print(json.dumps({"parallel_a": a}), flush=True)
+    if not a["vs_bare_step"]["ok"]:
+        fail(f"(a) the world-size-1 NCCL steps disagree with the bare step: {a['vs_bare_step']}")
+    want = {k: reference["launches"][1][k] for k in ("fwd_lse", "bwd_dq", "bwd_dkv")}
+
+    # (b) two ranks sharing the card over gloo: (b1) the data-parallel steps,
+    # (b2) the ring; the kernels' build in _build/ is reused by both
+    with open(os.path.join(d, "parallel.json"), "w") as f:
+        json.dump({"tokenizer": tok}, f)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks, wall = _spawn_ranks(d, "gloo", "b")
+    result["b"] = {"wall_s": wall, **_check_ranks("b", ranks, reference, want)}
+    print(json.dumps({"parallel_b": result["b"]}), flush=True)
+
+    # (b3) the entry points under torchrun, two ranks on the card over gloo
+    result["b3"] = parallel_entry_points(d, root, cli_c)
+
+    # (c) one card a rank over NCCL
+    if torch.cuda.device_count() >= 2:
+        ranks, wall = _spawn_ranks(d, "nccl", "c")
+        result["c"] = {"wall_s": wall, **_check_ranks("c", ranks, reference, want)}
+    else:
+        result["c"] = {"not_run": f"{torch.cuda.device_count()} card: NCCL needs one card a "
+                                  "rank, so (b) over NCCL runs only where there are two"}
+    print(json.dumps({"parallel_c": result["c"]}), flush=True)
+    return result
+
+
+def parallel_entry_points(d: str, root: str, cli_c: dict) -> dict:
+    """(b3): `torchrun --nproc_per_node 2 -m fddm_asr_tpu_torch.train --mesh
+    data=2` (torch.distributed.run) on phase 18's corpus, frozen, two steps
+    of 16, evaluating the validation set sharded; then phase 18 (c)'s
+    inference CLI run once more under torchrun with `--mesh data=2`, its
+    rows (ids and texts) equal to that one process's."""
+    env = {**os.environ, "FDDM_BACKEND": "gloo", "FDDM_DEVICE": "cuda:0"}
+    run = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "2", "-m"]
+    manifests = {s: os.path.join(d, f"{s}.json") for s in ("train", "validation")}
+    ckpt_dir = os.path.join(d, "ckpt_parallel")
+    cfg = _train_config(os.path.join(d, "parallel.yaml"),
+                        os.path.join(root, "configs", "fddm_zhTW_base.yaml"), {
+        "data": {"train_json": manifests["train"], "val_json": manifests["validation"],
+                 "test_json": os.path.join(d, "no_test_set.json"),
+                 "tokenizer_path": os.path.join(d, "spm_synth.vocab")},
+        "optim": {"batch_size": PARALLEL_TRAIN_B, "num_epochs": 1},
+        "log": {"log_every": 1, "metrics_jsonl": True, "ckpt_dir": ckpt_dir}})
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    proc = subprocess.run([*run, "fddm_asr_tpu_torch.train", "--config", cfg, "--mesh",
+                           "data=2", "--max-steps-per-epoch", str(PARALLEL_TRAIN_STEPS)],
+                          cwd=root, env=env, capture_output=True, text=True, timeout=600)
+    train_s = time.time() - t0
+    if proc.returncode != 0:
+        fail(f"(b3) torchrun train exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    records = _metrics(ckpt_dir)
+    steps = [r for r in records if r["kind"] == "step"]
+    epoch = [r for r in records if r["kind"] == "epoch"]
+    names = set(os.listdir(ckpt_dir))
+    res = {"train_s": train_s, "steps": [r["step"] for r in steps],
+           "losses": [r["total_loss"] for r in steps], "epoch": epoch,
+           "files": sorted(n for n in names if not n.startswith("."))}
+    if ([r["step"] for r in steps] != list(range(1, PARALLEL_TRAIN_STEPS + 1))
+            or len(epoch) != 1 or not all(np.isfinite(res["losses"]))
+            or not {"ep001.pt", "best_model.pt", "ep001.state.pt"} <= names):
+        fail(f"(b3) torchrun train wrote {res}")
+
+    stats = os.path.join(d, "parallel_infer.stats.json")
+    t0 = time.time()
+    proc = subprocess.run([*run, "fddm_asr_tpu_torch.inference", *cli_c["args"], "--mesh",
+                           "data=2", "--stats-json", stats], cwd=root, env=env,
+                          capture_output=True, text=True, timeout=600)
+    res["infer_s"] = time.time() - t0
+    if proc.returncode != 0:
+        fail(f"(b3) torchrun inference exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    printed = [x for x in _cli_output(proc.stdout) if "ids" in x]
+    with open(stats) as f:
+        res["infer_launches_rank0"] = json.load(f)["launches"]
+    one = cli_c["rows"]
+    res.update(rows=len(printed), ids_equal_one_process=[x["ids"] for x in printed] == [
+        x["ids"] for x in one], texts_equal_one_process=[x["text"] for x in printed] == [
+        x["text"] for x in one])
+    print(json.dumps({"parallel_b3": res}), flush=True)
+    if len(printed) != len(one) or not res["ids_equal_one_process"] \
+            or not res["texts_equal_one_process"]:
+        fail(f"(b3) the data=2 CLI's rows differ from phase 18 (c)'s one process: {res}")
+    if res["infer_launches_rank0"]["fwd"] == 0:
+        fail(f"(b3) rank 0 of the data=2 CLI launched no B1: {res['infer_launches_rank0']}")
+    return res
+
+
 def b7_times(root: str) -> int:
     """`--b7-times ROOT`: the fused int8 kernel of the port in the checkout
     at ROOT (this one or another, to compare two trees on one card), timed
@@ -3667,6 +4062,8 @@ def main() -> int:
         return backward_f32_times(sys.argv[2], "bwd_dkv")
     if len(sys.argv) == 3 and sys.argv[1] == "--b4-f32-times":
         return backward_f32_times(sys.argv[2], "bwd_dq")
+    if len(sys.argv) == 3 and sys.argv[1] == "--parallel-rank":
+        return parallel_rank(sys.argv[2])
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from fddm_asr_tpu_torch.ops import _build
     from fddm_asr_tpu_torch.ops import conv_frontend as CF
@@ -3797,6 +4194,8 @@ def main() -> int:
         trained = train_full_width(tmp, card, finetune)
         # phase 19: the rest of the recipe, on phase 18's corpus
         recipe = train_recipe_full_width(tmp, card, finetune, trained)
+        # phase 20: several GPUs (one card: two ranks share it over gloo)
+        parallel = parallel_full_width(FA, tmp, card, trained["cli_c"])
 
     main_row = rows[(1024, torch.bfloat16)]  # the transcribe's shape and type
     kernels = [{
@@ -3824,7 +4223,14 @@ def main() -> int:
             "train_finetune_loop": trained["b"]["launches"]["fwd"],
             "train_lora_recipe_loop": recipe["a"]["launches"]["fwd"],
             "train_eval_per_decode_batch": [e["fwd"] // e["batches"]
-                                            for e in trained["b"]["eval"]]},
+                                            for e in trained["b"]["eval"]],
+            # phase 20: rank 0 of the data=2 CLI, and B2 as the ring's one-rank
+            # reference at L = 5120 (the ring itself launches none)
+            "parallel_dp2_cli_rank0": parallel["b3"]["infer_launches_rank0"]["fwd"],
+            "parallel_ring_one_rank_reference": parallel["b"]["rank0"]["ring"][
+                "transcribe_float32_one_rank_launches"]["fwd"],
+            "parallel_ring_transcribe": parallel["b"]["rank0"]["ring"][
+                "transcribe_float32_ring_launches"]["fwd"]},
         "cli_c_100s_whole_file_L5120": {
             **{k: cli_runs["c_100s_whole_file"][k] for k in (
                 "attention_L", "gated_attention_device_ms", "gated_attention_ms_per_launch")},
@@ -3868,7 +4274,13 @@ def main() -> int:
                                  "lora_recipe_micro_step":
                                      recipe["a"]["kernel_launches_per_micro_step"][key],
                                  "lora_recipe_loop": recipe["a"]["launches"][key],
-                                 "remat_dots_step": recipe["c"]["remat"]["dots"]["launches"][key]},
+                                 "remat_dots_step": recipe["c"]["remat"]["dots"]["launches"][key],
+                                 # phase 20, float32: world size 1 over NCCL, and a
+                                 # rank a step of data=2 (two ranks on the card)
+                                 "parallel_nccl_world1_step":
+                                     parallel["a"]["launches_per_step"][key],
+                                 "parallel_dp2_step_per_rank":
+                                     parallel["b"]["rank0"]["launches_per_step"][key]},
             # phase 5's float32 row at B=8, L=1024, ragged masks
             "float32_L1024": {"kernels": F32_TRAINING_KERNELS[key], **{
                 k: f32_train_rows[key].get(k) for k in (

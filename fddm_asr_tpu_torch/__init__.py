@@ -13,6 +13,8 @@ Layer map (bottom-up):
   - `tokenizer`         SentencePiece-compatible decoding
   - `convert`           weights from the JAX package's trees and reference .pt
   - `pipeline`          FDDMPipeline: waveform -> transcript
+  - `parallel`          several GPUs: process group, ("data", "model") mesh,
+                        gradient reduction (the ring: `ops/ring_attention`)
   - `inference`         CLI (`python -m fddm_asr_tpu_torch.inference`)
   - `serve`             batching HTTP server (`python -m fddm_asr_tpu_torch.serve`)
   - `aot`, `export_model`  AOT artifacts: `torch.export` programs replayed

@@ -34,6 +34,9 @@ returns and the writer's background thread writes the files; the next
 save waits for it, and `AsyncWriter.wait` waits too, raising in the
 caller's thread when a write failed.
 
+In a process group (`parallel/`) only the primary rank writes, and every
+rank reads the same files.
+
 `restore_state` migrates the EMA: a checkpoint without one seeds a run with
 an EMA from the restored weights, and a run without one drops the
 checkpoint's.
@@ -49,6 +52,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from fddm_asr_tpu_torch.parallel import is_primary
 from fddm_asr_tpu_torch.train_lib import MODULE_KEYS, TrainState
 
 __all__ = ["module_state_dicts", "AsyncWriter", "save_ckpt", "load_state", "restore_state"]
@@ -137,7 +141,11 @@ def save_ckpt(prefix: str, state: TrainState, epoch: int, raw_cfg: Optional[dict
     """Write the files of `prefix` (module docstring), through `writer` in
     its background thread when one is given; returns each file's bytes and
     seconds by name (complete once `writer.wait()` returns).  `extra_meta`
-    joins the sidecar (a LoRA run's lora_rank and lora_alpha)."""
+    joins the sidecar (a LoRA run's lora_rank and lora_alpha).  In a
+    process group only the primary rank writes; the others return {} (every
+    rank holds the same state, and every rank reads the files back)."""
+    if not is_primary():
+        return {}
     if writer is not None:
         writer.wait()  # one save at a time, in order
     files: Dict[str, Dict[str, float]] = {}

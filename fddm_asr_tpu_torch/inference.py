@@ -9,6 +9,9 @@
 
     python -m fddm_asr_tpu_torch.inference --csv test.csv ... --out-json out.json
 
+    torchrun --nproc_per_node 4 -m fddm_asr_tpu_torch.inference --csv test.csv ... \
+        --mesh data=2,model=2 --seq-parallel
+
 Counterpart of the repository's `inference.py`: the same flags with the same
 defaults and the same result JSON, {wav, text, ids, T_infer, r, greedy,
 posterior_mode[, confidence]} a row; a CSV with a reference column (`--ref-
@@ -16,10 +19,18 @@ column`, else `text` or `sentence`) adds {ref, cer} to each row and ends
 with {"summary": "cer", "avg_cer", "utterances"}; `--chunk-seconds` gives one
 result for a long WAV with {chunks, chunk_seconds, chunk_align} and its
 confidence the mean of the windows' in log space.  Runs on CUDA; without a GPU it raises unless `--device cpu` is given.
-`--gpu` is accepted and ignored; `--mesh` and `--seq-parallel` (multi-chip
-inference) are not ported and raise.  The sampling generator is seeded by
+`--gpu` is accepted and ignored.  The sampling generator is seeded by
 `--seed` and, as the JAX CLI splits its key, a step generator is split off
 it for every CSV batch and every batch of windows.
+
+Several GPUs (one process each, under torchrun or FDDM_COORDINATOR /
+FDDM_NUM_PROCESSES / FDDM_PROCESS_ID): `--mesh data=D,model=M` splits each
+batch's rows over D ranks (`FDDMPipeline.apply_mesh`; under a mesh a batch's
+rows pad to `--batch-size`, as the JAX CLI pads them), and `--seq-parallel`
+each utterance's encoder frames over M ranks (a long `--wav` over the ring).
+Every rank reads the inputs; the primary rank alone prints and writes the
+results, the same as one process's.  M > 1 without `--seq-parallel` is
+tensor parallelism, not ported, and raises.
 """
 from __future__ import annotations
 
@@ -67,9 +78,11 @@ def parse_args(argv=None):
                    help="single-WAV mode: transcribe in windows of this many seconds, "
                         "batched and condition-masked, and join the texts; 0 = whole file")
     p.add_argument("--mesh", type=str, default="",
-                   help="multi-device inference: not ported (raises when set)")
+                   help="multi-GPU inference over the process group, e.g. data=2 or "
+                        "data=2,model=2 (one process a GPU: torchrun)")
     p.add_argument("--seq-parallel", action="store_true",
-                   help="sequence-parallel encoder: not ported (raises when set)")
+                   help="split each utterance's encoder frames over the mesh's model ranks "
+                        "(ring attention)")
     p.add_argument("--corrected-posterior", action="store_true",
                    help="the exact multi-step posterior instead of the reference's "
                         "recurrence (ref_compat=False)")
@@ -161,6 +174,8 @@ def infer_batch(pipeline, wav_paths: List[str], args, generator,
         bucket = int(round(float(args.bucket_seconds or 0) * 16000))
         if bucket > 0 and pipeline.use_condition_mask:
             T = -(-T // bucket) * bucket
+        # a fixed row count: the bucket's, and a mesh's data ranks need rows to split
+        if (bucket > 0 and pipeline.use_condition_mask) or pipeline.mesh is not None:
             lengths += [CONV_RECEPTIVE_FIELD] * max(0, pad_rows_to - len(waves))
         batch = np.zeros((len(lengths), T), np.float32)
         for j, w in enumerate(waves):
@@ -198,11 +213,13 @@ def infer_long(pipeline, path: str, args, generator) -> Dict[str, Any]:
     bs = max(1, args.batch_size)
     for start in range(0, len(spans), bs):
         rows = spans[start:start + bs]
-        batch = np.zeros((len(rows), win), np.float32)
+        batch = np.zeros((_padded_rows(pipeline, len(rows)), win), np.float32)
         for j, (s, e) in enumerate(rows):
             batch[j, :e - s] = wav[s:e]
-        lengths = np.asarray([max(e - s, CONV_RECEPTIVE_FIELD) for s, e in rows])
-        for row in _transcribe(pipeline, batch, lengths, args, split_generator(generator)):
+        lengths = np.asarray([max(e - s, CONV_RECEPTIVE_FIELD) for s, e in rows]
+                             + [CONV_RECEPTIVE_FIELD] * (len(batch) - len(rows)))
+        for row in _transcribe(pipeline, batch, lengths, args,
+                               split_generator(generator))[:len(rows)]:
             texts.append(row[0])
             ids.append(row[1])
             if len(row) > 2:
@@ -213,6 +230,12 @@ def infer_long(pipeline, path: str, args, generator) -> Dict[str, Any]:
         result["confidence"] = round(
             float(np.exp(np.mean(np.log(np.maximum(confs, 1e-12))))), 6)
     return result
+
+
+def _padded_rows(pipeline, n: int) -> int:
+    """n rows, rounded up to a multiple of the mesh's data ranks."""
+    D = pipeline.mesh.shape["data"] if pipeline.mesh is not None else 1
+    return -(-n // D) * D
 
 
 def read_csv(path: str, ref_column: Optional[str]):
@@ -250,7 +273,8 @@ def transcribe(pipeline, args, emit=lambda record: None) -> List[Dict[str, Any]]
             pipeline.use_condition_mask = True  # windows are zero-padded batches
             res = infer_long(pipeline, args.wav, args, generator)
         else:
-            res = infer_batch(pipeline, [args.wav], args, generator)[0]
+            res = infer_batch(pipeline, [args.wav], args, generator,
+                              pad_rows_to=_padded_rows(pipeline, 1))[0]
         emit(res)
         return [res]
     results: List[Dict[str, Any]] = []
@@ -273,24 +297,58 @@ def transcribe(pipeline, args, emit=lambda record: None) -> List[Dict[str, Any]]
     return results
 
 
+def join_mesh(args):
+    """The mesh of `--mesh` over the process group (joined here, from
+    torchrun's or the FDDM_* environment), `args.device` set to this rank's
+    device; None without `--mesh` / `--seq-parallel`."""
+    from fddm_asr_tpu_torch import parallel as P
+
+    if not (args.mesh or args.seq_parallel):
+        return None
+    spec = P.parse_mesh(args.mesh)
+    if spec.model > 1 and not args.seq_parallel:
+        raise NotImplementedError(P.TENSOR_PARALLEL_NOT_PORTED)
+    dist_cfg = P.DistributedConfig.from_env()
+    P.initialize(dist_cfg, device=args.device)
+    dev = dist_cfg.rank_device(args.device)
+    args.device = str(dev)
+    return P.make_mesh(spec, dev)
+
+
 def main(argv=None):
     args = parse_args(argv)
-    if args.mesh or args.seq_parallel:
-        raise NotImplementedError(
-            "--mesh / --seq-parallel: multi-device inference is not ported yet (ROADMAP A7)")
+    from fddm_asr_tpu_torch import parallel as P
+
+    mesh = join_mesh(args)
+    try:
+        _main(args, mesh, P.is_primary())
+    finally:
+        if mesh is not None:
+            P.shutdown()
+
+
+def _main(args, mesh, primary: bool) -> None:
     from fddm_asr_tpu_torch.ops import kernel_wrappers
 
     t0 = time.time()
     pipeline = build_pipeline(args)
+    if mesh is not None:
+        pipeline.apply_mesh(mesh, seq_parallel=args.seq_parallel)
     build_s = time.time() - t0
     wrappers = kernel_wrappers()
     for f in wrappers.values():
         f.launches = 0
     indent = 2 if args.wav else None
+
+    def emit(record):
+        if primary:
+            print(json.dumps(record, ensure_ascii=False, indent=indent))
+
     t0 = time.time()
-    results = transcribe(pipeline, args, lambda record: print(
-        json.dumps(record, ensure_ascii=False, indent=indent)))
+    results = transcribe(pipeline, args, emit)
     transcribe_s = time.time() - t0
+    if not primary:
+        return
     if args.out_json:
         os.makedirs(os.path.dirname(args.out_json) or ".", exist_ok=True)
         with open(args.out_json, "w", encoding="utf-8") as f:

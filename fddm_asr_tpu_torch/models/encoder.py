@@ -8,7 +8,11 @@ Counterpart of `fddm_asr_tpu/models/encoder.py`:
   * a `proj` Linear applied only when hidden_size != d_model;
   * `feat_mask` from ceil(samples / 320) clamped to the frame count (the
     reference's estimate; WavLM's own key mask uses the exact conv formula);
-  * optional masked mean pooling.
+  * optional masked mean pooling;
+  * on a sequence-parallel ring (`WavLMModel.set_ring`) the backbone and the
+    projection run on this rank's frames, gathered whole at the end: every
+    encoder parameter's gradient then covers this rank's frames only, and
+    the train step sums them over the ring.
 """
 from __future__ import annotations
 
@@ -65,6 +69,15 @@ class AcousticEncoder(nn.Module):
                                   generator=generator)
             if hasattr(self, "proj"):
                 feats = _linear(self.proj, feats, self.dtype)
+            ring = self.backbone.encoder.ring
+            if ring is not None:
+                # sequence parallel: this rank's frames, gathered whole for the
+                # consumer, which runs replicated on the ring, so the backward
+                # hands each rank its own frames' gradient, unsummed
+                from fddm_asr_tpu_torch.parallel.distributed import gather
+
+                feats = gather(feats.contiguous(), ring, dim=1, sum_grads=False)
+                feats = feats[:, :self.config.feat_extract_output_length(T)]
 
         S = feats.shape[1]
         feat_mask = None

@@ -45,6 +45,11 @@ Training mode (`train()`), as the JAX package's `deterministic=False`:
   * LoRA (`models/lora.py`): inside a `lora.installed` block an adapted
     layer uses its merged weight in place of its own (`_linear`).
 
+Sequence parallelism (`WavLMModel.set_ring`, the JAX package's
+`gated_attention_fn` with `ops/ring_attention`): the layers run on one
+rank's block of frames, each attention a ring over the group (`Encoder`);
+in training it raises on attention dropout, as in the JAX package.
+
 Inference options, as in the JAX package (both raise where autograd records):
   * `quant_dense` "int8" | "int8_fused" runs the q/k/v/out projections and
     the two FFN denses of every layer through dynamic int8 (`ops/quant.py`:
@@ -60,6 +65,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import math
 from typing import Optional, Sequence, Tuple
 
@@ -364,6 +370,10 @@ class GatedRelPosAttention(nn.Module):
         # traced at L holds its length's table as a constant, and a CUDA
         # graph captured at L reads it for as long as the graph lives
         self._relative_buckets = {}
+        # fn(q, k, v, position_bias, gate, key_mask) -> [B, L, H, dh] in place
+        # of the kernels, q/k/v [B, L, H, dh]: the sequence-parallel ring
+        # (`WavLMModel.set_ring`), as the JAX package's `gated_attention_fn`
+        self.gated_attention_fn = None
 
     def relative_buckets(self, L: int, device: torch.device) -> torch.Tensor:
         """The bucket of each relative position -(L-1) .. L-1, [2L - 1] int64
@@ -386,13 +396,16 @@ class GatedRelPosAttention(nn.Module):
             self._relative_buckets[key] = table
         return table
 
-    def position_bias(self, L: int, dtype: torch.dtype) -> torch.Tensor:
+    def position_bias(self, L: int, dtype: torch.dtype,
+                      rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
         """[H, L, L]: head h's embedding of bucket(k - q) at (q, k), gathered
-        on the device from the [2L - 1] table, (k - q) + L - 1 its index."""
+        on the device from the [2L - 1] table, (k - q) + L - 1 its index.
+        `rows` (first, count): only those query rows, [H, count, L]."""
         weight = self.rel_attn_embed.weight
         values = F.embedding(self.relative_buckets(L, weight.device), weight.to(dtype))
         pos = torch.arange(L, device=weight.device)
-        return values.t()[:, pos[None, :] - pos[:, None] + (L - 1)]  # [H, L, L]
+        qpos = pos if rows is None else pos[rows[0]:rows[0] + rows[1]]
+        return values.t()[:, pos[None, :] - qpos[:, None] + (L - 1)]  # [H, rows, L]
 
     def forward(self, x: torch.Tensor, key_mask: Optional[torch.Tensor],
                 position_bias: Optional[torch.Tensor], dtype: torch.dtype,
@@ -417,7 +430,20 @@ class GatedRelPosAttention(nn.Module):
         q = _linear(self.q_proj, x, dtype, cfg.quant_dense)
         k = _linear(self.k_proj, x, dtype, cfg.quant_dense)
         v = _linear(self.v_proj, x, dtype, cfg.quant_dense)
-        if self.training and cfg.attention_dropout > 0.0:
+        if self.gated_attention_fn is not None:
+            # exact softmax only: skipping attention dropout would make a
+            # sequence-parallel fine-tune train with other regularization than
+            # the single-device run it must reproduce
+            if self.training and cfg.attention_dropout > 0.0:
+                raise ValueError(
+                    "sequence-parallel attention (gated_attention_fn) does not implement "
+                    "attention dropout; set attention_dropout: 0.0 (regularize with "
+                    "SpecAugment, the recommended fine-tune recipe) or disable seq_parallel "
+                    "for this run")
+            view = (B, L, H, -1)
+            out = self.gated_attention_fn(q.reshape(view), k.reshape(view), v.reshape(view),
+                                          position_bias, gate, key_mask).reshape(B, L, -1)
+        elif self.training and cfg.attention_dropout > 0.0:
             generator = torch.Generator(device=q.device)
             if dropout_seed is None:
                 generator.seed()
@@ -486,15 +512,30 @@ class Encoder(nn.Module):
         self.layers = nn.ModuleList(
             EncoderLayer(cfg, has_relative_position_bias=(i == 0))
             for i in range(cfg.num_hidden_layers))
+        # the sequence-parallel ring's process group (`WavLMModel.set_ring`)
+        self.ring = None
 
     def forward(self, x: torch.Tensor, key_mask: Optional[torch.Tensor],
                 dtype: torch.dtype, generator: Optional[torch.Generator] = None
                 ) -> torch.Tensor:
         """`generator`: where training with attention dropout draws each
-        layer's mask seed (default: the device's default generator)."""
+        layer's mask seed (default: the device's default generator).
+
+        On a ring of n ranks (`self.ring`) the frames pad to a multiple of
+        lcm(seq_pad_multiple, n), and after the positional conv (which runs
+        whole on every rank) rank r keeps frames [r l, (r + 1) l): its layers
+        run on those, their attention over the ring, and the rank's block of
+        the padded output is returned (`models/encoder.py` gathers it after
+        its projection)."""
         cfg = self.cfg
         B, S0, _ = x.shape
-        pad = (-S0) % max(cfg.seq_pad_multiple, 1)
+        multiple = max(cfg.seq_pad_multiple, 1)
+        if self.ring is not None:
+            from fddm_asr_tpu_torch.parallel.distributed import ring_rank
+
+            me, n = ring_rank(self.ring)
+            multiple = math.lcm(multiple, n)
+        pad = (-S0) % multiple
         if pad:
             x = F.pad(x, (0, 0, 0, pad))
             if key_mask is None:
@@ -517,6 +558,13 @@ class Encoder(nn.Module):
                                   device=x.device if generator is None else generator.device
                                   ).tolist()
         position_bias = None
+        if self.ring is not None:
+            L = x.shape[1]
+            l = L // n
+            x = x[:, me * l:(me + 1) * l]
+            if key_mask is not None:
+                key_mask = key_mask[:, me * l:(me + 1) * l].contiguous()
+            position_bias = self.layers[0].attention.position_bias(L, dtype, rows=(me * l, l))
         for i, layer in enumerate(self.layers):
             if remat and i > 0:  # layer 0 owns rel_attn_embed and is kept
                 x, position_bias = checkpoint(layer, x, key_mask, position_bias, dtype, seeds[i],
@@ -526,6 +574,8 @@ class Encoder(nn.Module):
                 x, position_bias = layer(x, key_mask, position_bias, dtype, seeds[i])
         if cfg.do_stable_layer_norm:
             x = _layer_norm(self.layer_norm, x, dtype)
+        if self.ring is not None:
+            return x
         return x[:, :S0] if pad else x
 
 
@@ -581,6 +631,18 @@ class WavLMModel(nn.Module):
         self.feature_projection = FeatureProjection(cfg)
         self.masked_spec_embed = nn.Parameter(torch.zeros(cfg.hidden_size))
         self.encoder = Encoder(cfg)
+
+    def set_ring(self, group) -> None:
+        """Run the encoder's layers sequence-parallel over the ranks of
+        `group` (`ops/ring_attention.py`), or on the whole sequence again
+        (None).  On a ring `forward` returns this rank's block of the frames
+        padded to the ring (`Encoder.forward`)."""
+        from fddm_asr_tpu_torch.ops.ring_attention import ring_gated_attention
+
+        self.encoder.ring = group
+        fn = None if group is None else functools.partial(ring_gated_attention, group=group)
+        for layer in self.encoder.layers:
+            layer.attention.gated_attention_fn = fn
 
     def prepare_position_bias(self, num_samples: int, device) -> None:
         """Build the position-bucket table of `num_samples`-sample inputs (the

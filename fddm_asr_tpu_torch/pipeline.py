@@ -34,6 +34,10 @@ checkpoint carries (the JAX pipeline redraws it from the config's seed);
 
 Waveforms may come as float samples or in the wire dtypes of the JAX
 package's serving path (int16 pcm16, uint8 mu-law), decoded on the device.
+
+Over several GPUs (`apply_mesh`, one process a GPU) the batch rows split
+over the mesh's "data" ranks and, with `seq_parallel`, each utterance's
+encoder frames over its "model" ranks; the results equal one process's.
 """
 from __future__ import annotations
 
@@ -56,7 +60,7 @@ from fddm_asr_tpu_torch.models.decoder import DenoisingTransformerDecoder, Multi
 from fddm_asr_tpu_torch.models import lora as LO
 from fddm_asr_tpu_torch.models.encoder import AcousticEncoder
 from fddm_asr_tpu_torch.models.wavlm import GatedRelPosAttention, WavLMConfig, WavLMModel
-from fddm_asr_tpu_torch.sampler import SamplerConfig, make_sample_fn
+from fddm_asr_tpu_torch.sampler import SamplerConfig, make_sample_fn, sampling_draws
 
 # WavLMConfig fields of the JAX package that choose how XLA lowers the same
 # numerics and that the port ignores; a config naming them is still valid.
@@ -188,6 +192,8 @@ class FDDMPipeline:
         # one of them is decoded on the device by `encode_waveform`
         self.input_encoding = "f32"
         self._samplers: Dict[SamplerConfig, Callable] = {}
+        # `apply_mesh`: batch rows split over the mesh's "data" ranks
+        self.mesh = None
 
     @classmethod
     def from_config(cls, cfg: Config, ckpt_path: Optional[str] = None,
@@ -291,6 +297,69 @@ class FDDMPipeline:
         return cls(cfg, decoder, encoder, sched, tokenizer, special, dev,
                    use_condition_mask=use_condition_mask)
 
+    # --------------------------------------------------------- multi-device
+    def apply_mesh(self, mesh, seq_parallel: bool = False) -> "FDDMPipeline":
+        """Transcribe over a `parallel.Mesh` (one process a GPU, every rank
+        making the same calls): the batch rows split over "data", and with
+        `seq_parallel` each utterance's encoder frames over "model" as well
+        (`enable_seq_parallel`).  A "model" axis > 1 without it would be
+        tensor parallelism, which is not ported, and raises.
+
+        Under a data axis of D ranks the API takes and gives global batches:
+        `encode_waveform` takes the global batch (B rows, B divisible by D)
+        and returns this rank's B / D rows; `sample` takes those rows and
+        returns theirs, with x_T and the sampling draws made for the global
+        batch from the same generator on every rank (an `x_init` given is
+        the global batch's), so each row gets what it gets in one process;
+        `transcribe*` take the global batch and return every row, gathered
+        over "data"."""
+        from fddm_asr_tpu_torch.parallel import TENSOR_PARALLEL_NOT_PORTED
+
+        if mesh.shape["model"] > 1 and not seq_parallel:
+            raise NotImplementedError(TENSOR_PARALLEL_NOT_PORTED)
+        self.mesh = mesh if mesh.shape["data"] > 1 else None
+        if seq_parallel:
+            self.enable_seq_parallel(mesh)
+        return self
+
+    def enable_seq_parallel(self, mesh) -> bool:
+        """The encoder's layers over the mesh's "model" ranks (the ring of
+        `ops/ring_attention.py`): its frames padded to a multiple of
+        lcm(seq_pad_multiple, ring), each rank's layers on its block, the
+        output gathered whole for the decoder, which runs replicated on the
+        ring.  Shared by `apply_mesh(seq_parallel=True)` and the training loop
+        (model.encoder.seq_parallel).  False (nothing changed) on a one-wide
+        model axis."""
+        if mesh.shape["model"] <= 1:
+            return False
+        self.encoder.backbone.set_ring(mesh.model_group)
+        return True
+
+    def _rows(self, x, b: int):
+        """This data rank's b rows of a global-batch tensor (or array)."""
+        if self.mesh is None or x is None:
+            return x
+        r = self.mesh.data_rank
+        return x[r * b:(r + 1) * b]
+
+    def _local_rows(self, B: int) -> int:
+        """The rows of a B-row global batch that this data rank takes."""
+        if self.mesh is None:
+            return B
+        D = self.mesh.shape["data"]
+        if B % D:
+            raise ValueError(f"a global batch of {B} rows does not split over {D} data ranks: "
+                             f"pad it to a multiple of {D}")
+        return B // D
+
+    def _gathered(self, x: torch.Tensor) -> torch.Tensor:
+        """Every data rank's rows of `x`, in rank order (global batch order)."""
+        if self.mesh is None:
+            return x
+        from fddm_asr_tpu_torch.parallel.distributed import all_gather
+
+        return all_gather(x, self.mesh.data_group)
+
     # ------------------------------------------------------------------ api
     def _tensor(self, x, dtype=None) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x,
@@ -308,6 +377,9 @@ class FDDMPipeline:
                 f"a batch of {np.shape(wave)[-1]} samples is shorter than one conv receptive "
                 f"field (CONV_RECEPTIVE_FIELD = {CONV_RECEPTIVE_FIELD}) and gives no encoder "
                 "frame; pad it to at least that")
+        if self.mesh is not None:  # this data rank's rows of the global batch
+            b = self._local_rows(np.shape(wave)[0])
+            wave, lengths = self._rows(wave, b), self._rows(lengths, b)
         wave = decode_wire(self._tensor(wave))
         if not self.use_condition_mask:
             lengths = None  # reference parity: the encoder sees no lengths
@@ -351,9 +423,20 @@ class FDDMPipeline:
             c_mask = None
         if generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
+        noise = None
+        if self.mesh is not None:  # the global batch's draws, this rank's rows
+            b = cond.shape[0]
+            B = b * self.mesh.shape["data"]
+            if x_init is None:
+                x_init = torch.randint(0, scfg.K, (B, seq_len), generator=generator,
+                                       device=self.device)
+            draws = [torch.rand((B, seq_len), generator=generator, device=self.device)
+                     for _ in range(sampling_draws(scfg))]
+            x_init = self._rows(self._tensor(x_init, torch.long), b)
+            noise = torch.stack([self._rows(u, b) for u in draws]) if draws else None
         with torch.inference_mode():
             return self._sampler(scfg)(cond, seq_len, c_mask=c_mask, x_init=x_init,
-                                       generator=generator)
+                                       generator=generator, noise=noise)
 
     def sample_nbest(self, cond: torch.Tensor, seq_len: int, num_candidates: int,
                      c_mask=None, generator: Optional[torch.Generator] = None, x_init=None,
@@ -408,9 +491,9 @@ class FDDMPipeline:
                                    **sampling)
         ids, p = ids.flatten(0, 1), p.flatten(0, 1)
         if not confidence:
-            return ids
+            return self._gathered(ids)
         conf = batch_confidence(ids, p, self.pad_id, self.special_ids)
-        return torch.cat([ids.double(), conf.double()[:, None]], dim=1)
+        return self._gathered(torch.cat([ids.double(), conf.double()[:, None]], dim=1))
 
     def transcribe_with_ids_async(self, wave, lengths=None, seq_len: int = 64,
                                   generator: Optional[torch.Generator] = None,

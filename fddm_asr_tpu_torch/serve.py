@@ -41,7 +41,7 @@ artifact (so `--wavlm-ckpt` / `--encoder-ckpt` beside it raise), and on CUDA
 every bucket is a CUDA graph replay.  The live pipeline's encoder weights
 load as the inference CLI loads them (`convert.load_encoder_weights`): a
 fine-tuned model is `{prefix}.pt` with `--encoder-ckpt {prefix}.encoder.pt`.  Not ported:
-`--mesh`/`--seq-parallel` (ROADMAP A7) raise.
+`--mesh`/`--seq-parallel` (ROADMAP A7 part 2) raise.
 """
 from __future__ import annotations
 
@@ -806,7 +806,7 @@ def build_server(args) -> ThreadingHTTPServer:
     serving), warmed up when --warmup-seconds is given."""
     if args.mesh or args.seq_parallel:
         raise SystemExit("--mesh / --seq-parallel: multi-device serving is not ported yet "
-                         "(ROADMAP A7)")
+                         "(ROADMAP A7 part 2)")
     if args.exported:
         if args.wavlm_ckpt or args.encoder_ckpt:
             raise SystemExit("--wavlm-ckpt / --encoder-ckpt with --exported: an artifact "

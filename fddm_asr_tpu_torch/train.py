@@ -5,15 +5,28 @@
     python -m fddm_asr_tpu_torch.train --config ... --resume ckpts/run/ep003.state.pt
     python -m fddm_asr_tpu_torch.train --config ... --wavlm-ckpt path/to/wavlm-large
 
+    torchrun --nproc_per_node 2 -m fddm_asr_tpu_torch.train --config ... --mesh data=2
+    torchrun --nproc_per_node 4 -m fddm_asr_tpu_torch.train --config ... --mesh data=2,model=2
+
 Counterpart of the repository's `train.py`, over `train_lib.run_training`.
 Runs on CUDA; without a GPU it raises unless `--device cpu` is given.
 `--resume` takes the port's `{prefix}.state.pt`; `--wavlm-ckpt` a local
-Hugging Face WavLM directory.  Multi-process training (`--mesh`,
-`--coordinator`, `--num-processes`, `--process-id`) is not ported and raises.
+Hugging Face WavLM directory.
+
+Several GPUs: one process a GPU, joined from torchrun's environment
+(MASTER_ADDR/MASTER_PORT, WORLD_SIZE, RANK, LOCAL_RANK) or FDDM_COORDINATOR /
+FDDM_NUM_PROCESSES / FDDM_PROCESS_ID, which `--coordinator`,
+`--num-processes` and `--process-id` override; FDDM_BACKEND (nccl | gloo)
+and FDDM_DEVICE (e.g. cuda:0, for ranks that share a card over gloo) where
+set.  `--mesh data=D,model=M` (`parallel.parse_mesh`) must cover every
+process; M > 1 needs model.encoder.seq_parallel (the ring), as tensor
+parallelism is not ported.
 """
 from __future__ import annotations
 
 import argparse
+
+import torch
 
 
 def parse_args(argv=None):
@@ -36,35 +49,46 @@ def parse_args(argv=None):
     p.add_argument("--debug-nans", action="store_true",
                    help="autograd anomaly mode, and raise at a step whose loss is not finite")
     p.add_argument("--mesh", type=str, default="",
-                   help="multi-device training: not ported (raises when set)")
+                   help="mesh over the process group, e.g. data=8 or data=2,model=2 "
+                        "(one process a GPU)")
     p.add_argument("--coordinator", type=str, default=None,
-                   help="multi-host training: not ported (raises when set)")
+                   help="rank 0's host:port (or FDDM_COORDINATOR, or torchrun's)")
     p.add_argument("--num-processes", type=int, default=None,
-                   help="multi-host training: not ported (raises when set)")
+                   help="processes in the group (or FDDM_NUM_PROCESSES, or torchrun's)")
     p.add_argument("--process-id", type=int, default=None,
-                   help="multi-host training: not ported (raises when set)")
+                   help="this process's rank (or FDDM_PROCESS_ID, or torchrun's)")
     return p.parse_args(argv)
 
 
 def main(argv=None):
     args = parse_args(argv)
-    if (args.mesh or args.coordinator or args.num_processes is not None
-            or args.process_id is not None):
-        raise NotImplementedError("--mesh / --coordinator / --num-processes / --process-id: "
-                                  "multi-device training is not ported yet (ROADMAP A7)")
-    from fddm_asr_tpu_torch.config import load_config, load_yaml
+    from fddm_asr_tpu_torch import parallel as P
+    from fddm_asr_tpu_torch.config import Config, load_config, load_yaml
     from fddm_asr_tpu_torch.convert import load_wavlm
     from fddm_asr_tpu_torch.train_lib import run_training, setup_logging
 
-    setup_logging()
     cfg = load_config(args.config)
-    wavlm_sd = load_wavlm(args.wavlm_ckpt) if args.wavlm_ckpt else None
-    return run_training(cfg, raw_cfg=load_yaml(args.config), resume=args.resume,
-                        wavlm_state_dict=wavlm_sd,
-                        max_steps_per_epoch=args.max_steps_per_epoch,
-                        export_pt=not args.no_pt_export, profile_dir=args.profile_dir,
-                        debug_nans=args.debug_nans, eval_every=args.eval_every,
-                        device=args.device)
+    spec = P.parse_mesh(args.mesh)
+    if spec.model > 1 and not cfg.model.get("encoder", Config()).get("seq_parallel", False):
+        raise NotImplementedError(P.TENSOR_PARALLEL_NOT_PORTED)
+    # the flags override the environment; one process with nothing set is a no-op
+    dist_cfg = P.DistributedConfig.from_env().overridden(
+        args.coordinator, args.num_processes, args.process_id)
+    rank, _ = P.initialize(dist_cfg, device=args.device)
+    try:
+        device = str(dist_cfg.rank_device(args.device)) if rank or dist_cfg.is_multiprocess \
+            else args.device
+        setup_logging(rank=rank)
+        mesh = P.make_mesh(spec, torch.device(device))
+        wavlm_sd = load_wavlm(args.wavlm_ckpt) if args.wavlm_ckpt else None
+        return run_training(cfg, raw_cfg=load_yaml(args.config), resume=args.resume,
+                            wavlm_state_dict=wavlm_sd,
+                            max_steps_per_epoch=args.max_steps_per_epoch,
+                            export_pt=not args.no_pt_export, profile_dir=args.profile_dir,
+                            debug_nans=args.debug_nans, eval_every=args.eval_every,
+                            device=device, mesh=mesh)
+    finally:
+        P.shutdown()
 
 
 if __name__ == "__main__":

@@ -76,6 +76,7 @@ import torch
 from torch import nn
 
 from fddm_asr_tpu_torch import diffusion as D
+from fddm_asr_tpu_torch import parallel as P
 from fddm_asr_tpu_torch.config import Config, resolve_special_ids
 from fddm_asr_tpu_torch.losses import align_speech_to_text, lfd_loss
 from fddm_asr_tpu_torch.models import lora as LO
@@ -158,8 +159,12 @@ class AdamW:
                  weight_decay: float = 0.01, decay_exclude_1d: bool = False,
                  clip: float = 5.0, skip_nonfinite: int = 0,
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
-                 mu_dtype: torch.dtype = torch.float32, accum_steps: int = 1):
+                 mu_dtype: torch.dtype = torch.float32, accum_steps: int = 1,
+                 reduce: Optional[Callable[[List[torch.Tensor]], List[torch.Tensor]]] = None):
         self.groups = [(list(ps), sched) for ps, sched in groups]
+        # the gradient reduction over a process group (parallel.gradient_reducer),
+        # applied to an update's gradients: once an update under accumulation
+        self.reduce = reduce
         self.params: List[nn.Parameter] = [p for ps, _ in self.groups for p in ps]
         self.weight_decay = weight_decay
         self.decayed = [i for i, p in enumerate(self.params)
@@ -181,17 +186,25 @@ class AdamW:
     def step(self, grads: Sequence[Optional[torch.Tensor]]) -> Tuple[torch.Tensor, bool]:
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(self.params, grads)]
-        norm = clip_norm = _global_norm(grads)
-        if self.acc is not None:  # optax.MultiSteps' running mean
-            acc = torch._foreach_sub(grads, self.acc)
-            torch._foreach_div_(acc, self.mini_step + 1)
-            torch._foreach_add_(acc, self.acc)
-            if self.mini_step < self.accum_steps - 1:
-                self.acc, self.mini_step = acc, self.mini_step + 1
-                return norm, False
-            torch._foreach_zero_(self.acc)  # the mean so far, now in `acc`
-            self.mini_step, grads, clip_norm = 0, acc, _global_norm(acc)
-        return norm, self._update(grads, clip_norm)
+        if self.acc is None:
+            if self.reduce is not None:
+                grads = self.reduce(grads)
+            norm = _global_norm(grads)
+            return norm, self._update(grads, norm)
+        # optax.MultiSteps' running mean (of this rank's gradients in a process
+        # group, reduced once an update; `norm` is then this rank's micro-step's)
+        norm = _global_norm(grads)
+        acc = torch._foreach_sub(grads, self.acc)
+        torch._foreach_div_(acc, self.mini_step + 1)
+        torch._foreach_add_(acc, self.acc)
+        if self.mini_step < self.accum_steps - 1:
+            self.acc, self.mini_step = acc, self.mini_step + 1
+            return norm, False
+        torch._foreach_zero_(self.acc)  # the mean so far, now in `acc`
+        self.mini_step = 0
+        if self.reduce is not None:
+            acc = self.reduce(acc)
+        return norm, self._update(acc, _global_norm(acc))
 
     def _update(self, grads: List[torch.Tensor], norm: torch.Tensor) -> bool:
         if self.skip_nonfinite > 0:
@@ -245,11 +258,13 @@ def state_dtype(optim: Config, key: str) -> torch.dtype:
 
 
 def make_optimizer(cfg: Config, main_params: Sequence[nn.Parameter],
-                   encoder_params: Optional[Sequence[nn.Parameter]] = None) -> AdamW:
+                   encoder_params: Optional[Sequence[nn.Parameter]] = None,
+                   reduce=None) -> AdamW:
     """AdamW from cfg.optim (lr 2e-4, weight_decay 0.01, grad_clip 5.0 by
     default); a second group at optim.encoder_lr (default optim.lr) when
     `encoder_params` is given (the encoder, or its LoRA adapters), under the
-    same global clip; optim.adam_mu_dtype and optim.grad_accum_steps."""
+    same global clip; optim.adam_mu_dtype and optim.grad_accum_steps;
+    `reduce` the gradient reduction of a process group."""
     optim = cfg.optim
     lr = float(optim.get("lr", 2e-4))
     warmup = int(optim.get("warmup_steps", 0) or 0)
@@ -262,7 +277,7 @@ def make_optimizer(cfg: Config, main_params: Sequence[nn.Parameter],
                  clip=float(optim.get("grad_clip", 5.0)),
                  skip_nonfinite=int(optim.get("skip_nonfinite_updates", 0) or 0),
                  mu_dtype=state_dtype(optim, "adam_mu_dtype"),
-                 accum_steps=int(optim.get("grad_accum_steps", 1) or 1))
+                 accum_steps=int(optim.get("grad_accum_steps", 1) or 1), reduce=reduce)
 
 
 @dataclasses.dataclass
@@ -330,7 +345,8 @@ def make_projection_heads(cfg: Config, device, dtype: torch.dtype,
 
 
 def init_train_state(pipeline, cfg: Config, train_encoder: Optional[bool] = None,
-                     heads=None, generator: Optional[torch.Generator] = None) -> TrainState:
+                     heads=None, generator: Optional[torch.Generator] = None,
+                     mesh=None) -> TrainState:
     """A fresh TrainState over the pipeline's decoder (and encoder, when it
     trains: model.encoder.freeze false) plus projection heads (`heads`, or
     new ones drawn from `generator`).  A frozen conv front-end
@@ -339,7 +355,9 @@ def init_train_state(pipeline, cfg: Config, train_encoder: Optional[bool] = None
     rank-r adapters on the layers model.encoder.lora_targets matches
     (default `lora.DEFAULT_TARGETS`) train in its place: A drawn from a
     generator seeded by the config's seed + 7 (the JAX package's key),
-    B = 0, scale lora_alpha / r."""
+    B = 0, scale lora_alpha / r.  On a `mesh` over a process group the
+    optimizer reduces the gradients of each update (`parallel.gradient_reducer`:
+    the encoder's summed over "model", everything averaged over "data")."""
     enc_cfg = cfg.model.get("encoder", Config())
     if train_encoder is None:
         train_encoder = not enc_cfg.get("freeze", True)
@@ -372,7 +390,8 @@ def init_train_state(pipeline, cfg: Config, train_encoder: Optional[bool] = None
             encoder.backbone.feature_extractor.requires_grad_(
                 not encoder.config.freeze_feature_extractor)
             enc_params = [p for p in encoder.parameters() if p.requires_grad]
-    optimizer = make_optimizer(cfg, main, enc_params)
+    reduce = P.gradient_reducer(mesh, len(main)) if mesh is not None else None
+    optimizer = make_optimizer(cfg, main, enc_params, reduce=reduce)
     ema = None
     if float(cfg.optim.get("ema_decay", 0.0) or 0.0) > 0.0:
         ema_dtype = state_dtype(cfg.optim, "ema_dtype")
@@ -403,7 +422,7 @@ def update_ema(ema: List[torch.Tensor], params: Sequence[torch.Tensor], decay_ca
 
 
 def make_train_step(pipeline, cfg: Config, train_encoder: bool = False,
-                    cached_features: bool = False):
+                    cached_features: bool = False, mesh=None):
     """Returns step(state, wave, x0, apply_lfd=None, lengths=None,
     generator=None, t=None, xt=None, time_mask=None, feat_mask=None) -> metrics.
 
@@ -427,7 +446,19 @@ def make_train_step(pipeline, cfg: Config, train_encoder: bool = False,
     xt=None) (and its `.forward`): `c` [B, S, d] is the frozen encoder's
     output read from `data/feature_cache.py` and `c_mask` an optional [B, S]
     frame mask; the encoder does not run.  It shares the loss and the update
-    with the wave step, so on the same `c` and draws it is the frozen step."""
+    with the wave step, so on the same `c` and draws it is the frozen step.
+
+    On a `mesh` whose "data" axis has D > 1 ranks, each rank's step takes its
+    rows of a global batch of D equal parts (x0, wave, c: the rank's rows)
+    and computes what the one-process step computes on the global batch: t,
+    x_t and the SpecAugment masks are drawn (or given) for the global batch,
+    the same on every rank from the same generator state, and each rank
+    takes its rows, so every row meets the noise it meets in one process;
+    L_fd standardises over the global batch (z_speech and z_text gathered,
+    `parallel.gather`) and w_t is the mean over the global t; the metrics
+    are the global batch's.  The gradients are reduced by the state's
+    optimizer (`init_train_state(mesh=...)`).  Dropout masks are drawn per
+    rank, for its rows."""
     if train_encoder and cached_features:
         raise ValueError("cached_features is incompatible with train_encoder "
                          "(fine-tuning changes the features every step)")
@@ -452,19 +483,32 @@ def make_train_step(pipeline, cfg: Config, train_encoder: bool = False,
     mask_feature_length = int(enc_cfg.get("mask_feature_length", 10))
     encoder = pipeline.encoder
     dev = pipeline.device
+    data_group = mesh.data_group if mesh is not None and mesh.shape["data"] > 1 else None
 
     def as_tensor(x, dtype=None):
         return None if x is None else torch.as_tensor(x, dtype=dtype, device=dev)
 
+    def rows(x: torch.Tensor, b: int) -> torch.Tensor:
+        """This rank's b rows of a global-batch tensor."""
+        if data_group is None or x is None:
+            return x
+        return x[mesh.data_rank * b:(mesh.data_rank + 1) * b]
+
     def corrupt(state: TrainState, x0, generator, t, xt):
         """x0 on the device, t ~ U{1..T} and x_t ~ q(x_t | x_0) unless given,
-        the token masks; the trained modules in training mode."""
+        the token masks; the trained modules in training mode.  On a data
+        mesh t and x_t are the global batch's (drawn from the gathered x0,
+        or given), and the rank's rows of them are returned beside the
+        global t."""
         x0 = as_tensor(x0, torch.long)
-        B = x0.shape[0]
+        b = x0.shape[0]
+        x0_all = x0 if data_group is None else P.distributed.all_gather(x0, data_group)
+        B = x0_all.shape[0]
         t = (torch.randint(1, T_total + 1, (B,), generator=generator, device=dev)
              if t is None else as_tensor(t, torch.long))
-        xt = (D.sample_xt_tokens(sched, x0, t, generator) if xt is None
+        xt = (D.sample_xt_tokens(sched, x0_all, t, generator) if xt is None
               else as_tensor(xt, torch.long))
+        t_all, t, xt = t, rows(t, b), rows(xt, b)
         x_mask = x0 != pad_id
         loss_mask = x_mask if mask_pad_loss else torch.ones_like(x_mask)
         if state.lora is not None and not train_encoder:
@@ -474,9 +518,9 @@ def make_train_step(pipeline, cfg: Config, train_encoder: bool = False,
             m.train()
         if state.lora is not None:
             encoder.train()
-        return x0, t, xt, x_mask, loss_mask
+        return x0, t, xt, x_mask, loss_mask, t_all
 
-    def losses(state, c, c_mask, xt, x0, t, x_mask, loss_mask, apply_lfd):
+    def losses(state, c, c_mask, xt, x0, t, x_mask, loss_mask, apply_lfd, t_all):
         logits = state.decoder(xt, t, c, x_mask, c_mask)
         loss_diff = kl_fn(sched, xt, x0, logits, t, loss_mask)
         metrics = {"loss_diff": loss_diff}
@@ -484,7 +528,10 @@ def make_train_step(pipeline, cfg: Config, train_encoder: bool = False,
         if apply_lfd:
             z_text = state.t_proj(state.t_embed(logits))
             z_speech = align_speech_to_text(state.s_proj(c), x0.shape[1])
-            w_t = sched.w_t(t).mean()
+            if data_group is not None:  # L_fd standardises over the global batch
+                z_text = P.gather(z_text, data_group)
+                z_speech = P.gather(z_speech, data_group)
+            w_t = sched.w_t(t_all).mean()
             loss_fd = lfd_loss(z_speech, z_text, lambda_offdiag=lambda_off)
             loss = loss + tau * w_t * loss_fd
             metrics.update(loss_fd=loss_fd, w_t=w_t)
@@ -507,6 +554,10 @@ def make_train_step(pipeline, cfg: Config, train_encoder: bool = False,
         if state.ema is not None:
             update_ema(state.ema, params, ema_decay, state.step)
         metrics = {k: v.detach() for k, v in metrics.items()}
+        if data_group is not None:  # the KL is a mean of per-row means: D equal parts
+            both = torch.stack([metrics["loss_diff"], metrics["total_loss"]]).float()
+            P.distributed.all_reduce_([both], data_group, scale=1.0 / mesh.shape["data"])
+            metrics["loss_diff"], metrics["total_loss"] = both[0], both[1]
         metrics["grad_norm"] = grad_norm
         return metrics
 
@@ -518,9 +569,9 @@ def make_train_step(pipeline, cfg: Config, train_encoder: bool = False,
     if cached_features:
         def cached_forward(state: TrainState, c, x0, apply_lfd: bool, c_mask=None,
                            generator: Optional[torch.Generator] = None, t=None, xt=None):
-            x0, t, xt, x_mask, loss_mask = corrupt(state, x0, generator, t, xt)
+            x0, t, xt, x_mask, loss_mask, t_all = corrupt(state, x0, generator, t, xt)
             return losses(state, as_tensor(c), as_tensor(c_mask, torch.bool), xt, x0, t,
-                          x_mask, loss_mask, apply_lfd)
+                          x_mask, loss_mask, apply_lfd, t_all)
 
         def cached_step(state: TrainState, c, x0, apply_lfd: Optional[bool] = None,
                         c_mask=None, generator: Optional[torch.Generator] = None, t=None,
@@ -538,8 +589,8 @@ def make_train_step(pipeline, cfg: Config, train_encoder: bool = False,
                 time_mask=None, feat_mask=None):
         wave = as_tensor(wave, torch.float32)
         lengths = as_tensor(lengths, torch.long)
-        x0, t, xt, x_mask, loss_mask = corrupt(state, x0, generator, t, xt)
-        B = x0.shape[0]
+        x0, t, xt, x_mask, loss_mask, t_all = corrupt(state, x0, generator, t, xt)
+        b, B = x0.shape[0], t_all.shape[0]
         if train_encoder:
             S = encoder.config.feat_extract_output_length(wave.shape[1])
             if time_mask is None and mask_time_prob > 0.0:
@@ -548,6 +599,8 @@ def make_train_step(pipeline, cfg: Config, train_encoder: bool = False,
             if feat_mask is None and mask_feature_prob > 0.0:
                 feat_mask = sample_time_mask(B, encoder.config.hidden_size, mask_feature_prob,
                                              mask_feature_length, generator, dev)
+            time_mask, feat_mask = (rows(as_tensor(m, torch.bool), b)
+                                    for m in (time_mask, feat_mask))
             if state.lora is not None and not LO.is_installed(encoder):
                 raise RuntimeError("a LoRA step's forward runs inside step.merged(state), "
                                    "held across its backward")
@@ -557,7 +610,7 @@ def make_train_step(pipeline, cfg: Config, train_encoder: bool = False,
             encoder.eval()
             with torch.no_grad():
                 c, c_mask, _ = encoder(wave, lengths)
-        return losses(state, c, c_mask, xt, x0, t, x_mask, loss_mask, apply_lfd)
+        return losses(state, c, c_mask, xt, x0, t, x_mask, loss_mask, apply_lfd, t_all)
 
     def step(state: TrainState, wave, x0, apply_lfd: Optional[bool] = None, lengths=None,
              generator: Optional[torch.Generator] = None, t=None, xt=None,
@@ -581,10 +634,13 @@ def make_train_step(pipeline, cfg: Config, train_encoder: bool = False,
 
 
 # ------------------------------------------------------------ the training loop
-def setup_logging(log_dir: str = "logs") -> str:
-    """Console + `<log_dir>/train_<timestamp>.log`, the reference's format."""
+def setup_logging(log_dir: str = "logs", rank: int = 0) -> str:
+    """Console + `<log_dir>/train_<timestamp>.log`, the reference's format
+    (`train_<timestamp>.rank<r>.log` for rank r > 0 of a process group)."""
     os.makedirs(log_dir, exist_ok=True)
-    log_file = os.path.join(log_dir, f"train_{datetime.now().strftime('%Y%m%d_%H%M%S')}.log")
+    suffix = f".rank{rank}" if rank else ""
+    log_file = os.path.join(log_dir,
+                            f"train_{datetime.now().strftime('%Y%m%d_%H%M%S')}{suffix}.log")
     logger = logging.getLogger()
     logger.setLevel(logging.INFO)
     if logger.hasHandlers():
@@ -668,11 +724,22 @@ def run_training(cfg: Config, raw_cfg: Optional[dict] = None, resume: Optional[s
                  wavlm_state_dict: Optional[Dict[str, torch.Tensor]] = None,
                  max_steps_per_epoch: Optional[int] = None, export_pt: bool = True,
                  profile_dir: Optional[str] = None, debug_nans: bool = False,
-                 eval_every: Optional[int] = None, device: Optional[str] = None
-                 ) -> Dict[str, Any]:
+                 eval_every: Optional[int] = None, device: Optional[str] = None,
+                 mesh=None) -> Dict[str, Any]:
     """A whole training run on `device` (default CUDA; raises without a GPU
     unless device="cpu"); returns the last epoch's summary.  CLI:
     `python -m fddm_asr_tpu_torch.train`.
+
+    `mesh` (`parallel.make_mesh`, one process a GPU): optim.batch_size is the
+    global batch, split over "data" (each rank loads its rows of every
+    global batch, `data.dataset.make_batches(shard=...)`), the step as
+    `make_train_step` describes, evaluation on each rank's shard of the
+    eval sets, combined weighted by shard size; with
+    model.encoder.seq_parallel the encoder's frames split over "model" (the
+    ring, `pipeline.enable_seq_parallel`), else a "model" axis > 1 raises
+    (tensor parallelism is not ported).  The primary rank alone takes the
+    run lock and writes metrics.jsonl and the checkpoints; the others wait
+    for it, and every rank resumes from the same file.
 
     eval_every=k evaluates val/test CER every k-th epoch and at the last;
     None takes log.eval_every (default 1).  `--resume` takes a
@@ -686,10 +753,25 @@ def run_training(cfg: Config, raw_cfg: Optional[dict] = None, resume: Optional[s
     from fddm_asr_tpu_torch.profiling import nan_guard, trace
 
     log_cfg = cfg.get("log", Config())
+    if mesh is None:
+        mesh = P.make_mesh(P.MeshSpec(data=1, model=1))
+    if (mesh.shape["model"] > 1
+            and not cfg.model.get("encoder", Config()).get("seq_parallel", False)):
+        raise NotImplementedError(P.TENSOR_PARALLEL_NOT_PORTED)
     lock = None
     if log_cfg.get("run_lock", True):
-        lock = RunLock(os.path.abspath(log_cfg.get("ckpt_dir", "ckpts/run")))
-        lock.acquire()
+        # the primary takes it; every rank learns whether it could (a rank
+        # left running alone would wait in its first collective)
+        refusal = None
+        if P.is_primary():
+            lock = RunLock(os.path.abspath(log_cfg.get("ckpt_dir", "ckpts/run")))
+            try:
+                lock.acquire()
+            except RuntimeError as e:
+                refusal = str(e)
+        refusal = P.broadcast_object(refusal)
+        if refusal is not None:
+            raise RuntimeError(refusal)
     # log.async_checkpoint: the state is copied to the host in the loop, the
     # files are written by the writer's background thread
     writer = C.AsyncWriter() if log_cfg.get("async_checkpoint", False) else None
@@ -697,7 +779,7 @@ def run_training(cfg: Config, raw_cfg: Optional[dict] = None, resume: Optional[s
         with trace(profile_dir), nan_guard(debug_nans) as guard:
             return _run_training_impl(cfg, raw_cfg, resume, wavlm_state_dict,
                                       max_steps_per_epoch, export_pt, eval_every, device, guard,
-                                      writer)
+                                      writer, mesh)
     finally:
         try:
             if writer is not None:
@@ -759,11 +841,12 @@ def _evaluating(pipeline, state: TrainState, use_ema: bool):
 
 
 def _run_training_impl(cfg: Config, raw_cfg, resume, wavlm_state_dict, max_steps_per_epoch,
-                       export_pt, eval_every, device, guard, writer) -> Dict[str, Any]:
+                       export_pt, eval_every, device, guard, writer, mesh) -> Dict[str, Any]:
     from fddm_asr_tpu_torch import checkpoint as C
     from fddm_asr_tpu_torch import eval as E
     from fddm_asr_tpu_torch.config import resolve_device
-    from fddm_asr_tpu_torch.data.dataset import ManifestDataset, make_batches
+    from fddm_asr_tpu_torch.data.dataset import (ManifestDataset, make_batches,
+                                                 shard_example_count)
     from fddm_asr_tpu_torch.models.encoder import frame_length_estimate
     from fddm_asr_tpu_torch.pipeline import FDDMPipeline
     from fddm_asr_tpu_torch.profiling import StepTimer, annotate
@@ -791,9 +874,13 @@ def _run_training_impl(cfg: Config, raw_cfg, resume, wavlm_state_dict, max_steps
                                         dtype=dtype, seed=seed)
     if init_ckpt:
         logging.info(f"decoder warm-started from {init_ckpt} (fresh optimizer state)")
+    # model.encoder.seq_parallel: the encoder's frames split over the mesh's
+    # "model" ranks (the ring), in the forward and the backward
+    if enc_cfg.get("seq_parallel") and pipeline.enable_seq_parallel(mesh):
+        logging.info(f"sequence-parallel encoder: ring size {mesh.shape['model']}")
     heads = make_projection_heads(cfg, dev, pipeline.decoder.dtype,
                                   torch.Generator(device=dev).manual_seed(seed + 1))
-    state = init_train_state(pipeline, cfg, train_encoder=train_encoder, heads=heads)
+    state = init_train_state(pipeline, cfg, train_encoder=train_encoder, heads=heads, mesh=mesh)
     ema_eval = state.ema is not None and bool(cfg.optim.get("ema_eval", True))
 
     ckpt_dir = os.path.abspath(log_cfg.get("ckpt_dir", "ckpts/run"))
@@ -806,7 +893,7 @@ def _run_training_impl(cfg: Config, raw_cfg, resume, wavlm_state_dict, max_steps
         metrics_path = os.path.join(ckpt_dir, "metrics.jsonl")
 
     def emit_metrics(**record):
-        if not metrics_path:
+        if not metrics_path or not P.is_primary():
             return
         record["ts"] = time.time()
         with open(metrics_path, "a", encoding="utf-8") as f:
@@ -828,6 +915,7 @@ def _run_training_impl(cfg: Config, raw_cfg, resume, wavlm_state_dict, max_steps
                             export_pt, ema_export=ema_eval, extra_meta=ckpt_meta, writer=writer)
         # blocked_seconds: how long the loop waited (the host copy; under
         # async_checkpoint the write before this one too)
+        P.barrier()  # the other ranks wait for the primary's host copy
         record = dict(kind="checkpoint", name=name, epoch=epoch, files=files,
                       blocked_seconds=time.time() - t0, asynchronous=writer is not None)
         for done in writing:  # save_ckpt waited for the writes before this one
@@ -867,6 +955,14 @@ def _run_training_impl(cfg: Config, raw_cfg, resume, wavlm_state_dict, max_steps
         raise FileNotFoundError("no training manifest found / empty dataset")
 
     batch_size = int(cfg.optim.get("batch_size", 4))
+    data_ways = mesh.shape["data"]
+    if batch_size % data_ways != 0:
+        raise ValueError(f"global batch_size {batch_size} must be divisible by the "
+                         f"data-parallel mesh size {data_ways} (use --mesh data=N or raise "
+                         "optim.batch_size)")
+    # each data rank loads its rows of every global batch
+    shard = P.host_shard(mesh)
+    local_bs = batch_size // data_ways
     lfd_cfg = cfg.get("lfd", Config())
     n_step_fd = int(lfd_cfg.get("n_step_fd", 4))
     lfd_enabled = bool(lfd_cfg.get("enabled", True)) and float(lfd_cfg.get("tau", 1.0)) != 0.0
@@ -902,13 +998,25 @@ def _run_training_impl(cfg: Config, raw_cfg, resume, wavlm_state_dict, max_steps
                          "features every step")
     if cache_dir:
         t0 = time.time()
-        feat_cache, built = _ensure_feature_cache(pipeline, train_ds, cache_dir, "train",
-                                                  batch_size, train_manifest)
+        # the primary builds a missing cache; the others open it after
+        if P.is_primary():
+            feat_cache, built = _ensure_feature_cache(pipeline, train_ds, cache_dir, "train",
+                                                      batch_size, train_manifest)
+        P.barrier()
+        if not P.is_primary():
+            feat_cache, built = _ensure_feature_cache(pipeline, train_ds, cache_dir, "train",
+                                                      batch_size, train_manifest)
         cache_s = time.time() - t0
-        step_fn = make_train_step(pipeline, cfg, cached_features=True)
+        step_fn = make_train_step(pipeline, cfg, cached_features=True, mesh=mesh)
         cache_device = data_cfg.get("cache_device", "auto")
+        if cache_device is True and P.process_group()[1] > 1:
+            raise ValueError("data.cache_device: true is single-process only (each rank "
+                             "streams its own batch rows in a process group); use 'auto' "
+                             "or false")
         upload_s = None
-        if cache_device is True or (cache_device == "auto" and feat_cache.nbytes <= 2 * 1024 ** 3):
+        # auto: device-resident on a one-process mesh that it fits
+        if cache_device is True or (cache_device == "auto" and mesh.size == 1
+                                    and feat_cache.nbytes <= 2 * 1024 ** 3):
             t0 = time.time()
             feats_dev = feat_cache.rows(np.arange(feat_cache.shape[0])).to(dev)
             upload_s = time.time() - t0
@@ -919,15 +1027,16 @@ def _run_training_impl(cfg: Config, raw_cfg, resume, wavlm_state_dict, max_steps
                      device_resident=feats_dev is not None, upload_seconds=upload_s)
         frames = feat_cache.shape[1]
     else:
-        step_fn = make_train_step(pipeline, cfg, train_encoder=train_encoder)
+        step_fn = make_train_step(pipeline, cfg, train_encoder=train_encoder, mesh=mesh)
 
     # eval batches are the same every eval epoch: made once, their waves on
-    # the device (log.cache_eval_waves, up to 512 MiB)
+    # the device (log.cache_eval_waves, up to 512 MiB); each data rank takes
+    # its shard of the examples, global batches of batch_size rows a rank
     def eval_batches(ds, limit=None):
         if ds is None or len(ds) == 0:
             return None
         batches = []
-        it = make_batches(ds, batch_size, drop_last=False)
+        it = make_batches(ds, batch_size, drop_last=False, shard=shard)
         try:
             for b in it:
                 batches.append(b)
@@ -962,8 +1071,8 @@ def _run_training_impl(cfg: Config, raw_cfg, resume, wavlm_state_dict, max_steps
         logging.info(f"Epoch {epoch}")
         t0 = time.time()
         loss_sum, step_cnt = None, 0
-        batches = make_batches(train_ds, batch_size, shuffle=True, seed=seed, epoch=epoch,
-                               pin_memory=pin)
+        batches = make_batches(train_ds, local_bs, shuffle=True, seed=seed, epoch=epoch,
+                               pin_memory=pin, shard=shard)
         try:
             for bi, batch in enumerate(batches):
                 if max_steps_per_epoch and bi >= max_steps_per_epoch:
@@ -1051,21 +1160,33 @@ def _run_training_impl(cfg: Config, raw_cfg, resume, wavlm_state_dict, max_steps
         val_loss = val_cer = test_cer = val_kl = train_cer = None
         if do_eval:
             t_eval = time.time()
+
+            def combined(evaluate, ds, batches):
+                """`evaluate(pipeline, batches)` on this rank's shard, the
+                ranks' values weighted by their shards' sizes."""
+                n_local = shard_example_count(len(ds), batch_size, shard, drop_last=False)
+                local = evaluate(pipeline, batches) if batches else 0.0
+                return P.all_hosts_weighted_mean(local, n_local, mesh.data_group)
+
+            def cer(pipe, batches):
+                return E.evaluate_cer_with_jumpy_sampling(pipe, batches, cfg)
+
             # ema_eval: evaluate the EMA weights, the ones the checkpoints export
             with _evaluating(pipeline, state, ema_eval):
                 if val_batches is not None:
-                    val_cer = E.evaluate_cer_with_jumpy_sampling(pipeline, val_batches, cfg)
+                    val_cer = combined(cer, val_ds, val_batches)
                     if bool(log_cfg.get("val_loss", True)):
-                        val_loss = E.evaluate_validation_loss(pipeline, val_batches)
+                        val_loss = combined(E.evaluate_validation_loss, val_ds, val_batches)
                     if log_cfg.get("val_kl") == "sampled":
-                        val_kl = E.evaluate_validation_kl_sampled(
-                            pipeline, val_batches,
-                            mask_pad_loss=bool(cfg.optim.get("mask_pad_loss", True)))
+                        val_kl = combined(lambda pipe, batches: E.evaluate_validation_kl_sampled(
+                            pipe, batches,
+                            mask_pad_loss=bool(cfg.optim.get("mask_pad_loss", True))),
+                            val_ds, val_batches)
                 if test_batches is not None:
-                    test_cer = E.evaluate_cer_with_jumpy_sampling(pipeline, test_batches, cfg)
+                    test_cer = combined(cer, test_ds, test_batches)
                 if train_eval_batches:
-                    train_cer = E.evaluate_cer_with_jumpy_sampling(pipeline, train_eval_batches,
-                                                                   cfg)
+                    train_cer = P.all_hosts_mean(cer(pipeline, train_eval_batches),
+                                                 mesh.data_group)
             emit_metrics(kind="eval", epoch=epoch, seconds=time.time() - t_eval)
         if val_cer is not None and val_cer < best_val_cer:
             best_val_cer, best_epoch = val_cer, epoch

@@ -239,9 +239,15 @@ def test_gpu_is_accepted_and_ignored(files, capsys):
     assert _run(cli.main, [*argv, "--gpu", "3"], capsys) == _run(cli.main, argv, capsys)
 
 
-@pytest.mark.parametrize("flag", [["--mesh", "data=2"], ["--seq-parallel"]])
-def test_multi_device_flags_raise(files, flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+@pytest.mark.parametrize("flag,error,match", [
+    (["--mesh", "data=2"], ValueError, r"torchrun --nproc_per_node 2"),
+    (["--mesh", "model=2"], NotImplementedError, "ROADMAP A7 part 2"),
+], ids=["flag0", "flag1"])
+def test_multi_device_flags_raise(files, flag, error, match):
+    """In one process a two-rank mesh names the launcher that makes one
+    process a GPU; a model axis without --seq-parallel is tensor
+    parallelism, not ported (the multi-process runs: test_torch_parallel.py)."""
+    with pytest.raises(error, match=match):
         cli.main(["--wav", files["wavs"][0], *files["base"], *flag])
 
 

@@ -23,7 +23,8 @@ manifests of clips of 0.1-0.3 s and the toy tokenizer of
 * A fine-tune run with resume (the JAX package's
   `tests/test_train_encoder.py::test_run_training_finetune_e2e_with_resume`)
   whose `.encoder.pt` the inference CLI's `--encoder-ckpt` loads.
-* Raises: the multi-process flags (A7), an orbax `--resume` (naming the
+* Raises: a mesh larger than the process group, a group without its
+  coordinator, an orbax `--resume` (naming the
   export script's `--ckpt`), LoRA with a frozen encoder (as the JAX loop),
   an asynchronous checkpoint whose write fails, no GPU without --device
   cpu; and `convert.load_reference_checkpoint` on a directory names the
@@ -463,15 +464,16 @@ def test_finetune_run_with_resume_and_its_encoder_in_the_cli(corpus, tmp_path):
 
 
 @pytest.mark.parametrize("flags,overrides,error,match", [
-    (["--mesh", "data=2"], {}, NotImplementedError, "ROADMAP A7"),
-    (["--num-processes", "2"], {}, NotImplementedError, "ROADMAP A7"),
+    (["--mesh", "data=2"], {}, ValueError, r"torchrun --nproc_per_node 2"),
+    (["--num-processes", "2"], {}, ValueError, "needs its coordinator"),
     (["--resume", "DIR"], {}, NotImplementedError, "export_torch_encoder.py --ckpt"),
     ([], {"model": "lora"}, ValueError, "lora_rank > 0 requires model.encoder.freeze: false"),
     ([], {"log": {"async_checkpoint": True}}, RuntimeError,
      "asynchronous checkpoint write failed"),
 ], ids=["mesh", "num-processes", "orbax-resume", "lora", "async-checkpoint"])
 def test_unported_options_raise(corpus, tmp_path, flags, overrides, error, match):
-    """The options this loop refuses: the multi-process flags, an orbax
+    """The options this loop refuses: a mesh of more processes than run
+    (one process a GPU) and a process group with no coordinator, an orbax
     `--resume`, LoRA on a frozen encoder; and an asynchronous checkpoint
     whose write fails (a directory where `ep001.state.pt` goes) raises from
     the run, not only in its writer thread."""
