@@ -259,6 +259,27 @@ Phases, each fatal on failure:
      checkpoints) and phase 18 (c)'s inference CLI run under torchrun
      with `--mesh data=2`, its rows equal to that process's; (c) with two cards or more, (b)
      over NCCL one card a rank, else the line says it was not run.
+ 21. tensor parallelism at full width, model=2: after (b2) the same two
+     processes of phase 20 (b) split the weights of `_DECODER_RULES` over
+     a model=2 mesh (WavLM's 16 heads, 8 a rank; the decoder's 12, 6 a
+     rank; the FFNs' columns and rows; the 8000-token vocabulary): (a) a
+     float32 transcribe of 8 x 20 s at an injected x_init, its ids equal
+     to one process's, B1 24 times a rank; the same in bfloat16, its ids'
+     agreement with one process's printed; (b) two of phase 20's reference
+     steps (float32, dropout off, 8 x 20 s) with the weights split: metrics,
+     gathered gradients and updated tensors as (b1) holds them, B3/B4/B5
+     47/24/24 a rank a step, each rank's step time and peak memory and
+     gloo's staged bytes; (c) the int8_fused encoder (float32) at model=2,
+     its ids equal to one process's int8_fused, B7 96 times a rank (the
+     column slices: q, k, v and intermediate_dense; the row-parallel
+     layers take the library product); then in this process B1 and
+     B3/B4/B5 at H = 8 (B=8, L=1024, 999 valid keys a row; f32 and bf16)
+     and B7 at the column slices' shapes (1024 -> 512, 1024 -> 2048, M =
+     8192, f32) against their plain versions, timed; (d) `torchrun
+     --nproc_per_node 2 -m fddm_asr_tpu_torch.serve --mesh model=2`
+     (float32, gloo on the card): 16 uploads of 2-20 s one at a time, their
+     served ids equal to this process's pipeline of the same flags on the
+     same padded batches and seeds; SIGINT to rank 0 stops both ranks.
 
 Phases 4 and 7 run at full depth with as many timed runs as before; the
 whole took 656 s of its 1200 s limit on an NVIDIA H100 80GB HBM3 at 700 W,
@@ -510,8 +531,10 @@ def within_tol(err: torch.Tensor, ref: torch.Tensor, dtype) -> torch.Tensor:
     return err / TOL[dtype]
 
 
-def kernel_vs_plain(FA, L: int, dtype, gen, B: int = 8, valid=None) -> dict:
-    H = 16
+def kernel_vs_plain(FA, L: int, dtype, gen, B: int = 8, valid=None, H: int = 16) -> dict:
+    """B1 against its plain version at B x L with H heads (a tensor-parallel
+    rank's H / M among them), timed beside the plain version, a library
+    yardstick and the bound."""
     q, k, v, bias, gate, mask = attention_inputs(B, L, H, dtype, gen, valid=valid)
     out = FA.wavlm_gated_attention_cuda(q, k, v, bias, gate, mask, num_heads=H)
     torch.cuda.synchronize()
@@ -520,7 +543,7 @@ def kernel_vs_plain(FA, L: int, dtype, gen, B: int = 8, valid=None) -> dict:
     del out
     if not torch.isfinite(err).all():
         fail(f"kernel output not finite at B={B} L={L} {dtype}")
-    row = {"B": B, "L": L, "valid": valid, "dtype": str(dtype).replace("torch.", ""),
+    row = {"B": B, "L": L, "H": H, "valid": valid, "dtype": str(dtype).replace("torch.", ""),
            "max_abs_err": err.max().item(), "mean_abs_err": err.mean().item(),
            "tol": TOL[dtype], "max_err_over_tol": within_tol(err, ref, dtype).max().item()}
     if dtype == torch.bfloat16:
@@ -547,7 +570,7 @@ def kernel_vs_plain(FA, L: int, dtype, gen, B: int = 8, valid=None) -> dict:
                                                                     tf32x3=True)
     print(json.dumps({"kernel_vs_plain": row}), flush=True)
     if not row["max_err_over_tol"] <= 1.0:
-        fail(f"kernel disagrees with its plain version at B={B} L={L} {dtype}: {row}")
+        fail(f"kernel disagrees with its plain version at B={B} L={L} H={H} {dtype}: {row}")
     torch.cuda.empty_cache()
     return row
 
@@ -1082,12 +1105,11 @@ def training_bounds(q, bias, gate, mask, H) -> dict:
 
 
 def training_kernels_vs_plain(FA, L: int, dtype, gen, timed: bool, B: int = 8,
-                              valid=None) -> dict:
+                              valid=None, H: int = 16) -> dict:
     """B3, B4, B5 against their plain versions and against autograd of the
-    plain forward, with ragged key masks or `valid` keys in every row;
-    `timed`: each kernel's time beside the plain version's, a library
+    plain forward, with ragged key masks or `valid` keys in every row, at H
+    heads; `timed`: each kernel's time beside the plain version's, a library
     yardstick's and the bound."""
-    H = 16
     q, k, v, bias, gate, mask = attention_inputs(B, L, H, dtype, gen, valid=valid)
     dout = torch.randn(B, L, H * 64, device="cuda", generator=gen).to(dtype)
     wrap = _training_wrappers(FA)
@@ -1111,7 +1133,7 @@ def training_kernels_vs_plain(FA, L: int, dtype, gen, timed: bool, B: int = 8,
         FA.wavlm_gated_attention_plain(*leaves, mask, num_heads=H), leaves, dout)))
     del leaves
 
-    row = {"B": B, "L": L, "valid": valid, "dtype": str(dtype).replace("torch.", ""),
+    row = {"B": B, "L": L, "H": H, "valid": valid, "dtype": str(dtype).replace("torch.", ""),
            "tol_out": TOL[dtype], "tol_lse": LSE_TOL, "tol_bwd_rel": BWD_REL_TOL[dtype],
            "tol_autograd_rel": AUTOGRAD_REL_TOL[dtype], "bwd_dq_deterministic": dq_deterministic,
            "bwd_dkv_deterministic": deterministic, "errors": {}}
@@ -1175,7 +1197,7 @@ def training_kernels_vs_plain(FA, L: int, dtype, gen, timed: bool, B: int = 8,
             row[key].update(bounds)
     print(json.dumps({"training_kernels_vs_plain": row}), flush=True)
     if failures:
-        fail(f"training kernels disagree at B={B} L={L} {dtype}: {failures}")
+        fail(f"training kernels disagree at B={B} L={L} H={H} {dtype}: {failures}")
     torch.cuda.empty_cache()
     return row
 
@@ -3478,19 +3500,25 @@ def parallel_batch():
     return wav, x0
 
 
-def parallel_steps(FA, cfg, mesh) -> dict:
+def parallel_steps(FA, cfg, mesh, tensor: bool = False, lfd=PARALLEL_LFD) -> dict:
     """(b1)'s work on this process's rows of the global batch (all of them
-    without a data axis): PARALLEL_STEPS steps, each one's metrics, time
-    and kernel launches; the first step's gradients (as its optimizer got
-    them, reduced over the mesh) of the watched tensors and the watched
-    tensors after it; the peak memory."""
+    without a data axis): a step for each of `lfd`, each one's metrics,
+    time and kernel launches; the first step's gradients (as its optimizer
+    got them, reduced over the mesh) of the watched tensors and the watched
+    tensors after it; the peak memory.  `tensor`: phase 21 (b), the weights
+    split over the mesh's "model" ranks, the watched tensors gathered whole."""
+    import torch.distributed as dist
+
     from fddm_asr_tpu_torch import train_lib as TL
+    from fddm_asr_tpu_torch.parallel import tensor as T
     from fddm_asr_tpu_torch.pipeline import FDDMPipeline
     from fddm_asr_tpu_torch.tokenizer import load_tokenizer
 
     t0 = time.time()
     pipe = FDDMPipeline.from_config(cfg, tokenizer=load_tokenizer(cfg.data.tokenizer_path),
                                     device=str(torch.device("cuda", torch.cuda.current_device())))
+    if tensor:
+        pipe.enable_tensor_parallel(mesh)
     state = TL.init_train_state(pipe, cfg, generator=torch.Generator(device="cuda").manual_seed(7),
                                 mesh=mesh)
     step = TL.make_train_step(pipe, cfg, train_encoder=True, mesh=mesh)
@@ -3503,6 +3531,15 @@ def parallel_steps(FA, cfg, mesh) -> dict:
     params = dict(pipe.encoder.backbone.named_parameters())
     params.update({f"decoder.{n}": p for n, p in pipe.decoder.named_parameters()})
     watched = {n: params[n] for n in PARALLEL_WATCHED}
+    axes = {n: ax for n, ax in T.sharded_axes(pipe.encoder.backbone).items()}
+    axes.update({f"decoder.{n}": ax for n, ax in T.sharded_axes(pipe.decoder).items()})
+
+    def whole(name, t):
+        """A watched tensor (or its gradient) whole: gathered over "model"."""
+        if name in axes:
+            t = T.gather_tensor(t.detach().contiguous(), axes[name][0], axes[name][1].group)
+        return t.detach().cpu().clone()
+
     out = {"build_s": build_s, "rows": b}
     reduce = state.optimizer.reduce
 
@@ -3513,7 +3550,11 @@ def parallel_steps(FA, cfg, mesh) -> dict:
         if "grads" not in out:
             by_id = {id(p): g for p, g in zip(state.optimizer.params, grads)}
             out["grad_scale"] = max(float(g.abs().max()) for g in grads)
-            out["grads"] = {n: by_id[id(p)].detach().cpu().clone() for n, p in watched.items()}
+            if axes:  # the largest over the slices of every rank
+                top = torch.tensor([out["grad_scale"]], dtype=torch.float64)
+                dist.all_reduce(top, op=dist.ReduceOp.MAX, group=mesh.model_group)
+                out["grad_scale"] = float(top)
+            out["grads"] = {n: whole(n, by_id[id(p)]) for n, p in watched.items()}
         return grads
 
     state.optimizer.reduce = reduce_and_keep
@@ -3521,16 +3562,16 @@ def parallel_steps(FA, cfg, mesh) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     metrics, step_s, launches = [], [], []
-    for i, lfd in enumerate(PARALLEL_LFD):
+    for i, apply_lfd in enumerate(lfd):
         _reset_launches(FA)
         t0 = time.time()
-        m = step(state, wav, x0, lfd, generator=gen)
+        m = step(state, wav, x0, apply_lfd, generator=gen)
         torch.cuda.synchronize()
         step_s.append(time.time() - t0)
         launches.append(_launch_counts(FA))
         metrics.append({k: float(v) for k, v in m.items()})
         if i == 0:
-            out["params"] = {n: p.detach().cpu().clone() for n, p in watched.items()}
+            out["params"] = {n: whole(n, p) for n, p in watched.items()}
     out.update(metrics=metrics, step_s=step_s, launches=launches,
                peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
                lr=max(sched(0) for _, sched in state.optimizer.groups))
@@ -3661,8 +3702,9 @@ def parallel_rank(d: str) -> int:
     """`python3 chip_smoke.py --parallel-rank DIR`: one rank of phase 20
     (b) or (c), joined from FDDM_COORDINATOR / FDDM_NUM_PROCESSES /
     FDDM_PROCESS_ID / FDDM_BACKEND / FDDM_DEVICE (LOCAL_RANK): (b1) on a
-    data=2 mesh, then (b2) on a model=2 mesh of the same two processes;
-    writes DIR/rank<R>.pt.  Prints no result line."""
+    data=2 mesh, then (b2) on a model=2 mesh of the same two processes,
+    then phase 21 (a)-(c) on a model=2 mesh (`tp_checks`); writes
+    DIR/rank<R>.pt.  Prints no result line."""
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from fddm_asr_tpu_torch import parallel as P
     from fddm_asr_tpu_torch.ops import flash_attention as FA
@@ -3682,10 +3724,15 @@ def parallel_rank(d: str) -> int:
                                    P.make_mesh(P.MeshSpec(data=2, model=1), dev))
         out["b1_s"] = time.time() - t0
         t0 = time.time()
-        out["b2"] = ring_checks(FA, P.make_mesh(P.MeshSpec(data=1, model=2), dev),
-                                spec["tokenizer"])
+        ring_mesh = P.make_mesh(P.MeshSpec(data=1, model=2), dev)
+        out["b2"] = ring_checks(FA, ring_mesh, spec["tokenizer"])
         out["b2_s"] = time.time() - t0
         out["staging"] = P.STAGING.as_dict()
+        # phase 21 (a)-(c): the same two processes, the weights split over them
+        t0 = time.time()
+        out["tp"] = tp_checks(FA, P.make_mesh(P.MeshSpec(data=1, model=2), dev),
+                              spec["tokenizer"])
+        out["tp_s"] = time.time() - t0
         torch.save(out, os.path.join(d, f"rank{rank}.pt"))
     finally:
         P.shutdown()
@@ -3805,6 +3852,11 @@ def parallel_full_width(FA, d: str, card: str, cli_c: dict) -> dict:
     torch.cuda.empty_cache()
     ranks, wall = _spawn_ranks(d, "gloo", "b")
     result["b"] = {"wall_s": wall, **_check_ranks("b", ranks, reference, want)}
+    # phase 21's (a)-(c), made by the same processes, and (b)'s reference
+    result["tp_ranks"] = [r.pop("tp") for r in ranks]
+    result["reference"] = reference
+    for i, res in enumerate(ranks):
+        result["b"][f"rank{i}"]["tp_s"] = res["tp_s"]
     print(json.dumps({"parallel_b": result["b"]}), flush=True)
 
     # (b3) the entry points under torchrun, two ranks on the card over gloo
@@ -3882,6 +3934,228 @@ def parallel_entry_points(d: str, root: str, cli_c: dict) -> dict:
     if res["infer_launches_rank0"]["fwd"] == 0:
         fail(f"(b3) rank 0 of the data=2 CLI launched no B1: {res['infer_launches_rank0']}")
     return res
+
+
+# ------------------------------------------- phase 21: tensor parallelism
+# (a)/(c): 8 x 20 s at model=2, the weights split over the two ranks of phase
+# 20 (b); (b): two of phase 20's reference steps; (d): uploads served
+TP_B, TP_SECONDS, TP_SEQ_LEN = 8, 20.0, 128
+TP_LFD = PARALLEL_LFD[:2]
+TP_H = 8  # WavLM-large's 16 heads over model=2
+TP_SERVE_UPLOADS = 16
+
+
+def tp_transcribe(mesh, tokenizer_path: str, dtype: str, wavlm_config=None) -> dict:
+    """Phase 21 (a)/(c): 8 x 20 s through the flagship pipeline of `dtype`
+    (seed 5) at an injected x_init, tensor-parallel on `mesh` or in one
+    process (None): ids, seconds and every wrapper's launches."""
+    from fddm_asr_tpu_torch.pipeline import FDDMPipeline
+    from fddm_asr_tpu_torch.tokenizer import load_tokenizer
+
+    pipe = FDDMPipeline.from_config(flagship_config(tokenizer_path, wavlm_config, dtype),
+                                    tokenizer=load_tokenizer(tokenizer_path), seed=5)
+    if mesh is not None:
+        pipe.apply_mesh(mesh)
+    wav = synthetic_audio(TP_B, TP_SECONDS, seed=211)
+    x_init = torch.randint(0, 8000, (TP_B, TP_SEQ_LEN), device="cuda",
+                           generator=torch.Generator(device="cuda").manual_seed(212))
+    wrappers = port_kernel_wrappers()
+    _reset(wrappers)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    rows = pipe.transcribe_with_ids(wav, seq_len=TP_SEQ_LEN, x_init=x_init, greedy=True)
+    torch.cuda.synchronize()
+    out = {"seconds": time.time() - t0, "launches": _counts_since_reset(wrappers),
+           "ids": [r[1] for r in rows]}
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_checks(FA, mesh, tokenizer_path: str) -> dict:
+    """Phase 21 (a)-(c) on this rank of a model=2 mesh: the float32 and
+    bfloat16 transcriptions and the int8_fused one (float32) tensor
+    parallel; two of phase 20's fine-tune steps with the weights split
+    (`parallel_steps(tensor=True)`); gloo's staged bytes of the phase."""
+    from fddm_asr_tpu_torch import parallel as P
+
+    staged = P.STAGING.as_dict()
+    t0 = time.time()
+    res = {name: tp_transcribe(mesh, tokenizer_path, dtype, wavlm)
+           for name, dtype, wavlm in (("float32", "float32", None),
+                                      ("bfloat16", "bfloat16", None),
+                                      ("int8_fused", "float32", {"quant_dense": "int8_fused"}))}
+    res["transcribe_phase_s"] = time.time() - t0
+    t0 = time.time()
+    res["step"] = parallel_steps(FA, parallel_config(tokenizer_path), mesh, tensor=True,
+                                 lfd=TP_LFD)
+    res["step_phase_s"] = time.time() - t0
+    res["staging"] = {k: v - staged[k] for k, v in P.STAGING.as_dict().items()}
+    return res
+
+
+def _tp_serve(d: str, root: str) -> dict:
+    """Phase 21 (d): `torchrun --nproc_per_node 2 -m fddm_asr_tpu_torch.serve
+    --mesh model=2` (float32, gloo, both ranks on the card) on phase 15's
+    decoder `.pt` and tokenizer with configs/fddm_zhTW_base.yaml's random
+    encoder; TP_SERVE_UPLOADS uploads of 2-20 s one at a time (a batch of
+    one each, batch n at the engine's generator seed n); each served ids
+    against this process's pipeline of the same flags (`serve._live_pipeline`)
+    on the same padded batch and seed; SIGINT to rank 0 sends the stop op,
+    and torchrun must exit 0."""
+    import queue as queue_mod
+    import signal
+    import threading
+
+    from fddm_asr_tpu_torch import CONV_RECEPTIVE_FIELD
+    from fddm_asr_tpu_torch import serve as S
+
+    args = ["--config", os.path.join(root, CLI_MAIN_CONFIG), "--ckpt",
+            os.path.join(d, "decoder.pt"), "--tokenizer", os.path.join(d, "spm_synth.vocab"),
+            "--dtype", "float32"]
+    env = {**os.environ, "FDDM_BACKEND": "gloo", "FDDM_DEVICE": "cuda:0"}
+    rng = np.random.default_rng(213)
+    uploads = [synthetic_audio(1, float(sec), seed=214 + i)[0]
+               for i, sec in enumerate(rng.uniform(2.0, 20.0, TP_SERVE_UPLOADS))]
+    bodies = [_wav_bytes(os.path.join(d, f"tp{i}.wav"), w) for i, w in enumerate(uploads)]
+    err_path = os.path.join(d, "tp_serve.stderr")
+    t0 = time.time()
+    with open(err_path, "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+             "2", "-m", "fddm_asr_tpu_torch.serve", *args, "--mesh", "model=2", "--port", "0"],
+            cwd=root, env=env, stdout=subprocess.PIPE, stderr=err, text=True)
+    lines = queue_mod.Queue()
+    threading.Thread(target=lambda: [lines.put(x) for x in proc.stdout], daemon=True).start()
+    served, ready = [], None
+    try:
+        while ready is None:
+            try:
+                line = lines.get(timeout=max(1.0, 300 - (time.time() - t0)))
+            except queue_mod.Empty:
+                break
+            if line.startswith('{"serving"'):
+                ready = json.loads(line)
+        if ready is not None:
+            ready_s = time.time() - t0
+            t1 = time.time()
+            for body in bodies:
+                status, raw = _http(ready["serving"], "POST", "/v1/transcribe", body,
+                                    {"Content-Type": "audio/wav"})
+                served.append((status, json.loads(raw)))
+            serve_s = time.time() - t1
+            _, health = _http(ready["serving"], "GET", "/healthz")
+            os.kill(ready["pid"], signal.SIGINT)
+    finally:
+        try:
+            rc = proc.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rc = proc.wait()
+    if ready is None or rc != 0 or any(st != 200 for st, _ in served):
+        with open(err_path, encoding="utf-8", errors="replace") as f:
+            fail(f"(d) torchrun serve --mesh model=2: ready {ready}, exit {rc}, statuses "
+                 f"{[st for st, _ in served]}:\n{f.read()[-4000:]}")
+
+    # the same batches in this process, one process's pipeline
+    pipe, sampling, seq_len = S._live_pipeline(S.parse_args([*args, "--device", "cuda"]), None)
+    want = []
+    for i, body in enumerate(bodies):
+        wave = S._decode_wav_bytes(body)  # the samples the server read
+        T = max(-(-len(wave) // 16000) * 16000, CONV_RECEPTIVE_FIELD)
+        batch = np.zeros((1, T), np.float32)
+        batch[0, :len(wave)] = wave
+        rows = pipe.transcribe_with_ids(
+            batch, np.array([max(len(wave), CONV_RECEPTIVE_FIELD)]), seq_len=seq_len,
+            generator=torch.Generator(device="cuda").manual_seed(i + 1), with_confidence=True,
+            **sampling)
+        want.append(rows[0][1])
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    got = [obj["ids"] for _, obj in served]
+    res = {"uploads": len(bodies), "seconds": [round(len(w) / 16000, 2) for w in uploads],
+           "start_to_ready_s": ready_s, "serve_s": serve_s, "exit_code": rc,
+           "healthz_mesh": json.loads(health).get("mesh"),
+           "ids_equal_in_process": got == want,
+           "rows_equal": sum(a == b for a, b in zip(got, want))}
+    if not res["ids_equal_in_process"]:
+        fail(f"(d) served ids differ from the in-process pipeline's: {res}")
+    return res
+
+
+def tensor_parallel_full_width(FA, Q, d: str, card: str, parallel: dict) -> dict:
+    """Phase 21 (module docstring): tensor parallelism at full width.  The
+    ranks' (a)-(c) come from phase 20's two processes (`tp_checks`); here
+    the one-process references, the kernels at a rank's shapes and (d)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    tok = os.path.join(d, "spm_synth.vocab")
+    ranks = parallel["tp_ranks"]
+    t_phase = time.time()
+    result = {"card": card, "batch": f"{TP_B} x {TP_SECONDS:g} s, seq_len {TP_SEQ_LEN}, "
+              "model=2: two ranks share the card over gloo"}
+    one = {name: tp_transcribe(None, tok, dtype, wavlm)
+           for name, dtype, wavlm in (("float32", "float32", None),
+                                      ("bfloat16", "bfloat16", None),
+                                      ("int8_fused", "float32", {"quant_dense": "int8_fused"}))}
+    for r, tp in enumerate(ranks):
+        row = {}
+        for name in ("float32", "bfloat16", "int8_fused"):
+            agree = [a == b for x, y in zip(tp[name]["ids"], one[name]["ids"])
+                     for a, b in zip(x, y)]
+            row[name] = {"ids_equal_one_process": tp[name]["ids"] == one[name]["ids"],
+                         "token_agreement": sum(agree) / len(agree),
+                         "seconds": tp[name]["seconds"],
+                         "one_process_seconds": one[name]["seconds"],
+                         "launches": tp[name]["launches"],
+                         "one_process_launches": one[name]["launches"]}
+        agreement = _step_agreement(tp["step"], parallel["reference"])
+        row["step"] = {"vs_one_rank": agreement, "step_s": tp["step"]["step_s"],
+                       "one_rank_step_s": parallel["reference"]["step_s"][:len(TP_LFD)],
+                       "peak_mem_gb": tp["step"]["peak_mem_gb"],
+                       "one_rank_peak_mem_gb": parallel["reference"]["peak_mem_gb"],
+                       "launches": tp["step"]["launches"],
+                       "losses": [m["total_loss"] for m in tp["step"]["metrics"]]}
+        row.update(staging=tp["staging"], transcribe_phase_s=tp["transcribe_phase_s"],
+                   step_phase_s=tp["step_phase_s"])
+        result[f"rank{r}"] = row
+        if not (row["float32"]["ids_equal_one_process"]
+                and row["int8_fused"]["ids_equal_one_process"]):
+            fail(f"(a)/(c) rank {r}'s tensor-parallel ids differ from one process's: {row}")
+        if not agreement["ok"]:
+            fail(f"(b) rank {r}'s tensor-parallel steps disagree with one rank's: {agreement}")
+        for name in ("float32", "int8_fused"):
+            if row[name]["launches"]["fwd"] != 24:
+                fail(f"(a) rank {r} launched B1 {row[name]['launches']['fwd']} times, not 24")
+        fused = row["int8_fused"]["launches"]["int8_matmul_fused"]
+        if fused != 4 * 24:  # q, k, v, intermediate_dense: the column slices
+            fail(f"(c) rank {r} launched B7 {fused} times, not 96 (the column slices)")
+        want = {"fwd_lse": 47, "bwd_dq": 24, "bwd_dkv": 24}
+        if any({k: c[k] for k in want} != want for c in tp["step"]["launches"]):
+            fail(f"(b) rank {r} launched {tp['step']['launches']}, expected {want} a step")
+    print(json.dumps({"tensor_parallel_ab": result}), flush=True)
+
+    # the kernels at a rank's shapes: B1 and B3/B4/B5 at H = 8, B7 on column slices
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    frames = 999  # a 20 s utterance's frames, padded to 1024
+    result["kernels_h8"] = {
+        "b1": {str(dt).replace("torch.", ""): kernel_vs_plain(FA, 1024, dt, gen, B=TP_B,
+                                                              valid=frames, H=TP_H)
+               for dt in (torch.float32, torch.bfloat16)},
+        "training": {str(dt).replace("torch.", ""): training_kernels_vs_plain(
+            FA, 1024, dt, gen, timed=True, B=TP_B, valid=frames, H=TP_H)
+            for dt in (torch.float32, torch.bfloat16)}}
+    result["b7_column_slices"] = {
+        f"{din}x{dout}": int8_matmul_vs_plain(Q, TP_B * 1024, din, dout, torch.float32, True,
+                                               gen, timed=True)
+        for din, dout in ((1024, 512), (1024, 2048))}
+    torch.cuda.empty_cache()
+
+    result["d"] = _tp_serve(d, root)
+    result["phase_s"] = time.time() - t_phase
+    print(json.dumps({"tensor_parallel_d": result["d"]}), flush=True)
+    return result
 
 
 def b7_times(root: str) -> int:
@@ -4196,6 +4470,8 @@ def main() -> int:
         recipe = train_recipe_full_width(tmp, card, finetune, trained)
         # phase 20: several GPUs (one card: two ranks share it over gloo)
         parallel = parallel_full_width(FA, tmp, card, trained["cli_c"])
+        # phase 21: tensor parallelism (phase 20's two ranks, then the server)
+        tensor_parallel = tensor_parallel_full_width(FA, Q, tmp, card, parallel)
 
     main_row = rows[(1024, torch.bfloat16)]  # the transcribe's shape and type
     kernels = [{
@@ -4230,7 +4506,16 @@ def main() -> int:
             "parallel_ring_one_rank_reference": parallel["b"]["rank0"]["ring"][
                 "transcribe_float32_one_rank_launches"]["fwd"],
             "parallel_ring_transcribe": parallel["b"]["rank0"]["ring"][
-                "transcribe_float32_ring_launches"]["fwd"]},
+                "transcribe_float32_ring_launches"]["fwd"],
+            # phase 21: a rank's transcribe at model=2 (H = 8 heads a launch)
+            "tensor_parallel_transcribe_per_rank": tensor_parallel["rank0"]["float32"][
+                "launches"]["fwd"],
+            "tensor_parallel_int8_fused_per_rank": tensor_parallel["rank0"]["int8_fused"][
+                "launches"]["fwd"]},
+        # phase 21: B1 at a model=2 rank's heads, B=8 L=1024, 999 valid keys a row
+        "tensor_parallel_H8": [{k: tensor_parallel["kernels_h8"]["b1"][dt].get(k) for k in (
+            "B", "L", "H", "valid", "dtype", "max_abs_err", "ms", "plain_ms", "library_ms",
+            "bound_ms", "bound_by", "bound_tc_ms")} for dt in ("float32", "bfloat16")],
         "cli_c_100s_whole_file_L5120": {
             **{k: cli_runs["c_100s_whole_file"][k] for k in (
                 "attention_L", "gated_attention_device_ms", "gated_attention_ms_per_launch")},
@@ -4280,7 +4565,15 @@ def main() -> int:
                                  "parallel_nccl_world1_step":
                                      parallel["a"]["launches_per_step"][key],
                                  "parallel_dp2_step_per_rank":
-                                     parallel["b"]["rank0"]["launches_per_step"][key]},
+                                     parallel["b"]["rank0"]["launches_per_step"][key],
+                                 # phase 21: a rank's step at model=2 (H = 8)
+                                 "tensor_parallel_step_per_rank":
+                                     tensor_parallel["rank0"]["step"]["launches"][1][key]},
+            # phase 21: at a model=2 rank's heads, B=8 L=1024, 999 valid keys a row
+            "tensor_parallel_H8": {dt: {"H": TP_H, **{
+                k: tensor_parallel["kernels_h8"]["training"][dt][key].get(k) for k in (
+                    "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                    "bound_tc_ms")}} for dt in ("float32", "bfloat16")},
             # phase 5's float32 row at B=8, L=1024, ragged masks
             "float32_L1024": {"kernels": F32_TRAINING_KERNELS[key], **{
                 k: f32_train_rows[key].get(k) for k in (
@@ -4308,7 +4601,15 @@ def main() -> int:
         "launches": quantized["launches"]["int8_matmul_fused"],
         "launches_by_path": {
             "transcribe_int8_fused": quantized["launches"]["int8_matmul_fused"],
-            "exported_int8_fused": exported["int8_fused"]["launches"]["int8_matmul_fused"]},
+            "exported_int8_fused": exported["int8_fused"]["launches"]["int8_matmul_fused"],
+            # phase 21: a model=2 rank launches it on its column slices only
+            "tensor_parallel_int8_fused_per_rank": tensor_parallel["rank0"]["int8_fused"][
+                "launches"]["int8_matmul_fused"]},
+        # phase 21: the column slices of a model=2 rank (q: 512, FFN: 2048 outputs), f32
+        "tensor_parallel_column_slices": [{k: row[k] for k in (
+            "M", "din", "dout", "dtype", "max_abs_err", "ms", "device_ms", "plain_ms",
+            "library_ms", "bound_ms", "bound_by")}
+            for row in tensor_parallel["b7_column_slices"].values()],
         "max_abs_err": ffn["max_abs_err"], "ms": ffn["ms"], "plain_ms": ffn["plain_ms"],
         "bound_ms": ffn["bound_ms"], "bound_by": ffn["bound_by"],
         "library_ms": ffn["library_ms"],

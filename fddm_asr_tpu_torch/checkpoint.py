@@ -35,7 +35,10 @@ save waits for it, and `AsyncWriter.wait` waits too, raising in the
 caller's thread when a write failed.
 
 In a process group (`parallel/`) only the primary rank writes, and every
-rank reads the same files.
+rank reads the same files.  Under tensor parallelism every rank first
+gathers the full tensors of its slices (parameters, moments, EMA,
+accumulated gradients) over "model", so the files are one process's, and
+`restore_state` cuts a rank's slices out of them.
 
 `restore_state` migrates the EMA: a checkpoint without one seeds a run with
 an EMA from the restored weights, and a run without one drops the
@@ -48,7 +51,7 @@ import logging
 import os
 import threading
 import time
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -62,16 +65,39 @@ def _host(t: torch.Tensor) -> torch.Tensor:
     return t.detach().to("cpu", copy=True)
 
 
+def _by_name(state: TrainState, full: bool) -> Callable[[str, str, torch.Tensor], torch.Tensor]:
+    """fn(module key, parameter name, tensor) -> the tensor whole (`full`, a
+    collective over "model" for a tensor-parallel slice) or cut to this
+    rank's slice (a full tensor of a checkpoint); the tensor itself for
+    what is not sliced."""
+    from fddm_asr_tpu_torch.parallel import tensor as T
+
+    axes = {key: T.sharded_axes(m) for key, m in zip(MODULE_KEYS, state.trained_modules())}
+
+    def fn(key: str, name: str, t: torch.Tensor) -> torch.Tensor:
+        ax = axes.get(key, {}).get(name)
+        if ax is None:
+            return t
+        axis, shard = ax
+        if full:
+            return T.gather_tensor(t.detach(), axis, shard.group)
+        return T.local_tensor(t, axis, shard.rank, shard.size)
+
+    return fn
+
+
 def module_state_dicts(state: TrainState, use_ema: bool) -> Dict[str, Dict[str, torch.Tensor]]:
     """Host state_dicts of the trained modules by MODULE_KEYS (the encoder's
     only when it trains), with the EMA in place of the trained parameters
-    when `use_ema` and the state has one."""
-    out = {key: {n: _host(v) for n, v in m.state_dict().items()}
+    when `use_ema` and the state has one; tensor-parallel slices gathered
+    whole (every rank of a "model" group calls it)."""
+    full = _by_name(state, full=True)
+    out = {key: {n: _host(full(key, n, v)) for n, v in m.state_dict().items()}
            for key, m in zip(MODULE_KEYS, state.trained_modules())}
     if use_ema and state.ema is not None:
         for (key, name), e in zip(state.param_names(), state.ema):
             if key in out:  # as float32 when the EMA is kept in bfloat16
-                out[key][name] = _host(e).to(out[key][name].dtype)
+                out[key][name] = _host(full(key, name, e)).to(out[key][name].dtype)
     return out
 
 
@@ -143,29 +169,43 @@ def save_ckpt(prefix: str, state: TrainState, epoch: int, raw_cfg: Optional[dict
     seconds by name (complete once `writer.wait()` returns).  `extra_meta`
     joins the sidecar (a LoRA run's lora_rank and lora_alpha).  In a
     process group only the primary rank writes; the others return {} (every
-    rank holds the same state, and every rank reads the files back)."""
+    rank holds the same state, or its slices of it, and every rank reads the
+    files back); under tensor parallelism every rank must call it."""
+    from fddm_asr_tpu_torch.parallel.tensor import is_sharded
+
+    # every rank of a tensor-parallel group gathers its slices (collectives),
+    # then the primary alone writes
+    if not is_primary() and not any(is_sharded(m) for m in state.trained_modules()):
+        return {}
+    optimizer = state.optimizer
+    full = _by_name(state, full=True)
+    names = state.param_names()
+
+    def whole(tensors) -> List[torch.Tensor]:
+        return [_host(full(key, name, t)) for (key, name), t in zip(names, tensors)]
+
+    raw = module_state_dicts(state, use_ema=False)
+    mu, nu = whole(optimizer.mu), whole(optimizer.nu)
+    acc = None if optimizer.acc is None else whole(optimizer.acc)
+    ema = None if state.ema is None else whole(state.ema)
+    exported = module_state_dicts(state, use_ema=ema_export) if ema_export else raw
     if not is_primary():
         return {}
     if writer is not None:
         writer.wait()  # one save at a time, in order
     files: Dict[str, Dict[str, float]] = {}
     jobs: List[Tuple[Any, str]] = []
-    optimizer = state.optimizer
     groups, start = [], 0
     for params, _ in optimizer.groups:
         stop = start + len(params)
-        groups.append({"mu": [_host(t) for t in optimizer.mu[start:stop]],
-                       "nu": [_host(t) for t in optimizer.nu[start:stop]],
-                       "count": optimizer.count})
+        groups.append({"mu": mu[start:stop], "nu": nu[start:stop], "count": optimizer.count})
         start = stop
-    raw = module_state_dicts(state, use_ema=False)
     jobs.append(({
         "modules": {key: raw.get(key) for key in MODULE_KEYS},
         "lora": None if state.lora is None else _host_adapters(state.lora),
         "optimizer": {"groups": groups, "notfinite_count": optimizer.notfinite_count,
-                      "mini_step": optimizer.mini_step,
-                      "acc": None if optimizer.acc is None else [_host(t) for t in optimizer.acc]},
-        "ema": None if state.ema is None else [_host(e) for e in state.ema],
+                      "mini_step": optimizer.mini_step, "acc": acc},
+        "ema": ema,
         "step": state.step, "epoch": epoch,
         "best_val_cer": float("inf") if best_val_cer is None else float(best_val_cer),
         "config": raw_cfg,
@@ -177,7 +217,6 @@ def save_ckpt(prefix: str, state: TrainState, epoch: int, raw_cfg: Optional[dict
     meta.update(extra_meta or {})
     with open(prefix + ".meta.json", "w", encoding="utf-8") as f:
         json.dump(meta, f, indent=1)
-    exported = module_state_dicts(state, use_ema=ema_export) if ema_export else raw
     if export_pt:
         ckpt = {"decoder": exported["decoder"], "epoch": epoch, "step": state.step,
                 "config": raw_cfg, "s_proj": exported["s_proj"],
@@ -235,8 +274,19 @@ def restore_state(state: TrainState, blob: Dict[str, Any]) -> Tuple[int, float]:
         trained = "trains" if lora is not None else "does not train"
         raise ValueError(f"the checkpoint's run {trained} LoRA adapters and this run does not "
                          "(model.encoder.lora_rank)")
+    from fddm_asr_tpu_torch.parallel.tensor import local_state
+
     for key, m in zip(MODULE_KEYS, state.trained_modules()):
-        m.load_state_dict(modules[key], strict=True)
+        m.load_state_dict(local_state(m, modules[key]), strict=True)
+    local = _by_name(state, full=False)
+    names = state.param_names()
+
+    def mine(tensors: List[torch.Tensor]) -> List[torch.Tensor]:
+        """A checkpoint's full tensors cut to this rank's slices."""
+        if len(tensors) != len(names):
+            return tensors  # _copy_into names the mismatch
+        return [local(key, name, t) for (key, name), t in zip(names, tensors)]
+
     if lora is not None:
         if set(lora) != set(state.lora):
             raise ValueError("the checkpoint's LoRA adapters are on other layers than this "
@@ -249,8 +299,8 @@ def restore_state(state: TrainState, blob: Dict[str, Any]) -> Tuple[int, float]:
     if len(groups) != len(optimizer.groups):
         raise ValueError(f"the checkpoint's optimizer has {len(groups)} groups, this run "
                          f"{len(optimizer.groups)}")
-    _copy_into(optimizer.mu, [t for g in groups for t in g["mu"]], "first moments")
-    _copy_into(optimizer.nu, [t for g in groups for t in g["nu"]], "second moments")
+    _copy_into(optimizer.mu, mine([t for g in groups for t in g["mu"]]), "first moments")
+    _copy_into(optimizer.nu, mine([t for g in groups for t in g["nu"]]), "second moments")
     if len({g["count"] for g in groups}) != 1:
         raise ValueError("the checkpoint's optimizer groups have different counts")
     optimizer.count = int(groups[0]["count"])
@@ -260,12 +310,12 @@ def restore_state(state: TrainState, blob: Dict[str, Any]) -> Tuple[int, float]:
         raise ValueError("the checkpoint's run accumulates gradients and this run does not, "
                          "or the other way round (optim.grad_accum_steps)")
     if acc is not None:
-        _copy_into(optimizer.acc, acc, "accumulated gradients")
+        _copy_into(optimizer.acc, mine(acc), "accumulated gradients")
         optimizer.mini_step = int(blob["optimizer"]["mini_step"])
     state.step = int(blob["step"])
     if state.ema is not None:
         if blob["ema"] is None:  # the checkpoint ran without an EMA: seed it
             _copy_into(state.ema, [p.detach() for p in optimizer.params], "parameters")
         else:
-            _copy_into(state.ema, blob["ema"], "EMA")
+            _copy_into(state.ema, mine(blob["ema"]), "EMA")
     return int(blob["epoch"]), float(blob["best_val_cer"])

@@ -24,8 +24,8 @@ on (CUDA unless `--device cpu`).  Where the JAX flags name TPU machinery:
     loads the artifact, so the extra batch sizes become ordinary buckets;
   * `--platforms` may name only the device the programs are traced on
     (cuda or cpu); anything else raises;
-  * `--mesh` and `--seq-parallel` raise: sharded artifacts are not
-    ported (ROADMAP A7 part 2).
+  * `--mesh` and `--seq-parallel` raise: sharded artifacts (programs with
+    collectives inside a CUDA graph) are not ported (ROADMAP A7 part 3).
 
 Prints one JSON summary line on success; the seconds each program took to
 trace are in the artifact's meta.json (`export_seconds`).
@@ -88,9 +88,9 @@ def parse_args(argv=None):
     p.add_argument("--native-batch-sizes", type=str, default="",
                    help="extra batch buckets (e.g. '32'), exported like the others")
     p.add_argument("--mesh", type=str, default="",
-                   help="sharded programs: not ported (raises, ROADMAP A7 part 2)")
+                   help="sharded programs: not ported (raises, ROADMAP A7 part 3)")
     p.add_argument("--seq-parallel", action="store_true",
-                   help="ring-attention sequence parallelism: not ported (raises, ROADMAP A7 part 2)")
+                   help="ring-attention sequence parallelism: not ported (raises, ROADMAP A7 part 3)")
     return p.parse_args(argv)
 
 
@@ -107,7 +107,8 @@ def main(argv=None):
     args = parse_args(argv)
     if args.mesh or args.seq_parallel:
         raise SystemExit("--mesh / --seq-parallel: sharded export is not ported yet "
-                         "(ROADMAP A7 part 2)")
+                         "(ROADMAP A7 part 3); serve the live pipeline over a mesh instead "
+                         "(python -m fddm_asr_tpu_torch.serve --mesh ... under torchrun)")
     platforms = [s for s in args.platforms.split(",") if s]
     if any(p not in ("cuda", "cpu") for p in platforms):
         raise SystemExit(f"--platforms {args.platforms}: the programs run on cuda or cpu, "

@@ -11,6 +11,8 @@
 
     torchrun --nproc_per_node 4 -m fddm_asr_tpu_torch.inference --csv test.csv ... \
         --mesh data=2,model=2 --seq-parallel
+    torchrun --nproc_per_node 2 -m fddm_asr_tpu_torch.inference --csv test.csv ... \
+        --mesh model=2
 
 Counterpart of the repository's `inference.py`: the same flags with the same
 defaults and the same result JSON, {wav, text, ids, T_infer, r, greedy,
@@ -26,11 +28,12 @@ it for every CSV batch and every batch of windows.
 Several GPUs (one process each, under torchrun or FDDM_COORDINATOR /
 FDDM_NUM_PROCESSES / FDDM_PROCESS_ID): `--mesh data=D,model=M` splits each
 batch's rows over D ranks (`FDDMPipeline.apply_mesh`; under a mesh a batch's
-rows pad to `--batch-size`, as the JAX CLI pads them), and `--seq-parallel`
-each utterance's encoder frames over M ranks (a long `--wav` over the ring).
-Every rank reads the inputs; the primary rank alone prints and writes the
-results, the same as one process's.  M > 1 without `--seq-parallel` is
-tensor parallelism, not ported, and raises.
+rows pad to `--batch-size`, as the JAX CLI pads them), and over M ranks
+either each utterance's encoder frames (`--seq-parallel`: a long `--wav`
+over the ring) or, without it, the weights of the attention heads, the FFNs
+and the vocabulary (tensor parallelism, `parallel/tensor.py`).  Every rank
+reads the inputs; the primary rank alone prints and writes the results, the
+same as one process's.
 """
 from __future__ import annotations
 
@@ -306,8 +309,6 @@ def join_mesh(args):
     if not (args.mesh or args.seq_parallel):
         return None
     spec = P.parse_mesh(args.mesh)
-    if spec.model > 1 and not args.seq_parallel:
-        raise NotImplementedError(P.TENSOR_PARALLEL_NOT_PORTED)
     dist_cfg = P.DistributedConfig.from_env()
     P.initialize(dist_cfg, device=args.device)
     dev = dist_cfg.rank_device(args.device)

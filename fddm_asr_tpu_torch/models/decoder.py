@@ -33,6 +33,14 @@ separate denses would be.  The time MLP, `time_proj` and FiLM stay full
 precision; "int8_fused" raises, as in the JAX decoder.  Parameters and
 checkpoints are unchanged.
 
+Tensor parallel (`parallel/tensor.shard_module`): each attention holds its
+rank's heads (their q, k and v rows of `in_proj_weight`, their columns of
+`out_proj`, whose sum over "model" takes the bias once), the FFN its
+columns of `ff.0` and rows of `ff.3`, `tok_emb` its id range and `head` its
+vocabulary columns, whose logits are gathered whole before they leave the
+module.  FiLM, the time MLP, `time_proj`, the norms and positions stay
+whole.
+
 `remat_blocks` (model.remat_blocks) recomputes each block in the backward
 of a training forward (torch.utils.checkpoint; dropout draws the same
 masks again).  As in the JAX decoder it needs `scan_blocks`, the JAX
@@ -53,6 +61,8 @@ from torch.utils.checkpoint import checkpoint
 from fddm_asr_tpu_torch.models.wavlm import _layer_norm, _linear
 from fddm_asr_tpu_torch.ops.attention import dot_product_attention
 from fddm_asr_tpu_torch.ops.quant import quantized_linear
+from fddm_asr_tpu_torch.parallel.tensor import (copy_to_model, gather_from_model,
+                                                reduce_from_model)
 
 _LN_EPS = 1e-6
 
@@ -157,8 +167,19 @@ class MultiheadAttention(nn.Module):
         nn.init.xavier_uniform_(self.in_proj_weight)
 
     def forward(self, query, key, value, key_mask, dtype):
-        B, Lq, d = query.shape
+        B, Lq, _ = query.shape
         Lk = key.shape[1]
+        # tensor parallel (`parallel/tensor.py`): this rank's heads, the rows
+        # of their q, k and v in the packed in_proj, summed by out_proj
+        unit = self.__dict__.get("_tp_unit")
+        nhead = self.nhead // unit.size if unit is not None else self.nhead
+        if unit is not None:  # each distinct input once
+            copies = {}
+            for x in (query, key, value):
+                if id(x) not in copies:
+                    copies[id(x)] = copy_to_model(x, unit)
+            query, key, value = (copies[id(x)] for x in (query, key, value))
+        d = self.in_proj_weight.shape[0] // 3
         if self.quant_dense != "none":
             q, k, v = (quantized_linear(
                 self.quant_dense, self._int8_cache, name, x.to(dtype), self.in_proj_weight,
@@ -170,9 +191,9 @@ class MultiheadAttention(nn.Module):
             q = F.linear(query.to(dtype), w[:d], b[:d])
             k = F.linear(key.to(dtype), w[d:2 * d], b[d:2 * d])
             v = F.linear(value.to(dtype), w[2 * d:], b[2 * d:])
-        q = q.reshape(B, Lq, self.nhead, -1)
-        k = k.reshape(B, Lk, self.nhead, -1)
-        v = v.reshape(B, Lk, self.nhead, -1)
+        q = q.reshape(B, Lq, nhead, -1)
+        k = k.reshape(B, Lk, nhead, -1)
+        v = v.reshape(B, Lk, nhead, -1)
         out = dot_product_attention(q, k, v, key_mask=key_mask,
                                     dropout_p=self.dropout if self.training else 0.0)
         out = out.reshape(B, Lq, d)
@@ -211,7 +232,8 @@ class DecoderBlock(nn.Module):
                         dtype)
         if hasattr(self, "film_layer"):
             x = self.film_layer(x, masked_mean_pool(cond, c_mask), dtype)
-        h = drop(F.gelu(_linear(self.ff[0], x, dtype, self.quant_dense)))
+        h = copy_to_model(x, self.ff.__dict__.get("_tp_unit"))
+        h = drop(F.gelu(_linear(self.ff[0], h, dtype, self.quant_dense)))
         h = _linear(self.ff[3], h, dtype, self.quant_dense)
         return _layer_norm(self.norm3, x + drop(h), dtype)
 
@@ -263,7 +285,15 @@ class DenoisingTransformerDecoder(nn.Module):
         dtype = self.dtype
         B, L = xt.shape
         cond = cond.to(dtype)
-        x = F.embedding(xt, self.tok_emb.weight.to(dtype))
+        vocab = self.tok_emb.__dict__.get("_tp")
+        if vocab is None:
+            x = F.embedding(xt, self.tok_emb.weight.to(dtype))
+        else:  # this rank's id range, zeros elsewhere, summed over "model"
+            n = self.tok_emb.weight.shape[0]
+            local = xt - vocab.rank * n
+            mine = (local >= 0) & (local < n)
+            x = F.embedding(local.clamp(0, n - 1), self.tok_emb.weight.to(dtype))
+            x = reduce_from_model(x * mine[..., None].to(dtype), vocab)
         # the pad row reads as zero whatever the table holds
         x = x * (xt != self.pad_id)[..., None].to(dtype)
 
@@ -291,4 +321,8 @@ class DenoisingTransformerDecoder(nn.Module):
                                use_reentrant=False)
             else:
                 x = block(x, cond, x_mask, c_mask, rope_cos, rope_sin, dtype)
-        return _linear(self.head, x.float(), torch.float32, self.quant_dense)
+        head = self.head.__dict__.get("_tp")
+        x = copy_to_model(x.float(), head)
+        # vocabulary-parallel head: the logits gathered whole for the loss and
+        # the sampler's posterior
+        return gather_from_model(_linear(self.head, x, torch.float32, self.quant_dense), head)

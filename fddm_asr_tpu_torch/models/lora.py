@@ -32,7 +32,10 @@ Three ways to use a merge:
   * `merged_into(module, adapters, scale)`: W_eff written into the
     parameters in place, the base put back on exit (evaluation).
 Neither may run inside an `installed` block (`check_not_installed`): a
-W_eff left in place would shadow the weights they write.
+W_eff left in place would shadow the weights they write.  Under tensor
+parallelism the adapters stay whole on every rank and both merges take
+the rank's slice of (A B)^T (`parallel.tensor.lora_slices`): the rows of a
+column-parallel layer, the columns of a row-parallel one.
 
 Init follows the LoRA paper, as in the JAX package: A ~ N(0, 1/r), B = 0,
 so the merged model is exactly the base at step 0.  `init_lora` draws A
@@ -49,6 +52,8 @@ from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
 from torch import nn
+
+from fddm_asr_tpu_torch.parallel.tensor import full_shape, lora_slices
 
 __all__ = ["DEFAULT_TARGETS", "LORA_WEIGHT", "EncoderAdapters", "resolve_scale", "jax_path",
            "targeted_linears", "init_lora", "merge_lora", "lora_param_count", "adapter_rank",
@@ -121,7 +126,7 @@ def init_lora(module: nn.Module, rank: int, targets: str = DEFAULT_TARGETS,
         raise ValueError(f"lora rank must be positive, got {rank}")
     adapters: Adapters = {}
     for name, layer in targeted_linears(module, targets):
-        d_out, d_in = layer.weight.shape
+        d_out, d_in = full_shape(layer)  # whole on every rank of a tensor-parallel layer
         dev = layer.weight.device
         a = torch.randn(d_in, rank, generator=generator, device=dev) / math.sqrt(rank)
         adapters[name] = {"a": a, "b": torch.zeros(rank, d_out, device=dev)}
@@ -198,7 +203,9 @@ def installed(module: nn.Module, adapters: Adapters, scale: float):
     check_not_installed(module, "lora.installed")
     try:
         for layer, ad in _layers(module, adapters):
-            layer.__dict__[LORA_WEIGHT] = merged_weight(layer.weight, ad["a"], ad["b"], scale)
+            layer.__dict__[LORA_WEIGHT] = merged_weight(layer.weight,
+                                                        *lora_slices(layer, ad["a"], ad["b"]),
+                                                        scale)
         yield
     finally:
         for m in module.modules():
@@ -218,7 +225,8 @@ def merged_into(module: nn.Module, adapters: Adapters, scale: float):
             for layer, ad in _layers(module, adapters):
                 base = layer.weight.detach().clone()
                 saved.append((layer, base))
-                layer.weight.copy_(merged_weight(base, ad["a"], ad["b"], scale))
+                layer.weight.copy_(merged_weight(base, *lora_slices(layer, ad["a"], ad["b"]),
+                                                 scale))
         yield
     finally:
         with torch.no_grad():

@@ -50,6 +50,15 @@ Sequence parallelism (`WavLMModel.set_ring`, the JAX package's
 rank's block of frames, each attention a ring over the group (`Encoder`);
 in training it raises on attention dropout, as in the JAX package.
 
+Tensor parallelism (`parallel/tensor.shard_module`): an attention holds its
+rank's H / M heads (their q/k/v columns and `out_proj` rows, whose sum over
+"model" takes the bias once); its gate applies `gru_rel_pos_linear` to
+those heads' slices of x with their `gru_rel_pos_const`, layer 0 embeds
+the position bias for them alone, and the kernels run at H / M heads; the
+FFN holds its columns of `intermediate_dense` and rows of `output_dense`.
+The front-end, the positional conv, the feature projection and the norms
+stay whole.
+
 Inference options, as in the JAX package (both raise where autograd records):
   * `quant_dense` "int8" | "int8_fused" runs the q/k/v/out projections and
     the two FFN denses of every layer through dynamic int8 (`ops/quant.py`:
@@ -88,7 +97,8 @@ from fddm_asr_tpu_torch.ops.flash_attention import (
     wavlm_gated_attention_heads_packed,
     wavlm_gated_attention_heads_packed_trainable,
 )
-from fddm_asr_tpu_torch.ops.quant import quantized_linear
+from fddm_asr_tpu_torch.ops.quant import quantized_linear, quantized_linear_row_parallel
+from fddm_asr_tpu_torch.parallel.tensor import ROW, copy_to_model, reduce_from_model
 
 QUANT_MODES = ("none", "int8", "int8_fused")
 
@@ -197,16 +207,27 @@ def _linear(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype,
     """`layer(x)` in `dtype`; with `quant` "int8" or "int8_fused" through
     dynamic int8 (`ops/quant.py`), the quantized weight kept on the layer.
     Inside a `lora.installed` block its merged LoRA weight stands in for
-    `weight`."""
+    `weight`.  A row-parallel layer (`parallel/tensor.py`) takes this rank's
+    input features and sums its partial product over "model", then adds the
+    bias once."""
     weight = layer.__dict__.get(LORA_WEIGHT, layer.weight)
+    row = layer.__dict__.get("_tp")
+    if row is not None and row.axis != ROW:
+        row = None
     if quant != "none":
         if weight is not layer.weight:
             raise ValueError("quant_dense is for inference: a layer training LoRA adapters "
                              "runs full precision")
         cache = layer.__dict__.setdefault("_int8_cache", {})
+        if row is not None:
+            return quantized_linear_row_parallel(cache, "weight", x.to(dtype), layer.weight,
+                                                 layer.bias, dtype, row.group)
         return quantized_linear(quant, cache, "weight", x.to(dtype), layer.weight, layer.bias,
                                 dtype)
     bias = None if layer.bias is None else layer.bias.to(dtype)
+    if row is not None:
+        y = reduce_from_model(F.linear(x.to(dtype), weight.to(dtype)), row)
+        return y if bias is None else y + bias
     return F.linear(x.to(dtype), weight.to(dtype), bias)
 
 
@@ -397,11 +418,15 @@ class GatedRelPosAttention(nn.Module):
         return table
 
     def position_bias(self, L: int, dtype: torch.dtype,
-                      rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+                      rows: Optional[Tuple[int, int]] = None,
+                      heads: Optional[Tuple[int, int]] = None) -> torch.Tensor:
         """[H, L, L]: head h's embedding of bucket(k - q) at (q, k), gathered
         on the device from the [2L - 1] table, (k - q) + L - 1 its index.
-        `rows` (first, count): only those query rows, [H, count, L]."""
+        `rows` (first, count): only those query rows, [H, count, L];
+        `heads` (first, count): only those heads."""
         weight = self.rel_attn_embed.weight
+        if heads is not None:
+            weight = weight[:, heads[0]:heads[0] + heads[1]]
         values = F.embedding(self.relative_buckets(L, weight.device), weight.to(dtype))
         pos = torch.arange(L, device=weight.device)
         qpos = pos if rows is None else pos[rows[0]:rows[0] + rows[1]]
@@ -415,15 +440,27 @@ class GatedRelPosAttention(nn.Module):
         cfg = self.cfg
         B, L, _ = x.shape
         H = cfg.num_attention_heads
+        # tensor parallel (`parallel/tensor.py`): this rank's H / M heads
+        # [h0, h0 + H): their q/k/v columns, gates and position bias
+        unit = self.__dict__.get("_tp_unit")
+        h0 = 0
+        if unit is not None:
+            x = copy_to_model(x, unit)
+            H //= unit.size
+            h0 = unit.rank * H
         if position_bias is None:
             if not hasattr(self, "rel_attn_embed"):
                 raise ValueError("first layer must own rel_attn_embed")
-            position_bias = self.position_bias(L, dtype)
+            position_bias = self.position_bias(L, dtype,
+                                               heads=None if unit is None else (h0, H))
 
         # gate from the pre-projection hidden states, in the [B, L, H, dh] view
-        rel = _linear(self.gru_rel_pos_linear, x.reshape(B, L, H, -1), dtype)
+        xh = x.reshape(B, L, cfg.num_attention_heads, -1)
+        if unit is not None:
+            xh = xh[:, :, h0:h0 + H]
+        rel = _linear(self.gru_rel_pos_linear, xh, dtype)
         gates = torch.sigmoid(rel.reshape(B, L, H, 2, 4).sum(-1))  # [B, L, H, 2]
-        const = self.gru_rel_pos_const[0, :, 0, 0]
+        const = self.gru_rel_pos_const[0, h0:h0 + H, 0, 0]
         gate = gates[..., 0] * (gates[..., 1] * const - 1.0) + 2.0  # f32 [B, L, H]
         gate = gate.float().transpose(1, 2).contiguous()             # [B, H, L]
 
@@ -469,6 +506,7 @@ class FeedForward(nn.Module):
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         cfg = self.cfg
+        x = copy_to_model(x, self.__dict__.get("_tp_unit"))  # tensor parallel: its columns
         h = _gelu(_linear(self.intermediate_dense, x, dtype, cfg.quant_dense),
                   cfg.gelu_approx_tanh)
         h = F.dropout(h, cfg.activation_dropout, self.training)

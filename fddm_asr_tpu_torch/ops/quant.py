@@ -27,6 +27,13 @@ package's [din, dout] kernel and exists for that comparison.)
     row quantization in plain torch, then an exact integer product (on the
     card the library's `torch._int_mm`), then the f32 epilogue.
 
+Under tensor parallelism a column-parallel layer quantizes as in one
+process (its input is whole, its scales per output channel) and launches
+the fused kernel on its column slice; a row-parallel one takes
+`quantized_linear_row_parallel` (maxima over "model" for both scales, int32
+partial products summed over "model", the epilogue once), through the
+library's product under "int8" and "int8_fused" alike.
+
 Weight quantization happens outside the kernel, in plain torch, as in the
 JAX package; `quantized_weight` keeps the result per module, keyed to the
 weight's version counter, device and storage, so a frozen model quantizes
@@ -292,3 +299,50 @@ def quantized_linear(mode: str, cache: Dict[str, tuple], key: str, x: torch.Tens
         bias = bias[rows]
     fn = int8_matmul_fused if mode == "int8_fused" else int8_matmul
     return fn(x, weight, bias, out_dtype, wq_sw=wq_sw)
+
+
+def quantized_linear_row_parallel(cache: Dict[str, tuple], key: str, x: torch.Tensor,
+                                  weight: torch.Tensor, bias: Optional[torch.Tensor],
+                                  out_dtype: torch.dtype, group) -> torch.Tensor:
+    """A row-parallel layer through int8 (tensor parallelism,
+    `parallel/tensor.py`): `x` [..., din / M] and `weight` [dout, din / M]
+    are this rank's input features.  The per-channel weight amax and the
+    per-row activation amax are maxima over "model" (`group`), so every
+    rank quantizes its slice with the scales of the whole row; the int32
+    partial products are summed over "model" (exact), and the f32 epilogue
+    `(acc * sx) * sw + bias` runs once on the sum: the integers and the
+    result of one process.  The product is the library's (`int8` mode) under
+    "int8" and "int8_fused" alike: the fused kernel finds each row's scale
+    inside one launch, from the rank's slice alone.  Inference only, as
+    `quantized_linear`."""
+    from fddm_asr_tpu_torch.parallel.distributed import _all_reduce_flat
+
+    if torch.is_grad_enabled():
+        raise RuntimeError("quant_dense is inference only: call the model under "
+                           "torch.no_grad() or torch.inference_mode(), or set quant_dense: none")
+    MAX, SUM = torch.distributed.ReduceOp.MAX, torch.distributed.ReduceOp.SUM
+    stamp = (weight._version, weight.device, weight.data_ptr())
+    hit = cache.get(key)
+    if hit is not None and hit[0] == stamp:
+        wq, sw = hit[1], hit[2]
+    else:
+        w = weight.detach().float()
+        amax = _all_reduce_flat(w.abs().amax(dim=-1).contiguous(), group, MAX)
+        sw = amax.clamp(min=EPS) * (1.0 / 127.0)
+        wq = torch.round(w / sw[:, None]).clamp(-127.0, 127.0).to(torch.int8).contiguous()
+        cache[key] = (stamp, wq, sw)
+    lead, dout = x.shape[:-1], wq.shape[0]
+    xf = x.reshape(-1, x.shape[-1]).float()
+    if xf.shape[0] == 0:  # the same on every rank: no collective is skipped alone
+        return x.new_zeros((*lead, dout), dtype=out_dtype)
+    amax = _all_reduce_flat(xf.abs().amax(dim=-1).contiguous(), group, MAX)
+    sx = amax.clamp(min=EPS)[:, None] * (1.0 / 127.0)
+    xq = torch.round(xf / sx).clamp(-127.0, 127.0).to(torch.int8)
+    product = _exact_int_product if x.device.type == "cpu" else _int_mm_product
+    acc = product(xq, wq)
+    acc = _all_reduce_flat(acc.to(torch.int32).contiguous(), group, SUM)
+    y = acc.float() * sx * sw
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(out_dtype).reshape(*lead, dout)
+

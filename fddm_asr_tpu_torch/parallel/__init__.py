@@ -1,9 +1,14 @@
 """Multi-GPU execution: the process group (`distributed`), the ("data",
-"model") mesh over it (`mesh`), and the gradient reduction of a data- and
-sequence-parallel train step (`reduce_gradients`).
+"model") mesh over it (`mesh`), tensor parallelism over its "model" ranks
+(`tensor`, the JAX package's `_DECODER_RULES`), and the gradient reduction
+and norm of a data-, sequence- or tensor-parallel train step
+(`gradient_reducer`, `gradient_norm`).
 
-Counterpart of `fddm_asr_tpu/parallel/`.  Tensor parallelism of the decoder
-(the JAX package's `_DECODER_RULES`) is not ported (ROADMAP A7 part 2)."""
+Counterpart of `fddm_asr_tpu/parallel/`."""
+from typing import Callable, List, Optional, Sequence
+
+import torch
+
 from fddm_asr_tpu_torch.parallel.distributed import (  # noqa: F401
     STAGING,
     DistributedConfig,
@@ -20,32 +25,52 @@ from fddm_asr_tpu_torch.parallel.distributed import (  # noqa: F401
 )
 from fddm_asr_tpu_torch.parallel.mesh import Mesh, MeshSpec, make_mesh, parse_mesh  # noqa: F401
 
-TENSOR_PARALLEL_NOT_PORTED = (
-    "a model axis > 1 without sequence parallelism is tensor parallelism of the decoder, "
-    "which is not ported yet (ROADMAP A7 part 2); use --mesh data=N, or add --seq-parallel "
-    "(model.encoder.seq_parallel: true) for the ring over the model axis")
 
-
-def gradient_reducer(mesh: Mesh, n_replicated: int):
+def gradient_reducer(mesh: Mesh, summed: Sequence[int]):
     """reduce(grads) -> grads of a train step on `mesh`, or None where no
     collective runs (no process group).
 
-    grads[:n_replicated] belong to modules every rank of a "model" ring runs
-    whole (the decoder and the heads); the rest to the encoder (or its LoRA
-    adapters), whose sequence-parallel forward covers only the rank's frames.
-    The encoder's are summed over "model" (each rank holds its frames' part),
-    the others left (identical over the ring); then every gradient is
-    averaged over "data", in buckets (`distributed.all_reduce_`)."""
+    grads[i] for i in `summed` hold this rank's part of a tensor's gradient
+    and are summed over "model" first: under sequence parallelism the
+    encoder's (or its LoRA adapters'), whose forward covers the rank's
+    frames only; under tensor parallelism the whole tensors a rank uses in
+    part (`tensor.parameter_kinds`: "partial", and the adapters of sliced
+    layers).  The rest are either a rank's slice, complete, or the same on
+    every "model" rank.  Then every gradient is averaged over "data", in
+    buckets (`distributed.all_reduce_`)."""
     if not mesh.distributed:
         return None
     from fddm_asr_tpu_torch.parallel.distributed import all_reduce_
 
     data = mesh.shape["data"]
+    summed = list(summed)
 
     def reduce(grads):
-        if mesh.shape["model"] > 1:
-            all_reduce_(grads[n_replicated:], mesh.model_group)
+        if mesh.shape["model"] > 1 and summed:
+            all_reduce_([grads[i] for i in summed], mesh.model_group)
         all_reduce_(grads, mesh.data_group, scale=1.0 / data)
         return grads
 
     return reduce
+
+
+def gradient_norm(mesh: Mesh, sharded: Sequence[int]
+                  ) -> Optional[Callable[[List[torch.Tensor]], torch.Tensor]]:
+    """norm(grads) -> the global norm of the whole model's gradients under
+    tensor parallelism: the squares of the sliced gradients (`sharded`
+    indices) summed over "model", every other gradient (the same on each
+    "model" rank) counted once.  None where no slice exists."""
+    sharded = set(sharded)
+    if not mesh.distributed or mesh.shape["model"] <= 1 or not sharded:
+        return None
+    from fddm_asr_tpu_torch.parallel.distributed import _all_reduce_flat
+
+    def norm(grads):
+        squares = torch.stack(torch._foreach_norm(grads)).float().square()
+        mine = torch.zeros_like(squares, dtype=torch.bool)
+        mine[sorted(sharded)] = True
+        part = _all_reduce_flat(squares[mine].sum().reshape(1), mesh.model_group,
+                                torch.distributed.ReduceOp.SUM)
+        return (part[0] + squares[~mine].sum()).sqrt()
+
+    return norm

@@ -38,7 +38,7 @@ import torch.distributed as dist
 
 __all__ = ["DistributedConfig", "initialize", "shutdown", "process_group", "is_primary",
            "host_shard", "all_hosts_mean", "all_hosts_weighted_mean", "barrier",
-           "broadcast_object", "all_reduce_", "all_gather", "gather",
+           "broadcast_object", "broadcast_", "all_reduce_", "all_gather", "gather",
            "ring_rank", "ring_shift", "STAGING"]
 
 BACKENDS = ("nccl", "gloo")
@@ -308,6 +308,18 @@ def all_reduce_(tensors: Sequence[torch.Tensor], group, op=dist.ReduceOp.SUM,
                 flat.mul_(scale)
             torch._foreach_copy_(bucket, [piece.view_as(b) for piece, b in zip(
                 flat.split([b.numel() for b in bucket]), bucket)])
+
+
+def broadcast_(t: torch.Tensor, src: int = 0, group=None) -> torch.Tensor:
+    """Rank `src`'s `t` written into `t` on every rank of `group` (the world
+    by default; `src` a global rank); returns `t`."""
+    if _stages(t, group):
+        host = _to_host(t)
+        dist.broadcast(host, src=src, group=group)
+        t.copy_(_from_host(host, t.device))
+        return t
+    dist.broadcast(t, src=src, group=group)
+    return t
 
 
 def all_gather(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:

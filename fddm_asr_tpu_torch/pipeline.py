@@ -36,8 +36,10 @@ Waveforms may come as float samples or in the wire dtypes of the JAX
 package's serving path (int16 pcm16, uint8 mu-law), decoded on the device.
 
 Over several GPUs (`apply_mesh`, one process a GPU) the batch rows split
-over the mesh's "data" ranks and, with `seq_parallel`, each utterance's
-encoder frames over its "model" ranks; the results equal one process's.
+over the mesh's "data" ranks, and over its "model" ranks either each
+utterance's encoder frames (`seq_parallel`) or the weights of the attention
+heads, the FFNs and the vocabulary (tensor parallelism); the results equal
+one process's.
 """
 from __future__ import annotations
 
@@ -300,10 +302,10 @@ class FDDMPipeline:
     # --------------------------------------------------------- multi-device
     def apply_mesh(self, mesh, seq_parallel: bool = False) -> "FDDMPipeline":
         """Transcribe over a `parallel.Mesh` (one process a GPU, every rank
-        making the same calls): the batch rows split over "data", and with
-        `seq_parallel` each utterance's encoder frames over "model" as well
-        (`enable_seq_parallel`).  A "model" axis > 1 without it would be
-        tensor parallelism, which is not ported, and raises.
+        making the same calls): the batch rows split over "data"; over
+        "model" the encoder's frames with `seq_parallel` (the ring,
+        `enable_seq_parallel`, its weights whole on every rank), else the
+        weights of the rules (`enable_tensor_parallel`).
 
         Under a data axis of D ranks the API takes and gives global batches:
         `encode_waveform` takes the global batch (B rows, B divisible by D)
@@ -312,15 +314,33 @@ class FDDMPipeline:
         batch from the same generator on every rank (an `x_init` given is
         the global batch's), so each row gets what it gets in one process;
         `transcribe*` take the global batch and return every row, gathered
-        over "data"."""
-        from fddm_asr_tpu_torch.parallel import TENSOR_PARALLEL_NOT_PORTED
-
-        if mesh.shape["model"] > 1 and not seq_parallel:
-            raise NotImplementedError(TENSOR_PARALLEL_NOT_PORTED)
+        over "data".  The "model" ranks of a data index compute the same
+        rows together and return the same results."""
         self.mesh = mesh if mesh.shape["data"] > 1 else None
         if seq_parallel:
             self.enable_seq_parallel(mesh)
+        else:
+            self.enable_tensor_parallel(mesh)
         return self
+
+    def enable_tensor_parallel(self, mesh) -> bool:
+        """The decoder's and the encoder's weights of `_DECODER_RULES` split
+        over the mesh's "model" ranks (`parallel/tensor.shard_module`: the
+        attention heads, the FFNs' columns and rows, the vocabulary), the
+        outputs summed or gathered over "model" where the layers need them
+        whole; the decoder's logits leave it whole, so the sampler and the
+        losses run as in one process.  Shared by `apply_mesh` and the
+        training loop.  False (nothing changed) on a one-wide model axis."""
+        from fddm_asr_tpu_torch.parallel import tensor as T
+
+        if mesh.shape["model"] <= 1:
+            return False
+        if self.encoder.backbone.encoder.ring is not None:
+            raise ValueError("the encoder is sequence-parallel over the model axis already: "
+                             "a model axis is either the ring or tensor parallelism")
+        T.shard_module(self.decoder, mesh)
+        T.shard_module(self.encoder, mesh)
+        return True
 
     def enable_seq_parallel(self, mesh) -> bool:
         """The encoder's layers over the mesh's "model" ranks (the ring of
@@ -330,8 +350,13 @@ class FDDMPipeline:
         ring.  Shared by `apply_mesh(seq_parallel=True)` and the training loop
         (model.encoder.seq_parallel).  False (nothing changed) on a one-wide
         model axis."""
+        from fddm_asr_tpu_torch.parallel.tensor import is_sharded
+
         if mesh.shape["model"] <= 1:
             return False
+        if is_sharded(self.encoder):
+            raise ValueError("the encoder is tensor-parallel over the model axis already: "
+                             "a model axis is either the ring or tensor parallelism")
         self.encoder.backbone.set_ring(mesh.model_group)
         return True
 

@@ -40,8 +40,19 @@ live pipeline: its buckets, sampling, wire dtype and weights come from the
 artifact (so `--wavlm-ckpt` / `--encoder-ckpt` beside it raise), and on CUDA
 every bucket is a CUDA graph replay.  The live pipeline's encoder weights
 load as the inference CLI loads them (`convert.load_encoder_weights`): a
-fine-tuned model is `{prefix}.pt` with `--encoder-ckpt {prefix}.encoder.pt`.  Not ported:
-`--mesh`/`--seq-parallel` (ROADMAP A7 part 2) raise.
+fine-tuned model is `{prefix}.pt` with `--encoder-ckpt {prefix}.encoder.pt`.
+
+Over a mesh (`--mesh data=D,model=M [--seq-parallel]`, one process a GPU
+under torchrun): every rank builds the pipeline over the mesh
+(`FDDMPipeline.apply_mesh`); rank 0 alone serves HTTP and runs the engine,
+whose batch buckets round up to a multiple of D (`--max-batch` must be
+one), and each dispatch sends its header, wave and lengths to the others
+(`MeshDispatch`), which make the same call (`follow`).  A failed batch
+fails the server; stopping rank 0 (SIGINT) sends the stop op.  An
+`--exported` artifact takes no mesh (sharded artifacts: ROADMAP A7 part 3).
+
+    torchrun --nproc_per_node 2 -m fddm_asr_tpu_torch.serve --config C.yaml \
+        --ckpt D.pt --tokenizer T.vocab --mesh model=2
 """
 from __future__ import annotations
 
@@ -102,12 +113,23 @@ class BatchingEngine:
     def __init__(self, pipeline, sampling: dict, seq_len: int,
                  max_batch: int = 16, max_wait_ms: float = 20.0,
                  bucket_seconds: float = 1.0, max_seconds: float = 30.0,
-                 request_timeout_s: float = 600.0, pipeline_depth: int = 2):
+                 request_timeout_s: float = 600.0, pipeline_depth: int = 2,
+                 batch_multiple: int = 1, on_fatal=None):
         self.pipeline = pipeline
         self.request_timeout_s = request_timeout_s
         self.sampling = sampling
         self.seq_len = seq_len
         self.max_batch = max_batch
+        # a mesh's data axis: batch buckets round up to a multiple of it, so a
+        # batch's rows split evenly over the data ranks
+        self.batch_multiple = max(1, int(batch_multiple))
+        if max_batch % self.batch_multiple:
+            raise ValueError(f"--max-batch {max_batch} must be a multiple of the mesh "
+                             f"data-axis size {self.batch_multiple}")
+        # on_fatal(error): a failed batch fails the server (over a mesh, where
+        # the ranks' collectives cannot carry on past it); None isolates it
+        self.on_fatal = on_fatal
+        self.fatal_error: Optional[BaseException] = None
         self.max_wait_s = max_wait_ms / 1e3
         # batches in flight at once (>= 1): while the oldest is copied back,
         # decoded and answered, younger ones keep the device busy
@@ -139,8 +161,11 @@ class BatchingEngine:
 
     def _bucket_batch_size(self, n: int) -> int:
         """Padded batch size for n queued requests: the next power of two,
-        capped at max_batch."""
-        return min(self.max_batch, 1 << max(0, (n - 1).bit_length()))
+        rounded up to a multiple of batch_multiple, capped at max_batch (a
+        multiple of it)."""
+        pow2 = 1 << max(0, (n - 1).bit_length())
+        bm = self.batch_multiple
+        return min(self.max_batch, -(-max(pow2, bm) // bm) * bm)
 
     # ------------------------------------------------------------------ api
     def _plan_requests(self, wave: np.ndarray, name: str) -> List[_Request]:
@@ -347,6 +372,10 @@ class BatchingEngine:
                 r.done.set()
         with self.stats_lock:
             self.stats["errors"] += len(batch)
+        if self.on_fatal is not None and self.fatal_error is None:
+            self.fatal_error = e
+            self._stop.set()
+            self.on_fatal(e)
 
     def _loop(self):
         # Up to pipeline_depth batches are queued on the device before the
@@ -726,6 +755,106 @@ def make_handler(engine: BatchingEngine, config_echo: dict,
     return Handler
 
 
+# the header of a dispatch over a mesh: op, B, T, seed, num_candidates, wire
+# dtype, seq_len, with_confidence, has lengths
+_OP_STOP, _OP_BATCH = 0, 1
+_HEADER = 9
+_WIRE_DTYPES = (torch.float32, torch.int16, torch.uint8)
+
+
+class MeshDispatch:
+    """The pipeline as rank 0's engine sees it over a mesh (`--mesh`, one
+    process a GPU): each call first sends its fixed-size header, then the
+    padded wave and lengths, over the world group, so the other ranks
+    (`follow`) make the same `transcribe_with_ids_async` call, whose
+    collectives then meet.  Calls are issued in dispatch order, one at a
+    time (a lock), so `--pipeline-depth` > 1 keeps its overlap: finalize
+    runs no collective.  `stop` sends the stop op."""
+
+    def __init__(self, pipeline, mesh):
+        self.pipeline = pipeline
+        self.mesh = mesh
+        self.input_encoding = pipeline.input_encoding
+        self.device = pipeline.device
+        self._lock = threading.Lock()
+        self._stopped = False
+
+    def transcribe_with_ids(self, wave, lengths=None, **kw):
+        return self.transcribe_with_ids_async(wave, lengths, **kw)()
+
+    def transcribe_with_ids_async(self, wave, lengths=None, seq_len: int = 64, generator=None,
+                                  with_confidence: bool = False, num_candidates: int = 1,
+                                  **sampling):
+        from fddm_asr_tpu_torch.parallel.distributed import broadcast_
+
+        dev = torch.device(self.device)
+        wave = torch.as_tensor(wave).to(dev)
+        lengths = None if lengths is None else torch.as_tensor(lengths).to(dev)
+        seed = 0 if generator is None else generator.initial_seed()
+        header = [_OP_BATCH, wave.shape[0], wave.shape[1], seed, int(num_candidates),
+                  _WIRE_DTYPES.index(wave.dtype), int(seq_len), int(with_confidence),
+                  int(lengths is not None)]
+        with self._lock:
+            if self._stopped:
+                raise RuntimeError("the serving mesh was stopped")
+            _send_header(header)
+            broadcast_(wave)
+            if lengths is not None:
+                broadcast_(lengths)
+            return self.pipeline.transcribe_with_ids_async(
+                wave, lengths, seq_len=seq_len, generator=generator,
+                with_confidence=with_confidence, num_candidates=num_candidates, **sampling)
+
+    def stop(self) -> None:
+        """The stop op, once: every other rank leaves `follow`."""
+        with self._lock:
+            if not self._stopped:
+                self._stopped = True
+                _send_header([_OP_STOP] + [0] * (_HEADER - 1))
+
+
+def _send_header(values: List[int]) -> torch.Tensor:
+    import torch.distributed as dist
+
+    from fddm_asr_tpu_torch.parallel.distributed import _device_of, broadcast_
+
+    t = torch.tensor(values, dtype=torch.int64, device=_device_of(dist.group.WORLD))
+    return broadcast_(t)
+
+
+def follow(pipeline, sampling: dict, pipeline_depth: int = 2) -> int:
+    """A rank other than 0 of a serving mesh: receive each dispatch's header,
+    wave and lengths from rank 0 and make its `transcribe_with_ids_async`
+    call (x_T from a generator seeded as rank 0's), finalizing the oldest
+    of `pipeline_depth` in flight; return at the stop op with the number
+    of batches followed.  A failed collective raises: the rank exits and
+    the server fails with it."""
+    from fddm_asr_tpu_torch.parallel.distributed import broadcast_
+
+    dev = torch.device(pipeline.device)
+    inflight = collections.deque()
+    n = 0
+    while True:
+        header = _send_header([0] * _HEADER).tolist()
+        op, B, T, seed, candidates, wire, seq_len, with_conf, has_lengths = header
+        if op == _OP_STOP:
+            break
+        wave = broadcast_(torch.empty((B, T), dtype=_WIRE_DTYPES[wire], device=dev))
+        lengths = (broadcast_(torch.empty((B,), dtype=torch.int64, device=dev))
+                   if has_lengths else None)
+        generator = torch.Generator(device=dev).manual_seed(seed)
+        kw = {k: v for k, v in sampling.items() if k != "num_candidates"}
+        inflight.append(pipeline.transcribe_with_ids_async(
+            wave, lengths, seq_len=seq_len, generator=generator,
+            with_confidence=bool(with_conf), num_candidates=candidates, **kw))
+        n += 1
+        if len(inflight) >= max(1, pipeline_depth):
+            inflight.popleft()()
+    while inflight:
+        inflight.popleft()()
+    return n
+
+
 class ExportedEngineAdapter:
     """`FDDMPipeline`-shaped front of an AOT artifact (`aot.ExportedPipeline`)
     for the engine.  seq_len and sampling are baked into the programs, so
@@ -795,26 +924,34 @@ def _build_exported_server(args) -> ThreadingHTTPServer:
         (args.host, args.port),
         make_handler(engine, echo, audio_root=args.audio_root, loopback_only_paths=not loopback))
     server.engine = engine
+    server.dispatch = None
     server.warmup = _warmup(engine, args.warmup_seconds, max_batch) if args.warmup_seconds else []
     return server
 
 
-def build_server(args) -> ThreadingHTTPServer:
-    """The pipeline from --config/--ckpt and the encoder weights of
-    --wavlm-ckpt/--encoder-ckpt (or the artifact --exported) on
-    --device, its engine and the HTTP server bound to --host/--port (not yet
-    serving), warmed up when --warmup-seconds is given."""
-    if args.mesh or args.seq_parallel:
-        raise SystemExit("--mesh / --seq-parallel: multi-device serving is not ported yet "
-                         "(ROADMAP A7 part 2)")
+def join_mesh(args):
+    """The mesh of `--mesh` over the process group (joined from torchrun's or
+    the FDDM_* environment), `args.device` set to this rank's device; None
+    without `--mesh` / `--seq-parallel`.  An artifact has no mesh to take,
+    and `--seq-parallel` needs a model axis."""
+    if not (args.mesh or args.seq_parallel):
+        return None
     if args.exported:
-        if args.wavlm_ckpt or args.encoder_ckpt:
-            raise SystemExit("--wavlm-ckpt / --encoder-ckpt with --exported: an artifact "
-                             "carries its own weights; pass them to python -m "
-                             "fddm_asr_tpu_torch.export_model instead")
-        return _build_exported_server(args)
-    if not (args.config and args.ckpt):
-        raise SystemExit("either --exported or both --config and --ckpt are required")
+        raise SystemExit("--exported artifacts are pre-lowered programs without collectives; "
+                         "sharded artifacts are not ported (ROADMAP A7 part 3): serve the "
+                         "live pipeline (--config/--ckpt) with --mesh")
+    from fddm_asr_tpu_torch.inference import join_mesh as join
+
+    mesh = join(args)
+    if args.seq_parallel and mesh.shape["model"] <= 1:
+        raise SystemExit("--seq-parallel splits each utterance's encoder frames over the "
+                         "mesh's model ranks: give --mesh model=N (N > 1) under torchrun")
+    return mesh
+
+
+def _live_pipeline(args, mesh):
+    """(pipeline, sampling, seq_len) of --config/--ckpt and the encoder
+    weights on --device, over `mesh` when one is given."""
     from fddm_asr_tpu_torch.config import load_config
     from fddm_asr_tpu_torch.convert import load_encoder_weights
     from fddm_asr_tpu_torch.pipeline import FDDMPipeline
@@ -829,6 +966,8 @@ def build_server(args) -> ThreadingHTTPServer:
         use_condition_mask=True,  # bucket padding must not alter transcripts
         dtype=None if args.dtype == "config" else args.dtype)
     pipeline.input_encoding = args.wire_dtype
+    if mesh is not None:
+        pipeline.apply_mesh(mesh, seq_parallel=args.seq_parallel)
     inf = cfg.get("inference", {})
     sampling = {
         "T_infer": args.T_infer or inf.get("T_infer", 20),
@@ -842,20 +981,57 @@ def build_server(args) -> ThreadingHTTPServer:
     if args.num_candidates > 1:
         # best-of-N: candidates fold into the device batch, the most confident wins
         sampling["num_candidates"] = int(args.num_candidates)
-    seq_len = args.seq_len or cfg.data.get("max_len", 64)
+    return pipeline, sampling, args.seq_len or cfg.data.get("max_len", 64)
+
+
+def build_server(args, mesh=None) -> ThreadingHTTPServer:
+    """The pipeline from --config/--ckpt and the encoder weights of
+    --wavlm-ckpt/--encoder-ckpt (or the artifact --exported) on
+    --device, its engine and the HTTP server bound to --host/--port (not yet
+    serving), warmed up when --warmup-seconds is given.  With --mesh
+    (`mesh`, or joined here) this is rank 0's server: its engine's calls
+    reach the other ranks through `MeshDispatch` (`server.dispatch`), and
+    a failed batch fails the server."""
+    if mesh is None:
+        mesh = join_mesh(args)
+    if args.exported:
+        if args.wavlm_ckpt or args.encoder_ckpt:
+            raise SystemExit("--wavlm-ckpt / --encoder-ckpt with --exported: an artifact "
+                             "carries its own weights; pass them to python -m "
+                             "fddm_asr_tpu_torch.export_model instead")
+        return _build_exported_server(args)
+    if not (args.config and args.ckpt):
+        raise SystemExit("either --exported or both --config and --ckpt are required")
+    pipeline, sampling, seq_len = _live_pipeline(args, mesh)
     max_batch = args.max_batch or 16
+    dispatch = None
+    batch_multiple = 1
+    if mesh is not None and mesh.size > 1:
+        dispatch = MeshDispatch(pipeline, mesh)
+        batch_multiple = mesh.shape["data"]
+    server_box = []
+
+    def fail_server(error):  # the engine's thread: stop serving, main raises
+        threading.Thread(target=server_box[0].shutdown, daemon=True).start()
+
     engine = BatchingEngine(
-        pipeline, sampling, seq_len, max_batch=max_batch, max_wait_ms=args.max_wait_ms,
-        bucket_seconds=args.bucket_seconds, max_seconds=args.max_seconds,
-        request_timeout_s=args.request_timeout_s, pipeline_depth=args.pipeline_depth)
+        dispatch or pipeline, sampling, seq_len, max_batch=max_batch,
+        max_wait_ms=args.max_wait_ms, bucket_seconds=args.bucket_seconds,
+        max_seconds=args.max_seconds, request_timeout_s=args.request_timeout_s,
+        pipeline_depth=args.pipeline_depth, batch_multiple=batch_multiple,
+        on_fatal=fail_server if dispatch is not None else None)
     echo = {"model": "fddm-asr-tpu", "seq_len": seq_len, **sampling, "max_batch": max_batch}
+    if mesh is not None:
+        echo["mesh"] = {**mesh.shape, "seq_parallel": bool(args.seq_parallel)}
     # '' binds every interface: not loopback
     loopback = args.host in ("127.0.0.1", "localhost", "::1")
     server = FDDMHTTPServer(
         (args.host, args.port),
         make_handler(engine, echo, audio_root=args.audio_root,
                      loopback_only_paths=not loopback))
+    server_box.append(server)
     server.engine = engine
+    server.dispatch = dispatch
     server.warmup = _warmup(engine, args.warmup_seconds, max_batch) if args.warmup_seconds else []
     return server
 
@@ -915,9 +1091,12 @@ def parse_args(argv=None):
     ap.add_argument("--r", type=int, default=None)
     ap.add_argument("--num-candidates", type=int, default=1,
                     help="best-of-N: N trajectories an utterance, the most confident served")
-    ap.add_argument("--mesh", default="", help="multi-device serving: not ported (raises)")
+    ap.add_argument("--mesh", default="",
+                    help="serve over a mesh of one process a GPU (torchrun), e.g. model=2 or "
+                         "data=2,model=2; --max-batch must be a multiple of the data axis")
     ap.add_argument("--seq-parallel", action="store_true",
-                    help="sequence-parallel encoder: not ported (raises)")
+                    help="with --mesh model=N > 1: each utterance's encoder frames over the "
+                         "model ranks (ring attention) instead of the weights")
     ap.add_argument("--device", default=None,
                     help="cuda (default; raises without a GPU) or cpu")
     ap.add_argument("--wire-dtype", choices=["f32", "pcm16", "mulaw8"], default="f32",
@@ -937,10 +1116,24 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    server = build_server(args)
-    print(json.dumps({"serving": f"http://{args.host}:{server.server_address[1]}",
+    from fddm_asr_tpu_torch import parallel as P
+
+    mesh = join_mesh(args)
+    try:
+        if mesh is not None and not P.is_primary():
+            pipeline, sampling, _ = _live_pipeline(args, mesh)
+            follow(pipeline, sampling, args.pipeline_depth)
+            return
+        _serve(build_server(args, mesh), args.host)
+    finally:
+        if mesh is not None:
+            P.shutdown()
+
+
+def _serve(server, host: str) -> None:
+    print(json.dumps({"serving": f"http://{host}:{server.server_address[1]}",
                       "endpoints": ["/v1/transcribe", "/v1/transcribe/stream",
-                                    "/healthz", "/stats"]}), flush=True)
+                                    "/healthz", "/stats"], "pid": os.getpid()}), flush=True)
     try:
         server.serve_forever()
     except KeyboardInterrupt:
@@ -948,6 +1141,11 @@ def main(argv=None):
     finally:
         server.server_close()
         server.engine.shutdown()
+        if server.dispatch is not None and server.engine.fatal_error is None:
+            server.dispatch.stop()
+    if server.engine.fatal_error is not None:
+        raise RuntimeError("a batch failed on the serving mesh: its ranks cannot carry on "
+                           "past it") from server.engine.fatal_error
 
 
 if __name__ == "__main__":

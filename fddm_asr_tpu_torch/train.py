@@ -19,8 +19,12 @@ FDDM_NUM_PROCESSES / FDDM_PROCESS_ID, which `--coordinator`,
 `--num-processes` and `--process-id` override; FDDM_BACKEND (nccl | gloo)
 and FDDM_DEVICE (e.g. cuda:0, for ranks that share a card over gloo) where
 set.  `--mesh data=D,model=M` (`parallel.parse_mesh`) must cover every
-process; M > 1 needs model.encoder.seq_parallel (the ring), as tensor
-parallelism is not ported.
+process; M > 1 splits each utterance's encoder frames over the "model"
+ranks with model.encoder.seq_parallel (the ring), else the weights of the
+attention heads, the FFNs and the vocabulary (tensor parallelism,
+`parallel/tensor.py`):
+
+    torchrun --nproc_per_node 2 -m fddm_asr_tpu_torch.train --config ... --mesh model=2
 """
 from __future__ import annotations
 
@@ -63,14 +67,12 @@ def parse_args(argv=None):
 def main(argv=None):
     args = parse_args(argv)
     from fddm_asr_tpu_torch import parallel as P
-    from fddm_asr_tpu_torch.config import Config, load_config, load_yaml
+    from fddm_asr_tpu_torch.config import load_config, load_yaml
     from fddm_asr_tpu_torch.convert import load_wavlm
     from fddm_asr_tpu_torch.train_lib import run_training, setup_logging
 
     cfg = load_config(args.config)
     spec = P.parse_mesh(args.mesh)
-    if spec.model > 1 and not cfg.model.get("encoder", Config()).get("seq_parallel", False):
-        raise NotImplementedError(P.TENSOR_PARALLEL_NOT_PORTED)
     # the flags override the environment; one process with nothing set is a no-op
     dist_cfg = P.DistributedConfig.from_env().overridden(
         args.coordinator, args.num_processes, args.process_id)

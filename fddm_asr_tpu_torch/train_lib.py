@@ -67,6 +67,7 @@ import logging
 import math
 import os
 import sys
+import tempfile
 import time
 from datetime import datetime
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
@@ -160,11 +161,15 @@ class AdamW:
                  clip: float = 5.0, skip_nonfinite: int = 0,
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                  mu_dtype: torch.dtype = torch.float32, accum_steps: int = 1,
-                 reduce: Optional[Callable[[List[torch.Tensor]], List[torch.Tensor]]] = None):
+                 reduce: Optional[Callable[[List[torch.Tensor]], List[torch.Tensor]]] = None,
+                 norm: Optional[Callable[[List[torch.Tensor]], torch.Tensor]] = None):
         self.groups = [(list(ps), sched) for ps, sched in groups]
         # the gradient reduction over a process group (parallel.gradient_reducer),
         # applied to an update's gradients: once an update under accumulation
         self.reduce = reduce
+        # the global norm (of the whole model's gradients under tensor
+        # parallelism: parallel.gradient_norm)
+        self.norm = norm or _global_norm
         self.params: List[nn.Parameter] = [p for ps, _ in self.groups for p in ps]
         self.weight_decay = weight_decay
         self.decayed = [i for i, p in enumerate(self.params)
@@ -189,11 +194,11 @@ class AdamW:
         if self.acc is None:
             if self.reduce is not None:
                 grads = self.reduce(grads)
-            norm = _global_norm(grads)
+            norm = self.norm(grads)
             return norm, self._update(grads, norm)
         # optax.MultiSteps' running mean (of this rank's gradients in a process
         # group, reduced once an update; `norm` is then this rank's micro-step's)
-        norm = _global_norm(grads)
+        norm = self.norm(grads)
         acc = torch._foreach_sub(grads, self.acc)
         torch._foreach_div_(acc, self.mini_step + 1)
         torch._foreach_add_(acc, self.acc)
@@ -204,7 +209,7 @@ class AdamW:
         self.mini_step = 0
         if self.reduce is not None:
             acc = self.reduce(acc)
-        return norm, self._update(acc, _global_norm(acc))
+        return norm, self._update(acc, self.norm(acc))
 
     def _update(self, grads: List[torch.Tensor], norm: torch.Tensor) -> bool:
         if self.skip_nonfinite > 0:
@@ -259,12 +264,13 @@ def state_dtype(optim: Config, key: str) -> torch.dtype:
 
 def make_optimizer(cfg: Config, main_params: Sequence[nn.Parameter],
                    encoder_params: Optional[Sequence[nn.Parameter]] = None,
-                   reduce=None) -> AdamW:
+                   reduce=None, norm=None) -> AdamW:
     """AdamW from cfg.optim (lr 2e-4, weight_decay 0.01, grad_clip 5.0 by
     default); a second group at optim.encoder_lr (default optim.lr) when
     `encoder_params` is given (the encoder, or its LoRA adapters), under the
     same global clip; optim.adam_mu_dtype and optim.grad_accum_steps;
-    `reduce` the gradient reduction of a process group."""
+    `reduce` the gradient reduction of a process group, `norm` its global
+    norm under tensor parallelism."""
     optim = cfg.optim
     lr = float(optim.get("lr", 2e-4))
     warmup = int(optim.get("warmup_steps", 0) or 0)
@@ -277,7 +283,8 @@ def make_optimizer(cfg: Config, main_params: Sequence[nn.Parameter],
                  clip=float(optim.get("grad_clip", 5.0)),
                  skip_nonfinite=int(optim.get("skip_nonfinite_updates", 0) or 0),
                  mu_dtype=state_dtype(optim, "adam_mu_dtype"),
-                 accum_steps=int(optim.get("grad_accum_steps", 1) or 1), reduce=reduce)
+                 accum_steps=int(optim.get("grad_accum_steps", 1) or 1), reduce=reduce,
+                 norm=norm)
 
 
 @dataclasses.dataclass
@@ -357,7 +364,10 @@ def init_train_state(pipeline, cfg: Config, train_encoder: Optional[bool] = None
     generator seeded by the config's seed + 7 (the JAX package's key),
     B = 0, scale lora_alpha / r.  On a `mesh` over a process group the
     optimizer reduces the gradients of each update (`parallel.gradient_reducer`:
-    the encoder's summed over "model", everything averaged over "data")."""
+    the parts summed over "model" that `_gradient_classes` names, everything
+    averaged over "data"), and under tensor parallelism clips by the whole
+    model's norm (`parallel.gradient_norm`).  AdamW's moments and the EMA
+    mirror the parameters, so a tensor-parallel rank keeps its slices'."""
     enc_cfg = cfg.model.get("encoder", Config())
     if train_encoder is None:
         train_encoder = not enc_cfg.get("freeze", True)
@@ -390,14 +400,47 @@ def init_train_state(pipeline, cfg: Config, train_encoder: Optional[bool] = None
             encoder.backbone.feature_extractor.requires_grad_(
                 not encoder.config.freeze_feature_extractor)
             enc_params = [p for p in encoder.parameters() if p.requires_grad]
-    reduce = P.gradient_reducer(mesh, len(main)) if mesh is not None else None
-    optimizer = make_optimizer(cfg, main, enc_params, reduce=reduce)
+    reduce = norm = None
+    if mesh is not None:
+        summed, sharded = _gradient_classes(pipeline, main, enc_params, adapters)
+        reduce = P.gradient_reducer(mesh, summed)
+        norm = P.gradient_norm(mesh, sharded)
+    optimizer = make_optimizer(cfg, main, enc_params, reduce=reduce, norm=norm)
     ema = None
     if float(cfg.optim.get("ema_decay", 0.0) or 0.0) > 0.0:
         ema_dtype = state_dtype(cfg.optim, "ema_dtype")
         ema = [p.detach().to(ema_dtype, copy=True) for p in optimizer.params]
     return TrainState(pipeline.decoder, *heads, optimizer=optimizer, encoder=encoder, ema=ema,
                       lora=adapters, lora_scale=lora_scale)
+
+
+def _gradient_classes(pipeline, main, enc_params, adapters):
+    """(summed, sharded): the indices of the optimizer's parameters (`main`
+    then `enc_params`) whose gradients are summed over "model", and those
+    that are a rank's slice of a tensor-parallel weight.  On a
+    sequence-parallel ring every encoder gradient (or adapter) is summed;
+    under tensor parallelism the partial ones (`parallel.tensor.
+    parameter_kinds`) and the adapters of sliced layers; the sliced weights
+    themselves are complete."""
+    from fddm_asr_tpu_torch.parallel import tensor as T
+
+    params = list(main) + list(enc_params or [])
+    if pipeline.encoder.backbone.encoder.ring is not None:
+        return list(range(len(main), len(params))), []
+    kinds = {}
+    for module in (pipeline.decoder, pipeline.encoder):  # the projection heads stay whole
+        named = dict(module.named_parameters())
+        for name, kind in T.parameter_kinds(module).items():
+            kinds[id(named[name])] = kind
+    if adapters is not None:
+        modules = dict(pipeline.encoder.named_modules())
+        for name, ad in adapters.items():
+            if "_tp" in modules[name].__dict__:
+                for t in ad.values():
+                    kinds[id(t)] = "partial"
+    summed = [i for i, p in enumerate(params) if kinds.get(id(p)) == "partial"]
+    sharded = [i for i, p in enumerate(params) if kinds.get(id(p)) == "sharded"]
+    return summed, sharded
 
 
 LORA_NEEDS_FINE_TUNE = ("encoder.lora_rank > 0 requires model.encoder.freeze: false (LoRA is a "
@@ -736,9 +779,11 @@ def run_training(cfg: Config, raw_cfg: Optional[dict] = None, resume: Optional[s
     `make_train_step` describes, evaluation on each rank's shard of the
     eval sets, combined weighted by shard size; with
     model.encoder.seq_parallel the encoder's frames split over "model" (the
-    ring, `pipeline.enable_seq_parallel`), else a "model" axis > 1 raises
-    (tensor parallelism is not ported).  The primary rank alone takes the
-    run lock and writes metrics.jsonl and the checkpoints; the others wait
+    ring, `pipeline.enable_seq_parallel`), else the decoder's and encoder's
+    weights (tensor parallelism, `pipeline.enable_tensor_parallel`; the
+    checkpoints hold the full tensors, gathered before the primary
+    writes).  The primary rank alone takes the run lock and writes
+    metrics.jsonl and the checkpoints; the others wait
     for it, and every rank resumes from the same file.
 
     eval_every=k evaluates val/test CER every k-th epoch and at the last;
@@ -755,9 +800,10 @@ def run_training(cfg: Config, raw_cfg: Optional[dict] = None, resume: Optional[s
     log_cfg = cfg.get("log", Config())
     if mesh is None:
         mesh = P.make_mesh(P.MeshSpec(data=1, model=1))
-    if (mesh.shape["model"] > 1
-            and not cfg.model.get("encoder", Config()).get("seq_parallel", False)):
-        raise NotImplementedError(P.TENSOR_PARALLEL_NOT_PORTED)
+    if mesh.shape["model"] > 1 and not mesh.distributed:
+        raise ValueError(f"a model axis of {mesh.shape['model']} needs a process group of "
+                         "data x model ranks: launch torchrun --nproc_per_node "
+                         f"{mesh.size} and build the mesh over it (parallel.make_mesh)")
     lock = None
     if log_cfg.get("run_lock", True):
         # the primary takes it; every rank learns whether it could (a rank
@@ -878,6 +924,13 @@ def _run_training_impl(cfg: Config, raw_cfg, resume, wavlm_state_dict, max_steps
     # "model" ranks (the ring), in the forward and the backward
     if enc_cfg.get("seq_parallel") and pipeline.enable_seq_parallel(mesh):
         logging.info(f"sequence-parallel encoder: ring size {mesh.shape['model']}")
+    # else the model axis splits the weights (tensor parallelism)
+    elif pipeline.enable_tensor_parallel(mesh):
+        logging.info(f"tensor-parallel decoder and encoder over {mesh.shape['model']} ranks")
+        from fddm_asr_tpu_torch.parallel.tensor import sync_default_generators
+
+        # dropout of whole activations must draw the same masks on every model rank
+        sync_default_generators(mesh)
     heads = make_projection_heads(cfg, dev, pipeline.decoder.dtype,
                                   torch.Generator(device=dev).manual_seed(seed + 1))
     state = init_train_state(pipeline, cfg, train_encoder=train_encoder, heads=heads, mesh=mesh)
@@ -998,14 +1051,25 @@ def _run_training_impl(cfg: Config, raw_cfg, resume, wavlm_state_dict, max_steps
                          "features every step")
     if cache_dir:
         t0 = time.time()
-        # the primary builds a missing cache; the others open it after
+        # the primary builds a missing cache; the others open it after.  Under
+        # tensor parallelism the encoder's calls are collectives: the others
+        # make the same sweep into a scratch directory
+        from fddm_asr_tpu_torch.data.feature_cache import cache_exists
+        from fddm_asr_tpu_torch.parallel.tensor import is_sharded
+
+        checksum = _encoder_checksum(pipeline)
+        missing = P.broadcast_object(not cache_exists(cache_dir, "train"))
         if P.is_primary():
             feat_cache, built = _ensure_feature_cache(pipeline, train_ds, cache_dir, "train",
-                                                      batch_size, train_manifest)
+                                                      batch_size, train_manifest, checksum)
+        elif missing and is_sharded(pipeline.encoder):
+            with tempfile.TemporaryDirectory() as scratch:
+                _ensure_feature_cache(pipeline, train_ds, scratch, "train", batch_size,
+                                      train_manifest, checksum)
         P.barrier()
         if not P.is_primary():
             feat_cache, built = _ensure_feature_cache(pipeline, train_ds, cache_dir, "train",
-                                                      batch_size, train_manifest)
+                                                      batch_size, train_manifest, checksum)
         cache_s = time.time() - t0
         step_fn = make_train_step(pipeline, cfg, cached_features=True, mesh=mesh)
         cache_device = data_cfg.get("cache_device", "auto")
@@ -1249,14 +1313,24 @@ def _run_training_impl(cfg: Config, raw_cfg, resume, wavlm_state_dict, max_steps
     return summary
 
 
+def _encoder_checksum(pipeline) -> float:
+    """The feature cache's fingerprint of the encoder's weights, of the full
+    tensors under tensor parallelism (a collective over "model")."""
+    from fddm_asr_tpu_torch.data import feature_cache as FC
+    from fddm_asr_tpu_torch.parallel.tensor import gather_state
+
+    return FC.param_checksum(gather_state(pipeline.encoder))
+
+
 def _ensure_feature_cache(pipeline, train_ds, cache_dir: str, split: str, batch_size: int,
-                          manifest_path: str):
+                          manifest_path: str, checksum: Optional[float] = None):
     """(the feature cache, whether it was built now): opened, after one
     encoder sweep over the manifest in order when absent; refused when
-    stale or of another width."""
+    stale or of another width.  `checksum`: `_encoder_checksum`'s."""
     from fddm_asr_tpu_torch.data import feature_cache as FC
 
-    checksum = FC.param_checksum(pipeline.encoder.state_dict())
+    if checksum is None:
+        checksum = _encoder_checksum(pipeline)
     masked = bool(pipeline.use_condition_mask)
     fp = FC.fingerprint(manifest_path, len(train_ds), checksum, masked=masked)
     built = not FC.cache_exists(cache_dir, split)

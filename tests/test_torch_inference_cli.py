@@ -241,12 +241,13 @@ def test_gpu_is_accepted_and_ignored(files, capsys):
 
 @pytest.mark.parametrize("flag,error,match", [
     (["--mesh", "data=2"], ValueError, r"torchrun --nproc_per_node 2"),
-    (["--mesh", "model=2"], NotImplementedError, "ROADMAP A7 part 2"),
+    (["--mesh", "model=2"], ValueError, r"torchrun --nproc_per_node 2"),
 ], ids=["flag0", "flag1"])
 def test_multi_device_flags_raise(files, flag, error, match):
     """In one process a two-rank mesh names the launcher that makes one
-    process a GPU; a model axis without --seq-parallel is tensor
-    parallelism, not ported (the multi-process runs: test_torch_parallel.py)."""
+    process a GPU, over "data" and over "model" (tensor parallelism) alike
+    (the multi-process runs: test_torch_parallel.py,
+    test_torch_tensor_parallel.py)."""
     with pytest.raises(error, match=match):
         cli.main(["--wav", files["wavs"][0], *files["base"], *flag])
 

@@ -29,11 +29,11 @@ inputs written here from seeds): "dp", two ranks on a data=2 mesh, and
   unsharded pipeline's (JAX tests/test_ring_attention.py:133-166).
 * `make_batches(shard=...)`: each rank's rows are the JAX layout's.
 * The deliberate differences from the JAX package: a process drives one
-  GPU (the world is data x model, LOCAL_RANK picks the card), a model axis
-  without sequence parallelism (tensor parallelism) raises naming ROADMAP
-  A7, as do `serve` and `export_model` with a mesh (A7 part 2), and the
-  backend is explicit: asking for nccl without a card raises, it never
-  falls back to gloo.
+  GPU (the world is data x model, LOCAL_RANK picks the card), so a model
+  axis in one process (tensor parallelism, `test_torch_tensor_parallel.py`)
+  or `serve --mesh` asks for the launcher; `export_model` with a mesh
+  raises naming ROADMAP A7 part 3; and the backend is explicit: asking for
+  nccl without a card raises, it never falls back to gloo.
 """
 import json
 import os
@@ -371,27 +371,33 @@ def test_the_backend_is_explicit_and_never_switched():
 
 
 def test_a_model_axis_without_sequence_parallelism_names_a7(corpus, tmp_path):  # noqa: F811
+    """A model axis without sequence parallelism is tensor parallelism
+    (tests/test_torch_tensor_parallel.py runs it): in one process the same
+    calls get past it and ask for the process group a mesh of two needs."""
     cfg = loop_config(corpus, "tp")
-    with pytest.raises(NotImplementedError, match="ROADMAP A7 part 2"):
+    with pytest.raises(ValueError, match=r"torchrun --nproc_per_node 2"):
         train_cli.main(["--config", loop_write(corpus, cfg, "tp"), "--device", "cpu",
                         "--mesh", "data=1,model=2"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A7 part 2"):
+    with pytest.raises(ValueError, match=r"needs a process group.*torchrun --nproc_per_node 2"):
         TL.run_training(Config(cfg), raw_cfg=cfg, device="cpu",
                         mesh=P.Mesh(data=1, model=2))
-    with pytest.raises(NotImplementedError, match="ROADMAP A7 part 2"):
+    with pytest.raises(ValueError, match=r"torchrun --nproc_per_node 2"):
         infer_cli.main(["--wav", "x.wav", "--ckpt", "x.pt", "--main-config", "c.yaml",
                         "--diffusion-config", "c.yaml", "--tokenizer", "t", "--device", "cpu",
                         "--mesh", "model=2"])
 
 
 def test_serve_and_export_with_a_mesh_name_a7_part_2(tmp_path):
+    """Sharded artifacts are ROADMAP A7 part 3: `export_model --mesh` raises
+    naming it; `serve --mesh` serves the live pipeline over a process group
+    (tests/test_torch_serve_mesh.py), and in one process asks for it."""
     from fddm_asr_tpu_torch import export_model
     from fddm_asr_tpu_torch import serve
 
-    with pytest.raises(SystemExit, match="ROADMAP A7 part 2"):
+    with pytest.raises(SystemExit, match="ROADMAP A7 part 3"):
         export_model.main(["--ckpt", "x.pt", "--main-config", "c.yaml", "--diffusion-config",
                            "c.yaml", "--tokenizer", "t", "--out", str(tmp_path / "a"),
                            "--device", "cpu", "--mesh", "data=2"])
-    with pytest.raises(SystemExit, match="ROADMAP A7 part 2"):
+    with pytest.raises(ValueError, match=r"torchrun --nproc_per_node 2"):
         serve.main(["--config", "c.yaml", "--ckpt", "x.pt", "--tokenizer", "t",
                     "--device", "cpu", "--mesh", "data=2"])

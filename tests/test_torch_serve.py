@@ -14,7 +14,8 @@
    pipeline built from the same files (C8).
 3. What the server needs below it: the C4 refusal of a batch under one conv
    receptive field, `model.init_scheme` (C5), the wire encoders, MP3
-   decoding and the flags that are not ported."""
+   decoding and the flags that are not ported (sharded artifacts) or need a
+   process group (`--mesh`)."""
 import http.client
 import http.server
 import json
@@ -690,10 +691,15 @@ def test_a_failing_batch_fails_only_its_requests():
 
 
 def test_flags_that_are_not_ported_raise(files):
-    # --exported is served (tests/test_torch_aot.py); with a mesh it raises as the rest
-    for extra, item in ((["--exported", "artifact", "--mesh", "data=2"], "A7"),
-                        (["--mesh", "data=2"], "A7"), (["--seq-parallel"], "A7")):
-        with pytest.raises(SystemExit, match=item):
+    # --exported is served (tests/test_torch_aot.py); with a mesh it raises
+    # naming sharded artifacts (ROADMAP A7 part 3); a mesh is served over a
+    # process group (tests/test_torch_serve_mesh.py), so in one process a
+    # mesh of two asks for the launcher, and --seq-parallel for a model axis
+    for extra, error, item in (
+            (["--exported", "artifact", "--mesh", "data=2"], SystemExit, "A7 part 3"),
+            (["--mesh", "data=2"], ValueError, r"torchrun --nproc_per_node 2"),
+            (["--seq-parallel"], SystemExit, "--mesh model=N")):
+        with pytest.raises(error, match=item):
             S.build_server(_args(files, *extra))
 
 

@@ -19,6 +19,10 @@ It imports torch and the port only (no JAX), reads its inputs from DIR
         injected global draws, and a training run (`train_lib.run_training`)
   sp    4 ranks, mesh data=2 x model=2, sequence parallel: the same step and
         run, and `FDDMPipeline.apply_mesh(seq_parallel=True)` ids
+  tp2   2 ranks, mesh model=2, tensor parallel: the step and a LoRA step
+        (gradients and parameters gathered whole), `apply_mesh` ids in float32
+        and int8, a training run, its checkpoint's ids, and its resume
+  tp4   4 ranks, mesh data=2 x model=2, tensor parallel: the step and the ids
 """
 import json
 import os
@@ -105,13 +109,17 @@ def ring_case(root: str, rank: int, device: torch.device) -> dict:
     return out
 
 
-def step_case(root: str, mesh) -> dict:
-    """The fine-tune step of `step_inputs.pt` on this rank's rows."""
+def step_case(root: str, mesh, inputs: str = "step_inputs.pt", tensor: bool = False) -> dict:
+    """The fine-tune step of DIR/`inputs` on this rank's rows: sequence
+    parallel over "model", or with `tensor` tensor parallel (its gradients,
+    reduced, and its parameters after the step gathered whole).  A config
+    with model.encoder.lora_rank takes the LoRA step."""
     from fddm_asr_tpu_torch import train_lib as TL
+    from fddm_asr_tpu_torch.checkpoint import _by_name
     from fddm_asr_tpu_torch.config import Config
     from fddm_asr_tpu_torch.pipeline import FDDMPipeline
 
-    spec = torch.load(os.path.join(root, "step_inputs.pt"))
+    spec = torch.load(os.path.join(root, inputs))
     cfg = Config(spec["cfg"])
 
     class Tok:
@@ -121,7 +129,10 @@ def step_case(root: str, mesh) -> dict:
     pipe = FDDMPipeline.from_config(cfg, tokenizer=Tok(), device="cpu")
     pipe.decoder.load_state_dict(spec["decoder"])
     pipe.encoder.load_state_dict(spec["encoder"])
-    pipe.enable_seq_parallel(mesh)
+    if tensor:
+        pipe.enable_tensor_parallel(mesh)
+    else:
+        pipe.enable_seq_parallel(mesh)
     heads = TL.make_projection_heads(cfg, "cpu", torch.float32)
     for head, sd in zip(heads, spec["heads"]):
         head.load_state_dict(sd)
@@ -131,25 +142,36 @@ def step_case(root: str, mesh) -> dict:
     rows = slice(mesh.data_rank * b, (mesh.data_rank + 1) * b)
     wave, x0 = spec["wave"][rows], spec["x0"][rows]
     draws = spec["draws"]
-    loss, _ = step.forward(state, wave, x0, True, **draws)
-    loss.backward()
+    with step.merged(state):
+        loss, _ = step.forward(state, wave, x0, True, **draws)
+        loss.backward()
     local = [torch.zeros_like(p) if p.grad is None else p.grad.clone()
              for p in state.optimizer.params]
     grads = state.optimizer.reduce([g.clone() for g in local])
     metrics = step(state, wave, x0, True, **draws)
+    # more steps on the same batch (a LoRA run's second reads B != 0)
+    after = [{k: float(v) for k, v in step(state, wave, x0, True, **draws).items()}
+             for _ in range(spec.get("more_steps", 0))]
+    params = [p.detach().clone() for p in state.optimizer.params]
+    if tensor:  # every tensor whole, as one process holds it
+        full = _by_name(state, full=True)
+        names = state.param_names()
+        grads = [full(k, n, g) for (k, n), g in zip(names, grads)]
+        params = [full(k, n, p) for (k, n), p in zip(names, params)]
     return {"local_grads": local, "grads": grads, "n_main": len(state.optimizer.groups[0][0]),
-            "metrics": {k: float(v) for k, v in metrics.items()},
-            "params": [p.detach().clone() for p in state.optimizer.params]}
+            "metrics": {k: float(v) for k, v in metrics.items()}, "metrics_after": after,
+            "params": params}
 
 
-def run_case(root: str, mesh, name: str) -> dict:
+def run_case(root: str, mesh, name: str, export_pt: bool = False) -> dict:
     """`train_lib.run_training` of DIR/<name>.json's config on `mesh`."""
     from fddm_asr_tpu_torch.config import Config
     from fddm_asr_tpu_torch.train_lib import run_training
 
     with open(os.path.join(root, f"{name}.json"), encoding="utf-8") as f:
         raw = json.load(f)
-    summary = run_training(Config(raw), raw_cfg=raw, export_pt=False, device="cpu", mesh=mesh)
+    summary = run_training(Config(raw), raw_cfg=raw, export_pt=export_pt, device="cpu",
+                           mesh=mesh)
     return {k: summary[k] for k in ("train_loss", "val_cer", "val_loss", "test_cer")}
 
 
@@ -176,6 +198,68 @@ def infer_case(root: str, mesh) -> dict:
     return {"ids": pipe._gathered(ids), "transcribed": [r[1] for r in rows]}
 
 
+def tp_infer_case(root: str, mesh) -> dict:
+    """`apply_mesh` (tensor parallel) ids of DIR/tp_infer.pt's pipeline at
+    its injected x_init, in float32 and under int8."""
+    from fddm_asr_tpu_torch.config import Config
+    from fddm_asr_tpu_torch.pipeline import FDDMPipeline
+
+    from fddm_asr_tpu_torch.parallel.tensor import gather_state, local_state
+
+    spec = torch.load(os.path.join(root, "tp_infer.pt"))
+    out = {}
+    for name, cfg in spec["cfgs"].items():
+        pipe = FDDMPipeline.from_config(Config(cfg), ckpt_path=spec["ckpt"], tokenizer=_Chars(),
+                                        wavlm_state_dict=spec["wavlm"], device="cpu")
+        whole = {m: {k: v.clone() for k, v in getattr(pipe, m).state_dict().items()}
+                 for m in ("decoder", "encoder")}
+        pipe.apply_mesh(mesh)
+        # gather_state(shard_module(m)) is m's state, bit for bit; local_state cuts it back
+        out[f"{name}_round_trip"] = all(
+            set(gathered) == set(whole[m]) and all(torch.equal(gathered[k], whole[m][k])
+                                                   for k in gathered)
+            and all(torch.equal(v, getattr(pipe, m).state_dict()[k])
+                    for k, v in local_state(getattr(pipe, m), whole[m]).items())
+            for m, gathered in ((m, gather_state(getattr(pipe, m))) for m in whole))
+        rows = pipe.transcribe_with_ids(spec["wave"].numpy(), seq_len=spec["x_init"].shape[1],
+                                        x_init=spec["x_init"], T_infer=4, r=2, greedy=True)
+        out[name] = [r[1] for r in rows]
+    return out
+
+
+class _Chars:
+    def DecodeIds(self, ids):
+        return "".join(chr(97 + (i % 26)) for i in ids)
+
+
+def tp_run_case(root: str, mesh) -> dict:
+    """A tensor-parallel `run_training` of DIR/run_tp.json; the ids of its
+    ep001 checkpoint (decoder .pt and .encoder.pt) loaded into a
+    tensor-parallel pipeline; then `--resume ep001.state.pt` for a second
+    epoch."""
+    from fddm_asr_tpu_torch.config import Config
+    from fddm_asr_tpu_torch.pipeline import FDDMPipeline
+    from fddm_asr_tpu_torch.train_lib import run_training
+
+    out = {"run": run_case(root, mesh, "run_tp", export_pt=True)}
+    with open(os.path.join(root, "run_tp.json"), encoding="utf-8") as f:
+        raw = json.load(f)
+    ckpt = raw["log"]["ckpt_dir"]
+    spec = torch.load(os.path.join(root, "tp_infer.pt"))
+    pipe = FDDMPipeline.from_config(
+        Config(raw), ckpt_path=os.path.join(ckpt, "ep001.pt"), tokenizer=_Chars(),
+        encoder_state_dict=torch.load(os.path.join(ckpt, "ep001.encoder.pt")), device="cpu")
+    pipe.apply_mesh(mesh)
+    rows = pipe.transcribe_with_ids(spec["wave"].numpy(), seq_len=spec["x_init"].shape[1],
+                                    x_init=spec["x_init"], T_infer=4, r=2, greedy=True)
+    out["ckpt_ids"] = [r[1] for r in rows]
+    raw["optim"]["num_epochs"] = 2
+    resumed = run_training(Config(raw), raw_cfg=raw, export_pt=False, device="cpu", mesh=mesh,
+                           resume=os.path.join(ckpt, "ep001.state.pt"))
+    out["resumed"] = {k: resumed[k] for k in ("train_loss", "epoch") if k in resumed}
+    return out
+
+
 def main() -> int:
     case, root = sys.argv[1], sys.argv[2]
     torch.set_num_threads(1)
@@ -192,6 +276,13 @@ def main() -> int:
             mesh = P.make_mesh(P.MeshSpec(data=2, model=2))
             out = {"step": step_case(root, mesh), "run": run_case(root, mesh, "run_sp"),
                    "infer": infer_case(root, mesh)}
+        elif case in ("tp2", "tp4"):
+            mesh = P.make_mesh(P.MeshSpec(data=world // 2, model=2))
+            out = {"step": step_case(root, mesh, "tp_step_inputs.pt", tensor=True),
+                   "infer": tp_infer_case(root, mesh)}
+            if case == "tp2":
+                out["lora"] = step_case(root, mesh, "tp_lora_inputs.pt", tensor=True)
+                out.update(tp_run_case(root, mesh))
         else:
             raise ValueError(f"unknown case {case!r}")
         torch.save(out, os.path.join(root, f"{case}.rank{rank}.pt"))
