@@ -5,8 +5,9 @@ against its plain version, transcribes a batch (in full precision, and with
 the int8 encoder and the fused conv front-end, and best-of-4), takes encoder
 fine-tune steps, runs the four evaluators, runs the inference CLI from a
 YAML config, serves requests through the batching HTTP server, exports,
-loads and serves the AOT artifacts as CUDA graphs, and trains through the
-training entry point, all at full model width.
+loads and serves the AOT artifacts as CUDA graphs, trains through the
+training entry point, over several processes, and runs the offline
+workflow and the user scripts, all at full model width.
 
     python3 chip_smoke.py
 
@@ -280,6 +281,29 @@ Phases, each fatal on failure:
      (float32, gloo on the card): 16 uploads of 2-20 s one at a time, their
      served ids equal to this process's pipeline of the same flags on the
      same padded batches and seeds; SIGINT to rank 0 stops both ranks.
+ 22. `offline`: the offline workflow and the user scripts
+     (`fddm_asr_tpu_torch.scripts`) on phase 18's files: (a) `python3 -m
+     ...preprocess --enable_audio_hash` on a dump of 18 clips at 48 kHz
+     (two text duplicates and one audio duplicate removed, 16 kHz WAVs of
+     1-3 s kept), then `python3 -m ...tokenizer_train` on its manifests, a
+     tokenizer that round-trips a test text; (b) `init_random_ckpt
+     --make-tokenizer` on configs/fddm_zhTW_base.yaml: the pipeline built
+     from its `.pt` transcribes phase 4's batch to the ids of the
+     in-process pipeline of the same state (`train_lib.training_pipeline`),
+     B1 24; (c) `precompute_features` of phase 18 (a)'s config over its
+     three splits (96 clips, WavLM-large): B1 24 a batch, the train cache's
+     meta.json that of the cache phase 18 (a)'s run built and its features
+     within one bf16 ulp of them, and `run_training`'s own check opens it
+     unbuilt; (d) `average_checkpoints --last 2` over phase 18 (a)'s
+     ep001.pt and ep002.pt: every tensor the float64 mean of its inputs
+     cast back, and a pipeline transcribes from it; (e) validate_quant's
+     core (`validate`) on phase 18 (b)'s best_model.pt and .encoder.pt over
+     the 16 test clips, variants fp, int8, int8_fused, pcm16 and mulaw8: B1
+     24 a transcribe, B7 144 in int8_fused, the fp texts those of a
+     pipeline built apart from the same files, the report printed (the int8
+     gate, taken on the card); (f) `sweep` of two trials of two steps over
+     phase 18 (a)'s config and feature cache (opened, not rebuilt),
+     evaluated on 4 validation clips: result.json and summary.json ranked.
 
 Phases 4 and 7 run at full depth with as many timed runs as before; the
 whole took 656 s of its 1200 s limit on an NVIDIA H100 80GB HBM3 at 700 W,
@@ -322,6 +346,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import wave
 
 import numpy as np
 import torch
@@ -4158,6 +4183,319 @@ def tensor_parallel_full_width(FA, Q, d: str, card: str, parallel: dict) -> dict
     return result
 
 
+# ---------------------------------------------- phase 22: the offline workflow
+# (a): a Common Voice-style dump of OFFLINE_CLIPS 48 kHz clips a split; (c): the
+# three splits of phase 18's corpus, B1 24 times a batch of optim.batch_size
+OFFLINE_SENTENCES = ("我們可以一起交流", "台灣的高速公路很大", "我們在台灣交流", "高速公路可以交流",
+                     "我們的交流道很大", "沒有問題可以交流", "一個大的交流道", "我們有一個問題")
+OFFLINE_CLIPS = 6
+OFFLINE_VARIANTS = ("fp", "int8", "int8_fused", "pcm16", "mulaw8")
+OFFLINE_SWEEP_TRIALS, OFFLINE_SWEEP_STEPS = 2, 2
+
+
+def _offline_dump(d: str) -> dict:
+    """data/raw/cv-synth/zh-TW/ under `d`: OFFLINE_CLIPS clips of 1-3 s at
+    48 kHz a split (train, dev, test) under sentences of 4-9 of 24
+    ideographs; in train a sentence twice, and one again with punctuation
+    (both removed as exact duplicates), in test one clip's audio twice
+    (removed by its hash); returns {split: [(clip, sentence)]}."""
+    from fddm_asr_tpu_torch.data.audio_io import save_wav
+
+    lang = os.path.join(d, "data", "raw", "cv-synth", "zh-TW")
+    os.makedirs(os.path.join(lang, "clips"))
+    rng = np.random.default_rng(22)
+    rows, seed = {}, 400
+    for split in ("train", "dev", "test"):
+        lines = []
+        for i in range(OFFLINE_CLIPS):
+            name = f"{split}_{i}.wav"
+            wav = synthetic_audio(1, 1.0 + seed % 3, seed=seed)[0]
+            save_wav(os.path.join(lang, "clips", name),
+                     np.interp(np.arange(3 * wav.size) / 3.0, np.arange(wav.size), wav), 48000)
+            seed += 1
+            lines.append((name, "".join(chr(0x4E00 + int(j))
+                                        for j in rng.integers(0, 24, rng.integers(4, 10)))))
+        if split == "train":
+            lines[1] = (lines[1][0], lines[0][1])
+            lines[3] = (lines[3][0], lines[2][1] + "!")
+        if split == "test":
+            shutil.copy(os.path.join(lang, "clips", lines[4][0]),
+                        os.path.join(lang, "clips", lines[5][0]))
+        rows[split] = lines
+        with open(os.path.join(lang, f"{split}.tsv"), "w", encoding="utf-8") as f:
+            f.write("client_id\tpath\tsentence\n"
+                    + "".join(f"c{i}\t{p}\t{s}\n" for i, (p, s) in enumerate(lines)))
+    return rows
+
+
+def _module_process(args: list, cwd: str, tag: str) -> tuple:
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-m", *args], cwd=cwd, capture_output=True,
+                          text=True, timeout=300,
+                          env={**os.environ, "PYTHONPATH": root})
+    if proc.returncode != 0:
+        fail(f"{tag}: `python3 -m {args[0]}` exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    return proc, time.time() - t0
+
+
+def offline_full_width(d: str, card: str, trained: dict) -> dict:
+    """Phase 22 (module docstring): the offline workflow and the user
+    scripts on the card.  `d` holds phase 15's tokenizer and phase 18's
+    corpus, configs, feature cache and checkpoints; `trained` is phase 18's
+    result."""
+    from fddm_asr_tpu_torch import train_lib as TL
+    from fddm_asr_tpu_torch.config import load_config
+    from fddm_asr_tpu_torch.convert import load_reference_checkpoint
+    from fddm_asr_tpu_torch.data.feature_cache import FeatureCache
+    from fddm_asr_tpu_torch.pipeline import FDDMPipeline
+    from fddm_asr_tpu_torch.scripts import average_checkpoints as AVG
+    from fddm_asr_tpu_torch.scripts import init_random_ckpt as INIT
+    from fddm_asr_tpu_torch.scripts import precompute_features as PRE
+    from fddm_asr_tpu_torch.scripts import sweep as SWEEP
+    from fddm_asr_tpu_torch.scripts import validate_quant as VQ
+    from fddm_asr_tpu_torch.tokenizer import load_tokenizer
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    wrappers = port_kernel_wrappers()
+    result = {"card": card}
+    t_phase = time.time()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (a) preprocess a dump, then train a tokenizer on its manifests: host work
+    a_dir = os.path.join(d, "offline")
+    rows = _offline_dump(a_dir)
+    _, pre_s = _module_process(["fddm_asr_tpu_torch.scripts.preprocess", "--auto_merge",
+                                "--splits", "train,dev,test", "--enable_audio_hash"],
+                               a_dir, "(a) preprocess")
+    processed = os.path.join(a_dir, "data", "processed")
+    manifests = {}
+    for split in rows:
+        with open(os.path.join(processed, f"{split}.json"), encoding="utf-8") as f:
+            manifests[split] = json.load(f)
+    with open(os.path.join(processed, "merge_report.json"), encoding="utf-8") as f:
+        report = json.load(f)["global_statistics"]
+    kept = {s: len(m) for s, m in manifests.items()}
+    reasons = sorted(x["reason"] for x in report["duplicates_detail"])
+    if (kept != {"train": OFFLINE_CLIPS - 2, "dev": OFFLINE_CLIPS, "test": OFFLINE_CLIPS - 1}
+            or reasons != ["exact text match"] * 2 + ["identical audio hash"]
+            or any(not 1.0 <= r["duration"] <= 3.0 for m in manifests.values() for r in m)
+            or any(_wav_rate(os.path.join(a_dir, r["processed_path"])) != 16000
+                   for m in manifests.values() for r in m)):
+        fail(f"(a) preprocess kept {kept} clips, removed {reasons}")
+    tok_cfg = os.path.join(a_dir, "tokenizer.yaml")
+    with open(tok_cfg, "w", encoding="utf-8") as f:
+        json.dump({"corpus": {"lang_prefix": "zh", "base_path": processed, "text_field": "text",
+                              "min_len": 1},
+                   "tokenizer": {"model_prefix": "spm_offline", "vocab_size": 40},
+                   "output": {"dir": os.path.join(a_dir, "tok")}}, f)
+    _, tok_s = _module_process(["fddm_asr_tpu_torch.scripts.tokenizer_train", "--config",
+                                tok_cfg], a_dir, "(a) tokenizer_train")
+    tok = load_tokenizer(os.path.join(a_dir, "tok", "spm_offline.model"))
+    text = manifests["test"][0]["text"]
+    if tok.vocab_size() > 40 or tok.decode(tok.encode(text)) != text:
+        fail(f"(a) the trained tokenizer ({tok.vocab_size()} pieces) does not round-trip {text!r}")
+    result["a"] = {"preprocess_process_s": pre_s, "tokenizer_train_process_s": tok_s,
+                   "clips_kept": kept,
+                   "duplicates_removed": report["duplicates_removed"],
+                   "tokenizer_pieces": tok.vocab_size()}
+    print(json.dumps({"offline_a": result["a"]}), flush=True)
+
+    # (b) a random-init checkpoint of the flagship config; a pipeline from it
+    # against the in-process pipeline with the same state, on phase 4's batch
+    base_cfg = os.path.join(root, "configs", "fddm_zhTW_base.yaml")
+    b_dir = os.path.join(d, "random_init")
+    out = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(out):
+        INIT.main(["--config", base_cfg, "--out", os.path.join(b_dir, "random.pt"),
+                   "--make-tokenizer"])
+    init_s = time.time() - t0
+    line = json.loads(out.getvalue().strip().splitlines()[-1])
+    cfg = load_config(base_cfg)
+    tok = load_tokenizer(line["tokenizer"])
+    dtype = cfg.optim.get("dtype", cfg.model.get("dtype"))
+    wav = synthetic_audio(8, 20.0, seed=0)
+    sampling = dict(T_infer=20, r=5, greedy=True, posterior_mode="map", sampling_mode="exact")
+
+    def ids_of(pipe):
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        _reset(wrappers)
+        rows_ = pipe.transcribe_with_ids(wav, seq_len=64, generator=gen, **sampling)
+        torch.cuda.synchronize()
+        return [r[1] for r in rows_], _counts_since_reset(wrappers)
+
+    loaded = FDDMPipeline.from_config(cfg, ckpt_path=line["out"], tokenizer=tok, dtype=dtype)
+    got, launches = ids_of(loaded)
+    del loaded
+    want, _ = ids_of(TL.training_pipeline(cfg, tokenizer=tok))
+    result["b"] = {"init_s": init_s, "params": line["params"], "bytes": line["bytes"],
+                   "ids_equal_in_process": got == want, "launches": launches}
+    print(json.dumps({"offline_b": result["b"]}), flush=True)
+    if got != want or len(got) != 8 or tok.vocab_size() != 8000:
+        fail("(b) the random-init .pt's pipeline gives other ids than the in-process one")
+    if launches["fwd"] != 24 or any(n for k, n in launches.items() if k != "fwd"):
+        fail(f"(b) kernel launches in the transcribe {launches}, expected B1 24")
+
+    # (c) the feature cache at WavLM-large width on phase 18's corpus
+    cfg_a = os.path.join(d, "a.yaml")
+    acfg = load_config(cfg_a)
+    batch = int(acfg.optim.batch_size)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _reset(wrappers)
+    t0 = time.time()
+    cached = PRE.main(["--config", cfg_a, "--cache-dir", os.path.join(d, "feats22"),
+                       "--splits", "train,validation,test"])
+    torch.cuda.synchronize()
+    pre_s = time.time() - t0
+    launches = _counts_since_reset(wrappers)
+    n_batches = sum(-(-n // batch) for _, n in TRAIN_SPLITS)
+    mine, built_by_run = (FeatureCache(os.path.join(d, name), "train")
+                          for name in ("feats22", "feats"))
+    a = np.asarray(mine.rows(range(mine.shape[0])).float())
+    b = np.asarray(built_by_run.rows(range(built_by_run.shape[0])).float())
+    close = within_tol(torch.from_numpy(a - b).abs(), torch.from_numpy(b), torch.bfloat16) <= 1
+    pipe = TL.training_pipeline(acfg, tokenizer=load_tokenizer(acfg.data.tokenizer_path))
+    _, rebuilt = TL._ensure_feature_cache(
+        pipe, TL.training_dataset(acfg, acfg.data.train_json, pipe.tokenizer),
+        os.path.join(d, "feats22"), "train", batch, acfg.data.train_json)
+    del pipe
+    clips = sum(n for _, n in TRAIN_SPLITS)
+    result["c"] = {
+        "seconds": pre_s, "splits": cached, "launches": {k: n for k, n in launches.items() if n},
+        "batches": n_batches, "seconds_per_clip": pre_s / clips,
+        "phase18a_cache_seconds_per_train_clip":
+            trained["a"]["feature_cache"]["seconds"] / TRAIN_SPLITS[0][1],
+        "meta_equal_run_trainings": mine.meta == built_by_run.meta,
+        "bits_equal_run_trainings": bool(np.array_equal(a, b)),
+        "max_abs_diff_run_trainings": float(np.abs(a - b).max()),
+        "run_training_rebuilt": rebuilt}
+    print(json.dumps({"offline_c": result["c"]}), flush=True)
+    if launches["fwd"] != 24 * n_batches or any(n for k, n in launches.items() if k != "fwd"):
+        fail(f"(c) kernel launches {launches}, expected B1 {24 * n_batches}")
+    if not mine.meta == built_by_run.meta or not bool(close.all()) or rebuilt:
+        fail(f"(c) the precomputed cache is not the one run_training builds: {result['c']}")
+
+    # (d) the mean of phase 18 (a)'s epoch checkpoints, loaded by the pipeline
+    ckpt_dir = os.path.join(d, "ckpt_a")
+    avg = os.path.join(d, "avg.pt")
+    with contextlib.redirect_stdout(io.StringIO()):
+        AVG.main(["--last", "2", "--ckpt-dir", ckpt_dir, "--out", avg])
+    inputs = [load_reference_checkpoint(os.path.join(ckpt_dir, f"ep00{i}.pt")) for i in (1, 2)]
+    mean = load_reference_checkpoint(avg)
+    worst = 0
+    for key in ("decoder", "s_proj", "t_embed", "t_proj"):
+        for name, t in mean[key].items():
+            want_t = (sum(ck[key][name].double() for ck in inputs) / 2).to(t.dtype)
+            worst += int(not torch.equal(t, want_t))
+    moved = not torch.equal(inputs[0]["decoder"]["head.weight"],
+                            inputs[1]["decoder"]["head.weight"])
+    pipe = FDDMPipeline.from_config(acfg, ckpt_path=avg, tokenizer=load_tokenizer(
+        acfg.data.tokenizer_path))
+    ids, _ = ids_of(pipe)
+    del pipe
+    result["d"] = {"tensors_not_the_mean": worst, "epochs": [mean["epoch"], mean["step"]],
+                   "inputs_differ": moved, "transcribed_rows": len(ids)}
+    print(json.dumps({"offline_d": result["d"]}), flush=True)
+    if worst or not moved or mean["epoch"] != 2 or len(ids) != 8:
+        fail(f"(d) the averaged checkpoint is not the float64 mean of its inputs: {result['d']}")
+
+    # (e) the int8 gate on phase 18 (b)'s best model, over the 16 test clips
+    cfg_b = load_config(os.path.join(d, "b.yaml"))
+    best = os.path.join(d, "ckpt_b", "best_model")
+    encoder = torch.load(best + ".encoder.pt", map_location="cpu", weights_only=True)
+    with open(cfg_b.data.test_json, encoding="utf-8") as f:
+        test_records = json.load(f)
+    per_variant = {}
+
+    def count(name, _):
+        per_variant[name] = _counts_since_reset(wrappers)  # from the previous variant's start
+        _reset(wrappers)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    seq_len = int(cfg_b.data.max_len)
+    T_infer, r = int(cfg_b.inference.get("T_infer", 20)), int(cfg_b.inference.get("r", 5))
+    t0 = time.time()
+    _reset(wrappers)
+    gate, variants = VQ.validate(cfg_b, best + ".pt", test_records, list(OFFLINE_VARIANTS),
+                                 seq_len, T_infer, r,
+                                 tokenizer=load_tokenizer(cfg_b.data.tokenizer_path),
+                                 encoder_state_dict=encoder, on_variant=count)
+    torch.cuda.synchronize()
+    vq_s = time.time() - t0
+    per_variant["end"] = _counts_since_reset(wrappers)
+    names = list(OFFLINE_VARIANTS)
+    launches = {n: {k: c for k, c in per_variant[nxt].items() if c}
+                for n, nxt in zip(names, names[1:] + ["end"])}
+    batch_e, lengths, _ = VQ.load_batch(test_records)
+    pipe = FDDMPipeline.from_config(cfg_b, ckpt_path=best + ".pt", encoder_state_dict=encoder,
+                                    tokenizer=load_tokenizer(cfg_b.data.tokenizer_path))
+    texts = pipe.transcribe(batch_e, lengths, seq_len=seq_len, T_infer=T_infer, r=r, greedy=True)
+    del pipe
+    result["e"] = {"seconds": vq_s, "launches": launches,
+                   "fp_texts_equal_in_process": texts == variants["fp"]["texts"],
+                   # the gate's report, its disagreements counted (their texts
+                   # are 128-id transcripts)
+                   "report": {**{k: v for k, v in gate.items() if k != "disagreements"},
+                              "disagreements_listed": len(gate["disagreements"])}}
+    print(json.dumps({"offline_e": result["e"]}), flush=True)
+    for n in names:
+        want = {"fwd": 24, **({"int8_matmul_fused": 144} if n == "int8_fused" else {})}
+        if launches[n] != want:
+            fail(f"(e) {n}: kernel launches {launches[n]}, expected {want}")
+    if texts != variants["fp"]["texts"] or gate["n"] != len(test_records):
+        fail("(e) validate_quant's fp texts differ from the in-process pipeline's")
+
+    # (f) a sweep of two trials over phase 18 (a)'s config and feature cache
+    # (evaluated on 4 validation clips, no test set: one decode batch a trial)
+    val4 = os.path.join(d, "validation4.json")
+    with open(val4, "w", encoding="utf-8") as f:
+        json.dump(trained["corpus"]["records"]["validation"][:4], f, ensure_ascii=False)
+    sweep = os.path.join(d, "sweep.yaml")
+    with open(sweep, "w", encoding="utf-8") as f:
+        json.dump({"base_config": cfg_a,
+                   "data": {"val_json": val4, "test_json": os.path.join(d, "no_test_set.json")},
+                   "optim": {"lr": {"distribution": "log_uniform", "min": 1e-4, "max": 1e-3}}},
+                  f)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    with contextlib.redirect_stdout(io.StringIO()):
+        SWEEP.main(["--sweep", sweep, "--trials", str(OFFLINE_SWEEP_TRIALS), "--epochs", "1",
+                    "--max-steps-per-epoch", str(OFFLINE_SWEEP_STEPS), "--out",
+                    os.path.join(d, "sweep")])
+    logging.getLogger().handlers.clear()
+    sweep_s = time.time() - t0
+    with open(os.path.join(d, "sweep", "summary.json")) as f:
+        summary = json.load(f)
+    trials = []
+    for i in range(OFFLINE_SWEEP_TRIALS):
+        records = _metrics(os.path.join(d, "sweep", f"trial_{i:03d}", "ckpts"))
+        steps = [x["step"] for x in records if x["kind"] == "step"]
+        cache = [x for x in records if x["kind"] == "feature_cache"]
+        trials.append({"steps": steps, "cache_built": [x["built"] for x in cache]})
+    result["f"] = {"seconds": sweep_s, "trials": trials,
+                   "ranked": [(s["trial"], s.get("best_val_cer"), s.get("error"))
+                              for s in summary]}
+    print(json.dumps({"offline_f": result["f"]}), flush=True)
+    if (len(summary) != OFFLINE_SWEEP_TRIALS or any(s.get("error") for s in summary)
+            or any(s.get("best_val_cer") is None for s in summary)
+            or any(t["steps"] != list(range(1, OFFLINE_SWEEP_STEPS + 1))
+                   or t["cache_built"] != [False] for t in trials)):
+        fail(f"(f) the sweep's trials: {result['f']}")
+    result["seconds"] = time.time() - t_phase
+    print(json.dumps({"offline": {"card": card, "seconds": result["seconds"]}}), flush=True)
+    return result
+
+
+def _wav_rate(path: str) -> int:
+    with wave.open(path) as w:
+        return w.getframerate()
+
+
 def b7_times(root: str) -> int:
     """`--b7-times ROOT`: the fused int8 kernel of the port in the checkout
     at ROOT (this one or another, to compare two trees on one card), timed
@@ -4472,6 +4810,8 @@ def main() -> int:
         parallel = parallel_full_width(FA, tmp, card, trained["cli_c"])
         # phase 21: tensor parallelism (phase 20's two ranks, then the server)
         tensor_parallel = tensor_parallel_full_width(FA, Q, tmp, card, parallel)
+        # phase 22: the offline workflow and the user scripts, on phase 18's files
+        offline = offline_full_width(tmp, card, trained)
 
     main_row = rows[(1024, torch.bfloat16)]  # the transcribe's shape and type
     kernels = [{
@@ -4511,7 +4851,12 @@ def main() -> int:
             "tensor_parallel_transcribe_per_rank": tensor_parallel["rank0"]["float32"][
                 "launches"]["fwd"],
             "tensor_parallel_int8_fused_per_rank": tensor_parallel["rank0"]["int8_fused"][
-                "launches"]["fwd"]},
+                "launches"]["fwd"],
+            # phase 22: a transcribe from the random-init .pt, the feature cache of
+            # phase 18's 96 clips (6 batches), one validate_quant transcribe
+            "offline_init_random_ckpt_transcribe": offline["b"]["launches"]["fwd"],
+            "offline_precompute_features": offline["c"]["launches"]["fwd"],
+            "offline_validate_quant_per_transcribe": offline["e"]["launches"]["fp"]["fwd"]},
         # phase 21: B1 at a model=2 rank's heads, B=8 L=1024, 999 valid keys a row
         "tensor_parallel_H8": [{k: tensor_parallel["kernels_h8"]["b1"][dt].get(k) for k in (
             "B", "L", "H", "valid", "dtype", "max_abs_err", "ms", "plain_ms", "library_ms",
@@ -4604,7 +4949,10 @@ def main() -> int:
             "exported_int8_fused": exported["int8_fused"]["launches"]["int8_matmul_fused"],
             # phase 21: a model=2 rank launches it on its column slices only
             "tensor_parallel_int8_fused_per_rank": tensor_parallel["rank0"]["int8_fused"][
-                "launches"]["int8_matmul_fused"]},
+                "launches"]["int8_matmul_fused"],
+            # phase 22: validate_quant's int8_fused transcribe of 16 x 20 s
+            "offline_validate_quant_int8_fused": offline["e"]["launches"]["int8_fused"][
+                "int8_matmul_fused"]},
         # phase 21: the column slices of a model=2 rank (q: 512, FFN: 2048 outputs), f32
         "tensor_parallel_column_slices": [{k: row[k] for k in (
             "M", "din", "dout", "dtype", "max_abs_err", "ms", "device_ms", "plain_ms",

@@ -10,7 +10,8 @@ Layer map (bottom-up):
   - `ops`               decoder attention; WavLM gated attention (CUDA kernel)
   - `models`            WavLM encoder, acoustic encoder, denoising decoder
   - `sampler`           jumpy sampler
-  - `tokenizer`         SentencePiece-compatible decoding
+  - `tokenizer`         SentencePiece-compatible encoding, decoding, `.model`
+                        writing and BPE training (`tokenizer.train_bpe`)
   - `convert`           weights from the JAX package's trees and reference .pt
   - `pipeline`          FDDMPipeline: waveform -> transcript
   - `parallel`          several GPUs: process group, ("data", "model") mesh,
@@ -19,6 +20,8 @@ Layer map (bottom-up):
   - `serve`             batching HTTP server (`python -m fddm_asr_tpu_torch.serve`)
   - `aot`, `export_model`  AOT artifacts: `torch.export` programs replayed
                         as CUDA graphs (`python -m fddm_asr_tpu_torch.export_model`)
+  - `scripts`           the offline workflow and the user scripts
+                        (`python -m fddm_asr_tpu_torch.scripts.<name>`)
 """
 
 __version__ = "0.1.0"

@@ -58,7 +58,8 @@ import torch
 from fddm_asr_tpu_torch.parallel import is_primary
 from fddm_asr_tpu_torch.train_lib import MODULE_KEYS, TrainState
 
-__all__ = ["module_state_dicts", "AsyncWriter", "save_ckpt", "load_state", "restore_state"]
+__all__ = ["module_state_dicts", "reference_ckpt", "save_reference_ckpt", "AsyncWriter",
+           "save_ckpt", "load_state", "restore_state"]
 
 
 def _host(t: torch.Tensor) -> torch.Tensor:
@@ -103,6 +104,34 @@ def module_state_dicts(state: TrainState, use_ema: bool) -> Dict[str, Dict[str, 
 
 def _host_adapters(adapters) -> Dict[str, Dict[str, torch.Tensor]]:
     return {n: {ab: _host(t) for ab, t in ad.items()} for n, ad in adapters.items()}
+
+
+def reference_ckpt(decoder: Dict[str, torch.Tensor],
+                   s_proj: Optional[Dict[str, torch.Tensor]] = None,
+                   t_embed: Optional[Dict[str, torch.Tensor]] = None,
+                   t_proj: Optional[Dict[str, torch.Tensor]] = None, epoch: int = 0,
+                   step: int = 0, config: Optional[dict] = None,
+                   best_val_cer: Optional[float] = None) -> Dict[str, Any]:
+    """The reference `.pt`'s dict from module state_dicts, in the JAX
+    writer's key order (`export_reference_ckpt`): decoder, epoch, step,
+    config, then the projection heads given and best_val_cer when given.
+    `convert.load_reference_checkpoint` reads it back."""
+    ckpt: Dict[str, Any] = {"decoder": decoder, "epoch": epoch, "step": step, "config": config}
+    for key, sd in (("s_proj", s_proj), ("t_embed", t_embed), ("t_proj", t_proj)):
+        if sd is not None:
+            ckpt[key] = sd
+    if best_val_cer is not None:
+        ckpt["best_val_cer"] = float(best_val_cer)
+    return ckpt
+
+
+def save_reference_ckpt(path: str, decoder: Dict[str, torch.Tensor], *heads,
+                        **meta) -> Dict[str, float]:
+    """Write `reference_ckpt(decoder, *heads, **meta)` to `path` (a temporary
+    name renamed into place); returns its bytes and seconds."""
+    files: Dict[str, Dict[str, float]] = {}
+    _write(reference_ckpt(decoder, *heads, **meta), path, files)
+    return files[os.path.basename(path)]
 
 
 def _write(obj, path: str, files: Dict[str, Dict[str, float]]) -> None:
@@ -218,12 +247,10 @@ def save_ckpt(prefix: str, state: TrainState, epoch: int, raw_cfg: Optional[dict
     with open(prefix + ".meta.json", "w", encoding="utf-8") as f:
         json.dump(meta, f, indent=1)
     if export_pt:
-        ckpt = {"decoder": exported["decoder"], "epoch": epoch, "step": state.step,
-                "config": raw_cfg, "s_proj": exported["s_proj"],
-                "t_embed": exported["t_embed"], "t_proj": exported["t_proj"]}
-        if best_val_cer is not None:
-            ckpt["best_val_cer"] = float(best_val_cer)
-        jobs.append((ckpt, prefix + ".pt"))
+        jobs.append((reference_ckpt(
+            exported["decoder"], exported["s_proj"], exported["t_embed"], exported["t_proj"],
+            epoch=epoch, step=state.step, config=raw_cfg, best_val_cer=best_val_cer),
+            prefix + ".pt"))
     if state.encoder is not None:
         jobs.append((exported["encoder"], prefix + ".encoder.pt"))
     elif state.lora is not None:

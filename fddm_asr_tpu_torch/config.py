@@ -3,8 +3,8 @@
 
 Counterpart of `fddm_asr_tpu/config.py`: one dict-like `Config` with both
 attribute and `.get`/`[]` access serves every entry point.  `yaml` is
-imported only inside `load_yaml`, so building a pipeline in code needs no
-YAML package.
+imported only inside `load_yaml` and `dump_yaml`, so building a pipeline
+in code needs no YAML package.
 """
 from __future__ import annotations
 
@@ -15,7 +15,7 @@ from typing import Any, Dict, Iterator, Mapping, Optional
 
 import torch
 
-__all__ = ["Config", "load_config", "load_yaml", "deep_merge",
+__all__ = ["Config", "load_config", "load_yaml", "dump_yaml", "deep_merge",
            "resolve_special_ids", "resolve_device"]
 
 
@@ -83,6 +83,14 @@ def load_yaml(path: str) -> Dict[str, Any]:
 
     with open(path, "r", encoding="utf-8") as f:
         return yaml.safe_load(f) or {}
+
+
+def dump_yaml(data: Mapping[str, Any], path: str) -> None:
+    """Write `data` as YAML (`yaml.safe_dump`, the JAX scripts' writer)."""
+    import yaml
+
+    with open(path, "w") as f:
+        yaml.safe_dump(dict(data), f)
 
 
 def load_config(path: str, overrides: Optional[Mapping[str, Any]] = None) -> Config:

@@ -21,8 +21,8 @@ from typing import BinaryIO, Optional, Tuple, Union
 
 import numpy as np
 
-__all__ = ["load_wav", "save_wav", "resample", "load_audio", "silence_cut",
-           "plan_silence_chunks"]
+__all__ = ["load_wav", "save_wav", "resample", "load_audio", "to_wav_16k_mono",
+           "silence_cut", "plan_silence_chunks"]
 
 
 def _decode_pcm_int(raw: bytes, width: int, path: str) -> np.ndarray:
@@ -174,6 +174,18 @@ def _load_via_ffmpeg(ffmpeg: str, path: str, target_sr: Optional[int],
     if not mono:
         data = data.reshape(-1, 2).T  # interleaved -> [C, T], as the WAV branch gives
     return data, out_sr
+
+
+def to_wav_16k_mono(src: str, dst: str) -> float:
+    """Convert any readable audio file to a 16 kHz mono 16-bit WAV at `dst`;
+    returns its duration in seconds, or -1.0 when `src` cannot be read or
+    `dst` written (preprocessing drops that clip)."""
+    try:
+        data, _ = load_audio(src, target_sr=16000, mono=True)
+        save_wav(dst, data, 16000)
+        return float(len(data)) / 16000.0
+    except Exception:
+        return -1.0
 
 
 def silence_cut(window: np.ndarray, win: int, search: int = 16000, frame: int = 400) -> int:

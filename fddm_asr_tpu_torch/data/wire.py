@@ -68,6 +68,13 @@ def silence_value(encoding: str) -> int:
     return 0
 
 
+def mulaw_decode_np(u: np.ndarray) -> np.ndarray:
+    """uint8 mu-law codes -> float32 samples on the host, as the JAX
+    package's host decode computes them (through float64)."""
+    y = (np.asarray(u, np.float32) - 127.5) / 127.5
+    return (np.sign(y) * np.expm1(np.abs(y) * np.log(1.0 + MU)) / MU).astype(np.float32)
+
+
 def mulaw_decode(u: torch.Tensor) -> torch.Tensor:
     """uint8 mu-law codes -> float32 samples in [-1, 1]."""
     y = (u.float() - 127.5) / 127.5

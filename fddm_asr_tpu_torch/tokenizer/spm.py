@@ -21,7 +21,7 @@ from __future__ import annotations
 import heapq
 import os
 import unicodedata
-from typing import Dict, List, Sequence, Union
+from typing import Dict, List, Optional, Sequence, Union
 
 from fddm_asr_tpu_torch.tokenizer import model_proto as mp
 
@@ -33,11 +33,19 @@ _SPACES = "\t\n\r\v\f\u00a0\u202f\u2007"  # folded to " " (after NFKC)
 
 
 class SentencePieceProcessor:
-    def __init__(self, model_file: str):
-        if model_file.endswith(".vocab") or not _looks_like_proto(model_file):
+    def __init__(self, model_file: Optional[str] = None):
+        """From a `.model` or `.vocab` file; with no file, empty until
+        `_init_from_model` gives it an in-memory `SPModel` (the BPE
+        trainer's)."""
+        if model_file is None:
+            model = mp.SPModel(pieces=[])
+        elif model_file.endswith(".vocab") or not _looks_like_proto(model_file):
             model = mp.SPModel(pieces=_load_vocab_tsv(model_file))
         else:
             model = mp.load_model(model_file)
+        self._init_from_model(model)
+
+    def _init_from_model(self, model: mp.SPModel) -> None:
         self._pieces = model.pieces
         self._piece_to_id: Dict[str, int] = {p.piece: i for i, p in enumerate(self._pieces)}
         self._unk_id = model.unk_id

@@ -351,6 +351,46 @@ def make_projection_heads(cfg: Config, device, dtype: torch.dtype,
     return heads
 
 
+def training_pipeline(cfg: Config, wavlm_state_dict: Optional[Dict[str, torch.Tensor]] = None,
+                      encoder_state_dict=None, device: Optional[str] = None, tokenizer=None):
+    """The pipeline a training run starts from, as `run_training` builds it:
+    the config's seed (default 1337), the training compute dtype
+    (optim.dtype over model.dtype, default bfloat16; parameters stay
+    float32), the decoder of model.init_ckpt when set (a warm start),
+    `wavlm_state_dict` and then `encoder_state_dict` (as
+    `FDDMPipeline.from_config` takes them) in the encoder."""
+    from fddm_asr_tpu_torch.pipeline import FDDMPipeline
+
+    dtype = cfg.optim.get("dtype", cfg.model.get("dtype", "bfloat16"))
+    return FDDMPipeline.from_config(cfg, ckpt_path=cfg.model.get("init_ckpt"),
+                                    wavlm_state_dict=wavlm_state_dict,
+                                    encoder_state_dict=encoder_state_dict, tokenizer=tokenizer,
+                                    device=device, dtype=dtype,
+                                    seed=int(cfg.get("seed", 1337)))
+
+
+def training_heads(cfg: Config, pipeline):
+    """The projection heads a training run starts from (`make_projection_heads`
+    on the pipeline's device and dtype, drawn from a generator seeded by the
+    config's seed + 1)."""
+    gen = torch.Generator(device=pipeline.device).manual_seed(int(cfg.get("seed", 1337)) + 1)
+    return make_projection_heads(cfg, pipeline.device, pipeline.decoder.dtype, gen)
+
+
+def training_dataset(cfg: Config, manifest_path: str, tokenizer):
+    """A manifest as the training run reads it: data.max_len (default 128)
+    ids, data.max_seconds (default 20) of audio, the special ids of
+    `resolve_special_ids`, data.bos_id and data.eos_id."""
+    from fddm_asr_tpu_torch.data.dataset import ManifestDataset
+
+    data_cfg = cfg.data
+    return ManifestDataset(manifest_path, tokenizer, max_len=data_cfg.get("max_len", 128),
+                           pad_id=resolve_special_ids(cfg)["pad_id"],
+                           bos_id=data_cfg.get("bos_id"), eos_id=data_cfg.get("eos_id"),
+                           max_audio_seconds=data_cfg.get("max_seconds", 20),
+                           sample_rate=data_cfg.get("sample_rate", 16000))
+
+
 def init_train_state(pipeline, cfg: Config, train_encoder: Optional[bool] = None,
                      heads=None, generator: Optional[torch.Generator] = None,
                      mesh=None) -> TrainState:
@@ -891,10 +931,8 @@ def _run_training_impl(cfg: Config, raw_cfg, resume, wavlm_state_dict, max_steps
     from fddm_asr_tpu_torch import checkpoint as C
     from fddm_asr_tpu_torch import eval as E
     from fddm_asr_tpu_torch.config import resolve_device
-    from fddm_asr_tpu_torch.data.dataset import (ManifestDataset, make_batches,
-                                                 shard_example_count)
+    from fddm_asr_tpu_torch.data.dataset import make_batches, shard_example_count
     from fddm_asr_tpu_torch.models.encoder import frame_length_estimate
-    from fddm_asr_tpu_torch.pipeline import FDDMPipeline
     from fddm_asr_tpu_torch.profiling import StepTimer, annotate
 
     seed = int(cfg.get("seed", 1337))
@@ -909,15 +947,8 @@ def _run_training_impl(cfg: Config, raw_cfg, resume, wavlm_state_dict, max_steps
                   "lora_alpha": float(enc_cfg.get("lora_alpha", lora_rank))}
                  if lora_rank > 0 else {})
     dev = resolve_device(device)
-    pad_id = resolve_special_ids(cfg)["pad_id"]
-    # the training compute dtype: optim.dtype over model.dtype (parameters stay float32)
-    dtype = cfg.optim.get("dtype", cfg.model.get("dtype", "bfloat16"))
-    # model.init_ckpt: warm-start the decoder from a reference .pt with a fresh
-    # optimizer, schedule and epoch 1 (--resume restores the whole state)
     init_ckpt = cfg.model.get("init_ckpt")
-    pipeline = FDDMPipeline.from_config(cfg, ckpt_path=init_ckpt,
-                                        wavlm_state_dict=wavlm_state_dict, device=str(dev),
-                                        dtype=dtype, seed=seed)
+    pipeline = training_pipeline(cfg, wavlm_state_dict, device=str(dev))
     if init_ckpt:
         logging.info(f"decoder warm-started from {init_ckpt} (fresh optimizer state)")
     # model.encoder.seq_parallel: the encoder's frames split over the mesh's
@@ -931,8 +962,7 @@ def _run_training_impl(cfg: Config, raw_cfg, resume, wavlm_state_dict, max_steps
 
         # dropout of whole activations must draw the same masks on every model rank
         sync_default_generators(mesh)
-    heads = make_projection_heads(cfg, dev, pipeline.decoder.dtype,
-                                  torch.Generator(device=dev).manual_seed(seed + 1))
+    heads = training_heads(cfg, pipeline)
     state = init_train_state(pipeline, cfg, train_encoder=train_encoder, heads=heads, mesh=mesh)
     ema_eval = state.ema is not None and bool(cfg.optim.get("ema_eval", True))
 
@@ -991,11 +1021,7 @@ def _run_training_impl(cfg: Config, raw_cfg, resume, wavlm_state_dict, max_steps
     def make_ds(path):
         if not path or not os.path.exists(path):
             return None
-        return ManifestDataset(path, tokenizer, max_len=data_cfg.get("max_len", 128),
-                               pad_id=pad_id, bos_id=data_cfg.get("bos_id"),
-                               eos_id=data_cfg.get("eos_id"),
-                               max_audio_seconds=data_cfg.get("max_seconds", 20),
-                               sample_rate=data_cfg.get("sample_rate", 16000))
+        return training_dataset(cfg, path, tokenizer)
 
     train_manifest = data_cfg.get("train_json",
                                   data_cfg.get("manifest_train", "data/processed/train.json"))
@@ -1323,17 +1349,19 @@ def _encoder_checksum(pipeline) -> float:
 
 
 def _ensure_feature_cache(pipeline, train_ds, cache_dir: str, split: str, batch_size: int,
-                          manifest_path: str, checksum: Optional[float] = None):
+                          manifest_path: str, checksum: Optional[float] = None,
+                          rebuild: bool = False):
     """(the feature cache, whether it was built now): opened, after one
-    encoder sweep over the manifest in order when absent; refused when
-    stale or of another width.  `checksum`: `_encoder_checksum`'s."""
+    encoder sweep over the manifest in order when absent (or `rebuild`);
+    refused when stale or of another width.  `checksum`:
+    `_encoder_checksum`'s."""
     from fddm_asr_tpu_torch.data import feature_cache as FC
 
     if checksum is None:
         checksum = _encoder_checksum(pipeline)
     masked = bool(pipeline.use_condition_mask)
     fp = FC.fingerprint(manifest_path, len(train_ds), checksum, masked=masked)
-    built = not FC.cache_exists(cache_dir, split)
+    built = rebuild or not FC.cache_exists(cache_dir, split)
     if built:
         logging.info(f"building feature cache under {cache_dir}/{split} …")
 

@@ -74,8 +74,9 @@ def test_no_transformers_safetensors_or_pandas_imports(path):
 
 
 def test_yaml_is_imported_by_load_yaml_alone():
-    """The one `import yaml` of the port and chip_smoke.py is the one in
-    `config.load_yaml`, so building a pipeline in code needs no YAML package."""
+    """The only `import yaml` statements of the port and chip_smoke.py are
+    the ones in `config.load_yaml` and its writer `config.dump_yaml`, so
+    building a pipeline in code needs no YAML package."""
     found = []
     for path in _port_files():
         with open(path, encoding="utf-8") as f:
@@ -86,7 +87,8 @@ def test_yaml_is_imported_by_load_yaml_alone():
                     if isinstance(node, ast.Import) and any(
                             a.name.split(".")[0] == "yaml" for a in node.names):
                         found.append((os.path.relpath(path, ROOT), fn.name))
-    assert sorted(set(found)) == [("fddm_asr_tpu_torch/config.py", "load_yaml")]
+    assert sorted(set(found)) == [("fddm_asr_tpu_torch/config.py", "dump_yaml"),
+                                  ("fddm_asr_tpu_torch/config.py", "load_yaml")]
 
 
 def test_yaml_only_inside_functions():
