@@ -7,7 +7,8 @@ fine-tune steps, runs the four evaluators, runs the inference CLI from a
 YAML config, serves requests through the batching HTTP server, exports,
 loads and serves the AOT artifacts as CUDA graphs, trains through the
 training entry point, over several processes, and runs the offline
-workflow and the user scripts, all at full model width.
+workflow, the user scripts, the host tools and the profilers, all at full
+model width.
 
     python3 chip_smoke.py
 
@@ -178,10 +179,10 @@ Phases, each fatal on failure:
      aggregate equals `submit`'s at that window, batch and counter); every
      batch served in (b)-(d) recomputed as in (b); (e) `python3 -m
      fddm_asr_tpu_torch.serve` in a subprocess: start to ready, a request,
-     `/healthz`, exit 0 on SIGINT;
+     `/healthz`, phase 23 (f)'s stream, exit 0 on SIGINT;
  17. `exported`: the AOT artifacts (`aot.py`) from phase 15's files: (a)
      `python3 -m fddm_asr_tpu_torch.export_model` in a subprocess from
-     configs/fddm_zhTW_base.yaml, batches 1-16 x 5, 10, 20 s (one program a
+     configs/fddm_zhTW_base.yaml, batches 1-16 x 10, 20 s (one program a
      duration, its batch dynamic), seq_len 128, pcm16, condition mask on,
      greedy: seconds a program, artifact bytes under 1.2 x the params'
      (no fresh loading process: (c) and (e) load the artifact in this
@@ -304,11 +305,36 @@ Phases, each fatal on failure:
      gate, taken on the card); (f) `sweep` of two trials of two steps over
      phase 18 (a)'s config and feature cache (opened, not rebuilt),
      evaluated on 4 validation clips: result.json and summary.json ranked.
+ 23. `host_tools`: the host tools and profilers (`fddm_asr_tpu_torch.scripts`)
+     on phase 15's and phase 18's files: (a) `python3 -m ...profile_step` at
+     its defaults (16 x 20 s) with one transcribe traced: B1 24 a transcribe
+     by the wrappers' counts, beside the profiler's count of the kernel, the
+     top-10 listing, busy time and idle share; (b) `profile_finetune --batch
+     16 --iters 2 --no-dropout`: B3/B4/B5 47/24/24 a step (with WavLM's
+     attention_dropout 0.1 a training step takes the plain attention, as
+     the JAX package's does); (c) `profile_frontend --per-layer`: every
+     variant timed; (d) `bench_train` three times (`--lfd`, `--finetune
+     --no-dropout`, `--model paper --lfd`, the 253 M scanned decoder):
+     each JSON line with its peak memory and kernel launches a step, MFU
+     non-null and in (0, 100); (e) `bench_serve --concurrency 8
+     --duration-s 5 --audio-seconds 10` on phase 15's decoder, then
+     `--stream --duration-s 5`: errors 0, requests served; (f) `stream_client`
+     (in this process) against phase 16 (e)'s `python3 -m ...serve` process
+     with a 20 s clip at --pace 0 in 5 s windows, run there: partials and a
+     final; (g) in this
+     process `make_longform --minutes 1` over phase 18's test manifest,
+     `inspect_transcripts --n 8` on phase 18 (b)'s best model (B1 24),
+     `convergence_report` on phase 18 (b)'s log, `sanity_check_scheduler`
+     and `sanity_forward` at WavLM-large on the card (B1 24).
 
 Phases 4 and 7 run at full depth with as many timed runs as before; the
-whole took 656 s of its 1200 s limit on an NVIDIA H100 80GB HBM3 at 700 W,
-the kernels' build included, past the half it aims at: phases 15-17's
-processes take most of the time, and would be cut in depth first.
+whole took 1058 s of its 1200 s limit on an NVIDIA H100 80GB HBM3 at 700 W
+with 5, 10 and 20 s programs in phase 17, the kernels' build included and
+phase 23 188 s of it: far past the half it aims at, so phase 17 exports
+two durations (10 and 20 s), about 60 s less.  The `phase_end_s` line
+gives the seconds from the start to the end of each group of phases.  The
+phases' processes take most of the time, each mostly its start (imports,
+the model drawn on the card, first calls); they are cut in depth first.
 
 Prints the kernels' JSON line, then the card line, then as the last line
 {"ok": true, "device": {...}}.
@@ -486,11 +512,12 @@ def attention_bound_ms(q, bias, gate, mask, H, tf32x3: bool = False) -> tuple:
     of v, once) at the dense peak of q's type; the larger of the two.
     `tf32x3`: the products three times over at the dense tf32 peak (the
     float32 kernel's own arithmetic: each product as three tf32 ones)."""
+    from fddm_asr_tpu_torch.profiling import gated_attention_flops
+
     B, L, HD = q.shape
     es = q.element_size()
     nbytes = 4 * B * L * HD * es + bias.numel() * es + gate.numel() * 4 + mask.numel()
-    kept = mask.sum(dim=1).tolist()
-    ops = sum(4 * H * L * 64 * n if n else L * HD for n in kept)
+    ops = gated_attention_flops("fwd", mask.sum(dim=1).tolist(), L, H, HD // H)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = (3 * ops / TF32_PEAK_FLOPS if tf32x3 else ops / PEAK_FLOPS[q.dtype]) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -840,59 +867,16 @@ def device_time_breakdown(run, wall_s: float, ranges=()) -> dict:
 
 
 def profile_breakdown(prof, wall_ms: float, profiled_ms: float, ranges=()) -> dict:
-    """`device_time_breakdown`'s numbers from a finished profiler window:
-    `wall_ms` the unprofiled wall time, `profiled_ms` the window's own; each
-    range also with the host time of its spans (`host_ms`)."""
-    from torch.autograd import DeviceType
+    """`device_time_breakdown`'s numbers from a finished profiler window
+    (`profiling.breakdown`): `wall_ms` the unprofiled wall time,
+    `profiled_ms` the window's own; each range also with the host time of
+    its spans (`host_ms`)."""
+    from fddm_asr_tpu_torch import profiling
 
-    spans = sorted((e.time_range.start, -e.time_range.end, e.name) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA and e.name not in ranges)
-    in_ranges = {name: {"count": 0, "device_ms": 0.0, "span_ms": 0.0, "host_ms": 0.0}
-                 for name in ranges}
-    for e in prof.events():
-        if e.name not in in_ranges:
-            continue
-        r = in_ranges[e.name]
-        if e.device_type == DeviceType.CUDA:
-            r["span_ms"] += (e.time_range.end - e.time_range.start) / 1e3
-        else:
-            r["count"] += 1
-            r["host_ms"] += (e.time_range.end - e.time_range.start) / 1e3
-            total = getattr(e, "device_time_total", None)
-            r["device_ms"] += (e.cuda_time_total if total is None else total) / 1e3
-    if not spans:
-        fail("the profiler saw no device event")
-    per_kernel, nested, containers = {}, {}, {}
-    busy_us = sum_us = 0.0
-    holder = None  # the event reaching furthest so far: (end, name)
-    cover_start = cover_end = None
-    for start, neg_end, name in spans:
-        end = -neg_end
-        sum_us += end - start
-        per_kernel[name] = per_kernel.get(name, 0.0) + (end - start) / 1e3
-        if holder is not None and end <= holder[0]:  # inside an earlier event
-            nested[name] = nested.get(name, 0.0) + (end - start) / 1e3
-            containers[holder[1]] = containers.get(holder[1], 0) + 1
-        else:
-            holder = (end, name)
-        if cover_end is None or start > cover_end:
-            if cover_end is not None:
-                busy_us += cover_end - cover_start
-            cover_start, cover_end = start, end
-        else:
-            cover_end = max(cover_end, end)
-    busy_us += cover_end - cover_start
-    busy_ms = busy_us / 1e3
-    ranked = sorted(per_kernel.items(), key=lambda kv: -kv[1])
-    return {"device_busy_ms": busy_ms, "event_sum_ms": sum_us / 1e3,
-            "overlap_ms": (sum_us - busy_us) / 1e3,
-            "nested_ms": dict(sorted(nested.items(), key=lambda kv: -kv[1])[:8]),
-            "containers": dict(sorted(containers.items(), key=lambda kv: -kv[1])[:8]),
-            "wall_ms": wall_ms, "idle_share": 1.0 - busy_ms / wall_ms,
-            "profiled_wall_ms": profiled_ms, "idle_share_profiled": 1.0 - busy_ms / profiled_ms,
-            "kernels": len(per_kernel),
-            "top": [{"name": n[:90], "ms": ms, "share": ms / busy_ms} for n, ms in ranked[:12]],
-            "all": [{"name": n, "ms": ms} for n, ms in ranked], "ranges": in_ranges}
+    try:
+        return profiling.breakdown(prof, wall_ms, profiled_ms, ranges)
+    except RuntimeError as e:
+        fail(str(e))
 
 
 def port_kernel_wrappers() -> dict:
@@ -1104,18 +1088,18 @@ def training_bounds(q, bias, gate, mask, H) -> dict:
     column sum of dO) at the dense peak of q's type; the larger of the two.
     In float32 each kernel also gets `bound_tc_ms` / `bound_tc_by`: the
     products three times over at the dense tf32 peak, as 3xTF32 runs them."""
+    from fddm_asr_tpu_torch.profiling import gated_attention_flops
+
     B, L, HD = q.shape
     es = q.element_size()
     act = B * L * HD * es                       # one of q, k, v, dO, out, dq, dk, dv
     small = gate.numel() * 4                    # gate, lse, delta, dgate: [B, H, L] f32
     common = bias.numel() * es + mask.numel()
     kept = mask.sum(dim=1).tolist()
-    pairs = sum(L * n for n in kept)
-    masked_rows = sum(1 for n in kept if n == 0)
-    work = {"fwd_lse": (4 * act + common + 2 * small, 4 * 64 * H * pairs),
-            "bwd_dq": (5 * act + common + 4 * small, 6 * 64 * H * pairs),
-            "bwd_dkv": (6 * act + common + 3 * small + H * L * L * 4,
-                        8 * 64 * H * pairs + masked_rows * L * HD)}
+    nbytes = {"fwd_lse": 4 * act + common + 2 * small, "bwd_dq": 5 * act + common + 4 * small,
+              "bwd_dkv": 6 * act + common + 3 * small + H * L * L * 4}
+    work = {key: (n, gated_attention_flops(key, kept, L, H, HD // H))
+            for key, n in nbytes.items()}
     out = {}
     for key, (nbytes, ops) in work.items():
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -1515,6 +1499,11 @@ def int8_matmul_vs_plain(Q, M: int, din: int, dout: int, dtype, with_bias: bool,
             row["bf16_matmul_ms"] = row["bf16_matmul_device_ms"] = None
         nbytes = M * din * es + din * dout + dout * 4 * (2 if with_bias else 1) + M * dout * es
         row["bound_ms"], row["bound_by"] = _bound(nbytes, 2.0 * M * din * dout, INT8_PEAK_OPS)
+        if dtype == torch.float32:  # the same product as a float32 GEMM: FMA, and 3xTF32
+            row["bound_f32_fma_ms"], row["bound_f32_fma_by"] = _bound(
+                nbytes, 2.0 * M * din * dout, PEAK_FLOPS[torch.float32])
+            row["bound_tc_ms"], row["bound_tc_by"] = _bound(nbytes, 3 * 2.0 * M * din * dout,
+                                                            TF32_PEAK_FLOPS)
         # the weight's quantization, done once per weight and kept (ops/quant.quantized_weight)
         row["weight_quant_ms"] = time_ms(lambda: Q.quantized_weight({}, "w", weight), 5)
     print(json.dumps({"int8_matmul_vs_plain": row}), flush=True)
@@ -1590,6 +1579,9 @@ def conv_vs_plain(CF, T: int, k: int, s: int, dtype, gelu_tanh: bool, gen, timed
         nbytes = x.numel() * es + w.numel() * es + 3 * C * 4 + out.numel() * es
         row["bound_ms"], row["bound_by"] = _bound(
             nbytes, 2.0 * B * T_out * k * C * C, PEAK_FLOPS[dtype])
+        if dtype == torch.float32:  # bound_ms is f32 FMA's; 3xTF32 on the tensor cores
+            row["bound_tc_ms"], row["bound_tc_by"] = _bound(
+                nbytes, 3 * 2.0 * B * T_out * k * C * C, TF32_PEAK_FLOPS)
     print(json.dumps({"conv_ln_gelu_vs_plain": row}), flush=True)
     torch.cuda.empty_cache()
     return row
@@ -2149,7 +2141,8 @@ def serve_full_width(d: str, card: str) -> dict:
     `submit` of the same audio at that window, same batch and counter);
     every batch served in (b)-(d) recomputed as in (b); (e) `python3 -m
     fddm_asr_tpu_torch.serve` in a subprocess: start to ready, one request,
-    stopped by SIGINT."""
+    phase 23 (f)'s `stream_client` run (`stream_client_work`), stopped by
+    SIGINT."""
     import threading
 
     from fddm_asr_tpu_torch import serve as S
@@ -2278,7 +2271,7 @@ def serve_full_width(d: str, card: str) -> dict:
     torch.cuda.empty_cache()
 
     # (e) the process entry point
-    result["process"] = _serve_process(base_args, d, "serve", 300)
+    result["process"] = _serve_process(base_args, d, "serve", 300, work=stream_client_work(d))
     from fddm_asr_tpu_torch.data.mp3 import mpg123_available
 
     # what path mode can read on this machine besides WAV
@@ -2305,10 +2298,11 @@ def _record_dispatches(engine) -> list:
     return dispatched
 
 
-def _serve_process(args: list, d: str, tag: str, ready_limit_s: float) -> dict:
+def _serve_process(args: list, d: str, tag: str, ready_limit_s: float, work=None) -> dict:
     """`python3 -m fddm_asr_tpu_torch.serve *args --port 0` in a subprocess:
     seconds from start to its serving line, one 5 s upload (the JAX
-    server's result keys), `/healthz`, and exit 0 on SIGINT."""
+    server's result keys), `/healthz`, `work(url)`'s result when given, and
+    exit 0 on SIGINT."""
     import queue as queue_mod
     import signal
     import threading
@@ -2339,6 +2333,7 @@ def _serve_process(args: list, d: str, tag: str, ready_limit_s: float) -> dict:
         first_request_s = time.time() - t1
         obj = json.loads(raw)
         status_h, raw_h = _http(ready["serving"], "GET", "/healthz")
+        worked = work(ready["serving"]) if work is not None else None
     finally:
         proc.send_signal(signal.SIGINT)
         try:
@@ -2352,7 +2347,7 @@ def _serve_process(args: list, d: str, tag: str, ready_limit_s: float) -> dict:
             fail(f"(e) request status {status}, keys {sorted(obj)}, healthz {status_h}, "
                  f"exit {rc}:\n{f.read()[-4000:]}")
     return {"start_to_ready_s": ready_s, "first_request_s": first_request_s, "exit_code": rc,
-            "healthz": json.loads(raw_h)}
+            "healthz": json.loads(raw_h), "work": worked}
 
 
 def _check_batches(engine, records: list, what: str, recompute=None) -> int:
@@ -2534,8 +2529,10 @@ def _serve_load(engine, base: str, d: str, wrappers: dict, dispatched: list,
 
 
 # ----------------------------------------------------------- the AOT artifacts
-# phase 17: (a)'s bucket grid; phase 4's shape; the server's flags
-EXPORT_BATCHES, EXPORT_SECONDS, EXPORT_SEQ_LEN = "1,2,4,8,16", "5,10,20", 128
+# phase 17: (a)'s bucket grid (two durations, so that the server picks
+# among programs; a third, 5 s, took about 60 s more to export and load on
+# an H100); phase 4's shape; the server's flags
+EXPORT_BATCHES, EXPORT_SECONDS, EXPORT_SEQ_LEN = "1,2,4,8,16", "10,20", 128
 EXPORTED_BUCKET = (8, 320000)
 EXPORTED_SERVE_FLAGS = ["--max-batch", "16", "--max-wait-ms", "20", "--pipeline-depth", "2"]
 ARTIFACT_BYTES_LIMIT = 1.2  # of the params' bytes: the weights once, the programs beside
@@ -2723,7 +2720,7 @@ def exported_full_width(d: str, card: str, served: dict) -> dict:
     """Phase 17: the AOT artifacts at full width, from phase 15's decoder
     `.pt`, random HF WavLM-large and tokenizer in `d`.  (a) export
     configs/fddm_zhTW_base.yaml in a subprocess (`python3 -m
-    fddm_asr_tpu_torch.export_model`, 5 x 3 buckets, pcm16, condition mask
+    fddm_asr_tpu_torch.export_model`, 5 x 2 buckets, pcm16, condition mask
     on, greedy, seq_len 128); (c) phase 4's shape through the graph (the
     artifact loaded in this process, by the server of (e)) beside the eager
     `transcribe_with_ids`; (d) a second artifact under phase 12's wavlm_config, one
@@ -3109,6 +3106,7 @@ def train_full_width(d: str, card: str, phase7: dict) -> dict:
     def logging_with_probe(*a, **k):
         out = setup_logging(*a, **k)
         logging.getLogger().addHandler(LeadLog())
+        window["log_file"] = out  # phase 23's convergence_report reads it
         return out
 
     gc.collect()
@@ -3176,7 +3174,8 @@ def train_full_width(d: str, card: str, phase7: dict) -> dict:
         # at the logged steps 4 and 8 (step 12's ends in the profiler's synchronize)
         "host_lead_ms": host_lead[:2],
         "checkpoints": {n: _files(records, n) for n in ("ep001", "best_model")},
-        "losses": [r["total_loss"] for r in steps_b], "launches": launches}
+        "losses": [r["total_loss"] for r in steps_b], "launches": launches,
+        "log_file": window["log_file"], "config": cfg_b, "ckpt_dir": b_dir}
     print(json.dumps({"train_b": result["b"]}), flush=True)
 
     # (c) the inference CLI from (b)'s best model beside the in-process
@@ -4491,6 +4490,233 @@ def offline_full_width(d: str, card: str, trained: dict) -> dict:
     return result
 
 
+# ------------------------------------------ phase 23: host tools and profilers
+HOST_TOOLS_TOP = 10
+# (d): bench_train's three runs (--no-dropout: with WavLM's attention_dropout
+# 0.1 a training step takes the plain attention, as the JAX package's does,
+# and launches no kernel)
+BENCH_TRAIN_RUNS = (("base_lfd", ["--lfd"]), ("finetune", ["--finetune", "--no-dropout"]),
+                    ("paper_lfd", ["--model", "paper", "--lfd"]))
+STREAM_CLIENT_SECONDS, STREAM_CLIENT_WINDOW_S = 20.0, 5.0
+# WavLM-large's attention layers: B1 a transcribe; B3/B4/B5 a fine-tune step
+# (the backward's remat recomputes 23 of the 24 forwards)
+WAVLM_LARGE_LAYERS = 24
+FINETUNE_STEP_LAUNCHES = {"fwd_lse": 2 * WAVLM_LARGE_LAYERS - 1, "bwd_dq": WAVLM_LARGE_LAYERS,
+                          "bwd_dkv": WAVLM_LARGE_LAYERS}
+
+
+def stream_client_work(d: str):
+    """(f)'s `work(url)` for phase 16 (e)'s serve process: a 20 s clip,
+    written into `d`, streamed by `stream_client.main` in this process at
+    --pace 0 in 5 s windows; its seconds, NDJSON lines, timing summary and
+    final."""
+    from fddm_asr_tpu_torch.data.audio_io import save_wav
+    from fddm_asr_tpu_torch.scripts import stream_client
+
+    clip = os.path.join(d, "stream20.wav")
+    save_wav(clip, synthetic_audio(1, STREAM_CLIENT_SECONDS, seed=2300)[0], 16000)
+
+    def stream(url):
+        out, err = io.StringIO(), io.StringIO()
+        t0 = time.time()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            final = stream_client.main(["--url", url, "--wav", clip, "--pace", "0",
+                                        "--window-seconds", str(STREAM_CLIENT_WINDOW_S)])
+        lines = [json.loads(x) for x in out.getvalue().splitlines()]
+        return {"seconds": time.time() - t0, "lines": len(lines),
+                "summary": json.loads(err.getvalue().strip().splitlines()[-1]),
+                "final_is_last_line": lines[-1] == final, "final_chunks": len(final.get(
+                    "chunks", [])), "final_text": final.get("text", "")[:16]}
+
+    return stream
+
+
+def _json_line(stdout: str, key: str = None) -> dict:
+    """The last line of `stdout` that is a JSON object (holding `key`)."""
+    for line in reversed(stdout.splitlines()):
+        if line.startswith("{") and (key is None or f'"{key}"' in line):
+            return json.loads(line)
+    fail(f"no JSON line{f' with {key}' if key else ''} in:\n{stdout[-2000:]}")
+
+
+def _listing(stdout: str) -> list:
+    """The track headers and op lines of `profiling.print_listing`."""
+    return [ln for ln in stdout.splitlines() if ln.startswith("== track") or " ms  " in ln]
+
+
+def host_tools_full_width(d: str, card: str, served: dict, trained: dict) -> dict:
+    """Phase 23 (module docstring): the host tools and profilers
+    (`fddm_asr_tpu_torch.scripts`) at full width.  `d` holds phase 15's
+    decoder `.pt`, tokenizer and HF WavLM-large and phase 18's corpus,
+    checkpoints and log; `served` is phase 16's result (its (e) ran (f)'s
+    stream), `trained` phase 18's."""
+    from fddm_asr_tpu_torch.scripts import (convergence_report, inspect_transcripts,
+                                            make_longform, sanity_check_scheduler,
+                                            sanity_forward)
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    t_phase = time.time()
+    wrappers = port_kernel_wrappers()
+    gc.collect()
+    torch.cuda.empty_cache()  # the subprocesses need the memory this process has cached
+    result, seconds = {"card": card}, {}
+
+    def module(tag, args):
+        proc, s = _module_process([f"fddm_asr_tpu_torch.scripts.{args[0]}", *args[1:]], root,
+                                  f"23 {tag}")
+        seconds[tag] = s
+        return proc
+
+    # (a) profile_step at its defaults (16 x 20 s), one transcribe traced
+    proc = module("a_profile_step", ["profile_step", "--iters", "1", "--top",
+                                     str(HOST_TOOLS_TOP), "--out", os.path.join(d, "trace_step")])
+    a = _json_line(proc.stdout, "profile_step")["profile_step"]
+    if a["launches"] != {"fwd": WAVLM_LARGE_LAYERS}:
+        fail(f"(a) kernel launches a transcribe {a['launches']}, expected "
+             f"{{'fwd': {WAVLM_LARGE_LAYERS}}}")
+    if "device_busy_ms" not in a:
+        fail("(a) the profiler saw no device event")
+    a["listing"] = _listing(proc.stdout)
+    result["a"] = a
+    print(json.dumps({"host_tools_a": a}), flush=True)
+
+    # (b) profile_finetune: B3 47, B4 24, B5 24 a step
+    proc = module("b_profile_finetune", ["profile_finetune", "--batch", "16", "--iters", "2",
+                                         "--no-dropout", "--top", str(HOST_TOOLS_TOP),
+                                         "--out", os.path.join(d, "trace_ft")])
+    b = _json_line(proc.stdout, "profile_finetune")["profile_finetune"]
+    if b["launches"] != FINETUNE_STEP_LAUNCHES:
+        fail(f"(b) kernel launches a step {b['launches']}, expected {FINETUNE_STEP_LAUNCHES}")
+    b["losses"] = [float(ln.split()[1]) for ln in proc.stdout.splitlines()
+                   if ln.startswith("loss ")]
+    if not b["losses"] or not all(np.isfinite(b["losses"])):
+        fail(f"(b) fine-tune losses {b['losses']}")
+    b["listing"] = _listing(proc.stdout)
+    result["b"] = b
+    print(json.dumps({"host_tools_b": b}), flush=True)
+
+    # (c) profile_frontend --per-layer at its defaults (16 x 20 s)
+    proc = module("c_profile_frontend", ["profile_frontend", "--per-layer"])
+    c = {}
+    for ln in proc.stdout.splitlines():
+        m = re.match(r"^(\S.*?)\s+([\d.]+) ms(?:  max\|Δ\|=(\S+) mean\|Δ\|=(\S+))?$", ln)
+        if m:
+            c[m.group(1)] = {"ms": float(m.group(2)), **(
+                {"max_abs_diff": float(m.group(3)), "mean_abs_diff": float(m.group(4))}
+                if m.group(3) else {})}
+    c["per_layer"] = [ln.strip() for ln in proc.stdout.splitlines() if ln.startswith("  conv")]
+    missing = {"dispatch_overhead", "mm_frontend_erf", "mm_frontend_tanh", "conv_only",
+               "conv_gelu_only", "f32stats_erf (current)", "f32stats_tanh", "bf16stats_erf",
+               "bf16stats_tanh"} - set(c)
+    if missing or len(c["per_layer"]) != 7:
+        fail(f"(c) profile_frontend printed no {sorted(missing)} or not 7 layers:\n"
+             f"{proc.stdout[-2000:]}")
+    result["c"] = c
+    print(json.dumps({"host_tools_c": c}, ensure_ascii=False), flush=True)
+
+    # (d) bench_train: base frozen, fine-tune, the 253 M scanned decoder
+    result["d"] = {}
+    for tag, flags in BENCH_TRAIN_RUNS:
+        proc = module(f"d_bench_train_{tag}", ["bench_train", *flags])
+        line = _json_line(proc.stdout, "metric")
+        want = FINETUNE_STEP_LAUNCHES if "--finetune" in flags else {"fwd": WAVLM_LARGE_LAYERS}
+        if line["kernel_launches_per_step"] != want:
+            fail(f"(d) bench_train {flags}: kernel launches a step "
+                 f"{line['kernel_launches_per_step']}, expected {want}")
+        if not (line["mfu_pct"] is not None and 0 < line["mfu_pct"] < 100):
+            fail(f"(d) bench_train {flags}: mfu_pct {line['mfu_pct']}, expected in (0, 100)")
+        if line["platform"] != "cuda" or not line["value"] > 0:
+            fail(f"(d) bench_train {flags}: {line}")
+        result["d"][tag] = line
+        print(json.dumps({f"host_tools_d_{tag}": line}), flush=True)
+    if not 240e6 < result["d"]["paper_lfd"]["decoder_params"] < 270e6:
+        fail(f"(d) the paper decoder has {result['d']['paper_lfd']['decoder_params']} parameters")
+
+    # (e) bench_serve on phase 15's decoder, then its streaming mode
+    serve_args = ["--config", os.path.join(root, CLI_MAIN_CONFIG),
+                  "--ckpt", os.path.join(d, "decoder.pt"),
+                  "--tokenizer", os.path.join(d, "spm_synth.vocab")]
+    result["e"] = {}
+    for tag, flags in (("http", ["--concurrency", "8", "--duration-s", "5", "--audio-seconds",
+                                 "10"]),
+                       ("stream", ["--stream", "--duration-s", "5"])):
+        proc = module(f"e_bench_serve_{tag}", ["bench_serve", *serve_args, *flags])
+        line = _json_line(proc.stdout, "metric")
+        answered = line["streams"] if tag == "stream" else line["requests"]
+        if line["errors"] != 0 or not answered > 0 or line["platform"] != "cuda":
+            fail(f"(e) bench_serve {flags}: {line}")
+        result["e"][tag] = line
+        print(json.dumps({f"host_tools_e_{tag}": line}), flush=True)
+
+    # (f) stream_client, run against phase 16 (e)'s serve process
+    f = served["process"]["work"]
+    seconds["f_stream_client"] = f["seconds"]
+    if not (f["summary"]["partials"] >= 1 and f["final_is_last_line"]
+            and f["final_chunks"] == f["summary"]["partials"]):
+        fail(f"(f) stream_client: {f}")
+    result["f"] = f
+    print(json.dumps({"host_tools_f": f}, ensure_ascii=False), flush=True)
+
+    # (g) the host tools in this process
+    g, t0 = {}, time.time()
+    manifests = trained["corpus"]["manifests"]
+    with contextlib.redirect_stdout(io.StringIO()) as buf:
+        g["make_longform"] = make_longform.main(["--manifest", manifests["test"], "--out",
+                                                 os.path.join(d, "long1min.wav"),
+                                                 "--minutes", "1"])
+    seconds["g_make_longform"] = time.time() - t0
+    if not (0 < g["make_longform"]["seconds"] <= 60 and g["make_longform"]["clips"] >= 1):
+        fail(f"(g) make_longform: {g['make_longform']}")
+    b_dir = trained["b"]["ckpt_dir"]
+    _reset(wrappers)
+    t0 = time.time()
+    with contextlib.redirect_stdout(io.StringIO()) as buf:
+        summary = inspect_transcripts.main([
+            "--config", trained["b"]["config"], "--ckpt", os.path.join(b_dir, "best_model.pt"),
+            "--encoder-ckpt", os.path.join(b_dir, "best_model.encoder.pt"), "--n", "8",
+            "--json", os.path.join(d, "inspect.json")])
+        torch.cuda.synchronize()
+    seconds["g_inspect_transcripts"] = time.time() - t0
+    launches = {k: n for k, n in _counts_since_reset(wrappers).items() if n}
+    if launches != {"fwd": WAVLM_LARGE_LAYERS} or summary["n"] != 8:
+        fail(f"(g) inspect_transcripts: launches {launches}, summary {summary}")
+    g["inspect_transcripts"] = {"summary": summary, "launches": launches,
+                                "rows_printed": buf.getvalue().count("| hyp:")}
+    t0 = time.time()
+    with contextlib.redirect_stdout(io.StringIO()):
+        g["convergence_report"] = convergence_report.main([
+            "--log", trained["b"]["log_file"], "--out", os.path.join(d, "convergence.json"),
+            "--config", trained["b"]["config"]])
+    seconds["g_convergence_report"] = time.time() - t0
+    if g["convergence_report"]["epochs"] != 1:
+        fail(f"(g) convergence_report: {g['convergence_report']}")
+    t0 = time.time()
+    with contextlib.redirect_stdout(io.StringIO()) as buf:
+        sanity_check_scheduler.main([os.path.join(root, CLI_MAIN_CONFIG)])
+    seconds["g_sanity_check_scheduler"] = time.time() - t0
+    g["sanity_check_scheduler"] = buf.getvalue().strip()
+    _reset(wrappers)
+    t0 = time.time()
+    with contextlib.redirect_stdout(io.StringIO()) as buf:
+        logits, loss_fd = sanity_forward.main([])
+        torch.cuda.synchronize()
+    seconds["g_sanity_forward"] = time.time() - t0
+    launches = {k: n for k, n in _counts_since_reset(wrappers).items() if n}
+    g["sanity_forward"] = {"printed": buf.getvalue().strip().splitlines(),
+                           "logits": list(logits.shape), "loss_fd": float(loss_fd),
+                           "launches": launches}
+    if launches != {"fwd": WAVLM_LARGE_LAYERS} or "Sanity check passed." not in buf.getvalue():
+        fail(f"(g) sanity_forward: {g['sanity_forward']}")
+    del logits, loss_fd
+    result["g"] = g
+    print(json.dumps({"host_tools_g": g}, ensure_ascii=False), flush=True)
+    result["seconds_by_script"] = seconds
+    result["seconds"] = time.time() - t_phase
+    print(json.dumps({"host_tools": {"seconds": result["seconds"],
+                                     "seconds_by_script": seconds}}), flush=True)
+    return result
+
+
 def _wav_rate(path: str) -> int:
     with wave.open(path) as w:
         return w.getframerate()
@@ -4684,6 +4910,11 @@ def main() -> int:
 
     card = card_line()
     print(f"card: {card}", flush=True)
+    t_start, phase_end_s = time.time(), {}
+
+    def mark(phases: str):
+        """Seconds from the start to the end of `phases`."""
+        phase_end_s[phases] = time.time() - t_start
 
     t0 = time.time()
     libs = _build.build_libraries(verbose=True)
@@ -4728,6 +4959,7 @@ def main() -> int:
             rows[("serve", B, L, dtype)] = kernel_vs_plain(FA, L, dtype, serve_gen, B=B,
                                                            valid=valid)
     edge_lengths_match_plain(FA, gen)
+    mark("1-2")
 
     with tempfile.TemporaryDirectory() as tmp:
         small_pipeline_matches_cpu(FA, tmp)
@@ -4735,6 +4967,7 @@ def main() -> int:
         result = transcribe_full_width(FA, tmp, card)
     with tempfile.TemporaryDirectory() as tmp:
         transcribe_f32 = transcribe_f32_full_width(tmp, card, result)
+    mark("3-4")
 
     # the shape phase 7's fine-tune gives the training kernels: B=32
     # utterances of 20 s, 999 frames each, padded to a multiple of 128
@@ -4758,6 +4991,7 @@ def main() -> int:
         small_finetune_step_matches_cpu(FA, tmp)
     with tempfile.TemporaryDirectory() as tmp:
         finetune = finetune_full_width(FA, tmp, card, isolated=step_row)
+    mark("5-7")
 
     # phases 8-12: the int8 encoder and the fused conv front-end
     int8_rows = {}
@@ -4790,28 +5024,42 @@ def main() -> int:
         small_quant_pipeline_matches_cpu(tmp)
     with tempfile.TemporaryDirectory() as tmp:
         quantized = transcribe_quantized_full_width(FA, tmp, card, result["feats"])
+    mark("8-12")
 
     # phases 13-15: best-of-N, the evaluators, the CLI from a YAML config
     with tempfile.TemporaryDirectory() as tmp:
         nbest = nbest_full_width(tmp, card, result, quantized["transcribe_repeat"])
     with tempfile.TemporaryDirectory() as tmp:
         evaluators_full_width(tmp, card)
+    mark("13-14")
     with tempfile.TemporaryDirectory() as tmp:
         cli_runs = cli_full_width(tmp, card)
+        mark("15")
         # phase 16: the server, on the decoder .pt and tokenizer phase 15 wrote
         served = serve_full_width(tmp, card)
+        mark("16")
         # phase 17: the AOT artifacts from the same files, replayed as CUDA graphs
         exported = exported_full_width(tmp, card, served)
+        mark("17")
         # phase 18: the training entry point, on phase 15's tokenizer and HF WavLM
         trained = train_full_width(tmp, card, finetune)
+        mark("18")
         # phase 19: the rest of the recipe, on phase 18's corpus
         recipe = train_recipe_full_width(tmp, card, finetune, trained)
+        mark("19")
         # phase 20: several GPUs (one card: two ranks share it over gloo)
         parallel = parallel_full_width(FA, tmp, card, trained["cli_c"])
+        mark("20")
         # phase 21: tensor parallelism (phase 20's two ranks, then the server)
         tensor_parallel = tensor_parallel_full_width(FA, Q, tmp, card, parallel)
+        mark("21")
         # phase 22: the offline workflow and the user scripts, on phase 18's files
         offline = offline_full_width(tmp, card, trained)
+        mark("22")
+        # phase 23: the host tools and profilers, on phase 15's and phase 18's files
+        host_tools = host_tools_full_width(tmp, card, served, trained)
+    mark("23")
+    print(json.dumps({"phase_end_s": phase_end_s}), flush=True)
 
     main_row = rows[(1024, torch.bfloat16)]  # the transcribe's shape and type
     kernels = [{
@@ -4856,7 +5104,17 @@ def main() -> int:
             # phase 18's 96 clips (6 batches), one validate_quant transcribe
             "offline_init_random_ckpt_transcribe": offline["b"]["launches"]["fwd"],
             "offline_precompute_features": offline["c"]["launches"]["fwd"],
-            "offline_validate_quant_per_transcribe": offline["e"]["launches"]["fp"]["fwd"]},
+            "offline_validate_quant_per_transcribe": offline["e"]["launches"]["fp"]["fwd"],
+            # phase 23: profile_step a transcribe (16 x 20 s), bench_train a frozen
+            # step (base and the 253 M decoder), inspect_transcripts, sanity_forward
+            "host_tools_profile_step_per_transcribe": host_tools["a"]["launches"]["fwd"],
+            "host_tools_bench_train_base_per_step":
+                host_tools["d"]["base_lfd"]["kernel_launches_per_step"]["fwd"],
+            "host_tools_bench_train_paper_per_step":
+                host_tools["d"]["paper_lfd"]["kernel_launches_per_step"]["fwd"],
+            "host_tools_inspect_transcripts":
+                host_tools["g"]["inspect_transcripts"]["launches"]["fwd"],
+            "host_tools_sanity_forward": host_tools["g"]["sanity_forward"]["launches"]["fwd"]},
         # phase 21: B1 at a model=2 rank's heads, B=8 L=1024, 999 valid keys a row
         "tensor_parallel_H8": [{k: tensor_parallel["kernels_h8"]["b1"][dt].get(k) for k in (
             "B", "L", "H", "valid", "dtype", "max_abs_err", "ms", "plain_ms", "library_ms",
@@ -4913,7 +5171,13 @@ def main() -> int:
                                      parallel["b"]["rank0"]["launches_per_step"][key],
                                  # phase 21: a rank's step at model=2 (H = 8)
                                  "tensor_parallel_step_per_rank":
-                                     tensor_parallel["rank0"]["step"]["launches"][1][key]},
+                                     tensor_parallel["rank0"]["step"]["launches"][1][key],
+                                 # phase 23: profile_finetune and bench_train --finetune
+                                 "host_tools_profile_finetune_step":
+                                     host_tools["b"]["launches"][key],
+                                 "host_tools_bench_train_finetune_step":
+                                     host_tools["d"]["finetune"]["kernel_launches_per_step"][
+                                         key]},
             # phase 21: at a model=2 rank's heads, B=8 L=1024, 999 valid keys a row
             "tensor_parallel_H8": {dt: {"H": TP_H, **{
                 k: tensor_parallel["kernels_h8"]["training"][dt][key].get(k) for k in (
@@ -4972,6 +5236,15 @@ def main() -> int:
                      for row in [int8_rows[(din, dout, torch.bfloat16, True)]
                                  for din, dout in WAVLM_DENSE_SHAPES]
                      + list(int8_rows_1024.values())],
+        # phase 8's float32 rows at the full shapes (f32 in and out, with bias);
+        # bound_ms: the int8 product it runs; bound_f32_fma_ms / bound_tc_ms:
+        # the same product as a float32 GEMM in FMAs and in 3xTF32
+        "float32": {"by_shape": [{k: row[k] for k in (
+            "M", "din", "dout", "ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by", "bound_f32_fma_ms", "bound_f32_fma_by", "bound_tc_ms", "bound_tc_by",
+            "max_abs_err", "workspace_bytes")}
+            for row in [int8_rows[(din, dout, torch.float32, True)]
+                        for din, dout in WAVLM_DENSE_SHAPES]]},
     })
     layers = [conv_rows[(T, torch.bfloat16, True)] for T, _, _ in FRONTEND_LAYERS]
     conv = layers[0]  # layer 1, the largest
@@ -4999,6 +5272,14 @@ def main() -> int:
                                          "library_ms", "bound_ms", "bound_by", "max_abs_err")}
                      for r in layers],
         "per_transcribe": per_transcribe,
+        # conv_ln_gelu_f32_kernel at layers 1 and 6, erf and tanh GELU (phase 8);
+        # bound_ms: f32 FMA's, bound_tc_ms: 3xTF32's
+        "float32": {"kernel": "conv_ln_gelu_f32_kernel", "by_shape": [
+            {"gelu": "tanh" if tanh else "erf", **{k: conv_rows[(T, torch.float32, tanh)][k]
+                                                   for k in (
+                "T", "T_out", "k", "s", "ms", "device_ms", "plain_ms", "library_ms",
+                "bound_ms", "bound_by", "bound_tc_ms", "bound_tc_by", "max_abs_err")}}
+            for T, _, _ in (FRONTEND_LAYERS[0], FRONTEND_LAYERS[-1]) for tanh in (False, True)]},
     })
     print(json.dumps({"kernels": kernels}))
     print(card)
