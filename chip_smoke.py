@@ -19,8 +19,10 @@ Phases, each fatal on failure:
   1. the card's name and power limit (nvidia-smi); build every kernel
      from `fddm_asr_tpu_torch/csrc/` with nvcc (one process per source, in
      parallel), timed; the SASS (`cuobjdump -sass`) of the float32 forward,
-     of float32 B4 and of float32 B5's two kernels must hold tf32 HGMMA and
-     no other (they run 3xTF32 on the tensor cores);
+     of float32 B4, of float32 B5's two kernels and of float32 B8 (its erf
+     and tanh builds) must hold tf32 HGMMA and no other (they run 3xTF32 on
+     the tensor cores), and float32 B8's few FFMAs only (its epilogue's: no
+     scalar FMA main loop);
   2. kernel vs plain version at B=8, H=16, dh=64 on both sides of the TPU
      kernels' 4096-frame split (L=1024, 4224), float32 and bfloat16, with
      ragged key masks and one all-masked row, and at phase 15 (c)'s
@@ -55,7 +57,11 @@ Phases, each fatal on failure:
      for the device time by kernel and the device's idle share; then the
      same transcribe at model.dtype float32 (`transcribe_f32`: B1 in f32
      24 times, wall, busy time, the f32 kernel's device time, its ids
-     beside the bf16 run's);
+     beside the bf16 run's), and once more under `fused_frontend: true`
+     (`transcribe_f32_fused_frontend`: B8 in f32 6 times, B1 24; wall,
+     busy time, B8's device time, the encoder's output against the unfused
+     float32 transcribe's within ENCODER_F32_FUSED_REL_L2, its ids beside
+     `transcribe_f32`'s);
   5. the training kernels (B3 forward + logsumexp, B4 dq/dgate, B5
      dk/dv/dbias) against their plain versions and against autograd of the
      plain forward: first at the shape phase 7 gives them (B=32, H=16,
@@ -188,7 +194,8 @@ Phases, each fatal on failure:
      (no fresh loading process: (c) and (e) load the artifact in this
      process); (c) 8 x 20 s through the graph beside the eager `transcribe_with_ids` in this process: wall
      (median of 5), RTFx, busy time, idle share, host launches a call; (d)
-     a second artifact under phase 12's wavlm_config, bucket 8 x 20 s: ids
+     a second artifact under phase 12's wavlm_config, exported in a second
+     subprocess beside (a)'s (both end before (c)), bucket 8 x 20 s: ids
      equal to the live pipeline's, a replay counting and showing B1 24, B7
      144 and B8 6; (e) `serve --exported` in this process under phase 16
      (c)'s load (256 untraced, 64 traced uploads), every served batch's ids
@@ -341,6 +348,7 @@ Prints the kernels' JSON line, then the card line, then as the last line
 
     python3 chip_smoke.py --b7-times DIR
     python3 chip_smoke.py --b8-times DIR
+    python3 chip_smoke.py --b8-f32-times DIR
     python3 chip_smoke.py --b1-f32-times DIR
     python3 chip_smoke.py --b5-f32-times DIR
     python3 chip_smoke.py --b4-f32-times DIR
@@ -349,7 +357,8 @@ Prints the kernels' JSON line, then the card line, then as the last line
 These time only the fused int8 kernel (at phase 8's bfloat16 shapes: CUDA events
 over back-to-back calls, device time per launch, host time a call), only
 the fused conv layer (its kernel and the layer's weight handling, at phase
-9's six bfloat16 layer shapes: CUDA events, device time, host time a call),
+9's six bfloat16 layer shapes, or in float32 at those six shapes with erf
+and tanh GELU: CUDA events, device time, host time a call),
 only the float32 gated-attention forward (at phase 2's float32 shapes and a
 transcribe's: CUDA events), or only float32 B5 or only float32 B4 (at
 phase 5's float32 shape, the fine-tune's and B=3, L=203: CUDA events, each
@@ -410,6 +419,10 @@ SMALL_ENCODER_TOL = 1e-3   # float32, two layers; card and CPU sum in different 
 INT8_PEAK_OPS = 1979e12    # H100 SXM dense int8
 # (abs, rel); bfloat16: 3e-2 plus one bf16 ulp of the reference, whose values reach past 4
 CONV_TOL = {torch.float32: (2e-4, 1e-3), torch.bfloat16: (3e-2, 2.0 ** -7)}
+# the float32 encoder's output under the fused front-end against the unfused
+# one's: both f32 (the fused layers' 3xTF32 products keep f32 accuracy), so
+# they differ by summation order, carried through 24 layers
+ENCODER_F32_FUSED_REL_L2 = 1e-3
 SMALL_QUANT_ENCODER_TOL = 5e-2  # phase 11: int8 steps flip at f32 rounding of a half
 NBEST_CONFIDENCE_TOL = 1e-5     # phase 3: f32 geometric means, card vs CPU
 QUANT_REL_L2 = (1e-6, 5e-2)     # int8 encoder vs full precision: must differ, and little
@@ -992,19 +1005,29 @@ def transcribe_full_width(FA, tokenizer_dir: str, card: str, name: str = "transc
     return result
 
 
-def transcribe_f32_full_width(tokenizer_dir: str, card: str, bf16: dict) -> dict:
+def transcribe_f32_full_width(tokenizer_dir: str, card: str, bf16: dict,
+                              unfused: dict = None) -> dict:
     """Phase 4's transcribe at model.dtype float32 (`transcribe_f32`): the
     same config, seed (so the same float32 parameters), batch and sampling,
     as `inference.py --dtype float32` and the server run it.  B1 in float32
     24 times a transcribe (checked) and no other kernel; wall median of
     REPEATS, RTFx, busy ms and the f32 kernel's device ms from one profiled
     run; the ids beside phase 4's bfloat16 ones (a count, not a check: the
-    two encoders round apart)."""
+    two encoders round apart).  Given `unfused` (this function's result
+    without it), the same under `fused_frontend: true`
+    (`transcribe_f32_fused_frontend`): B8 in float32 once a conv layer 1-6
+    and B1 24 (checked), B8's device ms in the profiled run, the encoder's
+    output within ENCODER_F32_FUSED_REL_L2 of the unfused run's (checked),
+    the ids beside its (a count).  Returns the result with the encoder's
+    output under "feats" and the ids under "ids" (not printed)."""
     from fddm_asr_tpu_torch.pipeline import FDDMPipeline
     from fddm_asr_tpu_torch.tokenizer import load_tokenizer
 
     B, seconds = 8, 20.0
-    cfg = flagship_config(synthetic_tokenizer(tokenizer_dir, 8000), dtype="float32")
+    fused = unfused is not None
+    name = "transcribe_f32_fused_frontend" if fused else "transcribe_f32"
+    cfg = flagship_config(synthetic_tokenizer(tokenizer_dir, 8000),
+                          {"fused_frontend": True} if fused else None, dtype="float32")
     t0 = time.time()
     pipe = FDDMPipeline.from_config(cfg, tokenizer=load_tokenizer(cfg.data.tokenizer_path))
     torch.cuda.synchronize()
@@ -1028,8 +1051,10 @@ def transcribe_f32_full_width(tokenizer_dir: str, card: str, bf16: dict) -> dict
     counts = _counts_since_reset(wrappers)
     want = {k: 0 for k in wrappers}
     want["fwd"] = pipe.encoder.config.num_hidden_layers
+    if fused:
+        want["conv_ln_gelu"] = len(FRONTEND_LAYERS)
     if counts != want:
-        fail(f"kernel launches in one float32 transcribe {counts}, expected {want}")
+        fail(f"kernel launches in one float32 transcribe ({name}) {counts}, expected {want}")
     peak_mem_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     ids = [r[1] for r in rows]
     if len(rows) != B or any(len(r) != 64 or not all(0 <= i < 8000 for i in r) for r in ids):
@@ -1040,7 +1065,10 @@ def transcribe_f32_full_width(tokenizer_dir: str, card: str, bf16: dict) -> dict
     f32_kernel = [t for t in breakdown["all"] if "gated_attention_tf32x3_kernel" in t["name"]]
     if not f32_kernel:
         fail("the profiled float32 transcribe shows no gated_attention_tf32x3_kernel")
+    b8_ms = sum(t["ms"] for t in breakdown["all"] if "conv_ln_gelu_tf32x3_kernel" in t["name"])
     del breakdown["all"]
+    with torch.no_grad():
+        feats, _ = pipe.encode_waveform(wav)
     same = sum(a == b for ra, rb in zip(ids, bf16["ids"]) for a, b in zip(ra, rb))
     result = {
         "card": card, "dtype": "float32", "audio_s": B * seconds, "step_s": step_s,
@@ -1056,7 +1084,25 @@ def transcribe_f32_full_width(tokenizer_dir: str, card: str, bf16: dict) -> dict
         "ids_equal_to_bf16": {"tokens": same, "of": B * 64,
                               "rows": sum(a == b for a, b in zip(ids, bf16["ids"]))},
     }
-    print(json.dumps({"transcribe_f32": result}, ensure_ascii=False), flush=True)
+    if fused:
+        ref = unfused["feats"].float()
+        rel_l2 = ((feats.float() - ref).norm() / ref.norm()).item()
+        result.update({
+            # the profiler can leave B8's cluster launches unrecorded (PERF.md §7)
+            "b8_f32_device_ms": b8_ms,
+            "encoder_rel_l2_vs_unfused": rel_l2,
+            "encoder_rel_l2_tol": ENCODER_F32_FUSED_REL_L2,
+            "unfused_f32_transcribe": {"step_s": unfused["step_s"],
+                                       "device_busy_ms": unfused["device_busy_ms"]},
+            "ids_equal_to_f32": {
+                "tokens": sum(a == b for ra, rb in zip(ids, unfused["ids"])
+                              for a, b in zip(ra, rb)),
+                "of": B * 64, "rows": sum(a == b for a, b in zip(ids, unfused["ids"]))}})
+        if not (tuple(feats.shape) == tuple(ref.shape) and rel_l2 <= ENCODER_F32_FUSED_REL_L2):
+            fail(f"float32 encoder under the fused front-end vs unfused: shape "
+                 f"{tuple(feats.shape)}, rel L2 {rel_l2} > {ENCODER_F32_FUSED_REL_L2}")
+    print(json.dumps({name: result}, ensure_ascii=False), flush=True)
+    result["feats"], result["ids"] = feats, ids
     del pipe
     gc.collect()
     torch.cuda.empty_cache()
@@ -1528,14 +1574,22 @@ def conv_inputs(T: int, k: int, dtype, gen) -> tuple:
 
 def conv_vs_plain(CF, T: int, k: int, s: int, dtype, gelu_tanh: bool, gen, timed: bool) -> dict:
     """B8 against its plain version at B = 8, Cin = Cout = 512, with the
-    weight in the form the fused layer passes it (`CF.kernel_weight`)."""
+    weight in the form the fused layer passes it (`CF.kernel_weight`, and in
+    float32 `CF.kernel_weight_tf32`)."""
     F = torch.nn.functional
     x, weight, b, ln_scale, ln_bias = conv_inputs(T, k, dtype, gen)
     B, C = x.shape[0], x.shape[2]
     cache = {}
     w = CF.kernel_weight(cache, weight, dtype)
+    f32 = dtype == torch.float32
+
+    def kernel():  # as models/wavlm.py calls it
+        return CF.conv_ln_gelu_cuda(
+            x, CF.kernel_weight(cache, weight, dtype), b, ln_scale, ln_bias, s,
+            gelu_tanh=gelu_tanh, w_tf32=CF.kernel_weight_tf32(cache, weight) if f32 else None)
+
     with torch.no_grad():
-        out = CF.conv_ln_gelu_cuda(x, w, b, ln_scale, ln_bias, s, gelu_tanh=gelu_tanh)
+        out = kernel()
         torch.cuda.synchronize()
         ref = CF.conv_ln_gelu_plain(x, w, b, ln_scale, ln_bias, s, gelu_tanh=gelu_tanh)
     T_out = (T - k) // s + 1 if T >= k else 0
@@ -1553,15 +1607,11 @@ def conv_vs_plain(CF, T: int, k: int, s: int, dtype, gelu_tanh: bool, gen, timed
             fail(f"conv+LN+GELU kernel disagrees with its plain version: {row}")
     del ref
     if timed:
-        reps = 10 if dtype == torch.bfloat16 else 3
+        reps = 10
         with torch.no_grad():
-            kernel = lambda: CF.conv_ln_gelu_cuda(  # noqa: E731  as models/wavlm.py calls it
-                x, CF.kernel_weight(cache, weight, dtype), b, ln_scale, ln_bias, s,
-                gelu_tanh=gelu_tanh)
             row["ms"] = time_ms(kernel, reps)
             row["device_ms"] = device_ms(
-                kernel, reps, "conv_ln_gelu_bf16_kernel" if dtype == torch.bfloat16
-                else "conv_ln_gelu_f32_kernel")
+                kernel, reps, "conv_ln_gelu_tf32x3_kernel" if f32 else "conv_ln_gelu_bf16_kernel")
             row["plain_ms"] = time_ms(lambda: CF.conv_ln_gelu_plain(
                 x, w, b, ln_scale, ln_bias, s, gelu_tanh=gelu_tanh), 2, 1)
             # yardstick: the unfused layer's three library calls, as models/wavlm.py runs them
@@ -2625,16 +2675,26 @@ def graph_kernels(graph, path: str) -> dict:
         ("conv_ln_gelu", "conv_ln_gelu_bf16_kernel"))}
 
 
-def _export_cli(args: list, d: str, tag: str) -> dict:
-    """`python3 -m fddm_asr_tpu_torch.export_model *args` in a subprocess:
-    its summary line, the process's seconds and the seconds a program."""
+def _export_start(args: list) -> tuple:
+    """Start `python3 -m fddm_asr_tpu_torch.export_model *args` in a
+    subprocess: (its start time, the process), for `_export_cli`."""
     root = os.path.dirname(os.path.abspath(__file__))
-    t0 = time.time()
-    proc = subprocess.run([sys.executable, "-m", "fddm_asr_tpu_torch.export_model", *args],
-                          cwd=root, capture_output=True, text=True, timeout=900)
+    return time.time(), subprocess.Popen(
+        [sys.executable, "-m", "fddm_asr_tpu_torch.export_model", *args], cwd=root,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def _export_cli(started: tuple, tag: str) -> dict:
+    """Wait for an export `_export_start` began (killed if it outlasts 900
+    s): its summary line, the process's seconds and the seconds a program."""
+    t0, proc = started
+    try:
+        stdout, stderr = proc.communicate(timeout=900)
+    finally:
+        _stop(proc)
     if proc.returncode != 0:
-        fail(f"export ({tag}) exited {proc.returncode}:\n{proc.stderr[-4000:]}")
-    summary = json.loads(proc.stdout.strip().splitlines()[-1])
+        fail(f"export ({tag}) exited {proc.returncode}:\n{stderr[-4000:]}")
+    summary = json.loads(stdout.strip().splitlines()[-1])
     with open(os.path.join(summary["out"], "meta.json")) as f:
         meta = json.load(f)
     params = os.path.getsize(os.path.join(summary["out"], "params.npz"))
@@ -2649,10 +2709,31 @@ def _export_cli(args: list, d: str, tag: str) -> dict:
     return out
 
 
-def exported_int8_fused(d: str, model: list, base_cfg: str, sampling: dict,
+def _stop(proc) -> None:
+    """Kill a subprocess that is still running, and reap it."""
+    if proc.poll() is None:
+        proc.kill()
+        proc.communicate()
+
+
+def fused_export_args(d: str, model: list, base_cfg: str) -> list:
+    """Phase 17 (d)'s export arguments: one bucket (8 x 20 s) under phase
+    12's wavlm_config, whose config this writes into `d`."""
+    fused_cfg = os.path.join(d, "fused.yaml")
+    with open(fused_cfg, "w") as f:  # JSON is YAML
+        json.dump({"base_config": base_cfg,
+                   "model": {"encoder": {"wavlm_config": FUSED_WAVLM_CONFIG}}}, f)
+    return [*model, "--main-config", fused_cfg, "--out", os.path.join(d, "artifact_fused"),
+            "--batch-sizes", str(EXPORTED_BUCKET[0]), "--seconds",
+            str(EXPORTED_BUCKET[1] // 16000), "--seq-len", str(EXPORT_SEQ_LEN), "--greedy",
+            "--condition-mask", "on", "--input-encoding", "pcm16"]
+
+
+def exported_int8_fused(d: str, export: dict, model: list, sampling: dict,
                         n_layers: int) -> dict:
     """Phase 17 (d): the artifact of one bucket (8 x 20 s) under phase 12's
-    wavlm_config, exported by the CLI in a subprocess: its ids against the
+    wavlm_config, exported by the CLI in a subprocess (`export`: its
+    `_export_cli` result, `fused_export_args`): its ids against the
     live pipeline's, and B1, B7 and B8 in its CUDA graph: the graph's kernel
     nodes, the launches a replay counts and a replay under the profiler
     (each kernel's most over three windows), beside the eager call's.  The
@@ -2665,15 +2746,8 @@ def exported_int8_fused(d: str, model: list, base_cfg: str, sampling: dict,
 
     wrappers = port_kernel_wrappers()
     fused_cfg = os.path.join(d, "fused.yaml")
-    with open(fused_cfg, "w") as f:  # JSON is YAML
-        json.dump({"base_config": base_cfg,
-                   "model": {"encoder": {"wavlm_config": FUSED_WAVLM_CONFIG}}}, f)
     art2 = os.path.join(d, "artifact_fused")
-    fused = {"export": _export_cli(
-        [*model, "--main-config", fused_cfg, "--out", art2, "--batch-sizes",
-         str(EXPORTED_BUCKET[0]), "--seconds", str(EXPORTED_BUCKET[1] // 16000),
-         "--seq-len", str(EXPORT_SEQ_LEN), "--greedy", "--condition-mask", "on",
-         "--input-encoding", "pcm16"], d, "d")}
+    fused = {"export": export}
     t0 = time.time()
     ep2 = aot.ExportedPipeline.load(art2)
     fused["load_s"] = time.time() - t0
@@ -2721,7 +2795,9 @@ def exported_full_width(d: str, card: str, served: dict) -> dict:
     `.pt`, random HF WavLM-large and tokenizer in `d`.  (a) export
     configs/fddm_zhTW_base.yaml in a subprocess (`python3 -m
     fddm_asr_tpu_torch.export_model`, 5 x 2 buckets, pcm16, condition mask
-    on, greedy, seq_len 128); (c) phase 4's shape through the graph (the
+    on, greedy, seq_len 128), while (d)'s export runs beside it in a
+    second subprocess (their process seconds overlap; both end before any
+    measurement); (c) phase 4's shape through the graph (the
     artifact loaded in this process, by the server of (e)) beside the eager
     `transcribe_with_ids`; (d) a second artifact under phase 12's wavlm_config, one
     bucket, ids against the live pipeline, B1/B7/B8 in a profiled replay;
@@ -2745,11 +2821,16 @@ def exported_full_width(d: str, card: str, served: dict) -> dict:
     torch.cuda.empty_cache()  # the subprocesses need the memory this process has cached
     result = {"card": card}
 
-    # (a) export
-    result["export"] = _export_cli(
-        [*model, "--main-config", base_cfg, "--out", art, "--batch-sizes", EXPORT_BATCHES,
-         "--seconds", EXPORT_SECONDS, "--seq-len", str(EXPORT_SEQ_LEN), "--greedy",
-         "--condition-mask", "on", "--input-encoding", "pcm16"], d, "a")
+    # (a) export, and (d)'s beside it: the tracing, most of phase 17, is host work
+    started_d = _export_start(fused_export_args(d, model, base_cfg))
+    try:
+        result["export"] = _export_cli(_export_start(
+            [*model, "--main-config", base_cfg, "--out", art, "--batch-sizes", EXPORT_BATCHES,
+             "--seconds", EXPORT_SECONDS, "--seq-len", str(EXPORT_SEQ_LEN), "--greedy",
+             "--condition-mask", "on", "--input-encoding", "pcm16"]), "a")
+        fused_export = _export_cli(started_d, "d")
+    finally:
+        _stop(started_d[1])
     buckets = [tuple(bn) for bn in result["export"]["summary"]["buckets"]]
     print(json.dumps({"exported_a": result["export"]}), flush=True)
 
@@ -2882,7 +2963,7 @@ def exported_full_width(d: str, card: str, served: dict) -> dict:
     print(json.dumps({"exported_e": serving}, ensure_ascii=False), flush=True)
 
     # (d) a second artifact under phase 12's wavlm_config: B1, B7, B8 in one graph
-    result["int8_fused"] = exported_int8_fused(d, model, base_cfg, sampling, n_layers)
+    result["int8_fused"] = exported_int8_fused(d, fused_export, model, sampling, n_layers)
     print(json.dumps({"exported": result}, ensure_ascii=False), flush=True)
     return result
 
@@ -4759,32 +4840,43 @@ def b7_times(root: str) -> int:
     return 0
 
 
-def b8_times(root: str) -> int:
-    """`--b8-times ROOT`: the fused conv layer of the port in the checkout
-    at ROOT (this one or another, to compare two trees on one card), timed
-    alone at phase 9's six bfloat16 layer shapes with tanh GELU: its
-    `models/wavlm.ConvLayer` (fused, float32 parameters, as the transcribe
-    runs it), so each tree's weight handling is in the time.  CUDA events
-    over back-to-back calls (five runs of 20: each run and their median),
-    device time per launch by torch.profiler and the host's time a call
-    (the least of five runs of 20), one JSON line a shape, then the card
+def b8_times(root: str, dtype=torch.bfloat16) -> int:
+    """`--b8-times ROOT` (bfloat16) and `--b8-f32-times ROOT` (float32): the
+    fused conv layer of the port in the checkout at ROOT (this one or
+    another, to compare two trees on one card), timed alone at phase 9's
+    six layer shapes, in bfloat16 with tanh GELU, in float32 with erf and
+    with tanh: its `models/wavlm.ConvLayer` (fused, float32 parameters, as
+    the transcribe runs it), so each tree's weight handling is in the time.
+    CUDA events over back-to-back calls (five runs of 20: each run and
+    their median), device time per launch by torch.profiler of whichever
+    B8 kernel the tree launched (named) and the host's time a call (the
+    least of five runs of 20), one JSON line a shape, then the card
     line."""
     sys.path.insert(0, os.path.abspath(root))
     from fddm_asr_tpu_torch.models.wavlm import ConvLayer
     from fddm_asr_tpu_torch.ops import _build
 
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     _build.build_libraries()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for T, k, s in FRONTEND_LAYERS:
-        x, weight, b, ln_scale, ln_bias = conv_inputs(T, k, torch.bfloat16, gen)
-        layer = ConvLayer(512, 512, k, s, True, "layer", 1e-5, True, fused=True).cuda()
+    f32 = dtype == torch.float32
+    tag = "b8_f32_times" if f32 else "b8_times"
+    for (T, k, s), gelu_tanh in [(shape, tanh) for shape in FRONTEND_LAYERS
+                                 for tanh in ((False, True) if f32 else (True,))]:
+        x, weight, b, ln_scale, ln_bias = conv_inputs(T, k, dtype, gen)
+        layer = ConvLayer(512, 512, k, s, True, "layer", 1e-5, gelu_tanh, fused=True).cuda()
         with torch.no_grad():
             for p, v in ((layer.conv.weight, weight), (layer.conv.bias, b),
                          (layer.layer_norm.weight, ln_scale), (layer.layer_norm.bias, ln_bias)):
                 p.copy_(v)
-            call = lambda: layer(x, torch.bfloat16, channels_last=True)  # noqa: E731
+            call = lambda: layer(x, dtype, channels_last=True)  # noqa: E731
             runs = [time_ms(call, 20) for _ in range(5)]
-            dev_ms = device_ms(call, 20, "conv_ln_gelu_bf16_kernel")
+            names = list(device_ms_by_kernel(call, 20, "conv_ln_gelu"))
+            if len(names) != 1:
+                fail(f"{tag}: expected one B8 kernel in the profile, got {names}")
+            kernel_name = names[0]
+            dev_ms = device_ms(call, 20, kernel_name)
             host_us = float("inf")
             for _ in range(5):
                 torch.cuda.synchronize()
@@ -4793,9 +4885,11 @@ def b8_times(root: str) -> int:
                     call()
                 host_us = min(host_us, (time.perf_counter() - t0) / 20 * 1e6)
             torch.cuda.synchronize()
-        print(json.dumps({"b8_times": {"root": root, "T": T, "k": k, "s": s,
-                                       "ms": statistics.median(runs), "ms_runs": runs,
-                                       "device_ms": dev_ms, "host_us": host_us}}), flush=True)
+        print(json.dumps({tag: {"root": root, "T": T, "k": k, "s": s,
+                                "gelu": "tanh" if gelu_tanh else "erf",
+                                "ms": statistics.median(runs), "ms_runs": runs,
+                                "kernel": kernel_name, "device_ms": dev_ms,
+                                "host_us": host_us}}), flush=True)
         del x, layer
         torch.cuda.empty_cache()
     print(card_line())
@@ -4872,9 +4966,17 @@ def backward_f32_times(root: str, which: str) -> int:
     return 0
 
 
+def _ffma_between_hgmma(function_sass: str) -> int:
+    lines = function_sass.splitlines()
+    at = [i for i, ln in enumerate(lines) if "HGMMA" in ln]
+    return sum(" FFMA " in ln for ln in lines[at[0]:at[-1]]) if at else 0
+
+
 def sass_hgmma(lib: str, kernel: str) -> dict:
     """The HGMMA instructions of `kernel` in the library's SASS
-    (`cuobjdump -sass`): their count, how many name TF32, one example."""
+    (`cuobjdump -sass`): their count, how many name TF32, one example; and
+    the FFMA instructions (scalar f32 FMAs): all, and those between a
+    function's first and last HGMMA (its tensor-core main loop)."""
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     sass = subprocess.run([tool, "-sass", lib], capture_output=True, text=True, timeout=300,
@@ -4883,6 +4985,8 @@ def sass_hgmma(lib: str, kernel: str) -> dict:
     lines = [ln.strip() for f in body for ln in f.splitlines() if "HGMMA" in ln]
     return {"kernel": kernel, "functions": len(body), "hgmma": len(lines),
             "hgmma_tf32": sum("TF32" in ln for ln in lines),
+            "ffma": sum(" FFMA " in ln for f in body for ln in f.splitlines()),
+            "ffma_between_hgmma": sum(_ffma_between_hgmma(f) for f in body),
             "example": lines[0][:160] if lines else None}
 
 
@@ -4894,6 +4998,8 @@ def main() -> int:
         return b7_times(sys.argv[2])
     if len(sys.argv) == 3 and sys.argv[1] == "--b8-times":
         return b8_times(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == "--b8-f32-times":
+        return b8_times(sys.argv[2], torch.float32)
     if len(sys.argv) == 3 and sys.argv[1] == "--b1-f32-times":
         return b1_f32_times(sys.argv[2])
     if len(sys.argv) == 3 and sys.argv[1] == "--b5-f32-times":
@@ -4939,6 +5045,17 @@ def main() -> int:
         if not (sass["functions"] == 1 and sass["hgmma"] > 0
                 and sass["hgmma_tf32"] == sass["hgmma"]):
             fail(f"float32 B5's SASS holds no tf32 HGMMA only: {sass}")
+    # and float32 B8 (erf and tanh builds); the scalar kernel it replaced is
+    # gone, and no FFMA lies among its HGMMAs (its FFMAs are the epilogue's;
+    # the scalar kernel's unrolled K loop held 1024)
+    sass_b8 = sass_hgmma(libs["conv_ln_gelu"], "conv_ln_gelu_tf32x3_kernel")
+    sass_b8["scalar_kernel_functions"] = sass_hgmma(libs["conv_ln_gelu"],
+                                                    "conv_ln_gelu_f32_kernel")["functions"]
+    print(json.dumps({"sass_f32_b8": sass_b8}), flush=True)
+    if not (sass_b8["functions"] == 2 and sass_b8["hgmma"] > 0
+            and sass_b8["hgmma_tf32"] == sass_b8["hgmma"]
+            and sass_b8["scalar_kernel_functions"] == 0 and sass_b8["ffma_between_hgmma"] == 0):
+        fail(f"float32 B8's SASS holds no tf32 HGMMA only, or a scalar FMA loop: {sass_b8}")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4967,6 +5084,10 @@ def main() -> int:
         result = transcribe_full_width(FA, tmp, card)
     with tempfile.TemporaryDirectory() as tmp:
         transcribe_f32 = transcribe_f32_full_width(tmp, card, result)
+    with tempfile.TemporaryDirectory() as tmp:
+        transcribe_f32_fused = transcribe_f32_full_width(tmp, card, result,
+                                                         unfused=transcribe_f32)
+    del transcribe_f32["feats"], transcribe_f32_fused["feats"]
     mark("3-4")
 
     # the shape phase 7's fine-tune gives the training kernels: B=32
@@ -5134,6 +5255,7 @@ def main() -> int:
             "kernel": "gated_attention_tf32x3_kernel",
             "launches_transcribe_f32": transcribe_f32["launches"]["fwd"],
             "transcribe_f32_device_ms": transcribe_f32["b1_f32_device_ms"],
+            "launches_transcribe_f32_fused_frontend": transcribe_f32_fused["launches"]["fwd"],
             "by_shape": [{k: rows[key][k] for k in (
                 "B", "L", "valid", "max_abs_err", "ms", "plain_ms", "library_ms",
                 "library_kernel", "bound_ms", "bound_by", "bound_tc_ms", "bound_tc_by")}
@@ -5272,9 +5394,15 @@ def main() -> int:
                                          "library_ms", "bound_ms", "bound_by", "max_abs_err")}
                      for r in layers],
         "per_transcribe": per_transcribe,
-        # conv_ln_gelu_f32_kernel at layers 1 and 6, erf and tanh GELU (phase 8);
-        # bound_ms: f32 FMA's, bound_tc_ms: 3xTF32's
-        "float32": {"kernel": "conv_ln_gelu_f32_kernel", "by_shape": [
+        # conv_ln_gelu_tf32x3_kernel at layers 1 and 6, erf and tanh GELU (phase
+        # 8); bound_ms: f32 FMA's, bound_tc_ms: 3xTF32's; its launches in phase
+        # 4's float32 transcribe under the fused front-end
+        "float32": {
+            "kernel": "conv_ln_gelu_tf32x3_kernel",
+            "launches_by_path": {"transcribe_f32_fused_frontend":
+                                 transcribe_f32_fused["launches"]["conv_ln_gelu"]},
+            "device_ms_in_transcribe_f32_fused_frontend": transcribe_f32_fused["b8_f32_device_ms"],
+            "by_shape": [
             {"gelu": "tanh" if tanh else "erf", **{k: conv_rows[(T, torch.float32, tanh)][k]
                                                    for k in (
                 "T", "T_out", "k", "s", "ms", "device_ms", "plain_ms", "library_ms",

@@ -7,7 +7,8 @@
 // fragment permutation, the warpgroup roles and their setmaxnreg budgets).
 // The fused int8 matmul (int8_matmul_fused.cu) and the fused conv
 // (conv_ln_gelu.cu) take the Hopper part: mbarriers, TMA, the swizzled
-// descriptors and the s8 and bf16 m64n256 wgmma.
+// descriptors and the s8, bf16 and tf32 m64n256 wgmma; the fused conv's
+// float32 kernel also the split and the swizzled f32 layout.
 //
 // Fragment layouts of mma.m16n8k16, which are wgmma's per warp (below)
 // (g = lane / 4, t = lane % 4):
@@ -381,6 +382,34 @@ __device__ __forceinline__ void wgmma_m64n64k8_tf32(float d[8][4], const uint32_
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 
+// The fused conv's float32 product: d[64 x 256] (+)= a[64 x 8] (registers,
+// tf32, the fragment above) . B[8 x 256] (descriptor, K-major tf32); d as in
+// wgmma_m64n256k16_bf16.
+__device__ __forceinline__ void wgmma_m64n256k8_tf32(float d[32][4], const uint32_t a[4],
+                                                     uint64_t desc_b, int scale_d) {
+#define FDDM_F4(j) "+f"(d[j][0]), "+f"(d[j][1]), "+f"(d[j][2]), "+f"(d[j][3])
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, "
+      "%111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, "
+      "%125, %126, %127}, {%128, %129, %130, %131}, %132, p, 1, 1;\n}\n"
+      : FDDM_F4(0), FDDM_F4(1), FDDM_F4(2), FDDM_F4(3), FDDM_F4(4), FDDM_F4(5), FDDM_F4(6),
+        FDDM_F4(7), FDDM_F4(8), FDDM_F4(9), FDDM_F4(10), FDDM_F4(11), FDDM_F4(12),
+        FDDM_F4(13), FDDM_F4(14), FDDM_F4(15), FDDM_F4(16), FDDM_F4(17), FDDM_F4(18),
+        FDDM_F4(19), FDDM_F4(20), FDDM_F4(21), FDDM_F4(22), FDDM_F4(23), FDDM_F4(24),
+        FDDM_F4(25), FDDM_F4(26), FDDM_F4(27), FDDM_F4(28), FDDM_F4(29), FDDM_F4(30),
+        FDDM_F4(31)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+#undef FDDM_F4
+}
+
 // Descriptor offset (16-byte units) of k-slice ks (8 columns, 32 bytes) of
 // a tile stored as 32-column swizzle halves of kHalf bytes each.
 template <int kHalf = TF_HALF>
@@ -491,19 +520,21 @@ inline bool encode_3d(CUtensorMap* map, const void* base, uint64_t d0, uint64_t 
          CUDA_SUCCESS;
 }
 
-// A tensor map over a bf16 view [d2][d1][d0] with explicit byte strides
-// between rows (s1) and between planes (s2), both multiples of 16; d0 is
-// contiguous.  Boxes of box0 x box1 x 1, 128-byte swizzled, zero outside.
+// A tensor map over a bf16 (or `type`) view [d2][d1][d0] with explicit byte
+// strides between rows (s1) and between planes (s2), both multiples of 16
+// (rows may overlap: s1 below d0's bytes); d0 is contiguous.  Boxes of box0
+// x box1 x 1, 128-byte swizzled, zero outside.
 inline bool encode_3d_strided(CUtensorMap* map, const void* base, uint64_t d0, uint64_t d1,
                               uint64_t d2, uint64_t s1, uint64_t s2, uint32_t box0,
-                              uint32_t box1) {
+                              uint32_t box1,
+                              CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[3] = {d0, d1, d2};
   const cuuint64_t strides[2] = {s1, s2};
   const cuuint32_t box[3] = {box0, box1, 1};
   const cuuint32_t unit[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,
+  return fn(map, type, 3, const_cast<void*>(base), dims, strides,
             box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
          CUDA_SUCCESS;

@@ -91,7 +91,8 @@ from torch.utils.checkpoint import (
 )
 
 from fddm_asr_tpu_torch.models.lora import LORA_WEIGHT
-from fddm_asr_tpu_torch.ops.conv_frontend import conv_ln_gelu, kernel_weight
+from fddm_asr_tpu_torch.ops.conv_frontend import (conv_ln_gelu, kernel_weight,
+                                                 kernel_weight_tf32)
 from fddm_asr_tpu_torch.ops.flash_attention import (
     wavlm_gated_attention_dropout,
     wavlm_gated_attention_heads_packed,
@@ -265,10 +266,13 @@ class ConvLayer(nn.Module):
         front-end's layout) [B, T, C] -> [B, T', C']."""
         if self.fused:
             ln = self.layer_norm
-            w = kernel_weight(self.__dict__.setdefault("_kernel_weight", {}), self.conv.weight,
-                              dtype)
+            cache = self.__dict__.setdefault("_kernel_weight", {})
+            w = kernel_weight(cache, self.conv.weight, dtype)
+            # the float32 kernel's operand (3xTF32), made once per weight like w
+            w_tf32 = (kernel_weight_tf32(cache, self.conv.weight)
+                      if dtype == torch.float32 and x.is_cuda else None)
             return conv_ln_gelu(x.to(dtype), w, self.conv.bias, ln.weight, ln.bias,
-                                self.conv.stride[0], ln.eps, self.gelu_tanh)
+                                self.conv.stride[0], ln.eps, self.gelu_tanh, w_tf32)
         if channels_last:
             x = x.transpose(1, 2)
         x = _conv(self.conv, x, dtype)

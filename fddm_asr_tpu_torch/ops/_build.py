@@ -11,7 +11,8 @@ unchanged one is reused.
 
 The kernel modules (`flash_attention`, `quant`, `conv_frontend`) declare
 their C functions with `register` and launch them with `launch`, which
-passes PyTorch's current stream and raises when the launch is refused.
+passes PyTorch's current stream and raises when the launch is refused; a
+weight's TMA tensor maps are encoded once and kept (`kept_tensor_maps`).
 Nothing here falls back to a plain version.
 
 Each inference entry point is also a `torch.library.custom_op` in the
@@ -47,6 +48,9 @@ DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _signatures: Dict[str, Tuple[str, List]] = {}  # C function -> (library, argtypes)
 _libs: Dict[str, ctypes.CDLL] = {}             # loaded on first CUDA call
+_tensor_maps: Dict[tuple, ctypes.Array] = {}   # `kept_tensor_maps`
+_TENSOR_MAPS_KEPT = 4096  # entries kept before the dict is emptied
+_TENSOR_MAP_BYTES = 128
 
 
 def register(fn_name: str, library: str, argtypes: List) -> None:
@@ -133,6 +137,23 @@ def launch(fn_name: str, dev: torch.device, *args) -> None:
         rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{fn_name} launch failed: CUDA error {rc}")
+
+
+def kept_tensor_maps(fn_name: str, dev: torch.device, count: int, *args) -> ctypes.Array:
+    """The `count` TMA tensor maps (host bytes) that the registered C
+    function `fn_name(*args, maps, stream)` encodes, encoded on the first
+    call for these arguments on `dev` and kept.  The arguments are
+    addresses and sizes, all that a map describes, so a kept map is right
+    for whatever tensor lies there: nothing goes stale."""
+    key = (fn_name, dev.index, *args)
+    maps = _tensor_maps.get(key)
+    if maps is None:
+        if len(_tensor_maps) >= _TENSOR_MAPS_KEPT:
+            _tensor_maps.clear()
+        maps = ctypes.create_string_buffer(count * _TENSOR_MAP_BYTES)
+        launch(fn_name, dev, *args, maps)
+        _tensor_maps[key] = maps
+    return maps
 
 
 def ptr(x: Optional[torch.Tensor]):

@@ -63,12 +63,6 @@ _build.register("fddm_int8_matmul_fused", "int8_matmul_fused",
 # (device index, stream) -> the kernel's u32 counters: [blocks done, rows
 # quantized per row tile...], zeroed once and left at 0 by every launch
 _sync_buffers: Dict[Tuple[int, int], torch.Tensor] = {}
-# (device index, wq, sw, bias addresses, din, dout) -> the weight's three
-# tensor maps (host bytes).  A map describes only an address and sizes, so
-# an entry is right for whatever tensor lies there: nothing goes stale.
-_weight_maps: Dict[Tuple[int, int, int, int, int, int], ctypes.Array] = {}
-_WEIGHT_MAPS_KEPT = 4096  # entries kept before the dict is emptied
-_TENSOR_MAP_BYTES = 128
 
 
 def fused_workspace_bytes(rows: int, din: int) -> int:
@@ -94,16 +88,8 @@ def _fused_weight_maps(dev: torch.device, wq: torch.Tensor, sw: torch.Tensor,
                        bias: Optional[torch.Tensor]) -> ctypes.Array:
     """The tensor maps of wq, sw and bias, encoded on a weight's first call."""
     dout, din = wq.shape
-    key = (dev.index, wq.data_ptr(), sw.data_ptr(), _build.ptr(bias) or 0, din, dout)
-    maps = _weight_maps.get(key)
-    if maps is None:
-        if len(_weight_maps) >= _WEIGHT_MAPS_KEPT:
-            _weight_maps.clear()
-        maps = ctypes.create_string_buffer(3 * _TENSOR_MAP_BYTES)
-        _build.launch("fddm_int8_matmul_fused_weight_maps", dev, wq.data_ptr(), sw.data_ptr(),
-                      _build.ptr(bias), din, dout, maps)
-        _weight_maps[key] = maps
-    return maps
+    return _build.kept_tensor_maps("fddm_int8_matmul_fused_weight_maps", dev, 3, wq.data_ptr(),
+                                   sw.data_ptr(), _build.ptr(bias), din, dout)
 
 
 def _quantize(x: torch.Tensor, dim: int, eps: float) -> Tuple[torch.Tensor, torch.Tensor]:

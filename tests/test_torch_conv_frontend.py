@@ -168,6 +168,24 @@ def test_kernel_weight_is_cast_once_per_weight(dtype):
     assert torch.equal(again, conv.weight.detach().permute(2, 1, 0).to(dtype))
 
 
+def test_kernel_weight_tf32_is_split_once_per_weight():
+    """The float32 kernel's K-major tf32 hi/lo operand of a conv weight is
+    made on the first call, reused while the weight is unchanged, and made
+    again after an in-place update."""
+    conv = torch.nn.Conv1d(16, 24, 3)
+    cache = {}
+    ws = CF.kernel_weight_tf32(cache, conv.weight)
+    assert ws.shape == (2, 24, 48) and ws.is_contiguous() and not ws.requires_grad
+    assert torch.equal(ws, CF.tf32_split_weight(conv.weight.detach().permute(2, 1, 0)))
+    assert CF.kernel_weight_tf32(cache, conv.weight) is ws
+    assert CF.kernel_weight(cache, conv.weight, torch.float32) is not ws  # a key of its own
+    with torch.no_grad():
+        conv.weight.mul_(2)
+    again = CF.kernel_weight_tf32(cache, conv.weight)
+    assert again is not ws and CF.kernel_weight_tf32(cache, conv.weight) is again
+    assert torch.equal(again, CF.tf32_split_weight(conv.weight.detach().permute(2, 1, 0)))
+
+
 def test_fused_layer_reuses_its_kernel_weight(rng):
     """The fused front-end layer passes its weight through `kernel_weight`:
     one copy in the run's dtype, reused by every call, and the same output

@@ -10,7 +10,8 @@ conftest.py (which imports JAX) has to be left out:
         tests/test_torch_conv_frontend_cuda.py
 
 Tolerances: float32 atol 2e-4 / rtol 1e-3 (the JAX package's own for its
-kernel: both sum the same f32 products in another order); bfloat16 atol
+kernel: both sum the same f32 products in another order; the kernel's
+3xTF32 products keep f32 accuracy, tests/test_torch_tf32_conv.py); bfloat16 atol
 3e-2 plus one bf16 ulp of the value (rtol 2^-7): the outputs reach past 4,
 where an ulp is 0.03125."""
 import pytest
@@ -108,6 +109,76 @@ def test_bf16_kernel_widths_and_strides(cuda_device, k, s, gelu_tanh):
 def test_bf16_layer_one_shape(cuda_device):
     """Layer 1 of the front-end at 8 x 20 s: x [8, 63999, 512], k = 3, s = 2."""
     _edge_case(cuda_device, 8, 31999, 512, 512, 3, 2)
+
+
+def _f32_case(dev, B, T_out, cin, cout, k, s, gelu_tanh=False, seed=0):
+    """The float32 kernel (3xTF32) at one shape, called twice: bit-identical
+    outputs, within TOL of the plain version, one launch a call."""
+    args = _case(dev, B, (T_out - 1) * s + k, cin, cout, k, torch.float32, seed=seed)
+    before = CF.conv_ln_gelu_cuda.launches
+    with torch.no_grad():
+        out = CF.conv_ln_gelu(*args, s, gelu_tanh=gelu_tanh)
+        again = CF.conv_ln_gelu(*args, s, gelu_tanh=gelu_tanh)
+    torch.cuda.synchronize()
+    assert CF.conv_ln_gelu_cuda.launches == before + 2
+    assert out.shape == (B, T_out, cout) and torch.equal(out, again)
+    ref = CF.conv_ln_gelu_plain(*args, s, gelu_tanh=gelu_tanh)
+    torch.testing.assert_close(out, ref, **TOL[torch.float32])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T_out,cin,cout,k,s", [
+    (3, 127, 512, 512, 3, 2), (3, 128, 512, 512, 3, 2), (3, 129, 512, 512, 3, 2),
+    (3, 257, 512, 512, 3, 2), (3, 129, 128, 8, 3, 2), (3, 129, 128, 248, 3, 2),
+    (3, 129, 128, 256, 3, 2), (3, 129, 128, 264, 3, 2), (3, 129, 8, 512, 3, 2),
+    (3, 129, 200, 512, 3, 2), (3, 129, 64, 512, 1, 1), (3, 129, 64, 512, 5, 1),
+    (3, 129, 64, 512, 4, 3), (3, 129, 64, 512, 1, 2), (3, 129, 64, 512, 2, 3),
+    (1, 1, 16, 8, 3, 2), (2, 40, 8, 24, CF.MAX_TAPS + 1, 1)],
+    ids=["rows127", "rows128", "rows129", "rows257", "cout8", "cout248", "cout256",
+         "cout264", "cin8", "cin200", "k1s1", "k5s1", "k4s3", "k1s2", "k2s3", "one-row",
+         "k17"])
+def test_f32_tile_edges(cuda_device, B, T_out, cin, cout, k, s):
+    """Around the float32 kernel's 128-row tiles and 256-channel halves, K
+    (= k * Cin) ending inside a 32-column stage (Cin = 8, 200; k = 17 at
+    Cin = 8: K = 136), taps that overlap or skip rows in the patch view."""
+    _f32_case(cuda_device, B, T_out, cin, cout, k, s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,k", [(63999, 3), (1999, 2)], ids=["layer1", "layer6"])
+@pytest.mark.parametrize("gelu_tanh", [False, True], ids=["erf", "tanh"])
+def test_f32_layer_shapes(cuda_device, T, k, gelu_tanh):
+    """Layers 1 and 6 of the front-end at 8 x 20 s in float32: x [8, T,
+    512], s = 2; at layer 1, K = 1536 sums into one undrained accumulator."""
+    _f32_case(cuda_device, 8, (T - k) // 2 + 1, 512, 512, k, 2, gelu_tanh)
+
+
+@pytest.mark.cuda
+def test_f32_fused_layer_keeps_its_split_weight(cuda_device):
+    """The fused layer in float32 on the card passes `kernel_weight_tf32`'s
+    operand: made once, reused by the next call, remade after an in-place
+    update; each output within TOL of the plain version on the layer's
+    weight."""
+    from fddm_asr_tpu_torch.models.wavlm import ConvLayer
+
+    layer = ConvLayer(64, 96, 3, 2, True, "layer", 1e-5, False, fused=True).to(cuda_device)
+    x = torch.randn(2, 301, 64, device=cuda_device)
+
+    def check():
+        out = layer(x, torch.float32, channels_last=True)
+        ln = layer.layer_norm
+        ref = CF.conv_ln_gelu_plain(x, layer.conv.weight.permute(2, 1, 0), layer.conv.bias,
+                                    ln.weight, ln.bias, 2)
+        torch.testing.assert_close(out, ref, **TOL[torch.float32])
+
+    with torch.no_grad():
+        check()
+        kept = layer._kernel_weight["w_tf32"][1]
+        check()
+        assert layer._kernel_weight["w_tf32"][1] is kept
+        layer.conv.weight.mul_(-0.5)
+        check()
+        assert layer._kernel_weight["w_tf32"][1] is not kept
 
 
 @pytest.mark.cuda
