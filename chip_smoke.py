@@ -195,12 +195,14 @@ Phases, each fatal on failure:
      process); (c) 8 x 20 s through the graph beside the eager `transcribe_with_ids` in this process: wall
      (median of 5), RTFx, busy time, idle share, host launches a call; (d)
      a second artifact under phase 12's wavlm_config, exported in a second
-     subprocess beside (a)'s (both end before (c)), bucket 8 x 20 s: ids
+     subprocess beside (a)'s and checked in this process while (a)'s
+     program is still traced (both end before (c)), bucket 8 x 20 s: ids
      equal to the live pipeline's, a replay counting and showing B1 24, B7
      144 and B8 6; (e) `serve --exported` in this process under phase 16
-     (c)'s load (256 untraced, 64 traced uploads), every served batch's ids
-     equal to the live pipeline's at the artifact's bucket and the
-     engine's counter, beside phase 16's numbers, and its `/healthz`
+     (c)'s load (256 untraced, 64 traced uploads), then a 6 s upload alone
+     (the 10 s program), every served batch's ids equal to the live
+     pipeline's at the artifact's bucket and the engine's counter, each
+     program serving batches, beside phase 16's numbers, and its `/healthz`
      naming every bucket as a graph; (c) and (e) share that one load, and
      the `python3 -m` entry point is phase 16 (e)'s (a process of its own
      here would add a fourth load, ~75 s);
@@ -266,8 +268,10 @@ Phases, each fatal on failure:
      fddm_asr_tpu_torch.train --mesh data=2` (frozen, 2 steps of 16 on
      phase 18's corpus, sharded evaluation; rank 0's metrics.jsonl and
      checkpoints) and phase 18 (c)'s inference CLI run under torchrun
-     with `--mesh data=2`, its rows equal to that process's; (c) with two cards or more, (b)
-     over NCCL one card a rank, else the line says it was not run.
+     with `--mesh data=2`, its rows equal to that process's, run once the
+     ranks of (b) reach phase 21 (e), beside its exports; (c) with two
+     cards or more, (b) over NCCL one card a rank, else the line says it
+     was not run.
  21. tensor parallelism at full width, model=2: after (b2) the same two
      processes of phase 20 (b) split the weights of `_DECODER_RULES` over
      a model=2 mesh (WavLM's 16 heads, 8 a rank; the decoder's 12, 6 a
@@ -286,10 +290,32 @@ Phases, each fatal on failure:
      and B7 at the column slices' shapes (1024 -> 512, 1024 -> 2048, M =
      8192, f32) against their plain versions, timed; (d) `torchrun
      --nproc_per_node 2 -m fddm_asr_tpu_torch.serve --mesh model=2`
-     (float32, gloo on the card): 16 uploads of 2-20 s one at a time, their
+     (float32, gloo on the card): 4 uploads of 2-20 s one at a time, their
      served ids equal to this process's pipeline of the same flags on the
-     same padded batches and seeds; SIGINT to rank 0 stops both ranks.
- 22. `offline`: the offline workflow and the user scripts
+     same padded batches and seeds; SIGINT to rank 0 stops both ranks;
+     (e) sharded AOT artifacts: (e1), in the same two processes after (c),
+     the float32 pipeline at model=2 (tensor parallel) exported
+     (`aot.save_artifact`: one program a rank, the collectives
+     `torch.ops.fddm` nodes keyed by mesh axis), bucket 8 x 20 s, seq_len
+     64, greedy (and a bucket of one row at 20 s: the same program),
+     loaded (eager: gloo) and run on (a)'s batch at a fixed
+     seed: ids equal to the live model=2 pipeline's and to one process's,
+     B1 24 a rank a call inside the program; (e2) the same with
+     `--seq-parallel` at 6 of WavLM's 24 layers, in a second pair of gloo
+     ranks started beside (e1) (with phase 20 (b3); (e1), (e2) and (b3)
+     share the card and the host): ids equal to one process's at that
+     depth, the ring's 6 hops in the program and no B1; (e3) `torchrun --nproc_per_node 2 -m
+     fddm_asr_tpu_torch.serve --exported` on (e1)'s artifact (its ranks,
+     and (d)'s, start before phase 22, which runs beside their start-up,
+     then this phase's one-process references; the kernels at H = 8 are
+     timed after both servers stop): 3 uploads of
+     2-20 s, ids equal to this process's at the same padded batches and
+     counter, `/healthz` naming the mesh and the eager mode, SIGINT
+     stopping both ranks; with two cards or more (e1) over NCCL in phase 20
+     (c)'s ranks, every bucket a CUDA graph, else the line says it was not
+     run.
+ 22. `offline` (run before phase 21's checks, while phase 21's servers
+     start): the offline workflow and the user scripts
      (`fddm_asr_tpu_torch.scripts`) on phase 18's files: (a) `python3 -m
      ...preprocess --enable_audio_hash` on a dump of 18 clips at 48 kHz
      (two text duplicates and one audio duplicate removed, 16 kHz WAVs of
@@ -313,19 +339,19 @@ Phases, each fatal on failure:
      phase 18 (a)'s config and feature cache (opened, not rebuilt),
      evaluated on 4 validation clips: result.json and summary.json ranked.
  23. `host_tools`: the host tools and profilers (`fddm_asr_tpu_torch.scripts`)
-     on phase 15's and phase 18's files: (a) `python3 -m ...profile_step` at
-     its defaults (16 x 20 s) with one transcribe traced: B1 24 a transcribe
+     on phase 15's and phase 18's files: (a) `python3 -m ...profile_step
+     --batch 8` (8 x 20 s) with one transcribe traced: B1 24 a transcribe
      by the wrappers' counts, beside the profiler's count of the kernel, the
      top-10 listing, busy time and idle share; (b) `profile_finetune --batch
-     16 --iters 2 --no-dropout`: B3/B4/B5 47/24/24 a step (with WavLM's
+     8 --iters 1 --no-dropout`: B3/B4/B5 47/24/24 a step (with WavLM's
      attention_dropout 0.1 a training step takes the plain attention, as
      the JAX package's does); (c) `profile_frontend --per-layer`: every
      variant timed; (d) `bench_train` three times (`--lfd`, `--finetune
      --no-dropout`, `--model paper --lfd`, the 253 M scanned decoder):
      each JSON line with its peak memory and kernel launches a step, MFU
      non-null and in (0, 100); (e) `bench_serve --concurrency 8
-     --duration-s 5 --audio-seconds 10` on phase 15's decoder, then
-     `--stream --duration-s 5`: errors 0, requests served; (f) `stream_client`
+     --duration-s 2 --audio-seconds 10` on phase 15's decoder, then
+     `--stream --duration-s 2`: errors 0, requests served; (f) `stream_client`
      (in this process) against phase 16 (e)'s `python3 -m ...serve` process
      with a 20 s clip at --pace 0 in 5 s windows, run there: partials and a
      final; (g) in this
@@ -334,14 +360,18 @@ Phases, each fatal on failure:
      `convergence_report` on phase 18 (b)'s log, `sanity_check_scheduler`
      and `sanity_forward` at WavLM-large on the card (B1 24).
 
-Phases 4 and 7 run at full depth with as many timed runs as before; the
-whole took 1058 s of its 1200 s limit on an NVIDIA H100 80GB HBM3 at 700 W
-with 5, 10 and 20 s programs in phase 17, the kernels' build included and
-phase 23 188 s of it: far past the half it aims at, so phase 17 exports
-two durations (10 and 20 s), about 60 s less.  The `phase_end_s` line
-gives the seconds from the start to the end of each group of phases.  The
+Phases 4 and 7 run at full depth with as many timed runs as before.  The
 phases' processes take most of the time, each mostly its start (imports,
-the model drawn on the card, first calls); they are cut in depth first.
+the model drawn on the card, first calls), and so do the AOT programs'
+traces and loads (host work, 20-80 s each); they are cut in depth first
+(phase 21 (e2) at 6 layers, phase 23's profilers at 8 x 20 s, its load
+tests 2 s), and host work runs beside other host work where its inputs
+allow and no timed section is in its way (phase 17 (d) beside (a)'s
+export, phase 21 (e2) and phase 20 (b3) beside phase 21 (e1), phase 22
+beside phase 21's servers' start).  PERF.md's "Chip budget" gives the whole run's seconds
+on an H100, the kernels' build included, against its 1200 s limit (hosts
+differ by up to 45 %); the `phase_end_s` line gives the seconds from the
+start to the end of each group of phases.
 
 Prints the kernels' JSON line, then the card line, then as the last line
 {"ok": true, "device": {...}}.
@@ -353,7 +383,8 @@ Prints the kernels' JSON line, then the card line, then as the last line
     python3 chip_smoke.py --b5-f32-times DIR
     python3 chip_smoke.py --b4-f32-times DIR
 
-(`--parallel-rank DIR` is one of phase 20's ranks, started by the phase.)
+(`--parallel-rank DIR` is one of phase 20's ranks, `--ring-artifact-rank
+DIR` one of phase 21 (e2)'s, both started by phase 20.)
 These time only the fused int8 kernel (at phase 8's bfloat16 shapes: CUDA events
 over back-to-back calls, device time per launch, host time a call), only
 the fused conv layer (its kernel and the layer's weight handling, at phase
@@ -2803,7 +2834,7 @@ def exported_full_width(d: str, card: str, served: dict) -> dict:
     bucket, ids against the live pipeline, B1/B7/B8 in a profiled replay;
     (e) `serve --exported` under phase 16 (c)'s load, every batch
     recomputed by the live pipeline, beside phase 16's numbers, and its
-    `/healthz`; (d) runs last."""
+    `/healthz`; (d) runs first, while (a)'s program is still traced."""
     import threading
 
     from fddm_asr_tpu_torch import aot
@@ -2821,16 +2852,24 @@ def exported_full_width(d: str, card: str, served: dict) -> dict:
     torch.cuda.empty_cache()  # the subprocesses need the memory this process has cached
     result = {"card": card}
 
-    # (a) export, and (d)'s beside it: the tracing, most of phase 17, is host work
+    # (a) export, and (d)'s beside it: the tracing, most of phase 17, is host
+    # work; (d)'s export ends first (one bucket), and (d) runs here while
+    # (a)'s is still going
     started_d = _export_start(fused_export_args(d, model, base_cfg))
+    started_a = _export_start(
+        [*model, "--main-config", base_cfg, "--out", art, "--batch-sizes", EXPORT_BATCHES,
+         "--seconds", EXPORT_SECONDS, "--seq-len", str(EXPORT_SEQ_LEN), "--greedy",
+         "--condition-mask", "on", "--input-encoding", "pcm16"])
     try:
-        result["export"] = _export_cli(_export_start(
-            [*model, "--main-config", base_cfg, "--out", art, "--batch-sizes", EXPORT_BATCHES,
-             "--seconds", EXPORT_SECONDS, "--seq-len", str(EXPORT_SEQ_LEN), "--greedy",
-             "--condition-mask", "on", "--input-encoding", "pcm16"]), "a")
         fused_export = _export_cli(started_d, "d")
+        with open(os.path.join(d, "artifact_fused", "meta.json")) as f:
+            fused_sampling = json.load(f)["sampling"]
+        result["int8_fused"] = exported_int8_fused(d, fused_export, model, fused_sampling,
+                                                   WAVLM_LARGE_LAYERS)
+        result["export"] = _export_cli(started_a, "a")
     finally:
         _stop(started_d[1])
+        _stop(started_a[1])
     buckets = [tuple(bn) for bn in result["export"]["summary"]["buckets"]]
     print(json.dumps({"exported_a": result["export"]}), flush=True)
 
@@ -2899,6 +2938,7 @@ def exported_full_width(d: str, card: str, served: dict) -> dict:
         reqs = record["reqs"]
         Bp, T = engine_._plan_shape(reqs)
         b, n = ep.pick_bucket(Bp, T)
+        by_program[n] = by_program.get(n, 0) + 1
         batch = np.zeros((b, n), np.int16)
         lens = np.full((b,), CONV_RECEPTIVE_FIELD, np.int64)
         lens[:Bp] = min(1600, T)
@@ -2907,6 +2947,7 @@ def exported_full_width(d: str, card: str, served: dict) -> dict:
             lens[i] = max(len(r.wave), CONV_RECEPTIVE_FIELD)
         return live_ids(live, batch, lens, record["counter"])[:len(reqs)]
 
+    by_program: dict = {}  # the recomputed batches of each program (samples)
     durations, bodies = _load_bodies(d)
     t0 = time.time()
     with contextlib.redirect_stdout(io.StringIO()):  # it prints a line a call
@@ -2924,6 +2965,14 @@ def exported_full_width(d: str, card: str, served: dict) -> dict:
         serving["traced_window"] = _load_window(
             engine, base, bodies[SERVE_REQUESTS:], durations[SERVE_REQUESTS:], wrappers,
             dispatched, n_layers, traced=True, recompute=recompute)
+        # a 6 s upload alone: the shorter program's bucket, its ids checked
+        first = len(dispatched)
+        status, raw = _http(base, "POST", "/v1/transcribe", _wav_bytes(
+            os.path.join(d, "short.wav"), synthetic_audio(1, 6.0, seed=601)[0]),
+            {"Content-Type": "audio/wav"})
+        if status != 200:
+            fail(f"(e) a 6 s upload: status {status}: {raw[:400]}")
+        _check_batches(engine, dispatched[first:], "(e) a 6 s upload", recompute)
         # one batch of 16 x 10 s dispatched from this thread with the engine idle
         reqs = [r for i in range(16) for r in engine._plan_requests(
             synthetic_audio(1, 10.0, seed=600 + i)[0], f"idle{i}")]
@@ -2959,11 +3008,13 @@ def exported_full_width(d: str, card: str, served: dict) -> dict:
     if status_h != 200 or len(serving["healthz"].get("native_buckets", [])) != len(buckets):
         fail(f"(e) /healthz {status_h} names {serving['healthz'].get('native_buckets')} as "
              f"graphs, exported {buckets}")
+    # the server picked among the programs: each served batches, each checked
+    serving["batches_by_program"] = {str(n): k for n, k in sorted(by_program.items())}
+    if sorted(by_program) != sorted({n for _, n in buckets}):
+        fail(f"(e) the served batches ran the programs {serving['batches_by_program']}, "
+             f"exported {sorted({n for _, n in buckets})}: the server did not pick among them")
     result["serve"] = serving
     print(json.dumps({"exported_e": serving}, ensure_ascii=False), flush=True)
-
-    # (d) a second artifact under phase 12's wavlm_config: B1, B7, B8 in one graph
-    result["int8_fused"] = exported_int8_fused(d, fused_export, model, sampling, n_layers)
     print(json.dumps({"exported": result}, ensure_ascii=False), flush=True)
     return result
 
@@ -3808,8 +3859,8 @@ def parallel_rank(d: str) -> int:
     (b) or (c), joined from FDDM_COORDINATOR / FDDM_NUM_PROCESSES /
     FDDM_PROCESS_ID / FDDM_BACKEND / FDDM_DEVICE (LOCAL_RANK): (b1) on a
     data=2 mesh, then (b2) on a model=2 mesh of the same two processes,
-    then phase 21 (a)-(c) on a model=2 mesh (`tp_checks`); writes
-    DIR/rank<R>.pt.  Prints no result line."""
+    then phase 21 (a)-(c) on a model=2 mesh (`tp_checks`) and (e1)
+    (`sharded_artifact`); writes DIR/rank<R>.pt.  Prints no result line."""
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from fddm_asr_tpu_torch import parallel as P
     from fddm_asr_tpu_torch.ops import flash_attention as FA
@@ -3838,7 +3889,35 @@ def parallel_rank(d: str) -> int:
         out["tp"] = tp_checks(FA, P.make_mesh(P.MeshSpec(data=1, model=2), dev),
                               spec["tokenizer"])
         out["tp_s"] = time.time() - t0
+        # phase 21 (e1): a sharded artifact of a model=2 mesh of the same two;
+        # (e2) runs in the other pair (`ring_artifact_rank`); (b3) starts now
+        if rank == 0:
+            with open(os.path.join(d, "e1_started"), "w") as f:
+                f.write(str(time.time()))
+        out["aot"] = {"e1": sharded_artifact(dev, spec["tokenizer"], d, False)}
         torch.save(out, os.path.join(d, f"rank{rank}.pt"))
+    finally:
+        P.shutdown()
+    return 0
+
+
+def ring_artifact_rank(d: str) -> int:
+    """`python3 chip_smoke.py --ring-artifact-rank DIR`: one rank of phase 21
+    (e2)'s pair of processes, started once phase 20 (b)'s reach (e1), beside
+    which it runs (e2) (`sharded_artifact` with the ring: its export and load
+    are host work); writes DIR/ring_rank<R>.pt.  Prints no result line."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from fddm_asr_tpu_torch import parallel as P
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist_cfg = P.DistributedConfig.from_env()
+    rank, _ = P.initialize(dist_cfg)
+    try:
+        with open(os.path.join(d, "parallel.json")) as f:
+            spec = json.load(f)
+        out = {"e2": sharded_artifact(dist_cfg.rank_device("cuda"), spec["tokenizer"], d, True)}
+        torch.save(out, os.path.join(d, f"ring_rank{rank}.pt"))
     finally:
         P.shutdown()
     return 0
@@ -3852,9 +3931,9 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _spawn_ranks(d: str, backend: str, tag: str) -> tuple:
-    """Two `--parallel-rank` processes over `backend`: on cuda:0 both
-    (gloo), or one card each (nccl); their outputs and wall seconds."""
+def _start_pair(d: str, backend: str, tag: str, role: str = "--parallel-rank") -> list:
+    """Two `role` processes (`--parallel-rank` or `--ring-artifact-rank`)
+    over `backend`: on cuda:0 both (gloo), or one card each (nccl)."""
     port = _free_port()
     procs = []
     for rank in range(2):
@@ -3865,25 +3944,41 @@ def _spawn_ranks(d: str, backend: str, tag: str) -> tuple:
             env["FDDM_DEVICE"] = "cuda:0"
         log = open(os.path.join(d, f"{tag}.rank{rank}.log"), "w")
         procs.append((subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--parallel-rank", d], env=env,
+            [sys.executable, os.path.abspath(__file__), role, d], env=env,
             stdout=log, stderr=subprocess.STDOUT), log))
+    return procs
+
+
+def _wait_pair(procs: list, d: str, tag: str, output: str = "rank") -> tuple:
+    """The outputs DIR/<output><R>.pt of `_start_pair`'s processes and
+    their wall seconds; stops both when one fails or outlasts 900 s."""
     t0 = time.time()
     try:
         for proc, _ in procs:
-            proc.wait(timeout=600)
+            proc.wait(timeout=max(1.0, 900 - (time.time() - t0)))
     finally:
-        for proc, log in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-            log.close()
+        _stop_pair(procs)
     wall = time.time() - t0
     for rank, (proc, _) in enumerate(procs):
         if proc.returncode != 0:
             with open(os.path.join(d, f"{tag}.rank{rank}.log")) as f:
                 log = f.read()
             fail(f"({tag}) rank {rank} exited {proc.returncode}:\n{log[-4000:]}")
-    return [torch.load(os.path.join(d, f"rank{r}.pt")) for r in range(2)], wall
+    return [torch.load(os.path.join(d, f"{output}{r}.pt")) for r in range(2)], wall
+
+
+def _stop_pair(procs: list) -> None:
+    for proc, log in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+
+
+def _spawn_ranks(d: str, backend: str, tag: str) -> tuple:
+    """Two `--parallel-rank` processes over `backend`: their outputs and
+    wall seconds."""
+    return _wait_pair(_start_pair(d, backend, tag), d, tag)
 
 
 def _check_ranks(tag: str, ranks: list, reference: dict, want_launches: dict) -> dict:
@@ -3955,22 +4050,45 @@ def parallel_full_width(FA, d: str, card: str, cli_c: dict) -> dict:
         json.dump({"tokenizer": tok}, f)
     gc.collect()
     torch.cuda.empty_cache()
-    ranks, wall = _spawn_ranks(d, "gloo", "b")
+    pair, ring_pair = _start_pair(d, "gloo", "b"), []
+    try:
+        # once the ranks reach phase 21 (e1), whose export and load are host
+        # work: phase 21 (e2)'s pair and (b3) the entry points under torchrun
+        # (two ranks on the card over gloo) beside it; not before, so that
+        # (b1), (b2) and phase 21 (a)-(c) have the card and the host alone.
+        # (e1)'s, (e2)'s and (b3)'s seconds are taken beside one another.
+        t0 = time.time()
+        marker = os.path.join(d, "e1_started")
+        while not os.path.exists(marker):
+            if any(proc.poll() is not None for proc, _ in pair) or time.time() - t0 > 800:
+                _stop_pair(pair)
+                _wait_pair(pair, d, "b")  # a rank that failed says why
+                fail("(b) the ranks ended or stalled before phase 21 (e1)")
+            time.sleep(0.5)
+        ring_pair = _start_pair(d, "gloo", "b_ring", "--ring-artifact-rank")
+        result["b3"] = parallel_entry_points(d, root, cli_c)
+        ranks, wall = _wait_pair(pair, d, "b")
+        ring_ranks, _ = _wait_pair(ring_pair, d, "b_ring", "ring_rank")
+    finally:
+        _stop_pair(pair)
+        _stop_pair(ring_pair)
+    wall = time.time() - t0  # from the ranks' start to their end: (e1), (e2), (b3) included
     result["b"] = {"wall_s": wall, **_check_ranks("b", ranks, reference, want)}
-    # phase 21's (a)-(c), made by the same processes, and (b)'s reference
+    # phase 21's (a)-(c) and (e1), made by the same processes, (e2) by the
+    # ring pair, and (b)'s reference
     result["tp_ranks"] = [r.pop("tp") for r in ranks]
+    result["aot_ranks"] = [{**r.pop("aot"), "e2": ring["e2"]}
+                           for r, ring in zip(ranks, ring_ranks)]
     result["reference"] = reference
     for i, res in enumerate(ranks):
         result["b"][f"rank{i}"]["tp_s"] = res["tp_s"]
     print(json.dumps({"parallel_b": result["b"]}), flush=True)
 
-    # (b3) the entry points under torchrun, two ranks on the card over gloo
-    result["b3"] = parallel_entry_points(d, root, cli_c)
-
     # (c) one card a rank over NCCL
     if torch.cuda.device_count() >= 2:
         ranks, wall = _spawn_ranks(d, "nccl", "c")
         result["c"] = {"wall_s": wall, **_check_ranks("c", ranks, reference, want)}
+        result["c_aot_ranks"] = [r.pop("aot") for r in ranks]  # phase 21 (e) over NCCL
     else:
         result["c"] = {"not_run": f"{torch.cuda.device_count()} card: NCCL needs one card a "
                                   "rank, so (b) over NCCL runs only where there are two"}
@@ -4047,7 +4165,19 @@ def parallel_entry_points(d: str, root: str, cli_c: dict) -> dict:
 TP_B, TP_SECONDS, TP_SEQ_LEN = 8, 20.0, 128
 TP_LFD = PARALLEL_LFD[:2]
 TP_H = 8  # WavLM-large's 16 heads over model=2
-TP_SERVE_UPLOADS = 16
+TP_SERVE_UPLOADS = 4
+# (e): the sharded artifacts of a model=2 mesh, (a)'s batch and one row at
+# 20 s (one program, its batch dynamic), x_T drawn from AOT_MESH_SEED; (e3)
+# serves AOT_MESH_UPLOADS uploads of it, each a batch of one
+AOT_MESH_BUCKET, AOT_MESH_SEQ_LEN, AOT_MESH_SEED = (TP_B, int(TP_SECONDS * 16000)), 64, 215
+AOT_MESH_BUCKETS = [(1, AOT_MESH_BUCKET[1]), AOT_MESH_BUCKET]
+AOT_MESH_SAMPLING = {"T_infer": 20, "r": 5, "greedy": True}
+AOT_MESH_UPLOADS = 3
+# (e2)'s depth: the ring's artifact at full width and 6 of WavLM-large's 24
+# layers (its trace and load, host work, take about a quarter of the 45 s
+# and 20 s that 24 layers took on the card's host)
+AOT_RING_LAYERS = 6
+AOT_RING_WAVLM = {"num_hidden_layers": AOT_RING_LAYERS}
 
 
 def tp_transcribe(mesh, tokenizer_path: str, dtype: str, wavlm_config=None) -> dict:
@@ -4100,40 +4230,94 @@ def tp_checks(FA, mesh, tokenizer_path: str) -> dict:
     return res
 
 
-def _tp_serve(d: str, root: str) -> dict:
-    """Phase 21 (d): `torchrun --nproc_per_node 2 -m fddm_asr_tpu_torch.serve
-    --mesh model=2` (float32, gloo, both ranks on the card) on phase 15's
-    decoder `.pt` and tokenizer with configs/fddm_zhTW_base.yaml's random
-    encoder; TP_SERVE_UPLOADS uploads of 2-20 s one at a time (a batch of
-    one each, batch n at the engine's generator seed n); each served ids
-    against this process's pipeline of the same flags (`serve._live_pipeline`)
-    on the same padded batch and seed; SIGINT to rank 0 sends the stop op,
-    and torchrun must exit 0."""
+def sharded_artifact(dev, tokenizer_path: str, d: str, seq_parallel: bool) -> dict:
+    """Phase 21 (e1), or (e2) with `seq_parallel`, on this rank: the
+    flagship float32 pipeline (seed 5; (e2) at AOT_RING_LAYERS WavLM
+    layers) over a model=2 mesh, tensor parallel or on the ring, exported (`aot.save_artifact`: buckets 1 and 8 x 20 s,
+    one program, seq_len 64, greedy), loaded (over gloo its programs run eagerly; over
+    NCCL, one card a rank, as CUDA graphs) and run once on (a)'s batch at
+    AOT_MESH_SEED: the ids, each step's seconds, every wrapper's launches in
+    the call and the program's `torch.ops.fddm` nodes; (e1) also the live
+    model=2 pipeline's ids at that seed."""
+    from fddm_asr_tpu_torch import aot
+    from fddm_asr_tpu_torch import parallel as P
+    from fddm_asr_tpu_torch.pipeline import FDDMPipeline
+    from fddm_asr_tpu_torch.tokenizer import load_tokenizer
+
+    art = os.path.join(d, "artifact_model2_" + ("ring" if seq_parallel else "tp"))
+    wav = synthetic_audio(TP_B, TP_SECONDS, seed=211)
+    pipe = FDDMPipeline.from_config(
+        flagship_config(tokenizer_path, AOT_RING_WAVLM if seq_parallel else None, "float32"),
+        tokenizer=load_tokenizer(tokenizer_path), seed=5)
+    pipe.apply_mesh(P.make_mesh(P.MeshSpec(data=1, model=2), dev), seq_parallel=seq_parallel)
+    out = {"artifact": art}
+    t0 = time.time()
+    meta = aot.save_artifact(pipe, art, AOT_MESH_BUCKETS, AOT_MESH_SEQ_LEN, AOT_MESH_SAMPLING,
+                             tokenizer_path)
+    out.update(export_s=time.time() - t0, meta_mesh=meta["mesh"],
+               program_per_model_rank=meta["program_per_model_rank"])
+    if not seq_parallel:
+        t0 = time.time()
+        rows = pipe.transcribe_with_ids(
+            wav, seq_len=AOT_MESH_SEQ_LEN,
+            generator=torch.Generator(device=dev).manual_seed(AOT_MESH_SEED), **AOT_MESH_SAMPLING)
+        out.update(live_ids=[r[1] for r in rows], live_s=time.time() - t0)
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    ep = aot.ExportedPipeline.load(art, device=str(dev))
+    out.update(load_s=time.time() - t0, execution=ep.execution, eager_reason=ep.eager_reason,
+               native_buckets=sorted(list(bn) for bn in ep.native))
+    wrappers = port_kernel_wrappers()
+    _reset(wrappers)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    rows = ep.transcribe_with_ids(wav, seed=AOT_MESH_SEED)
+    torch.cuda.synchronize()
+    out.update(call_s=time.time() - t0, launches=_counts_since_reset(wrappers),
+               ids=[r[1] for r in rows])
+    nodes: dict = {}
+    for node in next(iter(ep._programs.values())).graph.nodes:
+        target = str(node.target)
+        if node.op == "call_function" and target.startswith("fddm."):
+            nodes[target] = nodes.get(target, 0) + 1
+    out["program_fddm_nodes"] = nodes
+    del ep
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _torchrun_serve_start(root: str, flags: list, err_path: str) -> tuple:
+    """Start `torchrun --nproc_per_node 2 -m fddm_asr_tpu_torch.serve *flags
+    --port 0`, both ranks on the card over gloo; its lines are read into a
+    queue.  (start time, process, lines, flags, stderr path)."""
     import queue as queue_mod
-    import signal
     import threading
 
-    from fddm_asr_tpu_torch import CONV_RECEPTIVE_FIELD
-    from fddm_asr_tpu_torch import serve as S
-
-    args = ["--config", os.path.join(root, CLI_MAIN_CONFIG), "--ckpt",
-            os.path.join(d, "decoder.pt"), "--tokenizer", os.path.join(d, "spm_synth.vocab"),
-            "--dtype", "float32"]
     env = {**os.environ, "FDDM_BACKEND": "gloo", "FDDM_DEVICE": "cuda:0"}
-    rng = np.random.default_rng(213)
-    uploads = [synthetic_audio(1, float(sec), seed=214 + i)[0]
-               for i, sec in enumerate(rng.uniform(2.0, 20.0, TP_SERVE_UPLOADS))]
-    bodies = [_wav_bytes(os.path.join(d, f"tp{i}.wav"), w) for i, w in enumerate(uploads)]
-    err_path = os.path.join(d, "tp_serve.stderr")
     t0 = time.time()
     with open(err_path, "w") as err:
         proc = subprocess.Popen(
             [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
-             "2", "-m", "fddm_asr_tpu_torch.serve", *args, "--mesh", "model=2", "--port", "0"],
+             "2", "-m", "fddm_asr_tpu_torch.serve", *flags, "--port", "0"],
             cwd=root, env=env, stdout=subprocess.PIPE, stderr=err, text=True)
     lines = queue_mod.Queue()
     threading.Thread(target=lambda: [lines.put(x) for x in proc.stdout], daemon=True).start()
-    served, ready = [], None
+    return t0, proc, lines, flags, err_path
+
+
+def _torchrun_serve(started: tuple, bodies: list, tag: str) -> dict:
+    """A server `_torchrun_serve_start` began: once it is ready, `bodies`
+    uploaded one at a time, then `/healthz`, then SIGINT to rank 0, which
+    sends the stop op; torchrun must exit 0.  The served results, `/healthz`
+    and the seconds from its start."""
+    import queue as queue_mod
+    import signal
+
+    t0, proc, lines, flags, err_path = started
+    served, ready, out = [], None, {}
     try:
         while ready is None:
             try:
@@ -4143,25 +4327,68 @@ def _tp_serve(d: str, root: str) -> dict:
             if line.startswith('{"serving"'):
                 ready = json.loads(line)
         if ready is not None:
-            ready_s = time.time() - t0
+            out["start_to_ready_s"] = time.time() - t0
             t1 = time.time()
             for body in bodies:
                 status, raw = _http(ready["serving"], "POST", "/v1/transcribe", body,
                                     {"Content-Type": "audio/wav"})
                 served.append((status, json.loads(raw)))
-            serve_s = time.time() - t1
+            out["serve_s"] = time.time() - t1
             _, health = _http(ready["serving"], "GET", "/healthz")
+            out["health"] = json.loads(health)
             os.kill(ready["pid"], signal.SIGINT)
     finally:
-        try:
-            rc = proc.wait(timeout=120)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            rc = proc.wait()
+        _stop_server(proc)
+    rc = proc.returncode
     if ready is None or rc != 0 or any(st != 200 for st, _ in served):
         with open(err_path, encoding="utf-8", errors="replace") as f:
-            fail(f"(d) torchrun serve --mesh model=2: ready {ready}, exit {rc}, statuses "
-                 f"{[st for st, _ in served]}:\n{f.read()[-4000:]}")
+            fail(f"({tag}) torchrun serve {' '.join(flags[-2:])}: ready {ready}, exit {rc}, "
+                 f"statuses {[st for st, _ in served]}:\n{f.read()[-4000:]}")
+    out.update(exit_code=rc, ids=[obj["ids"] for _, obj in served])
+    return out
+
+
+def _stop_server(proc) -> None:
+    """Wait up to 120 s for a torchrun server to exit, then kill it."""
+    try:
+        proc.wait(timeout=120)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+
+
+def _uploads(d: str, n: int, seed: int, tag: str) -> tuple:
+    """`n` WAV bodies of U(2, 20) s of synthetic audio, and their samples."""
+    rng = np.random.default_rng(seed)
+    uploads = [synthetic_audio(1, float(sec), seed=seed + 1 + i)[0]
+               for i, sec in enumerate(rng.uniform(2.0, 20.0, n))]
+    return [_wav_bytes(os.path.join(d, f"{tag}{i}.wav"), w) for i, w in enumerate(uploads)], uploads
+
+
+def _tp_serve_args(d: str, root: str) -> list:
+    """Phase 21 (d)'s server: phase 15's decoder `.pt` and tokenizer with
+    configs/fddm_zhTW_base.yaml's random encoder, in float32."""
+    return ["--config", os.path.join(root, CLI_MAIN_CONFIG), "--ckpt",
+            os.path.join(d, "decoder.pt"), "--tokenizer", os.path.join(d, "spm_synth.vocab"),
+            "--dtype", "float32"]
+
+
+def _tp_serve(d: str, root: str, started: tuple) -> dict:
+    """Phase 21 (d): `torchrun --nproc_per_node 2 -m fddm_asr_tpu_torch.serve
+    --mesh model=2` (float32, gloo, both ranks on the card) on phase 15's
+    decoder `.pt` and tokenizer with configs/fddm_zhTW_base.yaml's random
+    encoder; TP_SERVE_UPLOADS uploads of 2-20 s one at a time (a batch of
+    one each, batch n at the engine's generator seed n); each served ids
+    against this process's pipeline of the same flags (`serve._live_pipeline`)
+    on the same padded batch and seed; SIGINT to rank 0 sends the stop op,
+    and torchrun must exit 0.  `started`: the server's `_torchrun_serve_start`
+    (its start-up runs beside (a)-(c)'s work in this process)."""
+    from fddm_asr_tpu_torch import CONV_RECEPTIVE_FIELD
+    from fddm_asr_tpu_torch import serve as S
+
+    args = _tp_serve_args(d, root)
+    bodies, uploads = _uploads(d, TP_SERVE_UPLOADS, 213, "tp")
+    out = _torchrun_serve(started, bodies, "d")
 
     # the same batches in this process, one process's pipeline
     pipe, sampling, seq_len = S._live_pipeline(S.parse_args([*args, "--device", "cuda"]), None)
@@ -4179,10 +4406,10 @@ def _tp_serve(d: str, root: str) -> dict:
     del pipe
     gc.collect()
     torch.cuda.empty_cache()
-    got = [obj["ids"] for _, obj in served]
+    got = out["ids"]
     res = {"uploads": len(bodies), "seconds": [round(len(w) / 16000, 2) for w in uploads],
-           "start_to_ready_s": ready_s, "serve_s": serve_s, "exit_code": rc,
-           "healthz_mesh": json.loads(health).get("mesh"),
+           "start_to_ready_s": out["start_to_ready_s"], "serve_s": out["serve_s"],
+           "exit_code": out["exit_code"], "healthz_mesh": out["health"].get("mesh"),
            "ids_equal_in_process": got == want,
            "rows_equal": sum(a == b for a, b in zip(got, want))}
     if not res["ids_equal_in_process"]:
@@ -4190,10 +4417,137 @@ def _tp_serve(d: str, root: str) -> dict:
     return res
 
 
-def tensor_parallel_full_width(FA, Q, d: str, card: str, parallel: dict) -> dict:
+def sharded_artifacts_full_width(d: str, tok: str, parallel: dict, served: tuple) -> dict:
+    """Phase 21 (e): (e1) and (e2) as phase 20's two gloo ranks made them
+    (`sharded_artifact`) against one process's flagship float32 pipeline
+    (seed 5) at AOT_MESH_SEED: each rank's ids equal, (e1)'s also the live
+    model=2 pipeline's, B1 24 a rank a call inside the tensor-parallel
+    program, the ring's hop in the sequence-parallel one (AOT_RING_LAYERS
+    layers, and no B1: its attention is the ring's), both eager ("gloo: no graph capture"); (e3)
+    `torchrun --nproc_per_node 2 -m fddm_asr_tpu_torch.serve --exported`
+    on (e1)'s artifact: AOT_MESH_UPLOADS uploads of 2-20 s one at a time,
+    each a batch of one padded into the 1 x 20 s bucket, ids equal to this
+    process's pipeline on that padded batch at the engine's counter,
+    `/healthz` naming the mesh and the eager mode; with two cards or more
+    (e1) over NCCL from phase 20 (c)'s ranks, every bucket a CUDA graph.
+    `served`: (e3)'s `_torchrun_serve_start`, begun with the phase."""
+    from fddm_asr_tpu_torch import serve as S
+    from fddm_asr_tpu_torch.pipeline import FDDMPipeline
+    from fddm_asr_tpu_torch.tokenizer import load_tokenizer
+
+    t_phase = time.time()
+
+    def one_process(wavlm_config):
+        return FDDMPipeline.from_config(flagship_config(tok, wavlm_config, "float32"),
+                                        tokenizer=load_tokenizer(tok), seed=5)
+
+    def ids_at(pipe, wav, seed):
+        return [r[1] for r in pipe.transcribe_with_ids(
+            wav, seq_len=AOT_MESH_SEQ_LEN, generator=torch.Generator(device="cuda").manual_seed(
+                seed), **AOT_MESH_SAMPLING)]
+
+    wav = synthetic_audio(TP_B, TP_SECONDS, seed=211)
+    ring = one_process(AOT_RING_WAVLM)
+    one = {"e2": ids_at(ring, wav, AOT_MESH_SEED)}
+    del ring
+    pipe = one_process(None)
+    one["e1"] = ids_at(pipe, wav, AOT_MESH_SEED)
+    result = {"buckets": [list(bn) for bn in AOT_MESH_BUCKETS], "seq_len": AOT_MESH_SEQ_LEN,
+              "seed": AOT_MESH_SEED}
+
+    def check(tag: str, ranks: list, execution: str) -> dict:
+        rows = {}
+        for r, rank in enumerate(ranks):
+            e = rank[tag]
+            row = {k: e[k] for k in ("export_s", "load_s", "call_s", "execution", "eager_reason",
+                                     "native_buckets", "meta_mesh", "program_per_model_rank",
+                                     "program_fddm_nodes")}
+            row.update(ids_equal_one_process=e["ids"] == one[tag],
+                       launches={k: v for k, v in e["launches"].items() if v})
+            if tag == "e1":
+                row.update(live_model2_ids_equal=e["live_ids"] == e["ids"], live_s=e["live_s"])
+            rows[f"rank{r}"] = row
+            if not row["ids_equal_one_process"] or not row.get("live_model2_ids_equal", True):
+                fail(f"({tag}) rank {r}'s sharded artifact's ids differ: {row}")
+            if row["execution"] != execution or (
+                    execution == "eager" and row["eager_reason"] != "gloo: no graph capture") or (
+                    execution == "cuda graphs"
+                    and len(row["native_buckets"]) != len(AOT_MESH_BUCKETS)):
+                fail(f"({tag}) rank {r} ran the programs as {row['execution']} "
+                     f"({row['eager_reason']}; graphs {row['native_buckets']}), not {execution}")
+            if tag == "e1" and e["launches"]["fwd"] != 24:
+                fail(f"(e1) rank {r} launched B1 {e['launches']['fwd']} times in a call, not 24")
+            if tag == "e2" and (e["launches"]["fwd"] != 0 or row["program_fddm_nodes"].get(
+                    "fddm.ring_shift.default", 0) != AOT_RING_LAYERS):
+                fail(f"(e2) rank {r}: the ring is not the program's attention: {row}")
+        return rows
+
+    ranks = parallel["aot_ranks"]
+    for tag in ("e1", "e2"):
+        result[tag] = check(tag, ranks, "eager")
+    print(json.dumps({"sharded_artifact_e12": result}), flush=True)
+
+    bodies, uploads = _uploads(d, AOT_MESH_UPLOADS, 216, "aot")
+    served = _torchrun_serve(served, bodies, "e3")
+    want = []
+    for i, body in enumerate(bodies):
+        wave = S._decode_wav_bytes(body)  # the samples the server read
+        batch = np.zeros((1, AOT_MESH_BUCKET[1]), np.float32)
+        batch[0, :len(wave)] = wave  # one upload a batch, padded into the bucket
+        want.append(ids_at(pipe, batch, i + 1)[0])
+    e3 = {"uploads": len(bodies), "seconds": [round(len(w) / 16000, 2) for w in uploads],
+          **{k: served[k] for k in ("start_to_ready_s", "serve_s", "exit_code")},
+          "healthz": {k: served["health"].get(k) for k in (
+              "mesh", "execution", "eager_reason", "native_buckets", "max_batch")},
+          "ids_equal_in_process": served["ids"] == want}
+    result["e3"] = e3
+    if not e3["ids_equal_in_process"]:
+        fail(f"(e3) served ids differ from this process's pipeline's: {e3}")
+    if (e3["healthz"]["mesh"] != {"data": 1, "model": 2, "seq_parallel": False}
+            or e3["healthz"]["execution"] != "eager"
+            or e3["healthz"]["eager_reason"] != "gloo: no graph capture"):
+        fail(f"(e3) /healthz does not name the mesh and the eager mode: {e3['healthz']}")
+    if parallel.get("c_aot_ranks"):
+        result["nccl"] = check("e1", parallel["c_aot_ranks"], "cuda graphs")
+    else:
+        result["nccl"] = {"not_run": f"{torch.cuda.device_count()} card: (e1) over NCCL needs "
+                                     "one card a rank"}
+    del pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    result["phase_s"] = time.time() - t_phase
+    print(json.dumps({"sharded_artifact_e3": e3, "sharded_artifact_nccl": result["nccl"],
+                      "sharded_artifact_phase_s": result["phase_s"]}), flush=True)
+    return result
+
+
+def tp_servers_start(d: str, parallel: dict) -> dict:
+    """Phase 21 (d)'s and (e3)'s servers, started before phase 22: their
+    ranks' start-up and loading, host work, run beside phase 22 and phase
+    21's one-process references (`_torchrun_serve_start` each)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    return {"d": _torchrun_serve_start(root, [*_tp_serve_args(d, root), "--mesh", "model=2"],
+                                       os.path.join(d, "tp_serve.stderr")),
+            "e3": _torchrun_serve_start(
+                root, ["--exported", parallel["aot_ranks"][0]["e1"]["artifact"]],
+                os.path.join(d, "aot_serve.stderr"))}
+
+
+def tp_servers_stop(servers: dict) -> None:
+    """Kill a server of `tp_servers_start` still running (a failed phase)."""
+    for started in servers.values():
+        if started[1].poll() is None:
+            started[1].kill()
+            started[1].wait()
+
+
+def tensor_parallel_full_width(FA, Q, d: str, card: str, parallel: dict,
+                               servers: dict) -> dict:
     """Phase 21 (module docstring): tensor parallelism at full width.  The
-    ranks' (a)-(c) come from phase 20's two processes (`tp_checks`); here
-    the one-process references, the kernels at a rank's shapes and (d)."""
+    ranks' (a)-(c) and (e1)-(e2) come from phase 20's processes (`tp_checks`,
+    `sharded_artifact`); here the one-process references, (e) and (d) on
+    `servers` (`tp_servers_start`), and the kernels at a rank's shapes
+    once both servers have stopped."""
     root = os.path.dirname(os.path.abspath(__file__))
     tok = os.path.join(d, "spm_synth.vocab")
     ranks = parallel["tp_ranks"]
@@ -4241,7 +4595,14 @@ def tensor_parallel_full_width(FA, Q, d: str, card: str, parallel: dict) -> dict
             fail(f"(b) rank {r} launched {tp['step']['launches']}, expected {want} a step")
     print(json.dumps({"tensor_parallel_ab": result}), flush=True)
 
-    # the kernels at a rank's shapes: B1 and B3/B4/B5 at H = 8, B7 on column slices
+    # (e): the sharded artifacts phase 20's ranks exported, loaded and ran, and
+    # (e3)'s server; then (d)'s, long since ready
+    result["e"] = sharded_artifacts_full_width(d, tok, parallel, servers["e3"])
+    result["d"] = _tp_serve(d, root, servers["d"])
+    print(json.dumps({"tensor_parallel_d": result["d"]}), flush=True)
+
+    # the kernels at a rank's shapes, every server stopped: B1 and B3/B4/B5 at
+    # H = 8, B7 on column slices
     gen = torch.Generator(device="cuda").manual_seed(21)
     frames = 999  # a 20 s utterance's frames, padded to 1024
     result["kernels_h8"] = {
@@ -4257,9 +4618,7 @@ def tensor_parallel_full_width(FA, Q, d: str, card: str, parallel: dict) -> dict
         for din, dout in ((1024, 512), (1024, 2048))}
     torch.cuda.empty_cache()
 
-    result["d"] = _tp_serve(d, root)
     result["phase_s"] = time.time() - t_phase
-    print(json.dumps({"tensor_parallel_d": result["d"]}), flush=True)
     return result
 
 
@@ -4648,8 +5007,8 @@ def host_tools_full_width(d: str, card: str, served: dict, trained: dict) -> dic
         seconds[tag] = s
         return proc
 
-    # (a) profile_step at its defaults (16 x 20 s), one transcribe traced
-    proc = module("a_profile_step", ["profile_step", "--iters", "1", "--top",
+    # (a) profile_step at 8 x 20 s, one transcribe traced
+    proc = module("a_profile_step", ["profile_step", "--batch", "8", "--iters", "1", "--top",
                                      str(HOST_TOOLS_TOP), "--out", os.path.join(d, "trace_step")])
     a = _json_line(proc.stdout, "profile_step")["profile_step"]
     if a["launches"] != {"fwd": WAVLM_LARGE_LAYERS}:
@@ -4662,7 +5021,7 @@ def host_tools_full_width(d: str, card: str, served: dict, trained: dict) -> dic
     print(json.dumps({"host_tools_a": a}), flush=True)
 
     # (b) profile_finetune: B3 47, B4 24, B5 24 a step
-    proc = module("b_profile_finetune", ["profile_finetune", "--batch", "16", "--iters", "2",
+    proc = module("b_profile_finetune", ["profile_finetune", "--batch", "8", "--iters", "1",
                                          "--no-dropout", "--top", str(HOST_TOOLS_TOP),
                                          "--out", os.path.join(d, "trace_ft")])
     b = _json_line(proc.stdout, "profile_finetune")["profile_finetune"]
@@ -4718,9 +5077,9 @@ def host_tools_full_width(d: str, card: str, served: dict, trained: dict) -> dic
                   "--ckpt", os.path.join(d, "decoder.pt"),
                   "--tokenizer", os.path.join(d, "spm_synth.vocab")]
     result["e"] = {}
-    for tag, flags in (("http", ["--concurrency", "8", "--duration-s", "5", "--audio-seconds",
+    for tag, flags in (("http", ["--concurrency", "8", "--duration-s", "2", "--audio-seconds",
                                  "10"]),
-                       ("stream", ["--stream", "--duration-s", "5"])):
+                       ("stream", ["--stream", "--duration-s", "2"])):
         proc = module(f"e_bench_serve_{tag}", ["bench_serve", *serve_args, *flags])
         line = _json_line(proc.stdout, "metric")
         answered = line["streams"] if tag == "stream" else line["requests"]
@@ -5008,6 +5367,8 @@ def main() -> int:
         return backward_f32_times(sys.argv[2], "bwd_dq")
     if len(sys.argv) == 3 and sys.argv[1] == "--parallel-rank":
         return parallel_rank(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == "--ring-artifact-rank":
+        return ring_artifact_rank(sys.argv[2])
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from fddm_asr_tpu_torch.ops import _build
     from fddm_asr_tpu_torch.ops import conv_frontend as CF
@@ -5171,12 +5532,17 @@ def main() -> int:
         # phase 20: several GPUs (one card: two ranks share it over gloo)
         parallel = parallel_full_width(FA, tmp, card, trained["cli_c"])
         mark("20")
-        # phase 21: tensor parallelism (phase 20's two ranks, then the server)
-        tensor_parallel = tensor_parallel_full_width(FA, Q, tmp, card, parallel)
-        mark("21")
-        # phase 22: the offline workflow and the user scripts, on phase 18's files
-        offline = offline_full_width(tmp, card, trained)
-        mark("22")
+        # phase 22: the offline workflow and the user scripts, on phase 18's
+        # files, while phase 21's servers start; then phase 21: tensor
+        # parallelism (phase 20's ranks' results, then the servers)
+        servers = tp_servers_start(tmp, parallel)
+        try:
+            offline = offline_full_width(tmp, card, trained)
+            mark("22")
+            tensor_parallel = tensor_parallel_full_width(FA, Q, tmp, card, parallel, servers)
+            mark("21")
+        finally:
+            tp_servers_stop(servers)
         # phase 23: the host tools and profilers, on phase 15's and phase 18's files
         host_tools = host_tools_full_width(tmp, card, served, trained)
     mark("23")
@@ -5220,6 +5586,9 @@ def main() -> int:
             "tensor_parallel_transcribe_per_rank": tensor_parallel["rank0"]["float32"][
                 "launches"]["fwd"],
             "tensor_parallel_int8_fused_per_rank": tensor_parallel["rank0"]["int8_fused"][
+                "launches"]["fwd"],
+            # phase 21 (e1): a call of the model=2 sharded artifact, a rank (eager, gloo)
+            "sharded_artifact_model2_per_rank_call": tensor_parallel["e"]["e1"]["rank0"][
                 "launches"]["fwd"],
             # phase 22: a transcribe from the random-init .pt, the feature cache of
             # phase 18's 96 clips (6 batches), one validate_quant transcribe

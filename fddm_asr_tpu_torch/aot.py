@@ -8,17 +8,22 @@ Counterpart of `fddm_asr_tpu/aot.py` (the same names, meta keys and bucket
 rules).  Artifact layout (a directory)::
 
     meta.json               format, bucket and sampling metadata (the JAX
-                            meta's keys, plus "program": "torch.export" and
-                            "torch_version"; "mesh" is null)
+                            meta's keys, plus "program": "torch.export",
+                            "torch_version", and for a mesh "seq_parallel",
+                            "program_per_model_rank" and "sharded")
     module_n{N}.pt2         `torch.export.save` of the program of every
                             bucket of N samples, its batch dimension dynamic
                             (one trace per N: a trace of WavLM-large and
                             four decoder calls takes tens of seconds); the
                             weights are inputs, so no file holds them
+    module_n{N}_model{m}.pt2
+                            the same, one a "model" rank, for a mesh with a
+                            model axis (the ranks' programs always differ:
+                            their vocabulary offsets, the ring's blocks)
     params.npz              the encoder's and decoder's parameters and
                             buffers, `enc/<name>` and `dec/<name>` by their
                             state-dict names, raw bytes a tensor (bfloat16
-                            round-trips bit for bit)
+                            round-trips bit for bit); whole, also for a mesh
     tokenizer/<file>        the tokenizer (+ its .vocab / vocab.json sidecars)
 
 Calling convention (fixed across buckets)::
@@ -41,6 +46,23 @@ the fused int8 matmul and conv front-end, are `torch.ops.fddm` nodes of the
 program: their Hopper kernels on CUDA, their plain versions on the CPU.  A
 program runs on the device type it was exported on ("platforms").
 
+Sharded artifacts.  A pipeline over a mesh (`FDDMPipeline.apply_mesh`,
+one process a GPU under torchrun) exports programs of one rank each: a
+data rank's rows (the bucket's batch over "data", which must divide it)
+and a model rank's weight slices (tensor parallelism) or frames (the
+sequence-parallel ring, weights whole).  Their collectives are ops of the
+program (`fddm::all_reduce`, `fddm::all_gather`, `fddm::ring_shift`,
+`parallel/distributed.py`), keyed by the mesh axis they run over.  The
+ranks of data index 0 trace; `meta["mesh"]` is the JAX meta's
+{"axis_names": ["data", "model"], "shape": [D, M]}; params.npz holds the
+whole weights (`parallel.tensor.gather_state`) and meta the axis of every
+sliced one.  The loader joins a process group of D x M ranks (torchrun's
+environment; another size raises), rebuilds the mesh, cuts the weights to
+its slices once (`tensor.local_state`), draws x_T for the whole padded
+batch from the caller's seed as one process does, runs its data rank's
+rows and gathers ids and conf over "data".  Every rank makes the same
+calls with the same arguments, as over a live mesh.
+
 On CUDA, `ExportedPipeline` runs every bucket's program once (which builds
 and loads the kernel libraries), then captures one `torch.cuda.CUDAGraph` a
 bucket over static input buffers, all in one memory pool; a call copies its
@@ -48,12 +70,17 @@ batch into the bucket's buffers, replays the graph and copies ids and conf
 to pinned host memory in stream order, before any other replay can reuse
 the pool.  A capture that fails raises, naming the bucket; nothing falls
 back to eager execution.  `native` is the set of captured buckets (the
-counterpart of the JAX artifact's native executables).  On the CPU the
-loaded programs run eagerly.
+counterpart of the JAX artifact's native executables).  The programs run
+eagerly, `native` empty and `eager_reason` saying why, on the CPU and over
+a gloo mesh (ranks sharing a card: gloo's collectives run on the host,
+where no graph can capture them), decided from the device and the backend
+before any call.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
+import functools
 import json
 import os
 import shutil
@@ -148,10 +175,16 @@ def _meta_copy(module: nn.Module) -> nn.Module:
     for t in [*module.parameters(), *module.buffers()]:
         meta = torch.empty_like(t, device="meta")
         memo[id(t)] = nn.Parameter(meta, t.requires_grad) if isinstance(t, nn.Parameter) else meta
+    shared = (functools.partial, torch.distributed.ProcessGroup)
     for m in module.modules():
         for name in _CACHES:
             if name in vars(m):
                 memo[id(vars(m)[name])] = {}
+        # a mesh's marks (`parallel/tensor.py`'s Shards, the ring's group and
+        # its attention function) hold process groups: shared, not copied
+        for name, value in vars(m).items():
+            if name.startswith("_tp") or isinstance(value, shared):
+                memo[id(value)] = value
     return copy.deepcopy(module, memo)
 
 
@@ -218,22 +251,43 @@ def _bucket_inputs(pipeline, step: TranscribeStep, batch: int, num_samples: int,
     return args
 
 
+def _mesh_of(pipeline):
+    """The mesh `apply_mesh` spread the pipeline over; None in one process."""
+    mesh = getattr(pipeline, "applied_mesh", None)
+    return mesh if mesh is not None and mesh.size > 1 else None
+
+
+def _check_divisible(mesh, batch: int) -> None:
+    data = mesh.shape["data"]
+    if batch % data:
+        raise ValueError(f"bucket batch {batch} must be divisible by the mesh data-axis size "
+                         f"{data}")
+
+
 def export_transcribe(pipeline, batch: int, num_samples: int, seq_len: int,
                       sampling: Dict[str, Any],
                       input_encoding: str = "f32") -> torch.export.ExportedProgram:
     """Trace the program of `num_samples`-sample buckets on the pipeline's
-    device, at an example batch of `batch` rows; it takes any batch.  The
-    program keeps neither its example inputs (the weights among them) nor
-    the source lines of its nodes."""
+    device, at an example batch of `batch` rows; it takes any batch.  Over a
+    mesh it is this rank's program: `batch` (divisible by the data axis)
+    over the data ranks, the weights and collectives of this model rank.
+    The program keeps neither its example inputs (the weights among them)
+    nor the source lines of its nodes."""
+    mesh = _mesh_of(pipeline)
+    rows = batch
+    if mesh is not None:
+        _check_divisible(mesh, batch)
+        rows = batch // mesh.shape["data"]
     step = build_transcribe_fn(pipeline, seq_len, sampling, input_encoding)
     # the position-bucket table of this length, a constant of the program
     step.encoder.backbone.prepare_position_bias(num_samples, pipeline.device)
     # an example dimension of 1 would be traced as a constant
-    args = _bucket_inputs(pipeline, step, max(batch, 2), num_samples, input_encoding)
+    args = _bucket_inputs(pipeline, step, max(rows, 2), num_samples, input_encoding)
     rows = torch.export.Dim("batch", min=1, max=4096)
     dynamic = ({k: None for k in args[0]}, {k: None for k in args[1]},
                *({0: rows},) * 3, *(({1: rows},) if len(args) > 5 else ()))
-    with torch.no_grad():
+    # the collectives record "data" and "model", this pipeline's mesh's axes
+    with torch.no_grad(), (contextlib.nullcontext() if mesh is None else mesh.axes()):
         program = torch.export.export(step, args, dynamic_shapes=dynamic)
     program.example_inputs = None
     for node in program.graph.nodes:
@@ -241,8 +295,27 @@ def export_transcribe(pipeline, batch: int, num_samples: int, seq_len: int,
     return program
 
 
-def _module_file(n: int) -> str:
-    return f"module_n{n}.pt2"
+def _module_file(n: int, model_rank: Optional[int] = None) -> str:
+    return f"module_n{n}.pt2" if model_rank is None else f"module_n{n}_model{model_rank}.pt2"
+
+
+def _per_model_rank(mesh) -> bool:
+    """Whether an artifact over `mesh` holds one program a model rank."""
+    return mesh is not None and mesh.shape["model"] > 1
+
+
+def _whole_params(module: nn.Module) -> Tuple[Dict[str, torch.Tensor], Dict[str, str]]:
+    """A module's parameters and buffers whole (its tensor-parallel slices
+    gathered over "model": every model rank calls it), and {name: axis} of
+    the sliced ones."""
+    from fddm_asr_tpu_torch.parallel.tensor import gather_state, is_sharded, sharded_axes
+
+    params = module_params(module)
+    if not is_sharded(module):
+        return params, {}
+    full = gather_state(module)
+    return ({k: full.get(k, v) for k, v in params.items()},
+            {name: axis for name, (axis, _) in sharded_axes(module).items()})
 
 
 def save_artifact(pipeline, out_dir: str, buckets: Sequence[Tuple[int, int]], seq_len: int,
@@ -250,17 +323,41 @@ def save_artifact(pipeline, out_dir: str, buckets: Sequence[Tuple[int, int]], se
                   input_encoding: str = "f32") -> Dict[str, Any]:
     """Export every bucket, the parameters and the tokenizer into `out_dir`;
     returns the meta dict.  One program a sample count serves its buckets
-    of every batch; it runs on the pipeline's device type ("platforms")."""
+    of every batch; it runs on the pipeline's device type ("platforms").
+
+    Over a mesh every rank calls it: the ranks of data index 0 trace their
+    programs (one file a duration and model rank), rank 0 writes meta,
+    params and the tokenizer, and all meet at a barrier before it returns."""
+    from fddm_asr_tpu_torch.parallel.distributed import barrier, broadcast_object, is_primary
+
+    mesh = _mesh_of(pipeline)
+    if mesh is not None:
+        for b, _ in buckets:
+            _check_divisible(mesh, int(b))
+    tracer = mesh is None or mesh.data_rank == 0
     os.makedirs(out_dir, exist_ok=True)
+    programs: Dict[int, torch.export.ExportedProgram] = {}
     export_seconds = []
-    for n in sorted({int(n) for _, n in buckets}):
-        t0 = time.perf_counter()
-        batch = max(int(b) for b, m in buckets if m == n)
-        program = export_transcribe(pipeline, batch, n, seq_len, sampling, input_encoding)
-        torch.export.save(program, os.path.join(out_dir, _module_file(n)))
-        export_seconds.append([n, time.perf_counter() - t0])
-    save_params_npz(os.path.join(out_dir, _PARAMS), module_params(pipeline.encoder),
-                    module_params(pipeline.decoder))
+    if tracer:
+        for n in sorted({int(n) for _, n in buckets}):
+            t0 = time.perf_counter()
+            batch = max(int(b) for b, m in buckets if m == n)
+            programs[n] = export_transcribe(pipeline, batch, n, seq_len, sampling,
+                                            input_encoding)
+            export_seconds.append([n, time.perf_counter() - t0])
+    # with a model axis, one program a model rank: the ranks' programs always
+    # differ (their vocabulary offsets, the ring's blocks)
+    per_rank = _per_model_rank(mesh)
+    for n, program in programs.items():
+        torch.export.save(program, os.path.join(
+            out_dir, _module_file(n, mesh.model_rank if per_rank else None)))
+    if tracer:
+        enc, enc_axes = _whole_params(pipeline.encoder)
+        dec, dec_axes = _whole_params(pipeline.decoder)
+    if mesh is not None and not is_primary():
+        barrier()
+        return broadcast_object(None)
+    save_params_npz(os.path.join(out_dir, _PARAMS), enc, dec)
 
     tokdir = os.path.join(out_dir, _TOKDIR)
     os.makedirs(tokdir, exist_ok=True)
@@ -277,7 +374,8 @@ def save_artifact(pipeline, out_dir: str, buckets: Sequence[Tuple[int, int]], se
         "program": PROGRAM,
         "torch_version": torch.__version__,
         "jax_version": None,
-        "mesh": None,
+        "mesh": None if mesh is None else {"axis_names": ["data", "model"],
+                                           "shape": [mesh.shape["data"], mesh.shape["model"]]},
         "platforms": [torch.device(pipeline.device).type],
         "seq_len": int(seq_len),
         "sampling": resolve_sampling(sampling),
@@ -290,10 +388,16 @@ def save_artifact(pipeline, out_dir: str, buckets: Sequence[Tuple[int, int]], se
         "input_encoding": input_encoding,
         "tokenizer_file": tok_file,
         "dynamic_batch": True,
-        "export_seconds": export_seconds,  # [samples, seconds] a program
+        "export_seconds": export_seconds,  # [samples, seconds] a program (rank 0's)
     }
+    if mesh is not None:
+        meta.update(seq_parallel=bool(pipeline.seq_parallel), program_per_model_rank=per_rank,
+                    sharded={"enc": enc_axes, "dec": dec_axes})
     with open(os.path.join(out_dir, _META), "w") as f:
         json.dump(meta, f, indent=1)
+    if mesh is not None:
+        barrier()
+        broadcast_object(meta)
     return meta
 
 
@@ -311,6 +415,12 @@ class _BucketGraph:
         self.launches = launches
 
 
+def read_meta(path: str) -> Dict[str, Any]:
+    """An artifact directory's meta.json."""
+    with open(os.path.join(path, _META)) as f:
+        return json.load(f)
+
+
 class ExportedPipeline:
     """Loads an artifact and transcribes.  Buckets are picked as the
     smallest (batch, samples) that fit; waveforms are padded into the
@@ -319,8 +429,7 @@ class ExportedPipeline:
     artifact's observable behaviour."""
 
     def __init__(self, path: str, device: Optional[str] = None):
-        with open(os.path.join(path, _META)) as f:
-            self.meta = json.load(f)
+        self.meta = read_meta(path)
         if self.meta.get("program") != PROGRAM:
             raise ValueError(
                 f"{path} is not a torch.export artifact (meta 'program' "
@@ -330,18 +439,32 @@ class ExportedPipeline:
         if self.meta["format_version"] > FORMAT_VERSION:
             raise ValueError(f"artifact format {self.meta['format_version']} is newer than "
                              f"this loader ({FORMAT_VERSION})")
-        self.device = resolve_device(device)
+        self.mesh = None
+        if self.meta.get("mesh"):
+            self.mesh = self._join_mesh(self.meta["mesh"], device)  # sets self.device
+        else:
+            self.device = resolve_device(device)
         if self.device.type not in self.meta["platforms"]:
             raise ValueError(f"the artifact's programs run on {self.meta['platforms']}, not "
                              f"{self.device.type}: export it on this device type")
-        # the kernels' ops must be registered before a program naming them loads
+        # the kernels' and the collectives' ops must be registered before a
+        # program naming them loads
         from fddm_asr_tpu_torch.ops import conv_frontend, flash_attention, quant  # noqa: F401
+        from fddm_asr_tpu_torch.parallel import distributed  # noqa: F401
 
         self.buckets = [tuple(bn) for bn in self.meta["buckets"]]
+        model_rank = self.mesh.model_rank if _per_model_rank(self.mesh) else None
         self._programs = {
-            n: torch.export.load(os.path.join(path, _module_file(n))).module()
+            n: torch.export.load(os.path.join(path, _module_file(n, model_rank))).module()
             for n in sorted({n for _, n in self.buckets})}
         enc, dec = load_params_npz(os.path.join(path, _PARAMS))
+        if self.mesh is not None and self.meta.get("sharded"):
+            # this rank's slices of the whole weights, cut once
+            from fddm_asr_tpu_torch.parallel.tensor import local_state
+
+            rank, size = self.mesh.model_rank, self.mesh.shape["model"]
+            enc = local_state(self.meta["sharded"]["enc"], enc, rank, size)
+            dec = local_state(self.meta["sharded"]["dec"], dec, rank, size)
         self.enc_params = {k: v.to(self.device) for k, v in enc.items()}
         self.dec_params = {k: v.to(self.device) for k, v in dec.items()}
         from fddm_asr_tpu_torch.tokenizer import load_tokenizer
@@ -359,15 +482,43 @@ class ExportedPipeline:
         self._last = None  # the event of the last queued call (replays run one at a time)
         self.native: Dict[Tuple[int, int], _BucketGraph] = {}
         self.warmup_s = self.capture_s = None
-        if self.device.type == "cuda":
+        # why the programs run eagerly (None: every bucket a CUDA graph),
+        # decided before any call
+        self.eager_reason = None
+        if self.mesh is not None and torch.distributed.get_backend() == "gloo":
+            self.eager_reason = "gloo: no graph capture"
+        elif self.device.type != "cuda":
+            self.eager_reason = f"{self.device.type}: no CUDA graphs"
+        else:
             self._capture()
 
     @classmethod
     def load(cls, path: str, device: Optional[str] = None) -> "ExportedPipeline":
         return cls(path, device)
 
+    @property
+    def execution(self) -> str:
+        return "eager" if self.eager_reason else "cuda graphs"
+
+    def _join_mesh(self, mesh_meta: Dict[str, Any], device: Optional[str]):
+        """A sharded artifact's mesh: the process group joined (torchrun's or
+        the FDDM_* environment; a no-op once joined), this rank's device,
+        and the mesh over the group, which must hold data x model ranks."""
+        from fddm_asr_tpu_torch import parallel as P
+
+        if list(mesh_meta["axis_names"]) != ["data", "model"]:
+            raise ValueError(f"mesh axes {mesh_meta['axis_names']}: this loader knows "
+                             "('data', 'model')")
+        data, model = (int(x) for x in mesh_meta["shape"])
+        dist_cfg = P.DistributedConfig.from_env()
+        P.initialize(dist_cfg, device=device or "cuda")
+        self.device = dist_cfg.rank_device(device or "cuda")
+        return P.make_mesh(P.MeshSpec(data=data, model=model), self.device)
+
     def _static_inputs(self, b: int, n: int) -> tuple:
+        """Fresh inputs of a (b, n) bucket: this data rank's rows of it."""
         dev = self.device
+        b //= 1 if self.mesh is None else self.mesh.shape["data"]
         inputs = (torch.zeros(b, self.seq_len, dtype=torch.long, device=dev),
                   torch.full((b, n), silence_value(self.input_encoding), dtype=self._wire,
                              device=dev),
@@ -377,9 +528,20 @@ class ExportedPipeline:
         return inputs
 
     def _call(self, bucket, inputs: tuple):
+        """Run a bucket's program; its collectives over this artifact's mesh,
+        whatever mesh the process made after loading it."""
         x_T, wave, lengths, *noise = inputs
-        return self._programs[bucket[1]](self.enc_params, self.dec_params, x_T, wave,
-                                         lengths, *noise)
+        with contextlib.nullcontext() if self.mesh is None else self.mesh.axes():
+            return self._programs[bucket[1]](self.enc_params, self.dec_params, x_T, wave,
+                                             lengths, *noise)
+
+    def _gathered(self, x: torch.Tensor) -> torch.Tensor:
+        """Every data rank's rows of `x`, in global batch order."""
+        if self.mesh is None or self.mesh.shape["data"] == 1:
+            return x
+        from fddm_asr_tpu_torch.parallel.distributed import all_gather
+
+        return all_gather(x, self.mesh.data_group)
 
     def _capture(self) -> None:
         """Run each bucket once on a side stream (kernel libraries built and
@@ -457,10 +619,16 @@ class ExportedPipeline:
         """Queue one call and return a `finalize()` that waits for it and
         builds [(text, ids[, confidence])] a row.  x_T (and a non-greedy
         artifact's uniforms) are drawn from `generator`, else from a
-        generator on the device seeded with `seed`, at the bucket's batch."""
+        generator on the device seeded with `seed`, at the bucket's batch.
+        Over a mesh every rank makes the call with the same arguments and
+        runs its data rank's rows of the bucket; each gets every row."""
         wave = self._wire_input(wave)
         rows, samples = wave.shape
         b, n = self.pick_bucket(rows, samples)
+        # this data rank's rows of the bucket: [lo, lo + local), `mine` of them the caller's
+        local = b if self.mesh is None else b // self.mesh.shape["data"]
+        lo = 0 if self.mesh is None else self.mesh.data_rank * local
+        mine = max(0, min(rows, lo + local) - lo)
         # one conv receptive field at least (fewer samples give no encoder
         # frame, whose all-masked attention row would reach the decoder);
         # the bucket's pad rows get the same floor
@@ -485,26 +653,30 @@ class ExportedPipeline:
             graph = self.native.get((b, n))
             inputs = graph.inputs if graph is not None else self._static_inputs(b, n)
             static_x, static_wave, static_len, *static_noise = inputs
-            static_x.copy_(x_T)
+            static_x.copy_(x_T[lo:lo + local])
             if noise:
-                static_noise[0].copy_(torch.stack(noise))
+                static_noise[0].copy_(torch.stack(noise)[:, lo:lo + local])
             static_wave.fill_(silence_value(self.input_encoding))
-            static_wave[:rows, :samples].copy_(wave, non_blocking=True)
+            static_wave[:mine, :samples].copy_(wave[lo:lo + mine], non_blocking=True)
             static_len.fill_(floor)
-            static_len[:rows].copy_(lengths, non_blocking=True)
+            static_len[:mine].copy_(lengths[lo:lo + mine], non_blocking=True)
             if graph is None:
                 with torch.inference_mode():
                     ids, _p, conf = self._call((b, n), inputs)
+                    ids, conf = self._gathered(ids), self._gathered(conf)
                 done = None
             else:
                 graph.graph.replay()
                 for w, count in graph.launches.items():
                     w.launches += count
+                with torch.inference_mode():
+                    out_ids, out_conf = (self._gathered(graph.outputs[0]),
+                                         self._gathered(graph.outputs[2]))
                 # out of the pool before the next replay can reuse it
                 ids = torch.empty((b, self.seq_len), dtype=torch.long, pin_memory=True)
                 conf = torch.empty((b,), dtype=torch.float32, pin_memory=True)
-                ids.copy_(graph.outputs[0], non_blocking=True)
-                conf.copy_(graph.outputs[2], non_blocking=True)
+                ids.copy_(out_ids, non_blocking=True)
+                conf.copy_(out_conf, non_blocking=True)
                 done = torch.cuda.Event()
                 done.record(stream)
                 self._last = done
@@ -512,8 +684,8 @@ class ExportedPipeline:
         def finalize() -> List[tuple]:
             if done is not None:
                 done.synchronize()
-            ids_np = ids[:rows].numpy()
-            conf_np = conf[:rows].numpy()
+            ids_np = ids[:rows].cpu().numpy()
+            conf_np = conf[:rows].cpu().numpy()
             out = []
             for i, row in enumerate(ids_np):
                 entry = (ids_to_text(row, self.tokenizer, self.pad_id,

@@ -24,11 +24,23 @@ on (CUDA unless `--device cpu`).  Where the JAX flags name TPU machinery:
     loads the artifact, so the extra batch sizes become ordinary buckets;
   * `--platforms` may name only the device the programs are traced on
     (cuda or cpu); anything else raises;
-  * `--mesh` and `--seq-parallel` raise: sharded artifacts (programs with
-    collectives inside a CUDA graph) are not ported (ROADMAP A7 part 3).
+  * `--mesh data=D,model=M [--seq-parallel]` runs under torchrun, one
+    process a GPU (`torchrun --nproc_per_node D*M -m
+    fddm_asr_tpu_torch.export_model ...`; in one process a mesh of more
+    than one rank raises naming that launcher, and `--seq-parallel` needs
+    model > 1): every rank builds the pipeline over the mesh
+    (`FDDMPipeline.apply_mesh`) and traces its own programs, its data
+    rank's rows of each bucket (the data axis must divide every bucket
+    batch) and its model rank's weight slices, or its frames on the
+    sequence-parallel ring, with the mesh's collectives as
+    `torch.ops.fddm` nodes.  The artifact records the mesh and loads only
+    in as many ranks (`serve --exported` under torchrun, `aot.py`).
 
-Prints one JSON summary line on success; the seconds each program took to
-trace are in the artifact's meta.json (`export_seconds`).
+Prints one JSON summary line on success (rank 0 alone over a mesh); the
+seconds each program took to trace are in the artifact's meta.json
+(`export_seconds`).
+
+    torchrun --nproc_per_node 2 -m fddm_asr_tpu_torch.export_model ... --mesh model=2
 """
 from __future__ import annotations
 
@@ -88,9 +100,11 @@ def parse_args(argv=None):
     p.add_argument("--native-batch-sizes", type=str, default="",
                    help="extra batch buckets (e.g. '32'), exported like the others")
     p.add_argument("--mesh", type=str, default="",
-                   help="sharded programs: not ported (raises, ROADMAP A7 part 3)")
+                   help="sharded programs over a mesh of one process a GPU (torchrun), e.g. "
+                        "model=2 or data=2,model=2; every bucket batch a multiple of data")
     p.add_argument("--seq-parallel", action="store_true",
-                   help="ring-attention sequence parallelism: not ported (raises, ROADMAP A7 part 3)")
+                   help="with --mesh model=N > 1: each utterance's encoder frames over the "
+                        "model ranks (ring attention) instead of the weights")
     return p.parse_args(argv)
 
 
@@ -105,17 +119,16 @@ def parse_buckets(batch_sizes: str, seconds: str):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.mesh or args.seq_parallel:
-        raise SystemExit("--mesh / --seq-parallel: sharded export is not ported yet "
-                         "(ROADMAP A7 part 3); serve the live pipeline over a mesh instead "
-                         "(python -m fddm_asr_tpu_torch.serve --mesh ... under torchrun)")
     platforms = [s for s in args.platforms.split(",") if s]
     if any(p not in ("cuda", "cpu") for p in platforms):
         raise SystemExit(f"--platforms {args.platforms}: the programs run on cuda or cpu, "
                          "the device they are traced on")
 
+    import torch
+
     from fddm_asr_tpu_torch import aot
     from fddm_asr_tpu_torch import inference as infer_cli
+    from fddm_asr_tpu_torch import parallel as P
 
     buckets = parse_buckets(args.batch_sizes, args.seconds)
     if args.native_batch_sizes:
@@ -126,24 +139,40 @@ def main(argv=None):
         raise SystemExit(f"--platforms {args.platforms}: the programs are traced on "
                          f"--device {device} and run only there")
     args.device = device
-    pipeline = infer_cli.build_pipeline(args)
-    pipeline.use_condition_mask = args.condition_mask == "on"
-    sampling = infer_cli.sampling_kwargs(args)
-    sampling["temperature"] = args.temperature
+    # a caller's process group (a rank that goes on to load the artifact) outlives the export
+    joined_here = not torch.distributed.is_initialized()
+    try:
+        mesh = infer_cli.join_mesh(args)  # args.device becomes the rank's device
+    except ValueError as e:
+        raise SystemExit(str(e)) from e
+    try:
+        if mesh is not None:
+            infer_cli.check_seq_parallel(mesh, args.seq_parallel)
+        pipeline = infer_cli.build_pipeline(args)
+        pipeline.use_condition_mask = args.condition_mask == "on"
+        if mesh is not None:
+            pipeline.apply_mesh(mesh, seq_parallel=args.seq_parallel)
+        sampling = infer_cli.sampling_kwargs(args)
+        sampling["temperature"] = args.temperature
 
-    meta = aot.save_artifact(
-        pipeline, args.out, buckets, seq_len=args.seq_len, sampling=sampling,
-        tokenizer_path=args.tokenizer, input_encoding=args.input_encoding)
-    size = sum(os.path.getsize(os.path.join(root, f))
-               for root, _, files in os.walk(args.out) for f in files)
-    print(json.dumps({"out": args.out, "buckets": meta["buckets"],
-                      # the buckets a CUDA host replays as graphs
-                      "native_buckets": meta["buckets"] if meta["platforms"] == ["cuda"]
-                      else None,
-                      "seq_len": meta["seq_len"],
-                      "platforms": meta["platforms"],
-                      "fused_attention": True,
-                      "artifact_bytes": size}))
+        meta = aot.save_artifact(
+            pipeline, args.out, buckets, seq_len=args.seq_len, sampling=sampling,
+            tokenizer_path=args.tokenizer, input_encoding=args.input_encoding)
+        if not P.is_primary():
+            return 0
+        size = sum(os.path.getsize(os.path.join(root, f))
+                   for root, _, files in os.walk(args.out) for f in files)
+        print(json.dumps({"out": args.out, "buckets": meta["buckets"],
+                          # the buckets a CUDA host replays as graphs
+                          "native_buckets": meta["buckets"] if meta["platforms"] == ["cuda"]
+                          else None,
+                          "seq_len": meta["seq_len"],
+                          "platforms": meta["platforms"],
+                          "fused_attention": True,
+                          "artifact_bytes": size}))
+    finally:
+        if mesh is not None and joined_here:
+            P.shutdown()
     return 0
 
 

@@ -316,6 +316,14 @@ def join_mesh(args):
     return P.make_mesh(spec, dev)
 
 
+def check_seq_parallel(mesh, seq_parallel: bool) -> None:
+    """The server's and the export CLI's rule: `--seq-parallel` needs a
+    model axis to spread each utterance's frames over."""
+    if seq_parallel and mesh.shape["model"] <= 1:
+        raise SystemExit("--seq-parallel splits each utterance's encoder frames over the "
+                         "mesh's model ranks: give --mesh model=N (N > 1) under torchrun")
+
+
 def main(argv=None):
     args = parse_args(argv)
     from fddm_asr_tpu_torch import parallel as P

@@ -688,9 +688,14 @@ class WavLMModel(nn.Module):
 
     def prepare_position_bias(self, num_samples: int, device) -> None:
         """Build the position-bucket table of `num_samples`-sample inputs (the
-        front-end's frames padded to `seq_pad_multiple`) on `device` ahead of
-        a trace, which records it as a constant."""
+        front-end's frames padded to `seq_pad_multiple`, on a ring to its
+        lcm with the ring's size) on `device` ahead of a trace, which records
+        it as a constant."""
         m = max(self.cfg.seq_pad_multiple, 1)
+        if self.encoder.ring is not None:
+            from fddm_asr_tpu_torch.parallel.distributed import ring_rank
+
+            m = math.lcm(m, ring_rank(self.encoder.ring)[1])
         L = -(-self.cfg.feat_extract_output_length(num_samples) // m) * m
         self.encoder.layers[0].attention.relative_buckets(L, device)
 

@@ -16,14 +16,16 @@ The per-block products are plain torch matmuls, as they are XLA einsums
 outside any Pallas kernel in the JAX package: the ring has no hand-written
 kernel (and `PERF.md` §6 no row).
 
-It is an autograd Function.  The forward keeps each query row's running
-max and sum, not the [l, l] probabilities (24 layers times the ring's steps
-of [B, H, l, l] float32 tiles would not fit two ranks on one card at full
-width).  The backward is a second ring: each step recomputes one block's
-probabilities from the saved max and sum, and the block's dK and dV
-accumulators travel with K and V, so after n steps and one more hop they
-are back at the rank that owns those frames.  dQ, the gate's gradient and
-the bias rows' gradient stay on the rank.
+Each hop is `fddm::ring_shift` (`parallel/distributed.py`), an op that
+`torch.export` records, so an exported sequence-parallel program holds the
+ring.  Under autograd it is an autograd Function.  The forward keeps each
+query row's running max and sum, not the [l, l] probabilities (24 layers
+times the ring's steps of [B, H, l, l] float32 tiles would not fit two
+ranks on one card at full width).  The backward is a second ring: each
+step recomputes one block's probabilities from the saved max and sum, and
+the block's dK and dV accumulators travel with K and V, so after n steps
+and one more hop they are back at the rank that owns those frames.  dQ,
+the gate's gradient and the bias rows' gradient stay on the rank.
 """
 from __future__ import annotations
 
@@ -69,32 +71,38 @@ def _scores(qh, k_blk, bias_blk, gate_f, mask_blk):
     return s.masked_fill_(~mask_blk[:, None, None, :], _NEG)
 
 
+def _ring_forward(q, k, v, bias_rows, gate, key_mask, group):
+    """(out [B, l, H, dh] in q's dtype, the running max and sum [B, H, l])
+    of this rank's queries over the ring's key blocks."""
+    me, n = ring_rank(group)
+    B, l, H, dh = q.shape
+    scale = 1.0 / math.sqrt(dh)
+    qh = q.float().permute(0, 2, 1, 3) * scale           # [B, H, l, dh]
+    gate_f = gate.float()[..., None]                      # [B, H, l, 1]
+    m = torch.full((B, H, l), -math.inf, dtype=torch.float32, device=q.device)
+    s = torch.zeros((B, H, l), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, H, l, dh), dtype=torch.float32, device=q.device)
+    k_blk, v_blk, mask_blk = k, v, key_mask
+    for step in range(n):
+        src = (me + step) % n  # the rank whose frames are resident now
+        scores = _scores(qh, k_blk, bias_rows[:, :, src * l:(src + 1) * l], gate_f, mask_blk)
+        m_new = torch.maximum(m, scores.amax(dim=-1))
+        corr = torch.exp(m - m_new)
+        e = torch.exp(scores.sub_(m_new[..., None]))
+        s = s * corr + e.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.matmul(e, v_blk.float().permute(0, 2, 1, 3))
+        m = m_new
+        del scores, e
+        if step < n - 1:
+            k_blk, v_blk, mask_blk = _rotate((k_blk, v_blk, mask_blk), group)
+    out = (acc / s[..., None]).permute(0, 2, 1, 3).to(q.dtype)  # [B, l, H, dh]
+    return out, m, s
+
+
 class _RingAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, bias_rows, gate, key_mask, group):
-        me, n = ring_rank(group)
-        B, l, H, dh = q.shape
-        scale = 1.0 / math.sqrt(dh)
-        qh = q.float().permute(0, 2, 1, 3) * scale           # [B, H, l, dh]
-        gate_f = gate.float()[..., None]                      # [B, H, l, 1]
-        m = torch.full((B, H, l), -math.inf, dtype=torch.float32, device=q.device)
-        s = torch.zeros((B, H, l), dtype=torch.float32, device=q.device)
-        acc = torch.zeros((B, H, l, dh), dtype=torch.float32, device=q.device)
-        k_blk, v_blk, mask_blk = k, v, key_mask
-        for step in range(n):
-            src = (me + step) % n  # the rank whose frames are resident now
-            scores = _scores(qh, k_blk, bias_rows[:, :, src * l:(src + 1) * l], gate_f,
-                             mask_blk)
-            m_new = torch.maximum(m, scores.amax(dim=-1))
-            corr = torch.exp(m - m_new)
-            e = torch.exp(scores.sub_(m_new[..., None]))
-            s = s * corr + e.sum(dim=-1)
-            acc = acc * corr[..., None] + torch.matmul(e, v_blk.float().permute(0, 2, 1, 3))
-            m = m_new
-            del scores, e
-            if step < n - 1:
-                k_blk, v_blk, mask_blk = _rotate((k_blk, v_blk, mask_blk), group)
-        out = (acc / s[..., None]).permute(0, 2, 1, 3).to(q.dtype)  # [B, l, H, dh]
+        out, m, s = _ring_forward(q, k, v, bias_rows, gate, key_mask, group)
         ctx.save_for_backward(q, k, v, bias_rows, gate, key_mask, out, m, s)
         ctx.group = group
         return out
@@ -166,4 +174,9 @@ def ring_gated_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{(H, l, l * n)}, this rank's {l} query rows of {l * n} keys")
     if key_mask is None:
         key_mask = torch.ones((B, l), dtype=torch.bool, device=q.device)
-    return _RingAttention.apply(q, k, v, pos_bias_rows, gate, key_mask.contiguous(), group)
+    key_mask = key_mask.contiguous()
+    if not (torch.is_grad_enabled()
+            and any(t.requires_grad for t in (q, k, v, pos_bias_rows, gate))):
+        # no autograd record: what a trace sees, the hops as `fddm::ring_shift`
+        return _ring_forward(q, k, v, pos_bias_rows, gate, key_mask, group)[0]
+    return _RingAttention.apply(q, k, v, pos_bias_rows, gate, key_mask, group)

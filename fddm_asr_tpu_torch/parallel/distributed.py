@@ -21,12 +21,37 @@ and collectives run over NCCL between ranks with a card each.
     single-GPU path runs unchanged.
   * A rank's device is cuda:LOCAL_RANK, or FDDM_DEVICE where set.
 
-The collectives that autograd differentiates (`gather`) and the bucketed
-gradient all-reduce (`all_reduce_`) are here too; the ("data", "model")
-mesh over the group is `parallel/mesh.py`.
+The collectives of a forward are `torch.ops.fddm` ops (`torch.library`,
+each with a fake implementation), so that `torch.export` records them as
+nodes of a program, as it records the kernels' ops:
+
+  * `fddm::all_reduce(x, axis, op)`: the sum ("sum") or maximum ("max")
+    over a group, into a new tensor;
+  * `fddm::all_gather(x, axis, dim)`: every rank's `x` concatenated along
+    `dim`, in group rank order;
+  * `fddm::ring_shift(buf, axis)`: one hop of a ring (to the previous
+    rank, from the next).
+
+An op names its group by the mesh axis it runs over ("data" or "model",
+`axis_key`), not by a process-group object: it resolves the group when it
+runs, from the mesh this process joined last (`make_mesh` names its two
+groups, `name_axes`) or the one a caller binds for a block (`bound_axes`:
+an exported program's trace and calls bind their own mesh), so a program
+traced in one set of processes runs in another, whatever order they
+created their groups in.  A group outside a
+mesh (a test's `new_group`, the world) is named "group:<c10d name>" and
+resolves in the process that named it.  Over NCCL an op runs the c10d
+collective, which orders itself against the current stream (and is
+recorded by a CUDA graph's capture); over gloo it stages CUDA tensors as
+above.  The live path calls the same ops; the autograd Functions that
+training differentiates (`gather`, `parallel/tensor.py`'s) wrap them, and
+the bucketed gradient all-reduce (`all_reduce_`) reduces through
+`fddm::all_reduce` too.  The ("data", "model") mesh over the group is
+`parallel/mesh.py`.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import os
@@ -39,7 +64,8 @@ import torch.distributed as dist
 __all__ = ["DistributedConfig", "initialize", "shutdown", "process_group", "is_primary",
            "host_shard", "all_hosts_mean", "all_hosts_weighted_mean", "barrier",
            "broadcast_object", "broadcast_", "all_reduce_", "all_gather", "gather",
-           "ring_rank", "ring_shift", "STAGING"]
+           "ring_rank", "ring_shift", "name_axes", "bound_axes", "axis_key", "axis_group",
+           "STAGING"]
 
 BACKENDS = ("nccl", "gloo")
 
@@ -272,13 +298,123 @@ def _from_host(host: torch.Tensor, device: torch.device) -> torch.Tensor:
     return out
 
 
+# ------------------------------------------------------------- the mesh's axes
+# "data" and "model": the groups of the mesh this process joined last; other
+# keys: groups named by `axis_key` outside a mesh
+_AXES: dict = {}
+
+
+def name_axes(groups: dict) -> None:
+    """Name the groups of the mesh this process joined ({"data": group,
+    "model": group}): the collective ops resolve these names when they run."""
+    _AXES.update(groups)
+
+
+@contextlib.contextmanager
+def bound_axes(groups: dict):
+    """The axis names bound to `groups` ({"data": group, "model": group})
+    inside the block, and the earlier binding back after it: a loaded
+    program's collectives run over its own mesh, whatever mesh this process
+    made since."""
+    saved = {name: _AXES.get(name) for name in groups}
+    _AXES.update(groups)
+    try:
+        yield
+    finally:
+        for name, group in saved.items():
+            if group is None:
+                _AXES.pop(name, None)
+            else:
+                _AXES[name] = group
+
+
+def axis_key(group) -> str:
+    """The name a collective op records for `group` (None: the world): its
+    mesh axis, "data" or "model", when it is one of the joined mesh's
+    groups, else "group:<its c10d name>", kept for this process."""
+    group = dist.group.WORLD if group is None else group
+    for name in ("model", "data"):
+        if _AXES.get(name) is group:
+            return name
+    key = f"group:{group.group_name}"
+    _AXES[key] = group
+    return key
+
+
+def axis_group(key: str):
+    """The process group a collective op's axis name stands for here."""
+    group = _AXES.get(key)
+    if group is None:
+        raise RuntimeError(f"no process group for the mesh axis {key!r} in this process: join "
+                           "the mesh first (parallel.make_mesh; an artifact's loader does)")
+    return group
+
+
+# ------------------------------------------------------------ the collective ops
+_REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+
+def _op_all_reduce(x: torch.Tensor, axis: str, op: str) -> torch.Tensor:
+    group = axis_group(axis)
+    if _stages(x, group):
+        host = _to_host(x)
+        dist.all_reduce(host, op=_REDUCE_OPS[op], group=group)
+        return _from_host(host, x.device)
+    out = x.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out, op=_REDUCE_OPS[op], group=group)
+    return out
+
+
+def _op_all_gather(x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
+    group = axis_group(axis)
+    n = dist.get_world_size(group)
+    x = x.contiguous()
+    if _stages(x, group):
+        host = _to_host(x)
+        parts = [torch.empty_like(host) for _ in range(n)]
+        dist.all_gather(parts, host, group=group)
+        return _from_host(torch.cat(parts, dim=dim), x.device)
+    parts = [torch.empty_like(x) for _ in range(n)]
+    dist.all_gather(parts, x, group=group)
+    return torch.cat(parts, dim=dim)
+
+
+def _gathered_like(x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
+    shape = list(x.shape)
+    shape[dim] = shape[dim] * dist.get_world_size(axis_group(axis))
+    return x.new_empty(shape)
+
+
+def _op_ring_shift(buf: torch.Tensor, axis: str) -> torch.Tensor:
+    group = axis_group(axis)
+    me, n = ring_rank(group)
+    to = dist.get_global_rank(group, (me - 1) % n)
+    frm = dist.get_global_rank(group, (me + 1) % n)
+    staged = _stages(buf, group)
+    send = _to_host(buf) if staged else buf.contiguous()
+    recv = torch.empty_like(send)
+    reqs = dist.batch_isend_irecv([dist.P2POp(dist.isend, send, to, group),
+                                   dist.P2POp(dist.irecv, recv, frm, group)])
+    for r in reqs:
+        r.wait()
+    return _from_host(recv, buf.device) if staged else recv
+
+
+torch.library.custom_op("fddm::all_reduce", _op_all_reduce, mutates_args=()).register_fake(
+    lambda x, axis, op: torch.empty_like(x, memory_format=torch.contiguous_format))
+torch.library.custom_op("fddm::all_gather", _op_all_gather, mutates_args=()).register_fake(
+    _gathered_like)
+torch.library.custom_op("fddm::ring_shift", _op_ring_shift, mutates_args=()).register_fake(
+    lambda buf, axis: torch.empty_like(buf, memory_format=torch.contiguous_format))
+
+
 def _all_reduce_flat(flat: torch.Tensor, group, op) -> torch.Tensor:
-    if _stages(flat, group):
-        host = _to_host(flat)
-        dist.all_reduce(host, op=op, group=group)
-        return _from_host(host, flat.device)
-    dist.all_reduce(flat, op=op, group=group)
-    return flat
+    """`flat` reduced over `group` (`op` SUM or MAX) into a new tensor:
+    `fddm::all_reduce`."""
+    name = "sum" if op == dist.ReduceOp.SUM else "max"
+    if op != _REDUCE_OPS[name]:
+        raise ValueError(f"reduce op {op}: the collective op takes SUM or MAX")
+    return torch.ops.fddm.all_reduce(flat, axis_key(group), name)
 
 
 BUCKET_BYTES = 64 * 1024 * 1024
@@ -324,19 +460,10 @@ def broadcast_(t: torch.Tensor, src: int = 0, group=None) -> torch.Tensor:
 
 def all_gather(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     """Every rank's `t` (equal shapes) concatenated along `dim`, in group
-    rank order."""
-    n = dist.get_world_size(group)
-    if n == 1:
+    rank order: `fddm::all_gather` (`t` itself on a group of one)."""
+    if dist.get_world_size(group) == 1:
         return t
-    t = t.contiguous()
-    if _stages(t, group):
-        host = _to_host(t)
-        parts = [torch.empty_like(host) for _ in range(n)]
-        dist.all_gather(parts, host, group=group)
-        return _from_host(torch.cat(parts, dim=dim), t.device)
-    parts = [torch.empty_like(t) for _ in range(n)]
-    dist.all_gather(parts, t, group=group)
-    return torch.cat(parts, dim=dim)
+    return torch.ops.fddm.all_gather(t, axis_key(group), dim % t.dim())
 
 
 class _Gather(torch.autograd.Function):
@@ -356,7 +483,7 @@ class _Gather(torch.autograd.Function):
     def backward(ctx, grad):
         grad = grad.contiguous()
         if ctx.sum_grads:
-            grad = _all_reduce_flat(grad.clone(), ctx.group, dist.ReduceOp.SUM)
+            grad = _all_reduce_flat(grad, ctx.group, dist.ReduceOp.SUM)
         rank = ring_rank(ctx.group)[0]
         return grad.narrow(ctx.dim, rank * ctx.rows, ctx.rows), None, None, None
 
@@ -366,6 +493,8 @@ def gather(x: torch.Tensor, group, dim: int = 0, sum_grads: bool = True) -> torc
     itself on a group of one."""
     if group is None or dist.get_world_size(group) == 1:
         return x
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        return all_gather(x, group, dim)
     return _Gather.apply(x, group, dim, sum_grads)
 
 
@@ -377,16 +506,7 @@ def ring_rank(group) -> Tuple[int, int]:
 def ring_shift(buf: torch.Tensor, group) -> torch.Tensor:
     """One hop of a ring over `group`: `buf` (a flat byte tensor) goes to the
     previous rank and the next rank's comes back, as the JAX ring's
-    ppermute (i -> i - 1).  One send and one receive of one buffer a hop;
-    point-to-point over gloo goes through pinned host memory."""
-    me, n = ring_rank(group)
-    to = dist.get_global_rank(group, (me - 1) % n)
-    frm = dist.get_global_rank(group, (me + 1) % n)
-    staged = _stages(buf, group)
-    send = _to_host(buf) if staged else buf.contiguous()
-    recv = torch.empty_like(send)
-    reqs = dist.batch_isend_irecv([dist.P2POp(dist.isend, send, to, group),
-                                   dist.P2POp(dist.irecv, recv, frm, group)])
-    for r in reqs:
-        r.wait()
-    return _from_host(recv, buf.device) if staged else recv
+    ppermute (i -> i - 1): `fddm::ring_shift`, one send and one receive of
+    one buffer a hop (`batch_isend_irecv`); point-to-point over gloo goes
+    through pinned host memory."""
+    return torch.ops.fddm.ring_shift(buf, axis_key(group))

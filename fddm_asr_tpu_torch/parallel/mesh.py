@@ -10,7 +10,9 @@ A process is one GPU, so the mesh is over ranks: rank d * M + m sits at
 host, as the JAX package keeps its model axis on ICI).  `make_mesh` builds
 a `torch.distributed.DeviceMesh` with those dims and keeps its two process
 groups: "data" (gradients averaged, batches split) and "model" (the
-sequence-parallel ring of `ops/ring_attention.py`).  The world size must
+sequence-parallel ring of `ops/ring_attention.py`, or tensor parallelism),
+and names them for the collective ops (`distributed.name_axes`): an op
+recorded over "model" runs over the last mesh's "model" group.  The world size must
 equal data x model; the JAX package's pinned subset meshes, a 1x1 mesh on
 a host of eight devices, have no counterpart when each process owns its
 device.  Without a process group the mesh is the trivial 1x1 one with no
@@ -18,13 +20,14 @@ groups, and every collective on it is skipped.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
-from fddm_asr_tpu_torch.parallel.distributed import process_group
+from fddm_asr_tpu_torch.parallel.distributed import bound_axes, name_axes, process_group
 
 __all__ = ["MeshSpec", "Mesh", "make_mesh", "parse_mesh"]
 
@@ -72,6 +75,13 @@ class Mesh:
         self.data_group = device_mesh.get_group("data") if device_mesh is not None else None
         self.model_group = device_mesh.get_group("model") if device_mesh is not None else None
 
+    def axes(self):
+        """A context in which the collective ops' "data" and "model" run over
+        this mesh's groups (`distributed.bound_axes`)."""
+        if self.device_mesh is None:
+            return contextlib.nullcontext()
+        return bound_axes({"data": self.data_group, "model": self.model_group})
+
     @property
     def distributed(self) -> bool:
         """True when a process group exists (collectives run, even over one rank)."""
@@ -92,5 +102,8 @@ def make_mesh(spec: MeshSpec = MeshSpec(), device: Optional[torch.device] = None
         device = (torch.device("cuda", torch.cuda.current_device())
                   if dist.get_backend() == "nccl" else torch.device("cpu"))
     layout = torch.arange(world).reshape(data, model)
-    return Mesh(data, model, rank,
+    mesh = Mesh(data, model, rank,
                 DeviceMesh(device.type, layout, mesh_dim_names=("data", "model")))
+    # the names the collective ops record resolve to this mesh's groups now
+    name_axes({"data": mesh.data_group, "model": mesh.model_group})
+    return mesh

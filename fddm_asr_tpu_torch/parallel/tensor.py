@@ -255,14 +255,21 @@ def gather_state(module: nn.Module) -> Dict[str, torch.Tensor]:
     return out
 
 
-def local_state(module: nn.Module, full: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """A full state_dict (one process's, a checkpoint's) cut to what this
-    rank of the sharded `module` holds, for `load_state_dict`."""
-    axes = sharded_axes(module)
+def local_state(module, full: Dict[str, torch.Tensor], rank: Optional[int] = None,
+                size: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    """A full state_dict (one process's, a checkpoint's, an artifact's) cut
+    to what this rank holds, for `load_state_dict` or a program's inputs.
+    `module`: the sharded module, or {name: axis} of the sliced tensors
+    (an artifact records it) with this rank's `rank` of `size` in "model"."""
+    if isinstance(module, nn.Module):
+        axes = {name: (axis, shard.rank, shard.size)
+                for name, (axis, shard) in sharded_axes(module).items()}
+    else:
+        axes = {name: (axis, rank, size) for name, axis in module.items()}
     out = dict(full)
-    for name, (axis, shard) in axes.items():
+    for name, (axis, r, n) in axes.items():
         if name in out:
-            out[name] = local_tensor(out[name], axis, shard.rank, shard.size)
+            out[name] = local_tensor(out[name], axis, r, n)
     return out
 
 
@@ -277,7 +284,6 @@ class _CopyToModel(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        grad = grad.clone(memory_format=torch.contiguous_format)
         return _all_reduce_flat(grad, ctx.group, dist.ReduceOp.SUM), None
 
 
@@ -286,8 +292,7 @@ class _ReduceFromModel(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, group):
-        out = x.clone(memory_format=torch.contiguous_format)
-        return _all_reduce_flat(out, group, dist.ReduceOp.SUM)
+        return _all_reduce_flat(x, group, dist.ReduceOp.SUM)
 
     @staticmethod
     def backward(ctx, grad):
@@ -307,13 +312,13 @@ def copy_to_model(x: torch.Tensor, shard: Optional[Shard]) -> torch.Tensor:
 
 
 def reduce_from_model(x: torch.Tensor, shard: Optional[Shard]) -> torch.Tensor:
-    """The sum over "model" of the ranks' partial outputs `x` (in place where
-    autograd does not record)."""
+    """The sum over "model" of the ranks' partial outputs `x`
+    (`fddm::all_reduce`, in a new tensor)."""
     if shard is None:
         return x
     if _records(x):
         return _ReduceFromModel.apply(x, shard.group)
-    return _all_reduce_flat(x.contiguous(), shard.group, dist.ReduceOp.SUM)
+    return _all_reduce_flat(x, shard.group, dist.ReduceOp.SUM)
 
 
 def gather_from_model(x: torch.Tensor, shard: Optional[Shard], dim: int = -1) -> torch.Tensor:

@@ -196,6 +196,10 @@ class FDDMPipeline:
         self._samplers: Dict[SamplerConfig, Callable] = {}
         # `apply_mesh`: batch rows split over the mesh's "data" ranks
         self.mesh = None
+        # the whole mesh `apply_mesh` took and its model axis' use (what an
+        # exported artifact records)
+        self.applied_mesh = None
+        self.seq_parallel = False
 
     @classmethod
     def from_config(cls, cfg: Config, ckpt_path: Optional[str] = None,
@@ -317,6 +321,7 @@ class FDDMPipeline:
         over "data".  The "model" ranks of a data index compute the same
         rows together and return the same results."""
         self.mesh = mesh if mesh.shape["data"] > 1 else None
+        self.applied_mesh, self.seq_parallel = mesh, bool(seq_parallel)
         if seq_parallel:
             self.enable_seq_parallel(mesh)
         else:

@@ -48,11 +48,17 @@ under torchrun): every rank builds the pipeline over the mesh
 whose batch buckets round up to a multiple of D (`--max-batch` must be
 one), and each dispatch sends its header, wave and lengths to the others
 (`MeshDispatch`), which make the same call (`follow`).  A failed batch
-fails the server; stopping rank 0 (SIGINT) sends the stop op.  An
-`--exported` artifact takes no mesh (sharded artifacts: ROADMAP A7 part 3).
+fails the server; stopping rank 0 (SIGINT) sends the stop op.  A sharded
+`--exported` artifact (`export_model --mesh`) is served the same way: its
+meta names the mesh (so `--mesh` beside `--exported` raises), every rank
+loads it (`aot.ExportedPipeline`, a process group of data x model ranks),
+and the engine's batch buckets round up to the artifact's data axis.  Over
+gloo (ranks sharing a card) its programs run eagerly, which `/healthz`
+reports; over NCCL, one card a rank, each bucket is a CUDA graph.
 
     torchrun --nproc_per_node 2 -m fddm_asr_tpu_torch.serve --config C.yaml \
         --ckpt D.pt --tokenizer T.vocab --mesh model=2
+    torchrun --nproc_per_node 2 -m fddm_asr_tpu_torch.serve --exported ART
 """
 from __future__ import annotations
 
@@ -910,42 +916,70 @@ def _build_exported_server(args) -> ThreadingHTTPServer:
             raise SystemExit(f"--max-batch {args.max_batch} is not an exported batch bucket "
                              f"(artifact has {batches})")
         max_batch = args.max_batch
+    adapter = ExportedEngineAdapter(ep)
+    dispatch = MeshDispatch(adapter, ep.mesh) if ep.mesh is not None else None
+    server_box = []
+
+    def fail_server(error):  # the engine's thread: stop serving, main raises
+        threading.Thread(target=server_box[0].shutdown, daemon=True).start()
+
     engine = BatchingEngine(
-        ExportedEngineAdapter(ep), sampling, meta["seq_len"], max_batch=max_batch,
+        dispatch or adapter, sampling, meta["seq_len"], max_batch=max_batch,
         max_wait_ms=args.max_wait_ms, bucket_seconds=min(samples) / 16000.0,
         max_seconds=max(samples) / 16000.0, request_timeout_s=args.request_timeout_s,
-        pipeline_depth=args.pipeline_depth)
+        pipeline_depth=args.pipeline_depth,
+        batch_multiple=1 if ep.mesh is None else ep.mesh.shape["data"],
+        on_fatal=fail_server if dispatch is not None else None)
     echo = {"model": "fddm-asr-tpu", "exported": args.exported, "seq_len": meta["seq_len"],
             **sampling, "max_batch": max_batch,
-            # buckets replayed as CUDA graphs (all of them on CUDA, none on the CPU)
-            "native_buckets": sorted(list(bn) for bn in ep.native)}
+            # buckets replayed as CUDA graphs (all of them on CUDA, none on the
+            # CPU or over a gloo mesh), and why not
+            "native_buckets": sorted(list(bn) for bn in ep.native),
+            "execution": ep.execution, "eager_reason": ep.eager_reason}
+    if ep.mesh is not None:
+        echo["mesh"] = {**ep.mesh.shape, "seq_parallel": bool(meta.get("seq_parallel"))}
     loopback = args.host in ("127.0.0.1", "localhost", "::1")
     server = FDDMHTTPServer(
         (args.host, args.port),
         make_handler(engine, echo, audio_root=args.audio_root, loopback_only_paths=not loopback))
+    server_box.append(server)
     server.engine = engine
-    server.dispatch = None
+    server.dispatch = dispatch
     server.warmup = _warmup(engine, args.warmup_seconds, max_batch) if args.warmup_seconds else []
     return server
 
 
 def join_mesh(args):
     """The mesh of `--mesh` over the process group (joined from torchrun's or
-    the FDDM_* environment), `args.device` set to this rank's device; None
-    without `--mesh` / `--seq-parallel`.  An artifact has no mesh to take,
-    and `--seq-parallel` needs a model axis."""
-    if not (args.mesh or args.seq_parallel):
-        return None
-    if args.exported:
-        raise SystemExit("--exported artifacts are pre-lowered programs without collectives; "
-                         "sharded artifacts are not ported (ROADMAP A7 part 3): serve the "
-                         "live pipeline (--config/--ckpt) with --mesh")
+    the FDDM_* environment), `args.device` set to this rank's device; for
+    `--exported`, the mesh its meta names (the group joined, the mesh built
+    by the artifact's loader); None without either.  An artifact takes no
+    `--mesh` and no encoder weights, and `--seq-parallel` needs a model
+    axis."""
+    from fddm_asr_tpu_torch.inference import check_seq_parallel
     from fddm_asr_tpu_torch.inference import join_mesh as join
 
+    if args.exported:
+        if args.wavlm_ckpt or args.encoder_ckpt:
+            raise SystemExit("--wavlm-ckpt / --encoder-ckpt with --exported: an artifact "
+                             "carries its own weights; pass them to python -m "
+                             "fddm_asr_tpu_torch.export_model instead")
+        if args.mesh or args.seq_parallel:
+            raise SystemExit("--exported artifacts are pre-lowered; pass --mesh to python -m "
+                             "fddm_asr_tpu_torch.export_model instead")
+        from fddm_asr_tpu_torch import parallel as P
+        from fddm_asr_tpu_torch.aot import read_meta
+
+        mesh = read_meta(args.exported).get("mesh")
+        if mesh:  # the group joined here (this rank's role); the loader builds the mesh
+            dist_cfg = P.DistributedConfig.from_env()
+            P.initialize(dist_cfg, device=args.device)
+            args.device = str(dist_cfg.rank_device(args.device))
+        return mesh
+    if not (args.mesh or args.seq_parallel):
+        return None
     mesh = join(args)
-    if args.seq_parallel and mesh.shape["model"] <= 1:
-        raise SystemExit("--seq-parallel splits each utterance's encoder frames over the "
-                         "mesh's model ranks: give --mesh model=N (N > 1) under torchrun")
+    check_seq_parallel(mesh, args.seq_parallel)
     return mesh
 
 
@@ -995,10 +1029,6 @@ def build_server(args, mesh=None) -> ThreadingHTTPServer:
     if mesh is None:
         mesh = join_mesh(args)
     if args.exported:
-        if args.wavlm_ckpt or args.encoder_ckpt:
-            raise SystemExit("--wavlm-ckpt / --encoder-ckpt with --exported: an artifact "
-                             "carries its own weights; pass them to python -m "
-                             "fddm_asr_tpu_torch.export_model instead")
         return _build_exported_server(args)
     if not (args.config and args.ckpt):
         raise SystemExit("either --exported or both --config and --ckpt are required")
@@ -1070,7 +1100,8 @@ def parse_args(argv=None):
     add_encoder_weight_args(ap)
     ap.add_argument("--exported", default=None,
                     help="serve an AOT artifact directory (python -m "
-                         "fddm_asr_tpu_torch.export_model) instead of --config/--ckpt")
+                         "fddm_asr_tpu_torch.export_model) instead of --config/--ckpt; a "
+                         "sharded one under torchrun with as many ranks as its mesh")
     ap.add_argument("--tokenizer", default=None)
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8080)
@@ -1121,6 +1152,12 @@ def main(argv=None):
     mesh = join_mesh(args)
     try:
         if mesh is not None and not P.is_primary():
+            if args.exported:
+                from fddm_asr_tpu_torch.aot import ExportedPipeline
+
+                follow(ExportedEngineAdapter(ExportedPipeline.load(args.exported, args.device)),
+                       {}, args.pipeline_depth)
+                return
             pipeline, sampling, _ = _live_pipeline(args, mesh)
             follow(pipeline, sampling, args.pipeline_depth)
             return

@@ -403,7 +403,11 @@ def test_export_cli(pair, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--mesh", "data=2"], "A7"), (["--seq-parallel"], "A7"),
+    # a mesh exports sharded programs over a process group
+    # (tests/test_torch_aot_mesh.py): in one process it asks for the
+    # launcher, and --seq-parallel for a model axis, as the server's does
+    pytest.param(["--mesh", "data=2"], r"torchrun --nproc_per_node 2", id="extra0-A7"),
+    pytest.param(["--seq-parallel"], r"give --mesh model=N", id="extra1-A7"),
     (["--platforms", "tpu"], "cuda or cpu"), (["--platforms", "cuda"], "traced on"),
 ])
 def test_export_cli_raises(pair, tmp_path, extra, match):

@@ -30,10 +30,11 @@ inputs written here from seeds): "dp", two ranks on a data=2 mesh, and
 * `make_batches(shard=...)`: each rank's rows are the JAX layout's.
 * The deliberate differences from the JAX package: a process drives one
   GPU (the world is data x model, LOCAL_RANK picks the card), so a model
-  axis in one process (tensor parallelism, `test_torch_tensor_parallel.py`)
-  or `serve --mesh` asks for the launcher; `export_model` with a mesh
-  raises naming ROADMAP A7 part 3; and the backend is explicit: asking for
-  nccl without a card raises, it never falls back to gloo.
+  axis in one process (tensor parallelism, `test_torch_tensor_parallel.py`),
+  `serve --mesh` or `export_model --mesh` (sharded artifacts,
+  `test_torch_aot_mesh.py`) asks for the launcher; and the backend is
+  explicit: asking for nccl without a card raises, it never falls back to
+  gloo.
 """
 import json
 import os
@@ -388,16 +389,18 @@ def test_a_model_axis_without_sequence_parallelism_names_a7(corpus, tmp_path):  
 
 
 def test_serve_and_export_with_a_mesh_name_a7_part_2(tmp_path):
-    """Sharded artifacts are ROADMAP A7 part 3: `export_model --mesh` raises
-    naming it; `serve --mesh` serves the live pipeline over a process group
-    (tests/test_torch_serve_mesh.py), and in one process asks for it."""
+    """`export_model --mesh` exports sharded artifacts over a process group
+    and `serve --mesh` serves the live pipeline over one
+    (tests/test_torch_aot_mesh.py, tests/test_torch_serve_mesh.py); in one
+    process a mesh of two asks for the launcher, before anything is read."""
     from fddm_asr_tpu_torch import export_model
     from fddm_asr_tpu_torch import serve
 
-    with pytest.raises(SystemExit, match="ROADMAP A7 part 3"):
+    with pytest.raises(SystemExit, match=r"torchrun --nproc_per_node 2"):
         export_model.main(["--ckpt", "x.pt", "--main-config", "c.yaml", "--diffusion-config",
                            "c.yaml", "--tokenizer", "t", "--out", str(tmp_path / "a"),
                            "--device", "cpu", "--mesh", "data=2"])
+    assert not (tmp_path / "a").exists()
     with pytest.raises(ValueError, match=r"torchrun --nproc_per_node 2"):
         serve.main(["--config", "c.yaml", "--ckpt", "x.pt", "--tokenizer", "t",
                     "--device", "cpu", "--mesh", "data=2"])

@@ -691,12 +691,15 @@ def test_a_failing_batch_fails_only_its_requests():
 
 
 def test_flags_that_are_not_ported_raise(files):
-    # --exported is served (tests/test_torch_aot.py); with a mesh it raises
-    # naming sharded artifacts (ROADMAP A7 part 3); a mesh is served over a
-    # process group (tests/test_torch_serve_mesh.py), so in one process a
-    # mesh of two asks for the launcher, and --seq-parallel for a model axis
+    # --exported is served (tests/test_torch_aot.py); its mesh is the
+    # artifact's, so --mesh beside it raises as the root serve.py's does
+    # (sharded artifacts: tests/test_torch_aot_mesh.py); a mesh is served
+    # over a process group (tests/test_torch_serve_mesh.py), so in one
+    # process a mesh of two asks for the launcher, and --seq-parallel for a
+    # model axis
     for extra, error, item in (
-            (["--exported", "artifact", "--mesh", "data=2"], SystemExit, "A7 part 3"),
+            (["--exported", "artifact", "--mesh", "data=2"], SystemExit,
+             "pre-lowered; pass --mesh to python -m fddm_asr_tpu_torch.export_model instead"),
             (["--mesh", "data=2"], ValueError, r"torchrun --nproc_per_node 2"),
             (["--seq-parallel"], SystemExit, "--mesh model=N")):
         with pytest.raises(error, match=item):

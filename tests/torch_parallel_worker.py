@@ -23,6 +23,17 @@ It imports torch and the port only (no JAX), reads its inputs from DIR
         (gradients and parameters gathered whole), `apply_mesh` ids in float32
         and int8, a training run, its checkpoint's ids, and its resume
   tp4   4 ranks, mesh data=2 x model=2, tensor parallel: the step and the ids
+  aot_m2  2 ranks: `export_model.main --mesh model=2`, then with
+        `--seq-parallel`, each artifact loaded in these ranks and its rows
+        at DIR/aot_mesh.json's calls; the first call's rows again once a
+        data=2 mesh has been made
+  aot_d2m2  4 ranks: `export_model.main --mesh data=2,model=2`
+  aot_fresh  4 ranks that import no model code: the data=2 x model=2
+        artifact loaded once written, its rows at the calls; then it is
+        served by `serve.main` on every rank (rank 0 serving, the others
+        following) for DIR/aot_mesh.json's uploads
+  aot_cuda  2 ranks sharing the card over gloo (FDDM_DEVICE, FDDM_BACKEND): a
+        small pipeline at model=2 exported, loaded and run, with B1's launches
 """
 import json
 import os
@@ -260,10 +271,154 @@ def tp_run_case(root: str, mesh) -> dict:
     return out
 
 
+def _exported_rows(ep, calls) -> list:
+    """[(ids, conf) a row] of each call (wave .npy, lengths, seed) of `ep`."""
+    import numpy as np
+
+    return [[(ids, conf) for _, ids, conf in ep.transcribe_with_ids(
+        np.load(wave), np.asarray(lengths), seed=seed, with_confidence=True)]
+        for wave, lengths, seed in calls]
+
+
+def aot_m2_case(root: str) -> dict:
+    """The model=2 artifacts, tensor parallel and on the ring, exported by
+    the CLI in these ranks and loaded here."""
+    from fddm_asr_tpu_torch import export_model
+    from fddm_asr_tpu_torch.aot import ExportedPipeline
+
+    with open(os.path.join(root, "aot_mesh.json")) as f:
+        spec = json.load(f)
+    out, loaded = {}, {}
+    for name, flags in (("tp", ["--mesh", "model=2"]),
+                        ("ring", ["--mesh", "model=2", "--seq-parallel"])):
+        art = os.path.join(root, f"art_{name}")
+        export_model.main([*spec["cli"], "--out", art, *flags])
+        ep = loaded[name] = ExportedPipeline.load(art, device="cpu")
+        out[name] = {"rows": _exported_rows(ep, spec["calls"]), "execution": ep.execution,
+                     "eager_reason": ep.eager_reason, "native": len(ep.native)}
+    # a mesh made after a load, whose "model" groups are of one rank each: the
+    # loaded program's collectives stay on the artifact's mesh
+    P.make_mesh(P.MeshSpec(data=2))
+    out["tp"]["rows_after_another_mesh"] = _exported_rows(loaded["tp"], spec["calls"][:1])
+    return out
+
+
+def aot_d2m2_case(root: str, rank: int) -> dict:
+    """The data=2 x model=2 artifact exported by the CLI; rank 0 marks it
+    done (DIR/art_d2m2.done) once every rank's program is written."""
+    from fddm_asr_tpu_torch import export_model
+
+    with open(os.path.join(root, "aot_mesh.json")) as f:
+        spec = json.load(f)
+    art = os.path.join(root, "art_d2m2")
+    export_model.main([*spec["cli"], "--out", art, "--mesh", "data=2,model=2"])
+    if rank == 0:
+        with open(art + ".done", "w"):
+            pass
+    return {}
+
+
+def aot_fresh_case(root: str, rank: int) -> dict:
+    """The data=2 x model=2 artifact, once `aot_d2m2` has written it, loaded
+    in ranks whose imports of model code (and of JAX) raise, and its rows at
+    the calls; then served by the entry point on every rank (`serve.main
+    --exported` on the loaded artifact, rank 0 serving, the others following
+    its dispatches): rank 0's server, kept from its `_serve`, takes the
+    uploads one at a time and its `/healthz` is read, then it is shut down,
+    which sends the stop op to the other ranks."""
+    import builtins
+    import threading
+    import time
+    import urllib.request
+
+    import numpy as np
+
+    real_import = builtins.__import__
+
+    def guard(name, *a, **k):
+        if name.startswith(("fddm_asr_tpu_torch.models", "jax", "fddm_asr_tpu.")):
+            raise ImportError(f"model code imported at serving time: {name}")
+        return real_import(name, *a, **k)
+
+    builtins.__import__ = guard
+    from fddm_asr_tpu_torch import aot
+
+    with open(os.path.join(root, "aot_mesh.json")) as f:
+        spec = json.load(f)
+    art = os.path.join(root, "art_d2m2")
+    t0 = time.time()
+    while not os.path.exists(art + ".done"):
+        if time.time() - t0 > 240:
+            raise TimeoutError(f"{art} was not written")
+        time.sleep(0.1)
+    ep = aot.ExportedPipeline.load(art, device="cpu")
+    out = {"rows": _exported_rows(ep, spec["calls"]),
+           "models_imported": [m for m in sys.modules
+                               if m.startswith("fddm_asr_tpu_torch.models")],
+           "mesh": dict(ep.mesh.shape)}
+    builtins.__import__ = real_import  # the server's module imports model code
+
+    from fddm_asr_tpu_torch import serve as S
+
+    aot.ExportedPipeline.load = staticmethod(lambda path, device=None: ep)  # loaded once
+    argv = ["--exported", art, "--device", "cpu", "--port", "0", "--max-wait-ms", "5"]
+    if rank != 0:
+        S.main(argv)
+        return out
+    servers = []
+    serve = S._serve
+    S._serve = lambda server, host: servers.append(server) or serve(server, host)
+    thread = threading.Thread(target=S.main, args=(argv,), daemon=True)
+    thread.start()
+    while not servers:
+        if not thread.is_alive():
+            raise RuntimeError("serve.main returned before serving")
+        thread.join(timeout=0.05)
+    srv = servers[0]
+    try:
+        url = f"http://127.0.0.1:{srv.server_address[1]}/healthz"
+        with urllib.request.urlopen(url, timeout=60) as r:
+            health = json.loads(r.read())
+        engine = srv.engine
+        served = [engine.submit(np.load(path), f"u{i}") for i, path in enumerate(spec["uploads"])]
+    finally:
+        srv.shutdown()
+        thread.join(timeout=60)
+    out.update(batch_multiple=engine.batch_multiple, max_batch=engine.max_batch, health=health,
+               served=[r["ids"] for r in served], stopped=not thread.is_alive())
+    return out
+
+
+def aot_cuda_case(root: str, device: torch.device) -> dict:
+    """A small float32 pipeline (64-wide WavLM heads, so attention takes
+    B1) at model=2 on the card: exported, loaded (eager over gloo) and run
+    at the seed of DIR/aot_cuda.json, B1's launches a call."""
+    import numpy as np
+
+    from fddm_asr_tpu_torch import aot
+    from fddm_asr_tpu_torch.config import Config
+    from fddm_asr_tpu_torch.ops import flash_attention as FA
+    from fddm_asr_tpu_torch.pipeline import FDDMPipeline
+
+    with open(os.path.join(root, "aot_cuda.json")) as f:
+        spec = json.load(f)
+    pipe = FDDMPipeline.from_config(Config(spec["cfg"]), tokenizer=_Chars(), device=device)
+    pipe.apply_mesh(P.make_mesh(P.MeshSpec(data=1, model=2), device))
+    art = os.path.join(root, "art_cuda")
+    aot.save_artifact(pipe, art, [tuple(b) for b in spec["buckets"]], spec["seq_len"],
+                      spec["sampling"], spec["tokenizer"])
+    ep = aot.ExportedPipeline.load(art, device=str(device))
+    before = FA.wavlm_gated_attention_cuda.launches
+    rows = ep.transcribe_with_ids(np.load(spec["wave"]), seed=spec["seed"])
+    return {"ids": [ids for _, ids in rows], "execution": ep.execution,
+            "eager_reason": ep.eager_reason,
+            "b1_launches": FA.wavlm_gated_attention_cuda.launches - before}
+
+
 def main() -> int:
     case, root = sys.argv[1], sys.argv[2]
     torch.set_num_threads(1)
-    device = "cuda" if case == "ring_cuda" else "cpu"
+    device = "cuda" if case in ("ring_cuda", "aot_cuda") else "cpu"
     dist_cfg = P.DistributedConfig.from_env()
     rank, world = P.initialize(dist_cfg, device=device)
     try:
@@ -283,6 +438,14 @@ def main() -> int:
             if case == "tp2":
                 out["lora"] = step_case(root, mesh, "tp_lora_inputs.pt", tensor=True)
                 out.update(tp_run_case(root, mesh))
+        elif case == "aot_m2":
+            out = aot_m2_case(root)
+        elif case == "aot_d2m2":
+            out = aot_d2m2_case(root, rank)
+        elif case == "aot_fresh":
+            out = aot_fresh_case(root, rank)
+        elif case == "aot_cuda":
+            out = aot_cuda_case(root, dist_cfg.rank_device(device))
         else:
             raise ValueError(f"unknown case {case!r}")
         torch.save(out, os.path.join(root, f"{case}.rank{rank}.pt"))
